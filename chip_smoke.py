@@ -20,7 +20,14 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      800x800 SPP 6 frame of the depth-9 tree, the net's weight and
      guidance, the 512^3 LUT and skip lanes), then each kernel's time vs
      its plain version there, and the headline frame's time, by CUDA
-     events.
+     events;
+ 10. probes: the six probe kernels (csrc/probes.cu, the port of the Pallas
+     kernels of tools/tpu_probe.py and tools/microbench_gather.py) vs their
+     plain versions at the tools' own shapes (bit-equal; P4 within 1e-5
+     relative of a float64 sum), each one's time vs its plain version, then
+     the tools' entry points (gpu_probe basic vgather vgather_loop dma,
+     microbench_gather b and c) with the counts reset: every probe kernel's
+     launch count in that run must be > 0.
 
 Prints the kernel table as one JSON line, then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -40,6 +47,8 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
+from rt_octree_tpu_torch.utils.timer import cuda_ms, device_ms  # noqa: E402
+
 KIT = os.path.join(HERE, "benchmarks", "quality")
 WORK = os.path.join(HERE, "build", "chip_smoke")
 # The JAX package's gate on this kit, as tools/quality_gate_jax_cpu.py
@@ -52,7 +61,7 @@ GATE_NOISY_TOL, GATE_DENOISED_TOL = 0.05, 0.10
 K1_IMG_TOL, K1_AUX_TOL = 2e-5, 4e-5
 K2_TOL = 1e-5  # f32 sums of up to 49 softmax taps, in another order
 
-KERNELS = {
+FRAME_KERNELS = {
     "render": ("rt_octree_tpu_torch/csrc/render.cu",
                "rt_octree_tpu/render/renderer.py:1145"),
     "guided_filter": ("rt_octree_tpu_torch/csrc/filter.cu",
@@ -62,6 +71,18 @@ KERNELS = {
     "skip_min": ("rt_octree_tpu_torch/csrc/lut.cu",
                  "rt_octree_tpu/ops/traversal.py:173"),
 }
+# the probe kernels: launch name -> the Pallas call they replace
+PROBE_KERNELS = {
+    "probe_affine": "tools/tpu_probe.py:46",
+    "lane_gather": "tools/tpu_probe.py:69",
+    "lane_gather_chain": "tools/tpu_probe.py:104",
+    "row_sum_ring": "tools/tpu_probe.py:158",
+    "row_ring_rounds": "tools/microbench_gather.py:132",
+    "flat_gather_chain": "tools/microbench_gather.py:183",
+}
+KERNELS = {**FRAME_KERNELS,
+           **{k: ("rt_octree_tpu_torch/csrc/probes.cu", v)
+              for k, v in PROBE_KERNELS.items()}}
 
 
 def log(msg: str) -> None:
@@ -71,21 +92,6 @@ def log(msg: str) -> None:
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
-
-
-def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean device ms of fn() over reps runs, by CUDA events."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def psnr(img, gt_u8) -> float:
@@ -262,12 +268,12 @@ def phase_main(native, tree_path):
     counts = dict(native.LAUNCHES)
     log(f"[main] rc {rc} in {time.time() - t0:.1f} s; launches {counts}")
     require(rc == 0, "headless run failed")
-    require(all(counts[k] > 0 for k in KERNELS),
+    require(all(counts[k] > 0 for k in FRAME_KERNELS),
             f"a kernel of the main path never launched: {counts}")
     for i in range(8):
         img = read_png(os.path.join(out_dir, f"r_{i}.png"))
         require(img.shape == (800, 800, 4), f"frame r_{i}: {img.shape}")
-    return counts
+    return {k: counts[k] for k in FRAME_KERNELS}
 
 
 def make_headline_renderer(tree):
@@ -399,6 +405,90 @@ def phase_headline(r, ps, err):
     return ms
 
 
+def phase_probes(native, err):
+    """Every probe entry against its plain version at the tools' own
+    shapes and its device time against the plain version's (``device_ms``:
+    several of these kernels take less time than their wrapper's host
+    code), then the tools' Pallas-probe paths with the launch counts
+    reset."""
+    import torch
+    from rt_octree_tpu_torch.ops import probes as P
+    from rt_octree_tpu_torch.tools import gpu_probe as gp
+    from rt_octree_tpu_torch.tools import microbench_gather as mb
+    dev = torch.device("cuda", 0)
+    ms = {}
+
+    def hold(name, label, kernel, plain, reps=None):
+        got, ref = kernel(), plain()
+        d = float((got.double() - ref.double()).abs().max())
+        same = torch.equal(got, ref)
+        log(f"[probes] {name} {label}: bit-equal {same}, max|diff| {d:.3g}")
+        require(same, f"{name} disagrees with its plain version ({label})")
+        err[name] = max(err.get(name, 0.0), d)
+        if reps:
+            ms[name] = (device_ms(kernel, reps, 2), device_ms(plain, reps, 2))
+
+    x = gp.basic_input(dev)
+    hold("probe_affine", "8x128", lambda: P.probe_affine(x),
+         lambda: P.probe_affine_plain(x), 50)
+    tab, idx = gp.vgather_inputs(dev)
+    hold("lane_gather", f"tab {tuple(tab.shape)} idx {tuple(idx.shape)}",
+         lambda: P.lane_gather(tab, idx),
+         lambda: P.lane_gather_plain(tab, idx), 50)
+    tab, idx = gp.vgather_loop_inputs(dev)
+    hold("lane_gather_chain", f"tab {tuple(tab.shape)} idx "
+         f"{tuple(idx.shape)} K {gp.VL_K}",
+         lambda: P.lane_gather_chain(tab, idx, gp.VL_K),
+         lambda: P.lane_gather_chain_plain(tab, idx, gp.VL_K), 5)
+
+    idx, tab = gp.dma_inputs(dev)
+    got = P.row_sum_ring(idx, tab)
+    ref = P.row_sum_ring_plain(idx, tab)
+    rel_k = gp.dma_rel_err(got, idx, tab)
+    rel_p = gp.dma_rel_err(ref, idx, tab)
+    d = float((got - ref).abs().max())
+    log(f"[probes] row_sum_ring {gp.DMA_N} rows of tab {tuple(tab.shape)}: "
+        f"rel err vs float64 kernel {rel_k:.3g}, plain {rel_p:.3g}; "
+        f"max|kernel - plain| {d:.3g}")
+    require(rel_k <= gp.DMA_RTOL, f"row_sum_ring rel err {rel_k:.3g} > "
+            f"{gp.DMA_RTOL} against the float64 sum")
+    err["row_sum_ring"] = d
+    ms["row_sum_ring"] = (device_ms(lambda: P.row_sum_ring(idx, tab), 5),
+                          device_ms(lambda: P.row_sum_ring_plain(idx, tab),
+                                    5))
+    del idx, tab, got, ref
+
+    for w, n, nbuf, table, idx in mb.dma_configs(dev):
+        timed = (w, n, nbuf) == (128, 8192, 32)
+        hold("row_ring_rounds", f"rows {w * 4} B n {n} nbuf {nbuf}",
+             lambda: P.row_ring_rounds(idx, table, nbuf, mb.RING_ROUNDS),
+             lambda: P.row_ring_rounds_plain(idx, table, nbuf,
+                                             mb.RING_ROUNDS),
+             5 if timed else None)
+    del table, idx
+    for S, n, table, idx in mb.vmem_configs(dev):
+        timed = (S, n) == (1 << 18, 131072)
+        hold("flat_gather_chain", f"S {S} n {n}",
+             lambda: P.flat_gather_chain(idx, table, mb.CHAIN_ROUNDS),
+             lambda: P.flat_gather_chain_plain(idx, table, mb.CHAIN_ROUNDS),
+             5 if timed else None)
+    del table, idx
+    for k, (kms, pms) in ms.items():
+        log(f"[timing] {k}: kernel {kms:.4f} ms, plain {pms:.4f} ms")
+
+    native.reset_launches()
+    t0 = time.time()
+    rcs = [gp.main(["basic", "vgather", "vgather_loop", "dma"]),
+           mb.main(["b"]), mb.main(["c"])]
+    counts = {k: native.LAUNCHES[k] for k in PROBE_KERNELS}
+    log(f"[probes] tools rc {rcs} in {time.time() - t0:.1f} s; launches "
+        f"{counts}")
+    require(rcs == [0, 0, 0], "a tool failed")
+    require(all(v > 0 for v in counts.values()),
+            f"a probe kernel never launched in the tools' run: {counts}")
+    return counts, ms
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -430,6 +520,10 @@ def main() -> int:
     r, ps = make_headline_renderer(tree)
     phase_quality(r, ps)
     ms = phase_headline(r, ps, err)
+    del r
+    probe_counts, probe_ms = phase_probes(native, err)
+    counts.update(probe_counts)
+    ms.update(probe_ms)
 
     table = []
     for name, (source, replaces) in KERNELS.items():

@@ -41,6 +41,7 @@ SOURCES = {
     "render": ("render.cu", ["-fmad=false"]),
     "filter": ("filter.cu", []),
     "lut": ("lut.cu", ["-fmad=false"]),
+    "probes": ("probes.cu", []),
 }
 HEADERS = ("common.cuh",)
 
@@ -53,11 +54,20 @@ ENTRIES = {
     "rt_guided_filter": ("filter", [_V, _V, _V, _I, _V, _I, _V, _I, _I, _V]),
     "rt_lut_build": ("lut", [_V, _V, _I, _I, _V]),
     "rt_skip_distances": ("lut", [_V, _V, _V, _I, _I, _V]),
+    "rt_probe_affine": ("probes", [_V, _V, _I, _V]),
+    "rt_lane_gather": ("probes", [_V, _V, _V, _I, _I, _I, _V]),
+    "rt_lane_gather_chain": ("probes", [_V, _V, _V, _I, _I, _I, _I, _V]),
+    "rt_row_sum_ring": ("probes", [_V, _I, _V, _I, _I, _V, _V]),
+    "rt_row_ring_rounds": ("probes", [_V, _I, _V, _I, _I, _I, _I, _V, _V]),
+    "rt_flat_gather_chain": ("probes", [_V, _I, _V, _I, _I, _V, _V]),
 }
 
 # kernel name -> launches since the last reset_launches()
-LAUNCHES: Dict[str, int] = {"render": 0, "guided_filter": 0,
-                            "lut_build": 0, "skip_min": 0}
+LAUNCHES: Dict[str, int] = {
+    "render": 0, "guided_filter": 0, "lut_build": 0, "skip_min": 0,
+    # the probe kernels of the measurement tools (csrc/probes.cu)
+    "probe_affine": 0, "lane_gather": 0, "lane_gather_chain": 0,
+    "row_sum_ring": 0, "row_ring_rounds": 0, "flat_gather_chain": 0}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _bound: Dict[str, ctypes._CFuncPtr] = {}

@@ -1,0 +1,235 @@
+"""The probe kernels G1-G4 (csrc/probes.cu) and their plain versions.
+
+One wrapper per Pallas function of the TPU measurement tools:
+
+    probe_affine       P1  tools/tpu_probe.py:46           probe_basic.f
+    lane_gather        P2  tools/tpu_probe.py:69           probe_vgather.f
+    lane_gather_chain  P3  tools/tpu_probe.py:104          probe_vgather_loop.f
+    row_sum_ring       P4  tools/tpu_probe.py:158          probe_dma.f
+    row_ring_rounds    P5  tools/microbench_gather.py:132  bench_pallas_dma.make
+    flat_gather_chain  P6  tools/microbench_gather.py:183  bench_pallas_vmem_gather
+
+Each wrapper takes its plain version (``*_plain``) for CPU tensors and
+launches its kernel for CUDA tensors, after checking dtype, shape and
+contiguity; it never falls back.  Integer results wrap as JAX's int32 does.
+
+P4's Pallas body copies a ``(width,)`` row into a ``(1, width)`` scratch
+slot, which Pallas's TPU interpreter refuses; the port computes its
+evident intent, ``out[0, :] = sum_i tab[idx[i], :]``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..native import build as native
+
+# Shared memory one block may opt into on sm_90 (csrc/probes.cu).
+MAX_SMEM_BYTES = 232448
+RING_DEPTHS = (2, 4, 8, 16, 32)  # row_ring_rounds' nbuf (kernel templates)
+ROW_SUM_MAX_WIDTH = 128  # row_sum_ring: 4 chunks of >= 4 B per lane
+_I32_MAX = 2 ** 31 - 1
+
+
+def _check(fn: str, name: str, t: torch.Tensor, dtype, ndim: int,
+           device: torch.device) -> None:
+    if (t.device != device or t.dtype != dtype or t.dim() != ndim
+            or not t.is_contiguous() or t.numel() > _I32_MAX):
+        raise ValueError(
+            f"{fn}: {name} must be a contiguous {dtype} CUDA tensor with "
+            f"{ndim} dims on {device}, got {t.dtype} {tuple(t.shape)} on "
+            f"{t.device}")
+
+
+def _cuda_device(fn: str, t: torch.Tensor) -> torch.device:
+    if t.device.type != "cuda":
+        raise ValueError(f"{fn}: tensors must lie on the CPU (plain "
+                         f"version) or on a CUDA card, not {t.device}")
+    return t.device
+
+
+def _launch(kernel: str, entry: str, device: torch.device, *args) -> None:
+    fn = native.entry(entry)
+    with torch.cuda.device(device):
+        rc = fn(*args, native.stream_ptr(device))
+        native.count_launch(kernel)
+    native.check(rc, entry)
+
+
+def _wrap_i32(total: torch.Tensor) -> torch.Tensor:
+    """An int64 tensor reduced to int32 with two's-complement wrap."""
+    return (((total + 2 ** 31) & 0xFFFFFFFF) - 2 ** 31).to(torch.int32)
+
+
+# P1 ------------------------------------------------------------------------
+
+def probe_affine_plain(x: torch.Tensor) -> torch.Tensor:
+    return x * 2.0 + 1.0
+
+
+def probe_affine(x: torch.Tensor) -> torch.Tensor:
+    """``2x + 1`` of an f32 tensor (G1)."""
+    if x.device.type == "cpu":
+        return probe_affine_plain(x)
+    dev = _cuda_device("probe_affine", x)
+    _check("probe_affine", "x", x, torch.float32, x.dim(), dev)
+    if x.numel() == 0:
+        raise ValueError("probe_affine: x is empty")
+    out = torch.empty_like(x)
+    _launch("probe_affine", "rt_probe_affine", dev, x.data_ptr(),
+            out.data_ptr(), x.numel())
+    return out
+
+
+# P2, P3 ---------------------------------------------------------------------
+
+def lane_gather_plain(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return torch.gather(tab, 0, idx.long())
+
+
+def lane_gather_chain_plain(tab: torch.Tensor, idx: torch.Tensor,
+                            rounds: int) -> torch.Tensor:
+    rows = tab.shape[0]
+    cur = idx
+    for _ in range(rounds):
+        cur = torch.remainder(cur + torch.gather(tab, 0, cur.long()) + 1,
+                              rows)
+    return cur
+
+
+def _check_lane(fn: str, tab: torch.Tensor, idx: torch.Tensor, dtype):
+    dev = _cuda_device(fn, idx)
+    _check(fn, "tab", tab, dtype, 2, dev)
+    _check(fn, "idx", idx, torch.int32, 2, dev)
+    if idx.shape[1] != tab.shape[1] or 0 in idx.shape or tab.shape[0] == 0:
+        raise ValueError(f"{fn}: idx {tuple(idx.shape)} must have the "
+                         f"width of tab {tuple(tab.shape)}, both non-empty")
+    return dev
+
+
+def lane_gather(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Per-lane gather ``out[i, l] = tab[idx[i, l], l]`` (G2): tab f32
+    [T, W], idx i32 [R, W] -> f32 [R, W]."""
+    if idx.device.type == "cpu":
+        return lane_gather_plain(tab, idx)
+    dev = _check_lane("lane_gather", tab, idx, torch.float32)
+    out = torch.empty(idx.shape, dtype=torch.float32, device=dev)
+    _launch("lane_gather", "rt_lane_gather", dev, tab.data_ptr(),
+            idx.data_ptr(), out.data_ptr(), tab.shape[0], tab.shape[1],
+            idx.shape[0])
+    return out
+
+
+def lane_gather_chain(tab: torch.Tensor, idx: torch.Tensor,
+                      rounds: int) -> torch.Tensor:
+    """``rounds`` chained per-lane gathers ``cur = (cur + tab[cur, l] + 1)
+    mod T`` (G2): tab i32 [T, W], idx i32 [R, W] -> i32 [R, W].  One column
+    of tab must fit in shared memory (T <= 58112)."""
+    if idx.device.type == "cpu":
+        return lane_gather_chain_plain(tab, idx, rounds)
+    dev = _check_lane("lane_gather_chain", tab, idx, torch.int32)
+    if tab.shape[0] * 4 > MAX_SMEM_BYTES or rounds < 0:
+        raise ValueError(f"lane_gather_chain: a column of {tab.shape[0]} "
+                         f"rows exceeds {MAX_SMEM_BYTES} B of shared memory, "
+                         f"or rounds {rounds} < 0")
+    out = torch.empty_like(idx)
+    _launch("lane_gather_chain", "rt_lane_gather_chain", dev, tab.data_ptr(),
+            idx.data_ptr(), out.data_ptr(), tab.shape[0], tab.shape[1],
+            idx.shape[0], rounds)
+    return out
+
+
+# P4, P5 ---------------------------------------------------------------------
+
+def row_sum_ring_plain(idx: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
+    return tab.index_select(0, idx.long()).sum(0, keepdim=True)
+
+
+def row_ring_rounds_plain(idx: torch.Tensor, table: torch.Tensor, nbuf: int,
+                          rounds: int) -> torch.Tensor:
+    """``rounds`` passes summing element 0 of each row: rounds * sum, as
+    wrapping int32.  ``nbuf`` sets only how many copies the kernel keeps in
+    flight; the sum does not depend on it."""
+    total = table.index_select(0, idx.long())[:, 0].to(torch.int64).sum()
+    return _wrap_i32(total * rounds).reshape(1, 1)
+
+
+def _check_ring(fn: str, idx: torch.Tensor, tab: torch.Tensor, dtype,
+                slots: int):
+    dev = _cuda_device(fn, idx)
+    _check(fn, "idx", idx, torch.int32, 1, dev)
+    _check(fn, "table", tab, dtype, 2, dev)
+    if idx.shape[0] == 0 or 0 in tab.shape:
+        raise ValueError(f"{fn}: idx and table must be non-empty")
+    if (slots * tab.shape[1] + idx.shape[0]) * 4 > MAX_SMEM_BYTES:
+        raise ValueError(f"{fn}: {slots} row slots of {tab.shape[1] * 4} B "
+                         f"and {idx.shape[0]} indices exceed "
+                         f"{MAX_SMEM_BYTES} B of shared memory")
+    return dev
+
+
+def row_sum_ring(idx: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
+    """``sum_i tab[idx[i], :]`` by double-buffered row copies (G3): idx i32
+    [n], tab f32 [M, W <= 128] -> f32 [1, W], summed in the order of i.
+    The ring and idx share one block's shared memory: (2 W + n) * 4 B."""
+    if idx.device.type == "cpu":
+        return row_sum_ring_plain(idx, tab)
+    dev = _check_ring("row_sum_ring", idx, tab, torch.float32, 2)
+    if tab.shape[1] > ROW_SUM_MAX_WIDTH:
+        raise ValueError(f"row_sum_ring: {tab.shape[1]} columns > "
+                         f"{ROW_SUM_MAX_WIDTH} (the sums live in registers)")
+    out = torch.empty((1, tab.shape[1]), dtype=torch.float32, device=dev)
+    _launch("row_sum_ring", "rt_row_sum_ring", dev, idx.data_ptr(),
+            idx.shape[0], tab.data_ptr(), tab.shape[0], tab.shape[1],
+            out.data_ptr())
+    return out
+
+
+def row_ring_rounds(idx: torch.Tensor, table: torch.Tensor, nbuf: int,
+                    rounds: int) -> torch.Tensor:
+    """``rounds`` passes of whole-row copies through a ring of ``nbuf`` slots
+    (G3), summing element 0 of each row: idx i32 [n], table i32 [S, W] ->
+    i32 [1, 1] = rounds * sum_i table[idx[i], 0], wrapping.  The ring and
+    idx share one block's shared memory: (nbuf W + n) * 4 B."""
+    if idx.device.type == "cpu":
+        return row_ring_rounds_plain(idx, table, nbuf, rounds)
+    dev = _check_ring("row_ring_rounds", idx, table, torch.int32, nbuf)
+    if nbuf not in RING_DEPTHS or rounds < 0:
+        raise ValueError(f"row_ring_rounds: nbuf {nbuf} not in "
+                         f"{RING_DEPTHS}, or rounds {rounds} < 0")
+    out = torch.empty((1, 1), dtype=torch.int32, device=dev)
+    _launch("row_ring_rounds", "rt_row_ring_rounds", dev, idx.data_ptr(),
+            idx.shape[0], table.data_ptr(), table.shape[0], table.shape[1],
+            nbuf, rounds, out.data_ptr())
+    return out
+
+
+# P6 -------------------------------------------------------------------------
+
+def flat_gather_chain_plain(idx: torch.Tensor, table: torch.Tensor,
+                            rounds: int) -> torch.Tensor:
+    mask = table.shape[0] - 1
+    cur = idx
+    for _ in range(rounds):
+        cur = (cur + table[cur.long()]) & mask
+    return cur
+
+
+def flat_gather_chain(idx: torch.Tensor, table: torch.Tensor,
+                      rounds: int) -> torch.Tensor:
+    """``rounds`` chained gathers ``idx = (idx + table[idx]) & (S - 1)``
+    (G4): idx i32 [n], table i32 [S], S a power of two -> i32 [n]."""
+    if idx.device.type == "cpu":
+        return flat_gather_chain_plain(idx, table, rounds)
+    dev = _cuda_device("flat_gather_chain", idx)
+    _check("flat_gather_chain", "idx", idx, torch.int32, 1, dev)
+    _check("flat_gather_chain", "table", table, torch.int32, 1, dev)
+    size = table.shape[0]
+    if idx.shape[0] == 0 or size == 0 or size & (size - 1) or rounds < 0:
+        raise ValueError(f"flat_gather_chain: need a non-empty idx, a table "
+                         f"size that is a power of two (got {size}) and "
+                         f"rounds >= 0 (got {rounds})")
+    out = torch.empty_like(idx)
+    _launch("flat_gather_chain", "rt_flat_gather_chain", dev, idx.data_ptr(),
+            idx.shape[0], table.data_ptr(), size, rounds, out.data_ptr())
+    return out

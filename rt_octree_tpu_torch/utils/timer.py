@@ -1,4 +1,5 @@
-"""Three-phase frame timer (render / net / filter) on CUDA events.
+"""Three-phase frame timer (render / net / filter) on CUDA events, and
+CUDA-event timing of single calls (``cuda_ms``, ``device_ms``).
 
 Reference: RenderContext::Timer (render_context.hpp:122-213): event pairs
 around the render kernel, the network forward and the filter kernel,
@@ -16,6 +17,10 @@ from __future__ import annotations
 import time
 
 import torch
+
+# The SM clock's ceiling on an H100 (1.98 GHz); a sleep sized with it lasts
+# at least as long as asked at any lower clock.
+_SLEEP_CYCLES_PER_S = 2.0e9
 
 T_RENDER, T_NET, T_FILTER = 0, 1, 2
 _NAMES = ("render", "net", "filter")
@@ -81,3 +86,65 @@ class _PhaseCtx:
         else:
             self.timer.sum[self.idx] += time.perf_counter() - self._t0
         return False
+
+
+def cuda_ms(fn, reps: int, warmup: int = 1, flush=None) -> float:
+    """Mean device ms of ``fn()`` over ``reps`` calls by CUDA events, after
+    ``warmup`` untimed calls.  Without ``flush`` the calls run back to back
+    between one pair of events.  With it, ``flush()`` runs before each call
+    outside its own pair of events, so that every call starts cold."""
+    for _ in range(warmup):
+        fn()
+    if flush is None:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+    pairs = []
+    for _ in range(reps):
+        flush()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / reps
+
+
+def device_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Mean device ms of ``reps`` back-to-back ``fn()`` calls without the
+    host's cost of queuing them: the timed calls are queued behind a sleep
+    kernel that lasts longer than queuing them took untimed, so the card
+    runs them without waiting for the host.  For kernels shorter than their
+    wrapper's host time, where ``cuda_ms`` measures the host.  A call that
+    waits for the card still pays its wait."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    queue_s = time.perf_counter() - t0  # queuing and running: a bound
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int((1.5 * queue_s + 1e-3) * _SLEEP_CYCLES_PER_S))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def l2_flusher(device, nbytes: int = 256 << 20):
+    """A callable that writes ``nbytes`` on ``device``, more than the 50 MB
+    L2 of an H100 holds, so that the next kernel finds the L2 cold."""
+    buf = torch.empty(nbytes, dtype=torch.uint8, device=device)
+    return lambda: buf.fill_(1)

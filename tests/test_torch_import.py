@@ -25,6 +25,10 @@ MODULES = [
     "rt_octree_tpu_torch.io.png",
     "rt_octree_tpu_torch.render.renderer",
     "rt_octree_tpu_torch.apps.headless",
+    "rt_octree_tpu_torch.ops.probes",
+    "rt_octree_tpu_torch.tools",
+    "rt_octree_tpu_torch.tools.gpu_probe",
+    "rt_octree_tpu_torch.tools.microbench_gather",
 ]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "triton", "msgpack", "imageio")
 
@@ -96,3 +100,14 @@ def test_wrappers_refuse_other_devices(device):
     with pytest.raises(ValueError):
         add_skip_distances(torch.zeros((8, 2), dtype=torch.int32,
                                        device=device), 2, 12)
+    from rt_octree_tpu_torch.ops import probes
+    tab = torch.zeros((8, 4), dtype=torch.int32, device=device)
+    idx = torch.zeros((8,), dtype=torch.int32, device=device)
+    for call in (lambda: probes.probe_affine(w),
+                 lambda: probes.lane_gather(w[0], idx.reshape(2, 4)),
+                 lambda: probes.lane_gather_chain(tab, idx.reshape(2, 4), 1),
+                 lambda: probes.row_sum_ring(idx, w[0]),
+                 lambda: probes.row_ring_rounds(idx, tab, 8, 1),
+                 lambda: probes.flat_gather_chain(idx, idx, 1)):
+        with pytest.raises(ValueError):
+            call()

@@ -1,5 +1,6 @@
 """The port's CUDA kernels (K1 render, K2 guided filter, K3 LUT + skip
-distances) against their plain PyTorch versions, and the launch counters.
+distances, G1-G4 the measurement tools' probes) against their plain
+PyTorch versions, and the launch counters.
 
 This file imports no JAX, so it also runs on a GPU host that has none:
 
@@ -17,6 +18,7 @@ from rt_octree_tpu.core.camera import Camera
 from rt_octree_tpu.core.options import RenderOptions
 from rt_octree_tpu.io import synthetic
 from rt_octree_tpu_torch.native import build as native
+from rt_octree_tpu_torch.ops import probes as pr
 from rt_octree_tpu_torch.ops import traversal as tt
 from rt_octree_tpu_torch.ops.filtering import guided_filter, \
     guided_filter_plain
@@ -64,6 +66,26 @@ def _filter_inputs(seed, L=4, H=64, W=48, gscale=3.0):
     return weight.astype(np.float32), guid, img
 
 
+def _lane_inputs(seed, dtype, T=64, R=40, W=12):
+    rs = np.random.default_rng(seed)
+    tab = (rs.random((T, W)) if dtype == np.float32
+           else rs.integers(0, 3, (T, W))).astype(dtype)
+    return tab, rs.integers(0, T, (R, W), dtype=np.int32)
+
+
+def _ring_inputs(seed, width, dtype, rows=300, n=70):
+    rs = np.random.default_rng(seed)
+    table = (rs.random((rows, width)) if dtype == np.float32
+             else rs.integers(-2 ** 31, 2 ** 31, (rows, width))).astype(dtype)
+    return rs.integers(0, rows, (n,), dtype=np.int32), table
+
+
+def _flat_inputs(seed, size, n=500):
+    rs = np.random.default_rng(seed)
+    return (rs.integers(0, size, (n,), dtype=np.int32),
+            rs.integers(1, 1000, (size,), dtype=np.int32))
+
+
 def _launch_each_wrapper(shell, device):
     """One call of every kernel wrapper on ``device``."""
     dt = tt.upload_tree(shell, lut_levels=0, device=device)
@@ -74,6 +96,17 @@ def _launch_each_wrapper(shell, device):
     t = lambda a: torch.from_numpy(a).to(device)
     w, g, img = _filter_inputs(0, L=2, H=8, W=8)
     guided_filter(t(w), t(g), t(img), (0, 1))
+    tab, idx = _lane_inputs(1, np.float32)
+    pr.probe_affine(t(tab))
+    pr.lane_gather(t(tab), t(idx))
+    tab, idx = _lane_inputs(2, np.int32)
+    pr.lane_gather_chain(t(tab), t(idx), 3)
+    idx, table = _ring_inputs(3, 4, np.float32)
+    pr.row_sum_ring(t(idx), t(table))
+    idx, table = _ring_inputs(4, 2, np.int32)
+    pr.row_ring_rounds(t(idx), t(table), 8, 2)
+    idx, table = _flat_inputs(5, 1 << 10)
+    pr.flat_gather_chain(t(idx), t(table), 3)
 
 
 def test_cpu_tensors_take_the_plain_versions(shell):
@@ -144,3 +177,58 @@ def test_k3_kernel_matches_plain(shell, chain, cuda_device):
         res = 2 ** levels
         assert torch.equal(tt.add_skip_distances(lut_k.clone(), res, 12),
                            tt.add_skip_distances_plain(lut_p, res, 12))
+
+
+@pytest.mark.cuda
+def test_g1_affine_matches_plain(cuda_device):
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (3, 1000)).astype(np.float32)).to(cuda_device)
+    assert torch.equal(pr.probe_affine(x), pr.probe_affine_plain(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rounds", [None, 0, 1, 7])
+def test_g2_lane_gather_matches_plain(rounds, cuda_device):
+    """P2 (a single f32 gather) and P3 (int32 chains from shared memory),
+    bit for bit; a width of 12 takes 4 columns per block, 6 takes 2."""
+    t = lambda a: torch.from_numpy(a).to(cuda_device)
+    for W in (12, 6):
+        if rounds is None:
+            tab, idx = map(t, _lane_inputs(W, np.float32, W=W))
+            got, ref = pr.lane_gather(tab, idx), pr.lane_gather_plain(tab, idx)
+        else:
+            tab, idx = map(t, _lane_inputs(W, np.int32, W=W))
+            got = pr.lane_gather_chain(tab, idx, rounds)
+            ref = pr.lane_gather_chain_plain(tab, idx, rounds)
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [1, 2, 3, 128])
+def test_g3_row_ring_matches_plain(width, cuda_device):
+    """Rows of 4, 8, 12 and 512 B (copy chunks of 4, 8, 4 and 16 B).  The
+    int32 element-0 sum wraps like JAX's at every ring depth; the f32 row
+    sum keeps the order of i, so it equals a float32 loop in that order."""
+    t = lambda a: torch.from_numpy(a).to(cuda_device)
+    idx, table = _ring_inputs(width, width, np.int32)
+    ref = pr.row_ring_rounds_plain(t(idx), t(table), 2, 3)
+    for nbuf in pr.RING_DEPTHS:
+        assert torch.equal(pr.row_ring_rounds(t(idx), t(table), nbuf, 3), ref)
+    idx, table = _ring_inputs(width, width, np.float32)
+    acc = np.zeros(width, np.float32)
+    for i in idx:
+        acc = acc + table[i]
+    got = pr.row_sum_ring(t(idx), t(table))
+    assert np.array_equal(got.cpu().numpy()[0], acc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [1 << 10, 1 << 16])
+def test_g4_flat_gather_chain_matches_plain(size, cuda_device):
+    """A 4 KB table staged in shared memory and a 256 KB one read from
+    L2."""
+    idx, table = (torch.from_numpy(a).to(cuda_device)
+                  for a in _flat_inputs(size, size))
+    for rounds in (0, 1, 16):
+        assert torch.equal(pr.flat_gather_chain(idx, table, rounds),
+                           pr.flat_gather_chain_plain(idx, table, rounds))

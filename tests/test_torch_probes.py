@@ -1,0 +1,220 @@
+"""The probe ports (rt_octree_tpu_torch.ops.probes and the two tools in
+rt_octree_tpu_torch.tools) against the TPU tools' own Pallas kernels.
+
+tools/tpu_probe.py and tools/microbench_gather.py run here unchanged: their
+``pallas_call`` goes through Pallas's TPU interpreter on the CPU, and their
+``timeit`` is replaced by a capture of one call's inputs and output (for
+P1, which calls no ``timeit``, ``jax.jit`` records the call).  The port's
+wrappers take their plain versions on CPU tensors; every integer result
+must equal the Pallas kernel's exactly.  P4's Pallas body copies a
+``(width,)`` row into a ``(1, width)`` scratch slot, which the interpreter
+refuses, so P4 is held against a float64 numpy sum instead.
+"""
+
+import functools
+import importlib.util
+import itertools
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from rt_octree_tpu_torch.ops import probes as P
+from rt_octree_tpu_torch.tools import gpu_probe, microbench_gather
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# settings that importing tools/microbench_gather.py changes (:28-31)
+_CACHE_KEYS = ("jax_compilation_cache_dir",
+               "jax_persistent_cache_min_compile_time_secs")
+
+
+class _Stop(BaseException):
+    """Ends a tool's loop after the first config; the tools catch only
+    Exception, so this passes through."""
+
+
+def _load_tool(name):
+    spec = importlib.util.spec_from_file_location(
+        f"_tpu_tool_{name}", os.path.join(REPO, "tools", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.fixture
+def interpret(monkeypatch):
+    monkeypatch.setattr(pl, "pallas_call", functools.partial(
+        pl.pallas_call, interpret=pltpu.InterpretParams()))
+
+
+@pytest.fixture
+def tpu_probe(interpret):
+    return _load_tool("tpu_probe")
+
+
+@pytest.fixture
+def tpu_microbench(interpret, monkeypatch):
+    monkeypatch.setenv("JAX_PLATFORMS", "cpu")
+    saved = {k: getattr(jax.config, k) for k in _CACHE_KEYS}
+    try:
+        yield _load_tool("microbench_gather")
+    finally:
+        for k, v in saved.items():
+            jax.config.update(k, v)
+
+
+def _capture(module, monkeypatch, stop_after=None):
+    """Replace ``module.timeit`` by one call whose numpy inputs and output
+    are appended to the returned list; raise _Stop after ``stop_after``
+    captures."""
+    calls = []
+
+    def timeit(fn, *args, **_):
+        out = np.asarray(fn(*args))
+        calls.append(([np.asarray(a) for a in args], out))
+        if stop_after is not None and len(calls) >= stop_after:
+            raise _Stop
+        return 1.0
+    monkeypatch.setattr(module, "timeit", timeit)
+    return calls
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def test_p1_affine_equals_pallas(tpu_probe, monkeypatch):
+    calls, real_jit = [], jax.jit
+
+    def recording_jit(fun, **kw):
+        jitted = real_jit(fun, **kw)
+        if getattr(fun, "__module__", None) != tpu_probe.__name__:
+            return jitted
+
+        def call(*args):
+            out = jitted(*args)
+            calls.append(([np.asarray(a) for a in args], np.asarray(out)))
+            return out
+        return call
+    monkeypatch.setattr(jax, "jit", recording_jit)
+    tpu_probe.probe_basic()
+    (x,), out = calls[0]
+    assert x.shape == (8, 128)
+    assert torch.equal(P.probe_affine(_t(x)), _t(out))
+    assert torch.equal(gpu_probe.basic_input("cpu"), _t(x))
+
+
+def test_p2_lane_gather_equals_pallas(tpu_probe, monkeypatch):
+    calls = _capture(tpu_probe, monkeypatch)
+    tpu_probe.probe_vgather()
+    (tab, idx), out = calls[0]
+    assert tab.shape == (gpu_probe.VG_T, 128)
+    assert idx.shape == out.shape == (gpu_probe.VG_R, 128)
+    assert torch.equal(P.lane_gather(_t(tab), _t(idx)), _t(out))
+
+
+def test_p3_lane_gather_chain_equals_pallas(tpu_probe, monkeypatch):
+    calls = _capture(tpu_probe, monkeypatch)
+    tpu_probe.probe_vgather_loop()
+    (tab, idx), out = calls[0]
+    assert tab.shape == (gpu_probe.VL_T, 128)
+    assert idx.shape == out.shape == (gpu_probe.VL_R, 128)
+    got = P.lane_gather_chain(_t(tab), _t(idx), gpu_probe.VL_K)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, _t(out))
+
+
+def test_p4_row_sum_within_tolerance_of_float64():
+    """f32 sums of 1000 rows of [0, 1) values, in any order, lie within
+    gpu_probe.DMA_RTOL (1e-5) of the float64 sum, relative to its largest
+    column (the tool holds the kernel to the same bound)."""
+    rs = np.random.default_rng(4)
+    tab = rs.random((3000, 128), dtype=np.float32)
+    idx = rs.integers(0, 3000, (1000,), dtype=np.int32)
+    got = P.row_sum_ring(_t(idx), _t(tab))
+    assert got.shape == (1, 128) and got.dtype == torch.float32
+    ref = tab[idx].astype(np.float64).sum(0)
+    rel = np.abs(got.numpy()[0] - ref).max() / np.abs(ref).max()
+    assert rel <= gpu_probe.DMA_RTOL
+    assert gpu_probe.dma_rel_err(got, _t(idx), _t(tab)) == pytest.approx(rel)
+
+
+def test_p5_row_ring_rounds_equals_pallas(tpu_microbench, monkeypatch):
+    """The tool's first config (rows of 8 B, n 1024, nbuf 8, 4 rounds), on
+    the inputs the port's section b draws first."""
+    calls = _capture(tpu_microbench, monkeypatch, stop_after=1)
+    with pytest.raises(_Stop):
+        tpu_microbench.bench_pallas_dma()
+    (idx, table), out = calls[0]
+    width, n, nbuf, p_table, p_idx = next(microbench_gather.dma_configs("cpu"))
+    assert (width, n, nbuf) == (2, 1024, 8)
+    assert torch.equal(p_table, _t(table)) and torch.equal(p_idx, _t(idx))
+    got = P.row_ring_rounds(p_idx, p_table, nbuf,
+                            microbench_gather.RING_ROUNDS)
+    assert got.shape == (1, 1) and got.dtype == torch.int32
+    assert torch.equal(got, _t(out))
+
+
+def test_p6_flat_gather_chain_equals_pallas(tpu_microbench, monkeypatch):
+    """All four configs of the tool, on the inputs the port's section c
+    draws for them."""
+    calls = _capture(tpu_microbench, monkeypatch)
+    tpu_microbench.bench_pallas_vmem_gather()
+    ported = itertools.islice(microbench_gather.vmem_configs("cpu"),
+                              len(calls))
+    assert len(calls) == len(microbench_gather.VMEM_CONFIGS)
+    for ((idx, table), out), (S, n, p_table, p_idx) in zip(calls, ported):
+        assert table.shape == (S,) and idx.shape == out.shape == (n,)
+        assert torch.equal(p_table, _t(table)) and torch.equal(p_idx,
+                                                               _t(idx))
+        got = P.flat_gather_chain(p_idx, p_table,
+                                  microbench_gather.CHAIN_ROUNDS)
+        assert torch.equal(got, _t(out))
+
+
+def test_row_ring_rounds_wraps_like_int32():
+    rs = np.random.default_rng(5)
+    table = rs.integers(2 ** 30, 2 ** 31, (64, 3)).astype(np.int32)
+    idx = rs.integers(0, 64, (300,), dtype=np.int32)
+    ref = np.full(1, table[idx, 0].sum(dtype=np.int32)) * np.int32(3)
+    got = P.row_ring_rounds(_t(idx), _t(table), 8, 3)
+    assert int(got) == int(ref[0])
+
+
+def test_tool_arguments():
+    assert gpu_probe.parse_args([]).probes == list(gpu_probe.PROBES)
+    assert gpu_probe.parse_args(["dma", "basic"]).probes == ["dma", "basic"]
+    assert microbench_gather.parse_args([]).which == "all"
+    assert microbench_gather.parse_args(["c"]).which == "c"
+    for parse, argv in ((gpu_probe.parse_args, ["basic", "nope"]),
+                        (microbench_gather.parse_args, ["e"])):
+        with pytest.raises(SystemExit) as e:
+            parse(argv)
+        assert e.value.code == 2
+
+
+@pytest.mark.parametrize("module,argv", [("gpu_probe", ["basic"]),
+                                         ("microbench_gather", ["b"])])
+def test_tools_refuse_to_run_without_cuda(module, argv):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    tool = {"gpu_probe": gpu_probe,
+            "microbench_gather": microbench_gather}[module]
+    with pytest.raises(SystemExit) as e:
+        tool.main(argv)
+    assert e.value.code not in (0, None)
+    out = subprocess.run(
+        [sys.executable, "-m", f"rt_octree_tpu_torch.tools.{module}"] + argv,
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+        text=True, timeout=120)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+    assert "[basic]" not in out.stdout and "==" not in out.stdout
