@@ -10,17 +10,21 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   4. K1 (fused frame) vs its plain version at 128x128, SPP 1/6/32, on a
      depth-7 shell tree and an NDC blobs tree;
   5. PCG32: the kernel's per-pixel uniforms equal the tensor twin, bit-exact;
-  6. K2 (guided filter) vs its plain version at 800x800, L=4, both support
-     ladders and a guidance range above 60 nats;
+  6. K2 (guided filter from the net's bf16 activation) vs its plain version
+     at 800x800, L=4, both support ladders, channels-last strides and a
+     guidance range above 60 nats;
   7. the main path: the headless CLI on the depth-9 SH9 shell tree with the
      level-9 LUT, the committed trained.gnet, SPP 6, denoise on; every
      kernel's launch count in that run must be > 0;
   8. the quality gate on the 8 held-out poses of benchmarks/quality;
   9. every kernel vs its plain version on the main path's own inputs (the
-     800x800 SPP 6 frame of the depth-9 tree, the net's weight and
-     guidance, the 512^3 LUT and skip lanes), then each kernel's time vs
-     its plain version there, and the headline frame's time, by CUDA
-     events;
+     800x800 SPP 6 frame of the depth-9 tree, the net's activation, the
+     512^3 LUT and skip lanes); K1's statistics variant on that frame,
+     printed as one JSON line {"k1_stats": ...} (steps per ray, SIMT lane
+     efficiency of fixed warp tiles, the distinct LUT cells and data rows
+     read, and K1's bound); then each
+     kernel's time vs its plain version there, and the headline frame's
+     time, by CUDA events;
  10. probes: the six probe kernels (csrc/probes.cu, the port of the Pallas
      kernels of tools/tpu_probe.py and tools/microbench_gather.py) vs their
      plain versions at the tools' own shapes (bit-equal; P4 within 1e-5
@@ -29,7 +33,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      microbench_gather b and c) with the counts reset: every probe kernel's
      launch count in that run must be > 0.
 
-Prints the kernel table as one JSON line, then as the last line
+Prints the kernel table as one JSON line (per kernel: launches on the main
+path, max abs error, ms, plain ms, the bound in ms and whether bytes or
+operations set it, and the time of one PyTorch call that computes the same
+function where there is one), then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Needs one CUDA card; exits non-zero without one.
 """
@@ -60,6 +67,15 @@ GATE_NOISY_TOL, GATE_DENOISED_TOL = 0.05, 0.10
 # IEEE division, so they differ only by summation order in the shade.
 K1_IMG_TOL, K1_AUX_TOL = 2e-5, 4e-5
 K2_TOL = 1e-5  # f32 sums of up to 49 softmax taps, in another order
+# The least time for a kernel's work on an H100 SXM (NVIDIA's data sheet):
+# the bytes it must move over the memory rate, or its f32 operations over
+# the f32 peak, whichever is larger.
+HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
+# K1's f32 operations, counted from csrc/render.cu and kept as a floor
+# (integer work, the ray setup and the basis are left out): a leaf step
+# ~100 (clip 12, LUT cell 18, leaf cube ~10, DDA 22, skip box 36), a shaded
+# leaf 6 bd + 16 (three dot products, sigmoids, the weighted sum).
+K1_OPS_PER_STEP = 100
 
 FRAME_KERNELS = {
     "render": ("rt_octree_tpu_torch/csrc/render.cu",
@@ -89,6 +105,13 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def bound(nbytes: float, ops: float = 0.0):
+    """(bound ms, "bytes" or "operations")."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
@@ -102,7 +125,7 @@ def psnr(img, gt_u8) -> float:
 
 def phase_k3(err):
     import torch
-    from rt_octree_tpu.io import synthetic
+    from rt_octree_tpu_torch.io import synthetic
     from rt_octree_tpu_torch.ops import traversal as T
     cases = [("shell d7", synthetic.make_synthetic_tree(
         "shell", depth=7, basis_dim=9), 7),
@@ -126,8 +149,8 @@ def phase_k3(err):
 
 
 def k1_scenes():
-    from rt_octree_tpu.core.camera import Camera
-    from rt_octree_tpu.io import synthetic
+    from rt_octree_tpu_torch.core.camera import Camera
+    from rt_octree_tpu_torch.io import synthetic
     shell = synthetic.make_synthetic_tree("shell", depth=7, basis_dim=9)
     cam = Camera(width=128, height=128, fx=175.0, fy=175.0)
     blobs = synthetic.make_synthetic_tree("blobs", depth=7, basis_dim=4)
@@ -143,7 +166,7 @@ def k1_scenes():
 
 def phase_k1(err):
     import torch
-    from rt_octree_tpu.core.options import RenderOptions
+    from rt_octree_tpu_torch.core.options import RenderOptions
     from rt_octree_tpu_torch.ops.traversal import upload_tree
     from rt_octree_tpu_torch.render import renderer as R
     from rt_octree_tpu_torch.utils.rng import Pcg32
@@ -176,7 +199,7 @@ def phase_k1(err):
 
 def phase_pcg():
     import torch
-    from rt_octree_tpu.core.options import RenderOptions
+    from rt_octree_tpu_torch.core.options import RenderOptions
     from rt_octree_tpu_torch.ops.traversal import upload_tree
     from rt_octree_tpu_torch.render import renderer as R
     from rt_octree_tpu_torch.utils.rng import Pcg32, pcg32_uniforms_range
@@ -206,34 +229,46 @@ def phase_pcg():
         require(same and u_k[12345].tolist() == ref, "PCG32 mismatch")
 
 
+def filter_activation(rs, L, H, W, gscale, layout="contiguous"):
+    """A bf16 activation [1, 2L, H, W] like the net's: level logits, then
+    guidance at ``gscale``."""
+    import torch
+    act = np.concatenate([rs.standard_normal((L, H, W)) * 2.0,
+                          rs.standard_normal((L, H, W)) * gscale])[None]
+    act = torch.from_numpy(act.astype(np.float32)).cuda().to(torch.bfloat16)
+    if layout == "channels_last":
+        act = act.contiguous(memory_format=torch.channels_last)
+    return act
+
+
 def phase_k2(err):
     import torch
     from rt_octree_tpu_torch.ops.filtering import (guided_filter,
-                                                   guided_filter_plain)
+                                                   guided_filter_act_plain)
     rs = np.random.default_rng(7)
     H = W = 800
     L = 4
     img = torch.from_numpy(rs.random((H, W, 4), np.float32)).cuda()
     worst = 0.0
-    for label, supports, gscale in (("ladder 1..4", (1, 2, 3, 4), 3.0),
-                                    ("ladder 0..3", (0, 1, 2, 3), 3.0),
-                                    ("range > 60 nats", (0, 1, 2, 3), 40.0)):
-        logits = torch.from_numpy(rs.standard_normal((L, H, W), np.float32))
-        weight = torch.softmax(logits, 0).cuda().contiguous()
-        guid = torch.from_numpy(
-            (rs.standard_normal((L, H, W)) * gscale).astype(np.float32)).cuda()
-        out_k = guided_filter(weight, guid, img, supports)
-        out_p = guided_filter_plain(weight, guid, img, supports)
+    for label, supports, gscale, layout in (
+            ("ladder 1..4", (1, 2, 3, 4), 3.0, "contiguous"),
+            ("ladder 0..3", (0, 1, 2, 3), 3.0, "channels_last"),
+            ("range > 60 nats", (0, 1, 2, 3), 40.0, "contiguous")):
+        act = filter_activation(rs, L, H, W, gscale, layout)
+        out_k = guided_filter(act, img, supports)
+        out_p = guided_filter_act_plain(act, img, supports)
         e = float((out_k - out_p).abs().max())
-        grange = float(guid.max() - guid.min())
-        log(f"[k2] {label}: guidance range {grange:.1f} nats, max|diff| "
-            f"{e:.3g}")
+        g = act[0, L:].float()
+        log(f"[k2] {label} ({layout}): guidance range "
+            f"{float(g.max() - g.min()):.1f} nats, max|diff| {e:.3g}")
         require(e <= K2_TOL and bool(torch.isfinite(out_k).all()),
                 f"K2 disagrees with its plain version ({label})")
         worst = max(worst, e)
-    onehot = torch.zeros((L, H, W), device="cuda")
-    onehot[0] = 1.0
-    out = guided_filter(onehot, guid, img, (0, 1, 2, 3))
+    # level logits (0, -200, -200, -200): weights exactly one-hot on the
+    # support-0 level
+    act[0, 1:L] = -200.0
+    act[0, 0] = 0.0
+    out = guided_filter(act, img, (0, 1, 2, 3))
     exact = bool(torch.equal(out[..., :3], img[..., :3]))
     log(f"[k2] support-0 passthrough bit-exact: {exact}")
     require(exact and bool((out[..., 3] == 1).all()), "K2 passthrough")
@@ -242,7 +277,7 @@ def phase_k2(err):
 
 def headline_tree_path():
     """Build the depth-9 SH9 shell tree and save it as an npz for the CLI."""
-    from rt_octree_tpu.io import synthetic
+    from rt_octree_tpu_torch.io import synthetic
     t0 = time.time()
     tree = synthetic.make_synthetic_tree("shell", depth=9, basis_dim=9)
     os.makedirs(WORK, exist_ok=True)
@@ -277,8 +312,8 @@ def phase_main(native, tree_path):
 
 
 def make_headline_renderer(tree):
-    from rt_octree_tpu.core.options import RenderOptions
-    from rt_octree_tpu.io.poses import load_poses
+    from rt_octree_tpu_torch.core.options import RenderOptions
+    from rt_octree_tpu_torch.io.poses import load_poses
     from rt_octree_tpu_torch.ops.traversal import upload_tree
     from rt_octree_tpu_torch.render.renderer import Renderer
     ps = load_poses("blender", os.path.join(KIT, "transforms_test.json"),
@@ -320,21 +355,56 @@ def phase_quality(r, ps):
     return noisy, den
 
 
+def k1_stats_line(r, st, kw):
+    """K1's statistics on the headline frame as one JSON line; returns
+    K1's bound (ms, "bytes" or "operations") from what the frame reads."""
+    import torch
+    from rt_octree_tpu_torch.render import renderer as R
+    steps = st.steps.flatten().float()
+    p50, p99 = torch.quantile(
+        steps, torch.tensor([0.5, 0.99], device=steps.device)).tolist()
+    n = kw["width"] * kw["height"]
+    # the timed call writes img, aux_nhwc and aux_chw: 16 + 32 + 32 B a
+    # pixel; it reads the pose, each LUT cell and chs row once (8 B) and
+    # each shaded f16 row once
+    nbytes = (80 * n + 48 + 8 * (st.lut_cells + st.chs_rows)
+              + 2 * r.tree.data_dim * st.data_rows)
+    ops = (K1_OPS_PER_STEP * float(steps.sum())
+           + (6 * max(r.tree.basis_dim, 0) + 16) * st.data_rows)
+    b_ms, b_by = bound(nbytes, ops)
+    log(json.dumps({"k1_stats": {
+        "frame": f"{kw['width']}x{kw['height']} spp {kw['opt'].spp} "
+                 "depth-9 shell, level-9 LUT, pose r_0",
+        "steps_mean": float(steps.mean()), "steps_p50": p50,
+        "steps_p99": p99, "steps_max": int(steps.max()),
+        "rays_stepping": int((steps > 0).sum()), "rays": n,
+        "steps_total": int(steps.sum()),
+        "descents_total": int(st.descents.sum()),
+        "lane_efficiency": {f"{w}x{h}": R.lane_efficiency(st.steps, w, h)
+                            for w, h in ((32, 1), (8, 4), (4, 8))},
+        "lut_cells": st.lut_cells, "chs_rows": st.chs_rows,
+        "data_rows": st.data_rows, "bound_bytes": nbytes,
+        "bound_f32_ops": ops, "bound_us": b_ms * 1e3, "bound_by": b_by}}))
+    return b_ms, b_by
+
+
 def phase_headline(r, ps, err):
     """Every kernel against its plain version on the main path's own
     inputs (the 800x800 SPP 6 frame of the depth-9 tree, the net's real
-    weight and guidance, the 512^3 LUT), then each one's time."""
+    activation, the 512^3 LUT), K1's statistics, then each kernel's time
+    and bound."""
     import torch
     from rt_octree_tpu_torch.ops import traversal as T
     from rt_octree_tpu_torch.ops.filtering import (guided_filter,
-                                                   guided_filter_plain)
+                                                   guided_filter_act_plain)
     from rt_octree_tpu_torch.render import renderer as R
     from rt_octree_tpu_torch.utils.timer import PhaseTimer
-    ms = {}
+    ms, bounds = {}, {}
     pose = ps.poses[0]
     tf = r._transform(pose)
     kw = dict(width=800, height=800, fx=r.fx, fy=r.fy, opt=r.options)
     st, inc = r.rng.state, r.rng.inc
+    n = 800 * 800
 
     ik, nk, ck = R.render_noisy(r.tree, tf, st, inc, **kw)
     ip, npl, cp = R.render_noisy_plain(r.tree, tf, st, inc, **kw)
@@ -347,17 +417,31 @@ def phase_headline(r, ps, err):
             "K1 disagrees with its plain version on the headline frame")
     err["render"] = max(err["render"], e_img, e_aux)
     del ip, npl, cp
+    stats = R.render_stats(r.tree, tf, st, inc, **kw)
+    same = stats.equals(R.render_stats_plain(r.tree, tf, st, inc, **kw))
+    log(f"[headline] K1 statistics variant == plain march's counts: {same}")
+    require(same, "K1's statistics disagree with the plain march's")
+    bounds["render"] = k1_stats_line(r, stats, kw) + (None,)
 
-    w, g = r.net_forward(nk)
+    act = r.net_forward(nk)
     img = ik
     sup = r.net_cfg.supports()
-    e = float((guided_filter(w, g, img, sup)
-               - guided_filter_plain(w, g, img, sup)).abs().max())
-    log(f"[headline] K2 on the net's weight/guidance (supports {sup}): "
+    log(f"[headline] net activation {tuple(act.shape)} {act.dtype}, "
+        f"strides {act.stride()}")
+    e = float((guided_filter(act, img, sup)
+               - guided_filter_act_plain(act, img, sup)).abs().max())
+    log(f"[headline] K2 on the net's activation (supports {sup}): "
         f"max|diff| {e:.3g}")
     require(e <= K2_TOL, "K2 disagrees with its plain version on the "
             "headline frame")
     err["guided_filter"] = max(err["guided_filter"], e)
+    L = act.shape[1] // 2
+    taps = sum((2 * s + 1) ** 2 for s in sup if s > 0)
+    # the activation at 2 B, rgb at 12 B and the output at 16 B a pixel;
+    # per window tap a subtraction, an expf, an add and three multiply-adds
+    # (9 operations), per pixel a softmax over L and the level blend
+    bounds["guided_filter"] = bound(
+        act.numel() * 2 + n * (12 + 16), n * (9 * taps + 10 * L)) + (None,)
 
     chs = r.tree.chs
     lut_k = T.build_lut(chs, 2, 9)
@@ -374,13 +458,19 @@ def phase_headline(r, ps, err):
     err["lut_build"] = max(err["lut_build"], float(d_lut))
     err["skip_min"] = max(err["skip_min"], float(d_skip))
     del lut_p, skip_k, skip_p
+    cells = 512 ** 3
+    # lut_build writes the 8-byte cells and reads chs once; skip_min reads
+    # the LUT and writes its sigma lane, with 12 rounds of a separable
+    # 3x3x3 min (6 operations a cell a round)
+    bounds["lut_build"] = bound(8 * cells + chs.numel() * 4) + (None,)
+    bounds["skip_min"] = bound(12 * cells, 12 * 6 * cells) + (None,)
 
     ms["render"] = (
         cuda_ms(lambda: R.render_noisy(r.tree, tf, st, inc, **kw), 20, 3),
         cuda_ms(lambda: R.render_noisy_plain(r.tree, tf, st, inc, **kw), 2))
     ms["guided_filter"] = (
-        cuda_ms(lambda: guided_filter(w, g, img, sup), 50, 3),
-        cuda_ms(lambda: guided_filter_plain(w, g, img, sup), 5))
+        cuda_ms(lambda: guided_filter(act, img, sup), 50, 3),
+        cuda_ms(lambda: guided_filter_act_plain(act, img, sup), 5))
     ms["lut_build"] = (cuda_ms(lambda: T.build_lut(chs, 2, 9), 3),
                        cuda_ms(lambda: T.lut_build_plain(chs, 2, 9), 1))
     ms["skip_min"] = (
@@ -388,7 +478,8 @@ def phase_headline(r, ps, err):
         cuda_ms(lambda: T.add_skip_distances_plain(lut_k, 512, 12), 1))
     del lut_k
     for k, (kms, pms) in ms.items():
-        log(f"[timing] {k}: kernel {kms:.3f} ms, plain {pms:.3f} ms")
+        log(f"[timing] {k}: kernel {kms:.4f} ms, plain {pms:.3f} ms, bound "
+            f"{bounds[k][0]:.4f} ms ({bounds[k][1]})")
 
     def frame():
         r.render(pose, want_aux=False)
@@ -402,7 +493,7 @@ def phase_headline(r, ps, err):
         f"shell, pose r_0): {frame_ms:.3f} ms/frame "
         f"({1000.0 / frame_ms:.2f} FPS) over 20 frames")
     log(timer.report())
-    return ms
+    return ms, bounds
 
 
 def phase_probes(native, err):
@@ -412,11 +503,24 @@ def phase_probes(native, err):
     code), then the tools' Pallas-probe paths with the launch counts
     reset."""
     import torch
+    import torch.nn.functional as F
     from rt_octree_tpu_torch.ops import probes as P
     from rt_octree_tpu_torch.tools import gpu_probe as gp
     from rt_octree_tpu_torch.tools import microbench_gather as mb
     dev = torch.device("cuda", 0)
-    ms = {}
+    ms, bounds = {}, {}
+
+    def distinct(*index_tensors) -> int:
+        return int(torch.unique(torch.cat(
+            [t.flatten().long() for t in index_tensors])).numel())
+
+    def chain_touched(step, cur, rounds):
+        """Every index a chained gather reads, round by round."""
+        seen = []
+        for _ in range(rounds):
+            seen.append(cur)
+            cur = step(cur)
+        return seen
 
     def hold(name, label, kernel, plain, reps=None):
         got, ref = kernel(), plain()
@@ -428,18 +532,33 @@ def phase_probes(native, err):
         if reps:
             ms[name] = (device_ms(kernel, reps, 2), device_ms(plain, reps, 2))
 
+    # bounds: each index array, each distinct table element or row a
+    # probe reads, and the output once; integer work counts at the f32 rate
     x = gp.basic_input(dev)
     hold("probe_affine", "8x128", lambda: P.probe_affine(x),
          lambda: P.probe_affine_plain(x), 50)
+    bounds["probe_affine"] = bound(8 * x.numel(), 2 * x.numel()) + (None,)
     tab, idx = gp.vgather_inputs(dev)
     hold("lane_gather", f"tab {tuple(tab.shape)} idx {tuple(idx.shape)}",
          lambda: P.lane_gather(tab, idx),
          lambda: P.lane_gather_plain(tab, idx), 50)
+    lanes = torch.arange(tab.shape[1], device=dev)
+    idx64 = idx.long()
+    bounds["lane_gather"] = bound(
+        8 * idx.numel() + 4 * distinct(idx64 * tab.shape[1] + lanes)) + (
+        device_ms(lambda: torch.gather(tab, 0, idx64), 50, 2),)
     tab, idx = gp.vgather_loop_inputs(dev)
     hold("lane_gather_chain", f"tab {tuple(tab.shape)} idx "
          f"{tuple(idx.shape)} K {gp.VL_K}",
          lambda: P.lane_gather_chain(tab, idx, gp.VL_K),
          lambda: P.lane_gather_chain_plain(tab, idx, gp.VL_K), 5)
+    lanes = torch.arange(tab.shape[1], device=dev)
+    seen = chain_touched(
+        lambda c: P.lane_gather_chain_plain(tab, c, 1), idx, gp.VL_K)
+    bounds["lane_gather_chain"] = bound(
+        8 * idx.numel()
+        + 4 * distinct(*(c.long() * tab.shape[1] + lanes for c in seen)),
+        3 * gp.VL_K * idx.numel()) + (None,)
 
     idx, tab = gp.dma_inputs(dev)
     got = P.row_sum_ring(idx, tab)
@@ -456,6 +575,11 @@ def phase_probes(native, err):
     ms["row_sum_ring"] = (device_ms(lambda: P.row_sum_ring(idx, tab), 5),
                           device_ms(lambda: P.row_sum_ring_plain(idx, tab),
                                     5))
+    idx64, offsets = idx.long(), torch.zeros(1, dtype=torch.long, device=dev)
+    bounds["row_sum_ring"] = bound(
+        4 * idx.numel() + 4 * tab.shape[1] * (distinct(idx) + 1),
+        idx.numel() * tab.shape[1]) + (device_ms(
+            lambda: F.embedding_bag(idx64, tab, offsets, mode="sum"), 5),)
     del idx, tab, got, ref
 
     for w, n, nbuf, table, idx in mb.dma_configs(dev):
@@ -465,6 +589,10 @@ def phase_probes(native, err):
              lambda: P.row_ring_rounds_plain(idx, table, nbuf,
                                              mb.RING_ROUNDS),
              5 if timed else None)
+        if timed:  # the probe copies whole rows: each distinct row once
+            bounds["row_ring_rounds"] = bound(
+                4 * n + 4 * w * distinct(idx) + 4,
+                n * mb.RING_ROUNDS) + (None,)
     del table, idx
     for S, n, table, idx in mb.vmem_configs(dev):
         timed = (S, n) == (1 << 18, 131072)
@@ -472,9 +600,19 @@ def phase_probes(native, err):
              lambda: P.flat_gather_chain(idx, table, mb.CHAIN_ROUNDS),
              lambda: P.flat_gather_chain_plain(idx, table, mb.CHAIN_ROUNDS),
              5 if timed else None)
+        if timed:
+            seen = chain_touched(
+                lambda c: P.flat_gather_chain_plain(c, table, 1), idx,
+                mb.CHAIN_ROUNDS)
+            bounds["flat_gather_chain"] = bound(
+                8 * n + 4 * distinct(*seen),
+                2 * mb.CHAIN_ROUNDS * n) + (None,)
     del table, idx
     for k, (kms, pms) in ms.items():
-        log(f"[timing] {k}: kernel {kms:.4f} ms, plain {pms:.4f} ms")
+        lib = bounds[k][2]
+        log(f"[timing] {k}: kernel {kms:.4f} ms, plain {pms:.4f} ms, bound "
+            f"{bounds[k][0]:.6f} ms ({bounds[k][1]}), library "
+            + ("none" if lib is None else f"{lib:.4f} ms"))
 
     native.reset_launches()
     t0 = time.time()
@@ -486,7 +624,7 @@ def phase_probes(native, err):
     require(rcs == [0, 0, 0], "a tool failed")
     require(all(v > 0 for v in counts.values()),
             f"a probe kernel never launched in the tools' run: {counts}")
-    return counts, ms
+    return counts, ms, bounds
 
 
 def main() -> int:
@@ -519,18 +657,22 @@ def main() -> int:
     counts = phase_main(native, tree_path)
     r, ps = make_headline_renderer(tree)
     phase_quality(r, ps)
-    ms = phase_headline(r, ps, err)
+    ms, bounds = phase_headline(r, ps, err)
     del r
-    probe_counts, probe_ms = phase_probes(native, err)
+    probe_counts, probe_ms, probe_bounds = phase_probes(native, err)
     counts.update(probe_counts)
     ms.update(probe_ms)
+    bounds.update(probe_bounds)
 
     table = []
     for name, (source, replaces) in KERNELS.items():
         kms, pms = ms[name]
+        b_ms, b_by, lib_ms = bounds[name]
         table.append({"name": name, "route": "cuda", "source": source,
                       "replaces": replaces, "launches": counts[name],
-                      "max_abs_err": err[name], "ms": kms, "plain_ms": pms})
+                      "max_abs_err": err[name], "ms": kms, "plain_ms": pms,
+                      "bound_ms": b_ms, "bound_by": b_by,
+                      "library_ms": lib_ms})
     log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

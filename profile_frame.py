@@ -69,7 +69,7 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke as cs
-    from rt_octree_tpu.io import synthetic
+    from rt_octree_tpu_torch.io import synthetic
     from rt_octree_tpu_torch.render import renderer as R
 
     tree = synthetic.make_synthetic_tree("shell", depth=9, basis_dim=9)

@@ -7,8 +7,10 @@ the guided-filter kernel K2, basis functions), ``render`` (the fused frame
 kernel K1 and the Renderer), ``models`` (GuidanceNet), ``io`` (.gnet and
 PNG readers), ``utils`` (PCG32, the phase timer), ``apps`` (headless CLI),
 ``native`` (nvcc build, ctypes loading, launch counters) and ``csrc`` (the
-CUDA sources).  Pure-NumPy host code (tree loading, poses, camera, options)
-is imported from ``rt_octree_tpu.io`` / ``rt_octree_tpu.core``.
+CUDA sources).  The pure-NumPy host code (``core``: options, camera;
+``io``: tree loading, poses, synthetic trees) is the port's own copy of the
+JAX package's modules of the same names: the port imports nothing of
+``rt_octree_tpu``.
 
 Importing the package builds nothing and imports neither JAX nor Triton.
 """

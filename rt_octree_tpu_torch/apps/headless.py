@@ -27,12 +27,11 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from rt_octree_tpu.core.camera import Camera
-from rt_octree_tpu.core.options import RenderOptions
-from rt_octree_tpu.io import n3tree
-from rt_octree_tpu.io.poses import load_poses
-
+from ..core.camera import Camera
+from ..core.options import RenderOptions
+from ..io import n3tree
 from ..io.png import write_png
+from ..io.poses import load_poses
 from ..ops.traversal import upload_tree
 from ..render.renderer import Renderer, render_timed
 from ..utils.timer import PhaseTimer

@@ -1,4 +1,4 @@
-// K1: the fused per-pixel regular-tracking frame (one thread per pixel).
+// K1: the fused per-pixel regular-tracking frame.
 //
 // Replaces, from rt_octree_tpu/render/renderer.py: device_camera_rays,
 // rodrigues_jnp and maybe_world2ndc (:74-129); make_sorted_dst (:1138-1142)
@@ -11,15 +11,33 @@
 //
 // Bound on this card: the latency of dependent gathers.  Every leaf step
 // makes one random 8-byte LUT read (plus chs reads for cells still internal
-// at the LUT level) whose address depends on the previous step, and the
-// slowest rays of the headline frame take ~200 steps while most end within
-// ~16, so warps idle on the ray-length tail.  The arithmetic per step is a
-// few dozen flops.  Design: one thread keeps the whole march state, the
-// sorted thresholds and the SPP (leaf, count) records in registers (loops
-// over slots are unrolled so the arrays never go to local memory for
-// SPP <= 16), so device memory sees only the gathers, one f16 row per
-// distinct hit leaf and the pixel's writes; 128-thread blocks keep many
-// warps resident to hide the gather latency.  No wavefront compaction.
+// at the LUT level) whose address depends on the previous step; the
+// arithmetic per step is a few dozen flops.  A warp runs as long as its
+// longest ray, and ray lengths have a long tail (headline frame: half the
+// rays miss the tree and take no step, the 99th percentile takes 69, the
+// longest 174), so the lanes of a warp idle on its slowest ray.  Design:
+// one thread per pixel, each warp an 8x4 pixel tile (a block of 4 warps is
+// 32x4 pixels).  Neighbouring rays take similar step counts and read
+// neighbouring LUT cells, so a warp idles less than on a row of 32 pixels
+// (lane efficiency 0.76 against 0.58 on the headline frame, chip_smoke.py's
+// statistics line).  A ray's whole state (sorted thresholds, records, t,
+// optical depth) lives in registers: loops over slots are unrolled so the
+// arrays never go to local memory.  The LUT and chs are read through the
+// read-only path as int2, a leaf's f16 row as 8-byte words, and the
+// pixel's img and aux_nhwc as one and two float4 stores.
+//
+// (A persistent-warp schedule that refills idle lanes from a global ray
+// counter, Aila and Laine, HPG 2009, ran 3x slower here: its lanes shade
+// and set up rays out of step with each other, so a warp pays the
+// shading's dependent loads once per ray instead of once per tile, while
+// the tiles leave only a quarter of the lane time idle.  L2 prefetches of
+// the guessed next LUT cell and of each recorded data row made the frame
+// slower, not faster: the LUT cells a warp reads are mostly in the L2
+// already, and the extra address arithmetic sits on the step's chain.)
+//
+// The tiles decide only which thread marches which ray: a ray's arithmetic
+// and its PCG32 position (idx * SPP, idx = y * W + x) are those of a
+// row-order launch, so its outputs are bit for bit the same.
 //
 // Numerics: built with -fmad=false and without fast math.  The JAX
 // expression order is kept (delta_t * delta_scale * sigma; invdir =
@@ -27,7 +45,14 @@
 // the optical depth and the DDA round as in the reference march; skip
 // distances ride as f32 denormal bit patterns 1..255 in the LUT sigma lane
 // and are read as integer bits.
+//
+// Statistics variant (kStats, compiled out of the frame's instantiation):
+// per pixel the leaf steps and chs descents, and bitmaps of every LUT cell,
+// chs row and data row the frame reads (atomicOr), from which the caller
+// counts the distinct bytes the frame needs.
 #include <cuda_fp16.h>
+
+#include <cstring>
 
 #include "common.cuh"
 
@@ -35,6 +60,8 @@ namespace {
 
 constexpr uint64_t kPcgMult = 0x5851F42D4C957F2DULL;
 constexpr int kMaxBasis = 25;
+constexpr int kThreads = 128;
+constexpr int kTileW = 8, kTileH = 4;  // one warp's pixel tile
 
 // Mirrored field for field by rt_octree_tpu_torch/render/renderer.py
 // (_RenderParams): 8-byte members first, so the layout has no padding.
@@ -50,6 +77,11 @@ struct RenderParams {
   float* aux_nhwc;         // [H, W, 8]
   float* aux_chw;          // [8, H, W] or null
   float* uniforms;         // [H * W, spp] raw PCG32 uniforms, or null
+  int* stat_steps;         // [H * W] leaf steps, or null (not a stats run)
+  int* stat_descents;      // [H * W] chs reads
+  unsigned* lut_bits;      // [ceil(res^3 / 32)] LUT cells read
+  unsigned* chs_bits;      // [ceil(M / 32)] chs rows read
+  unsigned* data_bits;     // [ceil(M / 32)] data rows shaded
   unsigned long long rng_state;
   unsigned long long rng_inc;
   float fx, fy;
@@ -61,6 +93,10 @@ struct RenderParams {
   int N, lut_levels, max_depth, skip_cap;
   int basis_dim, data_dim, fmt, basis_lo, basis_hi, use_ndc;
 };
+
+__device__ __forceinline__ void mark(unsigned* bits, long long i) {
+  atomicOr(bits + (i >> 5), 1u << (unsigned)(i & 31));
+}
 
 // ---- PCG32 (renderer/3rdparty/pcg32.h; utils/rng.py:Pcg32) ----
 
@@ -171,9 +207,11 @@ struct Leaf {
   int bits;  // f32 sigma bits; skip distance 1..255 in empty LUT cells
 };
 
-// posc: the position clipped to [0, 1 - 1e-6]^3.
-__device__ __forceinline__ Leaf query_leaf(const RenderParams& p,
-                                           const float posc[3]) {
+// posc: the position clipped to [0, 1 - 1e-6]^3; res = N^lut_levels.
+template <bool kStats>
+__device__ __forceinline__ Leaf query_leaf(const RenderParams& p, int res,
+                                           const float posc[3],
+                                           int& descents) {
   const int N = p.N;
   const float fN = (float)N;
   const int N3 = N * N * N;
@@ -184,7 +222,6 @@ __device__ __forceinline__ Leaf query_leaf(const RenderParams& p,
   float cur_cube;
   int levels_left;
   if (p.lut_levels > 0) {
-    const int res = rt::ipow(N, p.lut_levels);
     const float fres = (float)res;
     int c[3];
     for (int i = 0; i < 3; ++i) {
@@ -194,7 +231,8 @@ __device__ __forceinline__ Leaf query_leaf(const RenderParams& p,
       xyz[i] = sc - fl;
     }
     const long long flat = ((long long)c[0] * res + c[1]) * res + c[2];
-    const int2 row = p.lut[flat];
+    const int2 row = __ldg(p.lut + flat);
+    if (kStats) mark(p.lut_bits, flat);
     const int depth = (int)(((uint32_t)row.x >> rt::kLutPtrBits) & 31u);
     const int ptr = (int)((uint32_t)row.x & rt::kLutPtrMask);
     leaf.bits = row.y;
@@ -224,7 +262,11 @@ __device__ __forceinline__ Leaf query_leaf(const RenderParams& p,
     }
     const int index = (int)((d[0] * fN + d[1]) * fN + d[2]);
     const int sub = node * N3 + index;
-    const int2 row = p.chs[sub];
+    const int2 row = __ldg(p.chs + sub);
+    if (kStats) {
+      mark(p.chs_bits, sub);
+      ++descents;
+    }
     if (row.x == 0) {
       done = true;
       leaf.ptr = sub;
@@ -238,12 +280,26 @@ __device__ __forceinline__ Leaf query_leaf(const RenderParams& p,
   return leaf;
 }
 
+// ---- one ray: setup, leaf step, shade + writes ----
+
 template <int SPP>
-__global__ void __launch_bounds__(128) render_kernel(const RenderParams p) {
+struct Ray {
+  int idx;  // pixel y * W + x
+  float vdir[3];
+  float cen_t[3], d_t[3], invdir[3];
+  float delta_scale, t, tmax, src;
+  int sppc, shn, steps, descents;
+  bool active;
+  float dst[SPP];
+  int rec_ptr[SPP], rec_cnt[SPP];
+};
+
+template <int SPP>
+__device__ __forceinline__ void setup_ray(const RenderParams& p, int px,
+                                          int py, Ray<SPP>& r) {
   const int W = p.width, H = p.height;
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= W * H) return;
-  const int px = idx % W, py = idx / W;
+  const int idx = py * W + px;
+  r.idx = idx;
   const float* T = p.transform;
 
   // ---- camera ray (device_camera_rays: integer pixel coords) ----
@@ -261,7 +317,7 @@ __global__ void __launch_bounds__(128) render_kernel(const RenderParams p) {
   float cen[3] = {T[3], T[7], T[11]};
 
   // ---- view direction (rodrigues_jnp) ----
-  float vdir[3] = {dir[0], dir[1], dir[2]};
+  for (int i = 0; i < 3; ++i) r.vdir[i] = dir[i];
   {
     const float* a = p.rot;
     const float angle = sqrtf(a[0] * a[0] + a[1] * a[1] + a[2] * a[2]);
@@ -274,7 +330,7 @@ __global__ void __launch_bounds__(128) render_kernel(const RenderParams p) {
                            k[0] * dir[1] - k[1] * dir[0]};
       const float dot = dir[0] * k[0] + dir[1] * k[1] + dir[2] * k[2];
       for (int i = 0; i < 3; ++i)
-        vdir[i] = dir[i] * ca + cr[i] * sa + k[i] * dot * (1.0f - ca);
+        r.vdir[i] = dir[i] * ca + cr[i] * sa + k[i] * dot * (1.0f - ca);
     }
   }
 
@@ -296,7 +352,6 @@ __global__ void __launch_bounds__(128) render_kernel(const RenderParams p) {
   }
 
   // ---- sorted free-flight thresholds (pcg32 at idx*spp + j) ----
-  float dst[SPP];
   {
     uint64_t state = pcg_advance(p.rng_state, p.rng_inc,
                                  (uint64_t)idx * (uint64_t)SPP);
@@ -304,133 +359,185 @@ __global__ void __launch_bounds__(128) render_kernel(const RenderParams p) {
     for (int j = 0; j < SPP; ++j) {
       const float u = pcg_next_float(state, p.rng_inc);
       if (p.uniforms) p.uniforms[(long long)idx * SPP + j] = u;
-      dst[j] = -log1pf(-u);
+      r.dst[j] = -log1pf(-u);
     }
 #pragma unroll
     for (int j = 1; j < SPP; ++j) {  // insertion sort, unrolled
 #pragma unroll
       for (int k = j; k > 0; --k) {
-        const float lo = fminf(dst[k - 1], dst[k]);
-        const float hi = fmaxf(dst[k - 1], dst[k]);
-        dst[k - 1] = lo;
-        dst[k] = hi;
+        const float lo = fminf(r.dst[k - 1], r.dst[k]);
+        const float hi = fmaxf(r.dst[k - 1], r.dst[k]);
+        r.dst[k - 1] = lo;
+        r.dst[k] = hi;
       }
     }
   }
 
   // ---- march setup (_init_march, _dda_world) ----
-  float cen_t[3], d_t[3], invdir[3];
   for (int i = 0; i < 3; ++i) {
-    cen_t[i] = p.offset[i] + p.scale[i] * cen[i];
-    d_t[i] = dir[i] * p.scale[i];
+    r.cen_t[i] = p.offset[i] + p.scale[i] * cen[i];
+    r.d_t[i] = dir[i] * p.scale[i];
   }
-  const float delta_scale =
-      1.0f / sqrtf(d_t[0] * d_t[0] + d_t[1] * d_t[1] + d_t[2] * d_t[2]);
+  r.delta_scale = 1.0f / sqrtf(r.d_t[0] * r.d_t[0] + r.d_t[1] * r.d_t[1] +
+                               r.d_t[2] * r.d_t[2]);
   for (int i = 0; i < 3; ++i) {
-    d_t[i] = d_t[i] * delta_scale;
-    invdir[i] = 1.0f / (d_t[i] + 1e-9f);
+    r.d_t[i] = r.d_t[i] * r.delta_scale;
+    r.invdir[i] = 1.0f / (r.d_t[i] + 1e-9f);
   }
   float tmin = 0.0f, tmax = 1e4f;
   {
     float mn = -INFINITY, mx = INFINITY;
     for (int i = 0; i < 3; ++i) {
-      const float t1 = (p.bbox[i] + 1e-6f - cen_t[i]) * invdir[i];
-      const float t2 = (p.bbox[i + 3] - 1e-6f - cen_t[i]) * invdir[i];
+      const float t1 = (p.bbox[i] + 1e-6f - r.cen_t[i]) * r.invdir[i];
+      const float t2 = (p.bbox[i + 3] - 1e-6f - r.cen_t[i]) * r.invdir[i];
       mn = fmaxf(mn, fminf(t1, t2));
       mx = fminf(mx, fmaxf(t1, t2));
     }
     tmin = fmaxf(0.0f, mn);
     tmax = fminf(1e4f, mx);
   }
-  tmax = fminf(tmax, 1e9f / delta_scale);
-  bool active = (tmax >= 0.0f) && (tmin <= tmax);
+  r.tmax = fminf(tmax, 1e9f / r.delta_scale);
+  r.active = (r.tmax >= 0.0f) && (tmin <= r.tmax);
+  r.t = tmin;
+  r.src = 0.0f;
+  r.sppc = r.shn = r.steps = r.descents = 0;
+#pragma unroll
+  for (int k = 0; k < SPP; ++k) r.rec_ptr[k] = r.rec_cnt[k] = 0;
+}
 
-  // ---- the leaf-step march (_query_step + _step_update) ----
+// One leaf step (_query_step + _step_update); res = N^lut_levels.
+template <int SPP, bool kStats>
+__device__ __forceinline__ void march_step(const RenderParams& p, int res,
+                                           Ray<SPP>& r) {
   const float clip_hi = (float)(1.0 - 1e-6);
-  const float skip_res = (float)rt::ipow(p.N, p.lut_levels);
-  float t = tmin, src = 0.0f;
-  int sppc = 0, shn = 0;
-  int rec_ptr[SPP], rec_cnt[SPP];
-#pragma unroll
-  for (int k = 0; k < SPP; ++k) rec_ptr[k] = rec_cnt[k] = 0;
-
-  for (int step = 0; step < p.max_steps && active; ++step) {
-    float posc[3];
-    for (int i = 0; i < 3; ++i)
-      posc[i] = fminf(fmaxf(cen_t[i] + t * d_t[i], 0.0f), clip_hi);
-    const Leaf leaf = query_leaf(p, posc);
-    float t_unit = 1e4f;
-    for (int i = 0; i < 3; ++i) {
-      float local = posc[i] * leaf.cube;
-      local = local - floorf(local);
-      const float t1 = -local * invdir[i];
-      const float t2 = t1 + invdir[i];
-      t_unit = fminf(t_unit, fmaxf(t1, t2));
-    }
-    float t_sub = t_unit / leaf.cube;
-    if (p.skip_cap > 0) {
-      const int dist_i = (leaf.bits > 0 && leaf.bits <= 255) ? leaf.bits : 1;
-      if (dist_i > 1) {
-        const float dist = (float)dist_i;
-        float t_box = INFINITY;
-        for (int i = 0; i < 3; ++i) {
-          const float cell = floorf(posc[i] * skip_res);
-          const float lo = (cell - (dist - 1.0f)) / skip_res;
-          const float hi = (cell + dist) / skip_res;
-          t_box = fminf(t_box, fmaxf((lo - posc[i]) * invdir[i],
-                                     (hi - posc[i]) * invdir[i]));
-        }
-        t_sub = fmaxf(t_sub, t_box);
+  float posc[3];
+  for (int i = 0; i < 3; ++i)
+    posc[i] = fminf(fmaxf(r.cen_t[i] + r.t * r.d_t[i], 0.0f), clip_hi);
+  const Leaf leaf = query_leaf<kStats>(p, res, posc, r.descents);
+  float t_unit = 1e4f;
+  for (int i = 0; i < 3; ++i) {
+    float local = posc[i] * leaf.cube;
+    local = local - floorf(local);
+    const float t1 = -local * r.invdir[i];
+    const float t2 = t1 + r.invdir[i];
+    t_unit = fminf(t_unit, fmaxf(t1, t2));
+  }
+  float t_sub = t_unit / leaf.cube;
+  if (p.skip_cap > 0) {
+    const int dist_i = (leaf.bits > 0 && leaf.bits <= 255) ? leaf.bits : 1;
+    if (dist_i > 1) {
+      const float skip_res = (float)res;
+      const float dist = (float)dist_i;
+      float t_box = INFINITY;
+      for (int i = 0; i < 3; ++i) {
+        const float cell = floorf(posc[i] * skip_res);
+        const float lo = (cell - (dist - 1.0f)) / skip_res;
+        const float hi = (cell + dist) / skip_res;
+        t_box = fminf(t_box, fmaxf((lo - posc[i]) * r.invdir[i],
+                                   (hi - posc[i]) * r.invdir[i]));
       }
+      t_sub = fmaxf(t_sub, t_box);
     }
-
-    const float sigma = __int_as_float(leaf.bits);
-    const float delta_t = t_sub + p.step_size;
-    const bool has_sigma = sigma > p.sigma_thresh;
-    const float delta = has_sigma ? delta_t * delta_scale * sigma : 0.0f;
-    const float s_new = src + delta;
-    int n_leq = 0;
-#pragma unroll
-    for (int k = 0; k < SPP; ++k) n_leq += dst[k] <= s_new ? 1 : 0;
-    const int c = max(n_leq - sppc, 0);
-    if (has_sigma && c > 0) {
-#pragma unroll
-      for (int k = 0; k < SPP; ++k) {
-        if (k == shn) {
-          rec_ptr[k] = leaf.ptr;
-          rec_cnt[k] = c;
-        }
-      }
-      shn += 1;
-      sppc += c;
-    }
-    if (has_sigma) src = s_new;
-    t = t + delta_t;
-    active = (t < tmax) && (sppc < SPP);
   }
 
-  // ---- shade the distinct hit leaves (_shade_rows) ----
-  float rgb[3] = {0.f, 0.f, 0.f};
-  float wsum = 0.f;
-  if (shn > 0) {
-    float basis[kMaxBasis];
-    const int bd = p.basis_dim;
-    if (bd >= 0) eval_basis(p, vdir[0], vdir[1], vdir[2], basis);
+  const float sigma = __int_as_float(leaf.bits);
+  const float delta_t = t_sub + p.step_size;
+  const bool has_sigma = sigma > p.sigma_thresh;
+  const float delta = has_sigma ? delta_t * r.delta_scale * sigma : 0.0f;
+  const float s_new = r.src + delta;
+  int n_leq = 0;
+#pragma unroll
+  for (int k = 0; k < SPP; ++k) n_leq += r.dst[k] <= s_new ? 1 : 0;
+  const int c = max(n_leq - r.sppc, 0);
+  if (has_sigma && c > 0) {
 #pragma unroll
     for (int k = 0; k < SPP; ++k) {
-      if (k < shn) {
-        const __half* row = p.data + (long long)rec_ptr[k] * p.data_dim;
-        const float w = (float)rec_cnt[k];
+      if (k == r.shn) {
+        r.rec_ptr[k] = leaf.ptr;
+        r.rec_cnt[k] = c;
+      }
+    }
+    r.shn += 1;
+    r.sppc += c;
+  }
+  if (has_sigma) r.src = s_new;
+  r.t = r.t + delta_t;
+  r.active = (r.t < r.tmax) && (r.sppc < SPP);
+  r.steps += 1;
+}
+
+// The 3 logits (or, for RGBA rows, the raw rgb) of one leaf: the dot of
+// each channel's bd coefficients with the basis, in the order of b.  The
+// row is read as the aligned 8-byte words that cover it, four halfs a load
+// (rows are 8-byte aligned when data_dim % 4 == 0, as at SH9; otherwise the
+// first word also holds the end of the previous row, which is skipped).
+__device__ __forceinline__ void leaf_channels(const RenderParams& p, int ptr,
+                                              const float* basis,
+                                              float out[3]) {
+  const int bd = p.basis_dim;
+  const int n = bd >= 0 ? 3 * bd : 3;
+  const uintptr_t a =
+      reinterpret_cast<uintptr_t>(p.data + (long long)ptr * p.data_dim);
+  const uint2* words = reinterpret_cast<const uint2*>(a & ~uintptr_t{7});
+  out[0] = out[1] = out[2] = 0.f;
+  int ch = 0, b = 0;
+  for (int j = -(int)((a & 7) >> 1); j < n; j += 4) {
+    const uint2 w = __ldg(words++);
+    __half2 h01, h23;
+    memcpy(&h01, &w.x, sizeof(h01));
+    memcpy(&h23, &w.y, sizeof(h23));
+    const float2 f01 = __half22float2(h01), f23 = __half22float2(h23);
+    const float f[4] = {f01.x, f01.y, f23.x, f23.y};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = j + e;
+      if (c < 0 || c >= n) continue;
+      if (bd < 0) {  // RGBA: c < 3
+        if (c == 0) {
+          out[0] = f[e];
+        } else if (c == 1) {
+          out[1] = f[e];
+        } else {
+          out[2] = f[e];
+        }
+        continue;
+      }
+      const float term = f[e] * basis[b];
+      if (ch == 0) {
+        out[0] = out[0] + term;
+      } else if (ch == 1) {
+        out[1] = out[1] + term;
+      } else {
+        out[2] = out[2] + term;
+      }
+      if (++b == bd) {
+        b = 0;
+        ++ch;
+      }
+    }
+  }
+}
+
+// Shade the distinct hit leaves (_shade_rows), composite, write the pixel.
+template <int SPP, bool kStats>
+__device__ __forceinline__ void finish_ray(const RenderParams& p,
+                                           const Ray<SPP>& r) {
+  float rgb[3] = {0.f, 0.f, 0.f};
+  float wsum = 0.f;
+  if (r.shn > 0) {
+    float basis[kMaxBasis];
+    const int bd = p.basis_dim;
+    if (bd >= 0) eval_basis(p, r.vdir[0], r.vdir[1], r.vdir[2], basis);
+#pragma unroll
+    for (int k = 0; k < SPP; ++k) {
+      if (k < r.shn) {
+        if (kStats) mark(p.data_bits, r.rec_ptr[k]);
+        float ch3[3];
+        leaf_channels(p, r.rec_ptr[k], basis, ch3);
+        const float w = (float)r.rec_cnt[k];
         for (int ch = 0; ch < 3; ++ch) {
-          float v;
-          if (bd >= 0) {
-            float logit = 0.f;
-            for (int b = 0; b < bd; ++b)
-              logit = logit + __half2float(row[ch * bd + b]) * basis[b];
-            v = 1.0f / (1.0f + expf(-logit));
-          } else {
-            v = __half2float(row[ch]);
-          }
+          const float v =
+              bd >= 0 ? 1.0f / (1.0f + expf(-ch3[ch])) : ch3[ch];
           rgb[ch] = rgb[ch] + v * w;
         }
         wsum = wsum + w;
@@ -442,54 +549,80 @@ __global__ void __launch_bounds__(128) render_kernel(const RenderParams p) {
 
   // ---- composite + aux (composite, aux_from_composite) ----
   const float nalpha = 1.0f - alpha;
-  float outc[4];
-  for (int ch = 0; ch < 3; ++ch)
-    outc[ch] = rgb[ch] / fspp + p.background * nalpha;
-  outc[3] = alpha;
-  const long long HW = (long long)W * H;
-  float* im = p.img + (long long)idx * 4;
-  im[0] = outc[0];
-  im[1] = outc[1];
-  im[2] = outc[2];
-  im[3] = 1.0f;
-  float* an = p.aux_nhwc + (long long)idx * 8;
-  for (int ch = 0; ch < 4; ++ch) {
-    an[ch] = outc[ch];
-    an[ch + 4] = outc[ch] * outc[ch];
-  }
+  float o[4];
+  for (int ch = 0; ch < 3; ++ch) o[ch] = rgb[ch] / fspp + p.background * nalpha;
+  o[3] = alpha;
+  const int idx = r.idx;
+  reinterpret_cast<float4*>(p.img)[idx] = make_float4(o[0], o[1], o[2], 1.0f);
+  float4* an = reinterpret_cast<float4*>(p.aux_nhwc) + 2 * (long long)idx;
+  an[0] = make_float4(o[0], o[1], o[2], o[3]);
+  an[1] = make_float4(o[0] * o[0], o[1] * o[1], o[2] * o[2], o[3] * o[3]);
   if (p.aux_chw) {
+    const long long HW = (long long)p.width * p.height;
     for (int ch = 0; ch < 4; ++ch) {
-      p.aux_chw[ch * HW + idx] = outc[ch];
-      p.aux_chw[(ch + 4) * HW + idx] = outc[ch] * outc[ch];
+      p.aux_chw[ch * HW + idx] = o[ch];
+      p.aux_chw[(ch + 4) * HW + idx] = o[ch] * o[ch];
     }
+  }
+  if (kStats) {
+    p.stat_steps[idx] = r.steps;
+    p.stat_descents[idx] = r.descents;
   }
 }
 
-template <int SPP>
+// ---- the frame: one thread per pixel, one 8x4 tile per warp ----
+
+template <int SPP, bool kStats>
+__global__ void __launch_bounds__(kThreads) render_kernel(
+    const RenderParams p) {
+  const int tiles_x = (p.width + kTileW - 1) / kTileW;
+  const int tile = blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  const int px = (tile % tiles_x) * kTileW + lane % kTileW;
+  const int py = (tile / tiles_x) * kTileH + lane / kTileW;
+  if (px >= p.width || py >= p.height) return;  // the ragged edge
+  const int res = rt::ipow(p.N, p.lut_levels);
+  Ray<SPP> r;
+  setup_ray<SPP>(p, px, py, r);
+  while (r.active && r.steps < p.max_steps) march_step<SPP, kStats>(p, res, r);
+  finish_ray<SPP, kStats>(p, r);
+}
+
+template <int SPP, bool kStats>
 int launch(const RenderParams& p, cudaStream_t stream) {
-  const int n = p.width * p.height;
-  const int threads = 128;
-  render_kernel<SPP><<<(n + threads - 1) / threads, threads, 0, stream>>>(p);
+  const long long tiles = (long long)((p.width + kTileW - 1) / kTileW) *
+                          ((p.height + kTileH - 1) / kTileH);
+  const int warps_per_block = kThreads / 32;
+  render_kernel<SPP, kStats>
+      <<<(int)((tiles + warps_per_block - 1) / warps_per_block), kThreads, 0,
+         stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+template <bool kStats>
+int launch_spp(const RenderParams& p, cudaStream_t s) {
+  switch (p.spp) {
+    case 1: return launch<1, kStats>(p, s);
+    case 2: return launch<2, kStats>(p, s);
+    case 3: return launch<3, kStats>(p, s);
+    case 4: return launch<4, kStats>(p, s);
+    case 6: return launch<6, kStats>(p, s);
+    case 8: return launch<8, kStats>(p, s);
+    case 16: return launch<16, kStats>(p, s);
+    case 32: return launch<32, kStats>(p, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // One frame; spp must be one of 1, 2, 3, 4, 6, 8, 16, 32 (volrend.cu:266-278).
+// A non-null stat_steps selects the statistics variant.
 RT_API int rt_render(const RenderParams* params, void* stream) {
   const RenderParams p = *params;
+  if (p.width <= 0 || p.height <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (p.spp) {
-    case 1: return launch<1>(p, s);
-    case 2: return launch<2>(p, s);
-    case 3: return launch<3>(p, s);
-    case 4: return launch<4>(p, s);
-    case 6: return launch<6>(p, s);
-    case 8: return launch<8>(p, s);
-    case 16: return launch<16>(p, s);
-    case 32: return launch<32>(p, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return p.stat_steps ? launch_spp<true>(p, s) : launch_spp<false>(p, s);
 }
 
 // sizeof(RenderParams), checked by the Python binding against its mirror.

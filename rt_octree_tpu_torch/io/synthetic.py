@@ -1,0 +1,256 @@
+"""Procedural PlenOctree generation for tests and benchmarks.
+
+The port's own copy of rt_octree_tpu/io/synthetic.py (NumPy), without
+``refine_tree``.
+
+No scene data ships with this environment, so benchmarks and end-to-end
+tests build octrees with the same on-disk format, topology statistics
+(sparse, deep where occupied) and data layout as real PlenOctrees
+(see io/n3tree.py for the format contract).
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+
+from .n3tree import BasisFormat, DataFormat, N3Tree
+
+
+def _occupancy_pyramid(occ_fine: np.ndarray, N: int, depth: int):
+    """occ[l] of shape (N^l,)*3 for l=0..depth, by N^3 any-reduction."""
+    levels = [occ_fine]
+    cur = occ_fine
+    for _ in range(depth):
+        r = cur.shape[0] // N
+        cur = cur.reshape(r, N, r, N, r, N).any(axis=(1, 3, 5))
+        levels.append(cur)
+    levels.reverse()  # levels[l] has resolution N^l
+    return levels
+
+
+def build_tree(
+    sigma_fn: Callable[[np.ndarray], np.ndarray],
+    color_fn: Callable[[np.ndarray, int], np.ndarray],
+    depth: int = 7,
+    N: int = 2,
+    basis_dim: int = 9,
+    sigma_eps: float = 1e-3,
+    offset=(0.5, 0.5, 0.5),
+    scale=(0.5, 0.5, 0.5),
+) -> N3Tree:
+    """Build an N^3-tree whose leaves resolve wherever sigma > sigma_eps.
+
+    sigma_fn(pos[ M,3 in tree space 0..1]) -> [M] densities
+    color_fn(pos[M,3], basis_dim) -> [M, 3*basis_dim] SH coefficients
+    """
+    res = N ** depth
+    # fine-grid occupancy from cell centers (chunked, f32: the grid can be
+    # hundreds of millions of points at depth >= 9)
+    g = ((np.arange(res, dtype=np.float32) + 0.5) / res)
+    occ_fine = np.empty((res, res, res), bool)
+    chunk = max(1, (1 << 24) // (res * res))
+    for x0 in range(0, res, chunk):
+        xs = g[x0:x0 + chunk]
+        X, Y, Z = np.meshgrid(xs, g, g, indexing="ij")
+        pos = np.stack([X, Y, Z], -1).reshape(-1, 3)
+        occ_fine[x0:x0 + chunk] = (
+            sigma_fn(pos) > sigma_eps).reshape(len(xs), res, res)
+    occ = _occupancy_pyramid(occ_fine, N, depth)
+
+    # nodes: level l in [0, depth-1]; a cell is a node iff occupied
+    # (root level 0 is always a node)
+    node_cells = []  # per level: sorted flat cell indices that are nodes
+    for l in range(depth):
+        r = N ** l
+        if l == 0:
+            node_cells.append(np.array([0], np.int64))
+        else:
+            flat = np.nonzero(occ[l].reshape(-1))[0]
+            node_cells.append(flat)
+    level_offset = np.zeros(depth + 1, np.int64)
+    for l in range(depth):
+        level_offset[l + 1] = level_offset[l] + len(node_cells[l])
+    n_nodes = int(level_offset[depth])
+
+    N3 = N ** 3
+    data_dim = 3 * basis_dim + 1
+    child = np.zeros((n_nodes, N3), np.int32)
+    data = np.zeros((n_nodes, N3, data_dim), np.float16)
+
+    for l in range(depth):
+        cells = node_cells[l]
+        if len(cells) == 0:
+            continue
+        node_ids = level_offset[l] + np.arange(len(cells))
+        r = N ** l
+        cx = cells // (r * r)
+        cy = (cells // r) % r
+        cz = cells % r
+        rc = r * N
+        # child cell coords for each of the N3 slots
+        ii, jj, kk = np.meshgrid(np.arange(N), np.arange(N), np.arange(N),
+                                 indexing="ij")
+        ccx = cx[:, None] * N + ii.reshape(-1)[None, :]
+        ccy = cy[:, None] * N + jj.reshape(-1)[None, :]
+        ccz = cz[:, None] * N + kk.reshape(-1)[None, :]
+        ccell = (ccx * rc + ccy) * rc + ccz  # [n_l, N3] child cell flat idx
+
+        # which child cells are themselves nodes at level l+1?
+        skips = np.zeros_like(ccell)
+        if l + 1 < depth and len(node_cells[l + 1]):
+            next_cells = node_cells[l + 1]
+            pos_in_next = np.searchsorted(next_cells, ccell)
+            pos_in_next = np.clip(pos_in_next, 0, len(next_cells) - 1)
+            is_node = next_cells[pos_in_next] == ccell
+            child_ids = level_offset[l + 1] + pos_in_next
+            skips = np.where(is_node, child_ids - node_ids[:, None], 0)
+        # slot axis is already in (i*N+j)*N+k order (k fastest in meshgrid)
+        child[node_ids] = skips.astype(np.int32)
+
+        # leaf data at child-cell centers
+        centers = np.stack(
+            [(ccx + 0.5) / rc, (ccy + 0.5) / rc, (ccz + 0.5) / rc],
+            axis=-1).reshape(-1, 3)
+        sig = sigma_fn(centers).astype(np.float16)
+        col = color_fn(centers, basis_dim).astype(np.float16)
+        d = np.concatenate([col, sig[:, None]], axis=-1)
+        data[node_ids] = d.reshape(len(cells), N3, data_dim)
+
+    tree = N3Tree(
+        data=data.reshape(-1, data_dim),
+        child=child.reshape(-1),
+        offset=np.asarray(offset, np.float32),
+        scale=np.asarray(scale, np.float32),
+        N=N, data_dim=data_dim,
+        data_format=DataFormat(BasisFormat.SH, basis_dim),
+        capacity=n_nodes, max_depth=depth)
+    return tree
+
+
+def shell_sigma(pos: np.ndarray, center=(0.5, 0.5, 0.5), radius=0.3,
+                thickness=0.05, amplitude=60.0) -> np.ndarray:
+    """Spherical shell density: high sigma near |p-c| == radius.  The
+    quartic falloff keeps occupancy a few voxel layers thick (real
+    PlenOctrees are surface-sparse; a soft gaussian at high resolution
+    would occupy tens of millions of voxels)."""
+    p = pos.astype(np.float32) - np.asarray(center, np.float32)
+    d = np.sqrt(p[..., 0] ** 2 + p[..., 1] ** 2 + p[..., 2] ** 2)
+    return amplitude * np.exp(-((d - radius) / thickness) ** 4)
+
+
+def blob_sigma(pos: np.ndarray, seed: int = 0, n_blobs: int = 24,
+               amplitude: float = 80.0) -> np.ndarray:
+    """Union of gaussian blobs -- irregular occupancy like real scenes."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(0.2, 0.8, (n_blobs, 3))
+    radii = rng.uniform(0.02, 0.12, n_blobs)
+    out = np.zeros(pos.shape[0])
+    for c, r in zip(centers, radii):
+        d = np.linalg.norm(pos - c, axis=-1)
+        out += amplitude * np.exp(-((d / r) ** 2) * 4)
+    return out
+
+
+def solid_sigma(pos: np.ndarray, seed: int = 3,
+                amplitude: float = 600.0) -> np.ndarray:
+    """HARD-surface scene: union of solid spheres + boxes with constant
+    high sigma inside and zero outside -- the NeRF-synthetic "lego"
+    occupancy class (opaque surfaces; rays consume their SPP thresholds
+    within a couple of leaf crossings after first contact), the scene
+    family the 30 FPS target was set on.  Unlike ``shell_sigma`` there
+    is no soft low-sigma fringe for survivor rays to graze."""
+    rng = np.random.default_rng(seed)
+    p = pos.astype(np.float32)
+    inside = np.zeros(p.shape[0], bool)
+    for c, r in zip(rng.uniform(0.3, 0.7, (5, 3)),
+                    rng.uniform(0.06, 0.16, 5)):
+        inside |= np.linalg.norm(p - c.astype(np.float32), axis=-1) < r
+    for c, h in zip(rng.uniform(0.3, 0.7, (3, 3)),
+                    rng.uniform(0.04, 0.12, (3, 3))):
+        inside |= np.all(np.abs(p - c.astype(np.float32)) <
+                         h.astype(np.float32), axis=-1)
+    return np.where(inside, amplitude, 0.0).astype(np.float32)
+
+
+def position_color(pos: np.ndarray, basis_dim: int) -> np.ndarray:
+    """SH coefficients: DC from position (pre-sigmoid logits), small
+    deterministic higher-order terms."""
+    M = pos.shape[0]
+    out = np.zeros((M, 3 * basis_dim), np.float32)
+    # DC components per channel (sigmoid(SH(dir).c) ~ position-hued)
+    C0 = 0.28209479177387814
+    logits = 4.0 * (pos - 0.5)  # in [-2, 2]
+    for c in range(3):
+        out[:, c * basis_dim] = logits[:, c] / C0
+        if basis_dim > 1:
+            out[:, c * basis_dim + 1] = 0.3 * np.sin(12.3 * pos[:, c])
+            out[:, c * basis_dim + 2] = 0.2 * np.cos(7.7 * pos[:, (c + 1) % 3])
+    return out
+
+
+def make_synthetic_tree(kind: str = "shell", depth: int = 7,
+                        basis_dim: int = 9) -> N3Tree:
+    if kind == "shell":
+        res = 2 ** depth
+        thickness = max(3.0 / res, 0.02)
+        amplitude = 4.0 / thickness  # shell optical depth ~4 (mostly opaque)
+        return build_tree(
+            lambda p: shell_sigma(p, thickness=thickness,
+                                  amplitude=amplitude),
+            position_color, depth=depth, basis_dim=basis_dim,
+            sigma_eps=1e-2)
+    if kind == "blobs":
+        return build_tree(blob_sigma, position_color, depth=depth,
+                          basis_dim=basis_dim, sigma_eps=1e-2)
+    if kind == "solid":
+        return build_tree(solid_sigma, position_color, depth=depth,
+                          basis_dim=basis_dim, sigma_eps=1e-2)
+    raise ValueError(kind)
+
+
+def make_deep_chain_tree(depth: int, basis_dim: int = 1) -> N3Tree:
+    """Tiny tree of arbitrary depth: one node per level, slot 0
+    subdivides into the next level, the other 7 slots are leaves with
+    graded sigma/DC color.  Exercises deep-tree machinery (continued
+    descent below the LUT) without a huge occupancy grid."""
+    data_dim = 3 * basis_dim + 1
+    cap = depth
+    child = np.zeros((cap, 8), np.int32)
+    data = np.zeros((cap, 8, data_dim), np.float16)
+    C0 = 0.28209479177387814
+    for l in range(cap):
+        if l + 1 < cap:
+            child[l, 0] = 1  # skip to the next node
+        data[l, :, data_dim - 1] = np.linspace(0.4, 3.0, 8) * (
+            1.0 + 0.1 * l)
+        for c in range(3):
+            data[l, :, c * basis_dim] = (np.linspace(-1.5, 1.5, 8) / C0
+                                         ) * (1 if c != 1 else -1)
+    return N3Tree(
+        data=data.reshape(-1, data_dim),
+        child=child.reshape(-1),
+        offset=np.asarray((0.5, 0.5, 0.5), np.float32),
+        scale=np.asarray((0.5, 0.5, 0.5), np.float32),
+        N=2, data_dim=data_dim,
+        data_format=DataFormat(BasisFormat.SH, basis_dim),
+        capacity=cap, max_depth=depth)
+
+
+def tree_to_npz_dict(tree: N3Tree) -> dict:
+    """Round-trip a tree into the on-disk npz key set."""
+    N3 = tree.N3
+    cap = tree.child.shape[0] // N3
+    return {
+        "data_dim": np.int64(tree.data_dim),
+        "data_format": np.str_(tree.data_format.to_string()),
+        "invradius3": tree.scale.astype(np.float32),
+        "offset": tree.offset.astype(np.float32),
+        "child": tree.child.reshape(cap, tree.N, tree.N, tree.N),
+        "data": tree.data.reshape(cap, tree.N, tree.N, tree.N, tree.data_dim),
+    }
+
+
+def save_npz(tree: N3Tree, path: str) -> None:
+    np.savez(path, **tree_to_npz_dict(tree))

@@ -2,9 +2,11 @@
 
 Reference: denoiser/network.py:123-168.  The inference model is one folded
 3x3 conv per RepVGG block with relu6, computed in bf16 like the Flax model
-(guidance_net.py:117-136), cast to f32; the first L output channels are
-softmaxed into the level ``weight`` map and the last L are the raw
-``guidance`` logits.
+(guidance_net.py:117-136).  ``activation`` returns the last block's output
+[B, 2L, H, W] in the compute dtype, which the renderer hands to kernel K2
+as it is (ops/filtering.py); ``forward`` casts it to f32 and splits it as
+the Flax model does: the first L channels softmaxed into the level
+``weight`` map, the last L the raw ``guidance`` logits.
 
 The convs run through ``torch.nn.functional.conv2d`` (cuDNN on the card):
 the JAX package leaves them to XLA outside any kernel of its own.  The bias
@@ -72,12 +74,17 @@ class GuidanceNetCompact(nn.Module):
             nn.Conv2d(cin, cout, 3, padding=1)
             for cin, cout in config.layer_channels())
 
-    def forward(self, aux_nhwc: torch.Tensor):
+    def activation(self, aux_nhwc: torch.Tensor) -> torch.Tensor:
+        """aux [B, H, W, 8] -> the last block's output [B, 2L, H, W] in the
+        compute dtype (strides as the convolutions leave them)."""
         x = aux_nhwc.permute(0, 3, 1, 2).to(self.dtype)
         for conv in self.convs:
             x = F.conv2d(x, conv.weight.to(self.dtype), padding=1)
             x = F.relu6(x + conv.bias.to(self.dtype)[None, :, None, None])
-        x = x.float()
+        return x
+
+    def forward(self, aux_nhwc: torch.Tensor):
+        x = self.activation(aux_nhwc).float()
         L = self.config.kernel_levels
         return torch.softmax(x[:, :L], dim=1), x[:, L:]
 

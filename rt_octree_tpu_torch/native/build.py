@@ -45,13 +45,14 @@ SOURCES = {
 }
 HEADERS = ("common.cuh",)
 
-_V, _I = ctypes.c_void_p, ctypes.c_int
+_V, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points: name -> (library, argtypes); every entry returns the
 # cudaGetLastError() of its launch as an int.
 ENTRIES = {
     "rt_render": ("render", [_V, _V]),
     "rt_render_params_size": ("render", []),
-    "rt_guided_filter": ("filter", [_V, _V, _V, _I, _V, _I, _V, _I, _I, _V]),
+    "rt_guided_filter": ("filter", [_V, _L, _L, _L, _V, _V, _I, _V, _I, _I,
+                                    _V]),
     "rt_lut_build": ("lut", [_V, _V, _I, _I, _V]),
     "rt_skip_distances": ("lut", [_V, _V, _V, _I, _I, _V]),
     "rt_probe_affine": ("probes", [_V, _V, _I, _V]),

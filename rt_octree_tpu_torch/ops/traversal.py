@@ -20,8 +20,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from rt_octree_tpu.io.n3tree import N3Tree
-
+from ..io.n3tree import N3Tree
 from ..native import build as native
 
 LUT_PTR_BITS = 27
@@ -256,13 +255,17 @@ def upload_tree(tree: N3Tree, lut_levels: int = 7, *, device,
 # vectorized query (plain twin of the query inside kernel K1)
 # ---------------------------------------------------------------------------
 
-def tree_query_full(tree: DeviceTree, pos: torch.Tensor, active=None):
+def tree_query_full(tree: DeviceTree, pos: torch.Tensor, active=None,
+                    touched: Optional[dict] = None):
     """Vectorized root-to-leaf query (traversal.py:tree_query_full).
 
     pos: [R, 3] tree-space coordinates.  Returns (sub_ptr [R] i32,
     cube [R] f32, local [R, 3] f32, sigma [R] f32, sigma_bits [R] i32);
     ``local`` is the position inside the leaf cube in [0, 1)
-    (n3tree_query.hpp:29-33)."""
+    (n3tree_query.hpp:29-33).  ``touched`` (the statistics of
+    renderer.render_stats) records what the active rays read, in place:
+    bool masks ``"lut"`` [res^3] and ``"chs"`` [M] of the LUT cells and chs
+    rows, and ``"descents"`` [R] i32, the chs reads per ray."""
     N = tree.N
     fN = float(N)
     N3 = tree.N3
@@ -282,6 +285,8 @@ def tree_query_full(tree: DeviceTree, pos: torch.Tensor, active=None):
         cell = torch.clamp(fl.to(torch.int64), 0, res - 1)
         flat = (cell[:, 0] * res + cell[:, 1]) * res + cell[:, 2]
         flat = torch.where(active, flat, 0)
+        if touched is not None:
+            touched["lut"][flat[active]] = True
         row = tree.lut[flat]
         e = row[:, 0]
         sigma_bits = row[:, 1]
@@ -313,6 +318,10 @@ def tree_query_full(tree: DeviceTree, pos: torch.Tensor, active=None):
         index = ((digit[:, 0] * fN + digit[:, 1]) * fN +
                  digit[:, 2]).to(torch.int32)
         sub = node_ptr * N3 + index
+        if touched is not None:
+            reading = active & ~done
+            touched["chs"][sub[reading].to(torch.int64)] = True
+            touched["descents"] += reading.to(torch.int32)
         row = tree.chs[torch.where(done | ~active, 0, sub).to(torch.int64)]
         skip = row[:, 0]
         is_leaf = (skip == 0) & ~done

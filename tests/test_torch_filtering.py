@@ -1,12 +1,18 @@
-"""The guided filter's plain version (kernel K2's twin) vs the JAX filter."""
+"""The guided filter's plain version (kernel K2's twin) vs the JAX filter,
+and K2's prologue (the split of the net's activation) vs the Flax net."""
+
+import os
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from rt_octree_tpu.models import guidance_net as jg
 from rt_octree_tpu.ops.filtering import guided_filter as jax_filter
+from rt_octree_tpu_torch.models import guidance_net as tg
 from rt_octree_tpu_torch.ops.filtering import (guided_filter,
+                                               guided_filter_act_plain,
                                                guided_filter_plain)
 
 torch.set_num_threads(1)
@@ -55,11 +61,14 @@ def test_wide_guidance_range_matches_jax_exact():
 
 
 def test_support_zero_is_bit_exact_passthrough():
-    w, g, img = _inputs(4)
-    w[:] = 0.0
-    w[0] = 1.0
-    out = guided_filter(torch.from_numpy(w), torch.from_numpy(g),
-                        torch.from_numpy(img), (0, 1, 2, 3))
+    """Weight logits (0, -200, -200, -200): the softmax is exactly one-hot
+    on the support-0 level in f32, so the output is the input."""
+    _, g, img = _inputs(4)
+    act = np.full((1, 8) + g.shape[1:], -200.0, np.float32)
+    act[0, 0] = 0.0
+    act[0, 4:] = g
+    out = guided_filter(torch.from_numpy(act), torch.from_numpy(img),
+                        (0, 1, 2, 3))
     np.testing.assert_array_equal(out[..., :3].numpy(), img[..., :3])
 
 
@@ -73,3 +82,34 @@ def test_default_supports_are_the_reference_ladder():
     with pytest.raises(ValueError):
         guided_filter_plain(torch.from_numpy(w), torch.from_numpy(g),
                             torch.from_numpy(img), (1, -1))
+
+
+TRAINED = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "benchmarks", "quality", "trained.gnet")
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 1e-3)])
+def test_activation_prologue_matches_flax_then_jax_filter(dtype, tol):
+    """K2's plain version takes the net's last activation (the bf16 one as
+    the renderer hands it over) and equals the Flax net's (weight,
+    guidance) through the JAX guided_filter at 64x64.  f32 nets: the convs'
+    and the softmax sums' order only (1e-5); bf16 nets: a bf16 rounding
+    may land elsewhere in the convs, the frame test's bar (1e-3)."""
+    H = W = 64
+    cfg, params = jg.load_compact(TRAINED)
+    rs = np.random.default_rng(11)
+    aux = rs.random((1, H, W, 8), np.float32)
+    aux[..., 4:] = aux[..., :4] ** 2
+    img = rs.random((H, W, 4), np.float32)
+    wj, gj = jg.GuidanceNetCompact(cfg, dtype=getattr(jnp, dtype)).apply(
+        {"params": params}, jnp.asarray(aux))
+    ref = np.asarray(jax_filter(wj[0], gj[0], jnp.asarray(img), exact=True,
+                                supports=cfg.supports()))
+    net = tg.build_compact(*tg.load_compact(TRAINED), "cpu",
+                           getattr(torch, dtype))
+    with torch.no_grad():
+        act = net.activation(torch.from_numpy(aux))
+    assert act.dtype == getattr(torch, dtype) and act.shape == (1, 8, H, W)
+    got = guided_filter_act_plain(act, torch.from_numpy(img),
+                                  cfg.supports()).numpy()
+    np.testing.assert_allclose(got, ref, atol=tol)

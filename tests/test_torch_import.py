@@ -1,5 +1,6 @@
-"""The PyTorch port imports without JAX and builds nothing at import, and
-chip_smoke.py refuses to run without a CUDA card."""
+"""The PyTorch port imports without JAX, imports nothing of the JAX package
+and builds nothing at import, and chip_smoke.py refuses to run without a
+CUDA card."""
 
 import os
 import shutil
@@ -14,6 +15,11 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = [
     "rt_octree_tpu_torch",
+    "rt_octree_tpu_torch.core.options",
+    "rt_octree_tpu_torch.core.camera",
+    "rt_octree_tpu_torch.io.n3tree",
+    "rt_octree_tpu_torch.io.poses",
+    "rt_octree_tpu_torch.io.synthetic",
     "rt_octree_tpu_torch.native.build",
     "rt_octree_tpu_torch.utils.rng",
     "rt_octree_tpu_torch.utils.timer",
@@ -55,6 +61,34 @@ def test_import_leaves_out_jax_flax_triton():
     assert loaded == "[]"  # no kernel library is built or loaded at import
 
 
+def test_port_runs_without_the_jax_package(tmp_path):
+    """Every module of the port, then the headless CLI on the CPU over a
+    tiny synthetic tree: no module of ``rt_octree_tpu`` gets imported."""
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {MODULES!r}: importlib.import_module(m)\n"
+        "from rt_octree_tpu_torch.core.camera import Camera\n"
+        "from rt_octree_tpu_torch.io import synthetic\n"
+        "from rt_octree_tpu_torch.apps import headless\n"
+        f"d = {str(tmp_path)!r}\n"
+        "synthetic.save_npz(synthetic.make_synthetic_tree('shell', depth=3,"
+        " basis_dim=4), d + '/tree.npz')\n"
+        "pose = Camera().transform.tolist() + [[0, 0, 0, 1]]\n"
+        "json.dump({'camera_angle_x': 0.8, 'frames': [{'transform_matrix':"
+        " pose}]}, open(d + '/poses.json', 'w'))\n"
+        "rc = headless.run([d + '/tree.npz', d + '/poses.json', '-o', d,"
+        " '-w', '8', '--height', '8', '--warmup', '0', '--device', 'cpu',"
+        " '--lut_levels', '3'])\n"
+        "print(rc, sorted(m for m in sys.modules if m == 'rt_octree_tpu'"
+        " or m.startswith('rt_octree_tpu.')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=_clean_env(), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "0 []"
+    assert (tmp_path / "r_0.png").exists()
+
+
 def test_tf32_disabled_on_import():
     import rt_octree_tpu_torch  # noqa: F401
     assert torch.backends.cudnn.allow_tf32 is False
@@ -94,7 +128,8 @@ def test_wrappers_refuse_other_devices(device):
     w = torch.zeros((2, 4, 4), device=device)
     img = torch.zeros((4, 4, 4), device=device)
     with pytest.raises(ValueError):
-        guided_filter(w, w, img)
+        guided_filter(torch.zeros((1, 4, 4, 4), dtype=torch.bfloat16,
+                                  device=device), img)
     with pytest.raises(ValueError):
         build_lut(torch.zeros((8, 2), dtype=torch.int32, device=device), 2, 1)
     with pytest.raises(ValueError):

@@ -14,14 +14,14 @@ import numpy as np
 import pytest
 import torch
 
-from rt_octree_tpu.core.camera import Camera
-from rt_octree_tpu.core.options import RenderOptions
-from rt_octree_tpu.io import synthetic
+from rt_octree_tpu_torch.core.camera import Camera
+from rt_octree_tpu_torch.core.options import RenderOptions
+from rt_octree_tpu_torch.io import synthetic
 from rt_octree_tpu_torch.native import build as native
 from rt_octree_tpu_torch.ops import probes as pr
 from rt_octree_tpu_torch.ops import traversal as tt
 from rt_octree_tpu_torch.ops.filtering import guided_filter, \
-    guided_filter_plain
+    guided_filter_act_plain, guided_filter_plain, split_activation
 from rt_octree_tpu_torch.render import renderer as tr
 from rt_octree_tpu_torch.utils.rng import pcg32_uniforms_range
 
@@ -50,20 +50,21 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _render_args(spp, size=32):
-    cam = Camera(width=size, height=size, fx=40.0, fy=40.0)
-    kw = dict(width=size, height=size, fx=cam.fx, fy=cam.fy,
+def _render_args(spp, width=32, height=32):
+    cam = Camera(width=width, height=height, fx=40.0, fy=40.0)
+    kw = dict(width=width, height=height, fx=cam.fx, fy=cam.fy,
               opt=RenderOptions(spp=spp, denoise=False))
     return cam.transform, kw
 
 
 def _filter_inputs(seed, L=4, H=64, W=48, gscale=3.0):
+    """The net's last activation [1, 2L, H, W] (level logits, then
+    guidance), to be cast to bf16, and the noisy image [H, W, 4]."""
     rs = np.random.default_rng(seed)
-    logits = rs.standard_normal((L, H, W)).astype(np.float32)
-    weight = np.exp(logits) / np.exp(logits).sum(0, keepdims=True)
-    guid = (rs.standard_normal((L, H, W)) * gscale).astype(np.float32)
+    act = np.concatenate([rs.standard_normal((L, H, W)) * 2.0,
+                          rs.standard_normal((L, H, W)) * gscale])
     img = rs.random((H, W, 4), np.float32)
-    return weight.astype(np.float32), guid, img
+    return act[None].astype(np.float32), img
 
 
 def _lane_inputs(seed, dtype, T=64, R=40, W=12):
@@ -91,11 +92,11 @@ def _launch_each_wrapper(shell, device):
     dt = tt.upload_tree(shell, lut_levels=0, device=device)
     lut = tt.build_lut(dt.chs, 2, 3)
     tt.add_skip_distances(lut, 8, 2)
-    transform, kw = _render_args(1, size=8)
+    transform, kw = _render_args(1, 8, 8)
     tr.render_noisy(dt, torch.from_numpy(transform).to(device), 1, 1, **kw)
     t = lambda a: torch.from_numpy(a).to(device)
-    w, g, img = _filter_inputs(0, L=2, H=8, W=8)
-    guided_filter(t(w), t(g), t(img), (0, 1))
+    act, img = _filter_inputs(0, L=2, H=8, W=8)
+    guided_filter(t(act).to(torch.bfloat16), t(img), (0, 1))
     tab, idx = _lane_inputs(1, np.float32)
     pr.probe_affine(t(tab))
     pr.lane_gather(t(tab), t(idx))
@@ -125,16 +126,26 @@ def test_each_wrapper_counts_its_launch(shell, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("spp", [1, 6, 32])
+@pytest.mark.parametrize("spp", tr.SPP_KERNEL)
 def test_k1_kernel_matches_plain(shell, spp, cuda_device):
-    transform, kw = _render_args(spp)
-    dt = tt.upload_tree(shell, lut_levels=5, device=cuda_device)
+    """A 37x23 image, not a multiple of the 8x4 warp tile, at every SPP
+    the kernel has, with the full-depth LUT (skip distances) and a level-3
+    LUT (chs descents): the pixels within IMG_TOL / AUX_TOL of the plain
+    version, and the statistics variant's counts equal to the plain
+    march's."""
+    transform, kw = _render_args(spp, 37, 23)
     tf = torch.from_numpy(transform).to(cuda_device)
-    got = tr.render_noisy(dt, tf, 12345, 7, **kw)
-    ref = tr.render_noisy_plain(dt, tf, 12345, 7, **kw)
-    torch.testing.assert_close(got[0], ref[0], atol=IMG_TOL, rtol=0)
-    torch.testing.assert_close(got[1], ref[1], atol=AUX_TOL, rtol=0)
-    torch.testing.assert_close(got[2], ref[2], atol=AUX_TOL, rtol=0)
+    for levels in (5, 3):
+        dt = tt.upload_tree(shell, lut_levels=levels, device=cuda_device)
+        got = tr.render_noisy(dt, tf, 12345, 7, **kw)
+        ref = tr.render_noisy_plain(dt, tf, 12345, 7, **kw)
+        torch.testing.assert_close(got[0], ref[0], atol=IMG_TOL, rtol=0)
+        torch.testing.assert_close(got[1], ref[1], atol=AUX_TOL, rtol=0)
+        torch.testing.assert_close(got[2], ref[2], atol=AUX_TOL, rtol=0)
+        st = tr.render_stats(dt, tf, 12345, 7, **kw)
+        assert st.equals(tr.render_stats_plain(dt, tf, 12345, 7, **kw))
+        assert int(st.steps.max()) > 0 and (levels == 5) == (
+            int(st.descents.sum()) == 0)
 
 
 @pytest.mark.cuda
@@ -155,15 +166,44 @@ def test_k1_uniforms_equal_the_twin(shell, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("supports,gscale", [((1, 2, 3, 4), 3.0),
-                                             ((0, 1, 2, 3), 3.0),
-                                             ((0, 1, 2, 3), 60.0)])
-def test_k2_kernel_matches_plain(supports, gscale, cuda_device):
-    w, g, img = _filter_inputs(6, gscale=gscale)
-    t = lambda a: torch.from_numpy(a).to(cuda_device)
-    got = guided_filter(t(w), t(g), t(img), supports)
-    ref = guided_filter_plain(t(w), t(g), t(img), supports)
+@pytest.mark.parametrize("layout", ["contiguous", "channels_last"])
+@pytest.mark.parametrize("supports,gscale,hw", [
+    ((1, 2, 3, 4), 3.0, (64, 48)),
+    ((0, 1, 2, 3), 3.0, (37, 23)),
+    ((0, 1, 2, 3), 60.0, (64, 48)),
+    ((0, 1, 2, 3, 4, 5, 6, 7), 3.0, (45, 70)),
+    ((0, 7), 3.0, (5, 3)),
+    ((1, 2, 3, 4, 5, 6, 7, 8), 3.0, (40, 50)),
+])
+def test_k2_kernel_matches_plain(supports, gscale, hw, layout, cuda_device):
+    """The bf16 activation read in place, contiguous or in channels-last
+    strides, at supports up to 7 and sizes that are no multiple of the
+    32x8 tile."""
+    act, img = _filter_inputs(6, L=len(supports), H=hw[0], W=hw[1],
+                              gscale=gscale)
+    act = torch.from_numpy(act).to(cuda_device, torch.bfloat16)
+    if layout == "channels_last":
+        act = act.contiguous(memory_format=torch.channels_last)
+        assert act.stride()[1] == 1
+    img = torch.from_numpy(img).to(cuda_device)
+    got = guided_filter(act, img, supports)
+    ref = guided_filter_act_plain(act, img, supports)
     torch.testing.assert_close(got, ref, atol=FILTER_TOL, rtol=0)
+    ref2 = guided_filter_plain(*split_activation(act), img, supports)
+    assert torch.equal(ref, ref2)
+
+
+@pytest.mark.cuda
+def test_k2_refuses_what_the_kernel_does_not_take(cuda_device):
+    act, img = _filter_inputs(7, L=2, H=16, W=16)
+    act = torch.from_numpy(act).to(cuda_device, torch.bfloat16)
+    img = torch.from_numpy(img).to(cuda_device)
+    for bad in (lambda: guided_filter(act, img, (0, 9)),
+                lambda: guided_filter(act.float(), img, (0, 1)),
+                lambda: guided_filter(act, img[..., :3].contiguous(), (0, 1)),
+                lambda: guided_filter(act[:, :3], img, (0, 1))):
+        with pytest.raises(ValueError):
+            bad()
 
 
 @pytest.mark.cuda
