@@ -6,7 +6,9 @@ Run from the repository root:  python3 chip_smoke.py
 Phases (each prints its own lines; any failure raises and exits non-zero):
   1. the card: ``nvidia-smi --query-gpu=name,power.limit``;
   2. build every kernel from csrc/ with nvcc (sm_90a);
-  3. K3 (LUT build + skip distances) vs its plain version, integer-exact;
+  3. K3 (LUT build + skip distances) vs its plain version, integer-exact,
+     on a depth-7 shell, a deep chain and a random 512^3 LUT (occupancy
+     1e-3, cap 12);
   4. K1 (fused frame) vs its plain version at 128x128, SPP 1/6/32, on a
      depth-7 shell tree and an NDC blobs tree;
   5. PCG32: the kernel's per-pixel uniforms equal the tensor twin, bit-exact;
@@ -15,7 +17,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      guidance range above 60 nats;
   7. the main path: the headless CLI on the depth-9 SH9 shell tree with the
      level-9 LUT, the committed trained.gnet, SPP 6, denoise on; every
-     kernel's launch count in that run must be > 0;
+     kernel's launch count in that run must be > 0; then the load of that
+     tree, step by step, printed as one JSON line {"load": ...} (npz read,
+     host preparation, host-to-device copies, K3's two entries, Renderer
+     and set_denoiser, the first frame, their sum, one whole upload_tree
+     and the peak device memory);
   8. the quality gate on the 8 held-out poses of benchmarks/quality;
   9. every kernel vs its plain version on the main path's own inputs (the
      800x800 SPP 6 frame of the depth-9 tree, the net's activation, the
@@ -23,8 +29,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      printed as one JSON line {"k1_stats": ...} (steps per ray, SIMT lane
      efficiency of fixed warp tiles, the distinct LUT cells and data rows
      read, and K1's bound); then each
-     kernel's time vs its plain version there, and the headline frame's
-     time, by CUDA events;
+     kernel's time vs its plain version there (each K3 entry alone: the
+     LUT it updates in place is restored outside the timed window), and
+     the headline frame's time, by CUDA events;
  10. probes: the six probe kernels (csrc/probes.cu, the port of the Pallas
      kernels of tools/tpu_probe.py and tools/microbench_gather.py) vs their
      plain versions at the tools' own shapes (bit-equal; P4 within 1e-5
@@ -38,7 +45,26 @@ path, max abs error, ms, plain ms, the bound in ms and whether bytes or
 operations set it, and the time of one PyTorch call that computes the same
 function where there is one), then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+K3's rows are its two C entries, with their kernel launches per tree load:
+lut_build is ceil(levels / 3) launches of lut_step_kernel, skip_distances
+skip_rows_kernel and two launches of skip_axis_kernel.
 Needs one CUDA card; exits non-zero without one.
+
+    python3 chip_smoke.py --load-only TREE.npz
+
+loads an npz of the headline tree twice with the package found beside this
+file and times each K3 entry alone, printing the {"load": ...} lines and
+one {"k3_ms": ...} line; run from a copy of another commit's tree, it times
+that commit's load by the same code.
+
+    python3 chip_smoke.py --load-pairs OTHER_ROOT [PAIRS]
+
+runs --load-only in PAIRS (default 10) pairs of processes, this checkout's
+and OTHER_ROOT's in turns (other, this, this, other, ...; a copy of this
+script must stand in OTHER_ROOT), on the headline npz (made first if it is
+not there), and prints each side's least value, quartiles and largest
+value of every step, and those of the paired differences of the sums, as
+one JSON line {"load_pairs": ...}.
 """
 
 from __future__ import annotations
@@ -84,8 +110,8 @@ FRAME_KERNELS = {
                       "rt_octree_tpu/ops/filtering.py:153"),
     "lut_build": ("rt_octree_tpu_torch/csrc/lut.cu",
                   "rt_octree_tpu/ops/traversal.py:102"),
-    "skip_min": ("rt_octree_tpu_torch/csrc/lut.cu",
-                 "rt_octree_tpu/ops/traversal.py:173"),
+    "skip_distances": ("rt_octree_tpu_torch/csrc/lut.cu",
+                       "rt_octree_tpu/ops/traversal.py:173"),
 }
 # the probe kernels: launch name -> the Pallas call they replace
 PROBE_KERNELS = {
@@ -127,6 +153,20 @@ def phase_k3(err):
     import torch
     from rt_octree_tpu_torch.io import synthetic
     from rt_octree_tpu_torch.ops import traversal as T
+
+    def hold(label, res, lut_k, lut_p, cap=12):
+        skip_k = T.add_skip_distances(lut_k.clone(), res, cap)
+        skip_p = T.add_skip_distances_plain(lut_p, res, cap)
+        d_skip = int((skip_k.long() - skip_p.long()).abs().max())
+        d_lut = int((lut_k.long() - lut_p.long()).abs().max())
+        n_skip = int(((skip_p[:, 1] > 0) & (skip_p[:, 1] <= cap)).sum())
+        log(f"[k3] {label}: {res}^3 cells, lut max|diff| {d_lut}, skip "
+            f"max|diff| {d_skip} ({n_skip} cells carry a distance)")
+        require(d_lut == 0 and d_skip == 0, f"K3 disagrees on {label}")
+        err["lut_build"] = max(err.get("lut_build", 0.0), float(d_lut))
+        err["skip_distances"] = max(err.get("skip_distances", 0.0),
+                                    float(d_skip))
+
     cases = [("shell d7", synthetic.make_synthetic_tree(
         "shell", depth=7, basis_dim=9), 7),
         ("deep chain d10 @5", synthetic.make_deep_chain_tree(10), 5)]
@@ -134,18 +174,9 @@ def phase_k3(err):
         dt = T.upload_tree(tree, lut_levels=0, device="cuda")
         lut_k = T.build_lut(dt.chs, tree.N, levels)
         lut_p = T.lut_build_plain(dt.chs, tree.N, levels)
-        res = tree.N ** levels
-        skip_k = T.add_skip_distances(lut_k.clone(), res, 12)
-        skip_p = T.add_skip_distances_plain(lut_p, res, 12)
-        torch.cuda.synchronize()
-        d_lut = int((lut_k.long() - lut_p.long()).abs().max())
-        d_skip = int((skip_k.long() - skip_p.long()).abs().max())
-        n_skip = int(((skip_p[:, 1] > 0) & (skip_p[:, 1] <= 12)).sum())
-        log(f"[k3] {label}: {res}^3 cells, lut max|diff| {d_lut}, skip "
-            f"max|diff| {d_skip} ({n_skip} cells carry a distance)")
-        require(d_lut == 0 and d_skip == 0, f"K3 disagrees on {label}")
-        err["lut_build"] = max(err.get("lut_build", 0.0), float(d_lut))
-        err["skip_min"] = max(err.get("skip_min", 0.0), float(d_skip))
+        hold(label, tree.N ** levels, lut_k, lut_p)
+    lut = torch.from_numpy(synthetic.random_lut(512, 1e-3, 11)).cuda()
+    hold("random occupancy 1e-3 (no build)", 512, lut, lut)
 
 
 def k1_scenes():
@@ -276,16 +307,241 @@ def phase_k2(err):
 
 
 def headline_tree_path():
-    """Build the depth-9 SH9 shell tree and save it as an npz for the CLI."""
+    """Build the depth-9 SH9 shell tree and save it as an npz for the CLI;
+    returns the tree, the path and the seconds each step took."""
     from rt_octree_tpu_torch.io import synthetic
-    t0 = time.time()
+    t0 = time.perf_counter()
     tree = synthetic.make_synthetic_tree("shell", depth=9, basis_dim=9)
+    t1 = time.perf_counter()
     os.makedirs(WORK, exist_ok=True)
     path = os.path.join(WORK, "shell_d9_sh9.npz")
     synthetic.save_npz(tree, path)
+    t2 = time.perf_counter()
     log(f"[main] depth-9 shell tree: {tree.capacity} nodes, max depth "
-        f"{tree.max_depth}, built and saved in {time.time() - t0:.1f} s")
-    return tree, path
+        f"{tree.max_depth}, built in {t1 - t0:.1f} s, saved in "
+        f"{t2 - t1:.1f} s")
+    return tree, path, {"generate_s": t1 - t0, "save_npz_s": t2 - t1}
+
+
+def headline_options():
+    from rt_octree_tpu_torch.core.options import RenderOptions
+    return RenderOptions(spp=6, denoise=True, step_size=1e-4,
+                         sigma_thresh=1e-2, background_brightness=1.0)
+
+
+def measure_load(tree_path, extra=None):
+    """The load of the headline tree as a user pays it, step by step, each
+    between two torch.cuda.synchronize(): the npz read, upload_tree's host
+    preparation (the chs stack and the f16 data) and its host-to-device
+    copies, K3's two entries (also by CUDA events), Renderer plus
+    set_denoiser, and the first frame.  The steps are upload_tree's own,
+    run one by one from here; one whole upload_tree call is timed after
+    them and must give the same tensors.  Prints and returns
+    {"load": ...}."""
+    import torch
+    from rt_octree_tpu_torch.io import n3tree
+    from rt_octree_tpu_torch.io.poses import load_poses
+    from rt_octree_tpu_torch.ops import traversal as T
+    from rt_octree_tpu_torch.render.renderer import Renderer
+    dev = torch.device("cuda")
+    levels, cap = 9, 12
+    ps = load_poses("blender", os.path.join(KIT, "transforms_test.json"),
+                    800, 800)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sec = {}
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        sec[name] = time.perf_counter() - t0
+        return out
+
+    tree = step("read_s", lambda: n3tree.load(tree_path))
+    require(tree.N == 2 and tree.max_depth == levels,
+            f"not the headline tree: N {tree.N}, depth {tree.max_depth}")
+
+    def prep():
+        sigma = np.ascontiguousarray(tree.data[:, tree.data_dim - 1])
+        bits = sigma.astype(np.float32).view(np.int32)
+        chs = np.stack([tree.child.astype(np.int32), bits], axis=-1)
+        return chs, np.require(tree.data, np.float16, ["C", "W"])
+    chs_np, data_np = step("host_prep_s", prep)
+
+    def h2d():
+        put = lambda a, t: torch.from_numpy(  # noqa: E731
+            np.require(a, t, ["C", "W"])).to(dev)
+        return (put(chs_np, np.int32), put(data_np, np.float16),
+                put(tree.offset, np.float32), put(tree.scale, np.float32))
+    chs, data, offset, scale = step("h2d_s", h2d)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    res = tree.N ** levels
+
+    def k3():
+        ev[0].record()
+        lut = T.build_lut(chs, tree.N, levels)
+        ev[1].record()
+        lut = T.add_skip_distances(lut, res, cap)
+        ev[2].record()
+        return lut
+    lut = step("k3_s", k3)
+    dt = T.DeviceTree(
+        data=data, chs=chs, offset=offset, scale=scale,
+        extra=torch.zeros(0, dtype=torch.float32, device=dev), lut=lut,
+        N=tree.N, data_dim=tree.data_dim,
+        basis_dim=tree.data_format.basis_dim,
+        fmt=tree.data_format.format.value, max_depth=tree.max_depth,
+        lut_levels=levels, skip_cap=cap, ndc=None)
+
+    def renderer():
+        r = Renderer(dt, 800, 800, ps.fx, ps.fy, options=headline_options())
+        r.set_denoiser(os.path.join(KIT, "trained.gnet"))
+        return r
+    r = step("renderer_s", renderer)
+    img = step("first_frame_s",
+               lambda: r.render(ps.poses[0], want_aux=False)[0])
+    require(tuple(img.shape) == (800, 800, 4)
+            and bool(torch.isfinite(img).all()), "first frame: bad image")
+    peak = torch.cuda.max_memory_allocated()
+    total = sum(sec.values())
+    del r, dt, img
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    whole = T.upload_tree(tree, lut_levels=levels, device=dev, skip_cap=cap)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    require(all(torch.equal(a, b) for a, b in (
+        (whole.chs, chs), (whole.data, data), (whole.offset, offset),
+        (whole.scale, scale), (whole.lut, lut))),
+        "upload_tree gave other tensors than its steps one by one")
+    del whole, lut, chs, data
+    line = {"load": {
+        "tree": f"shell npz, depth {tree.max_depth}, basis "
+                f"{tree.data_format.basis_dim}, {tree.capacity} nodes, "
+                f"level-{levels} LUT, skip_cap {cap}",
+        **(extra or {}), **sec,
+        "lut_build_ms": ev[0].elapsed_time(ev[1]),
+        "skip_distances_ms": ev[1].elapsed_time(ev[2]),
+        "total_s": total, "upload_tree_s": upload_s,
+        "h2d_bytes": chs_np.nbytes + data_np.nbytes,
+        "peak_allocated_bytes": peak, "allocated_before_bytes": base}}
+    log(json.dumps(line))
+    return line
+
+
+def time_k3(chs, lut, N=2, levels=9, cap=12):
+    """Each K3 entry alone on the headline tree as upload_tree calls it, by
+    CUDA events: the build from chs, and the skip distances on a copy of
+    ``lut`` (the LUT without distances) restored before each call, outside
+    the timed window."""
+    import torch
+    from rt_octree_tpu_torch.ops import traversal as T
+    buf = lut.clone()
+    res = N ** levels
+    build_ms = cuda_ms(lambda: T.build_lut(chs, N, levels), 5, 1)
+    require(bool(torch.equal(T.build_lut(chs, N, levels), lut)),
+            "the timed build disagrees with the checked LUT")
+    return (build_ms,
+            cuda_ms(lambda: T.add_skip_distances(buf, res, cap), 5, 1,
+                    flush=lambda: buf.copy_(lut)))
+
+
+def load_only(tree_path):
+    """--load-only: two loads of ``tree_path`` and K3's entry times, with
+    the package beside this file."""
+    import torch
+    from rt_octree_tpu_torch.native import build as native
+    from rt_octree_tpu_torch.ops import traversal as T
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()
+    log(f"{smi[0]} ({HERE})")
+    t0 = time.time()
+    native.build()
+    log(f"[build] in {time.time() - t0:.1f} s")
+    torch.zeros(1, device="cuda")
+    for rep_ in range(2):
+        measure_load(tree_path, {"rep": rep_})
+    from rt_octree_tpu_torch.io import n3tree
+    chs = T.upload_tree(n3tree.load(tree_path), lut_levels=0,
+                        device="cuda").chs
+    lut = T.build_lut(chs, 2, 9)
+    b_ms, s_ms = time_k3(chs, lut)
+    log(json.dumps({"k3_ms": {"lut_build": b_ms, "skip_distances": s_ms,
+                              "root": HERE}}))
+    return 0
+
+
+LOAD_KEYS = ("read_s", "host_prep_s", "h2d_s", "k3_s", "lut_build_ms",
+             "skip_distances_ms", "renderer_s", "first_frame_s", "total_s",
+             "upload_tree_s", "peak_allocated_bytes")
+
+
+def load_pairs(other_root, pairs):
+    """--load-pairs: ``pairs`` pairs of --load-only processes, OTHER_ROOT's
+    and this checkout's in turns, on the headline npz; each side's least
+    value, quartiles and largest value of each step, for the first load of
+    a process ("fresh"), its second ("warm") and K3's entries alone."""
+    other_root = os.path.abspath(other_root)
+    require(os.path.isfile(os.path.join(other_root, "chip_smoke.py")),
+            f"no chip_smoke.py in {other_root}")
+    tree_path = os.path.join(WORK, "shell_d9_sh9.npz")
+    if not os.path.isfile(tree_path):
+        headline_tree_path()
+    roots = {"other": other_root, "this": HERE}
+    runs = {side: {"fresh": [], "warm": [], "k3_ms": []} for side in roots}
+    raw = os.path.join(WORK, "load_pairs.jsonl")
+    with open(raw, "w") as f:
+        for i in range(pairs):
+            for side in (("other", "this") if i % 2 == 0
+                         else ("this", "other")):
+                t0 = time.perf_counter()
+                out = subprocess.run(
+                    [sys.executable, os.path.join(roots[side],
+                                                  "chip_smoke.py"),
+                     "--load-only", tree_path], capture_output=True,
+                    text=True, cwd=roots[side])
+                require(out.returncode == 0,
+                        f"{side} load {i} failed:\n{out.stderr[-3000:]}")
+                lines = [json.loads(ln) for ln in out.stdout.splitlines()
+                         if ln.startswith("{")]
+                loads = [ln["load"] for ln in lines if "load" in ln]
+                k3 = [ln["k3_ms"] for ln in lines if "k3_ms" in ln]
+                require(len(loads) == 2 and len(k3) == 1,
+                        f"{side} load {i}: unexpected output")
+                runs[side]["fresh"].append(loads[0])
+                runs[side]["warm"].append(loads[1])
+                runs[side]["k3_ms"].append(k3[0])
+                f.write(json.dumps({"pair": i, "side": side,
+                                    "root": roots[side], "loads": loads,
+                                    "k3_ms": k3[0]}) + "\n")
+                log(f"[load-pairs] pair {i} {side}: warm sum "
+                    f"{loads[1]['total_s']:.3f} s, process "
+                    f"{time.perf_counter() - t0:.1f} s")
+
+    def spread(values):
+        q = np.percentile(values, [0, 25, 50, 75, 100])
+        return dict(zip(("min", "q1", "median", "q3", "max"),
+                        map(float, q)))
+    summary = {"pairs": pairs, "order": "other, this, this, other, ...",
+               "roots": roots, "raw": os.path.relpath(raw, HERE)}
+    for side, r in runs.items():
+        summary[side] = {
+            **{kind: {k: spread([ld[k] for ld in r[kind]])
+                      for k in LOAD_KEYS} for kind in ("fresh", "warm")},
+            "k3_ms": {k: spread([x[k] for x in r["k3_ms"]])
+                      for k in ("lut_build", "skip_distances")}}
+    # within each pair: this checkout's sum less the other's
+    summary["total_s_this_less_other"] = {
+        kind: spread([a["total_s"] - b["total_s"] for a, b in zip(
+            runs["this"][kind], runs["other"][kind])])
+        for kind in ("fresh", "warm")}
+    log(json.dumps({"load_pairs": summary}))
+    return 0
 
 
 def phase_main(native, tree_path):
@@ -312,16 +568,13 @@ def phase_main(native, tree_path):
 
 
 def make_headline_renderer(tree):
-    from rt_octree_tpu_torch.core.options import RenderOptions
     from rt_octree_tpu_torch.io.poses import load_poses
     from rt_octree_tpu_torch.ops.traversal import upload_tree
     from rt_octree_tpu_torch.render.renderer import Renderer
     ps = load_poses("blender", os.path.join(KIT, "transforms_test.json"),
                     800, 800)
     dt = upload_tree(tree, lut_levels=9, device="cuda")
-    opt = RenderOptions(spp=6, denoise=True, step_size=1e-4,
-                        sigma_thresh=1e-2, background_brightness=1.0)
-    r = Renderer(dt, 800, 800, ps.fx, ps.fy, options=opt)
+    r = Renderer(dt, 800, 800, ps.fx, ps.fy, options=headline_options())
     r.set_denoiser(os.path.join(KIT, "trained.gnet"))
     return r, ps
 
@@ -456,14 +709,15 @@ def phase_headline(r, ps, err):
     require(d_lut == 0 and d_skip == 0 and same_upload,
             "K3 disagrees with its plain version at 512^3")
     err["lut_build"] = max(err["lut_build"], float(d_lut))
-    err["skip_min"] = max(err["skip_min"], float(d_skip))
+    err["skip_distances"] = max(err["skip_distances"], float(d_skip))
     del lut_p, skip_k, skip_p
     cells = 512 ** 3
-    # lut_build writes the 8-byte cells and reads chs once; skip_min reads
-    # the LUT and writes its sigma lane, with 12 rounds of a separable
-    # 3x3x3 min (6 operations a cell a round)
+    # lut_build writes the 8-byte cells and reads chs once; the skip
+    # distances need only the sigma lane, read (4 B a cell) and written
+    # (4 B), with 12 rounds of a separable 3x3x3 min (6 operations a cell a
+    # round)
     bounds["lut_build"] = bound(8 * cells + chs.numel() * 4) + (None,)
-    bounds["skip_min"] = bound(12 * cells, 12 * 6 * cells) + (None,)
+    bounds["skip_distances"] = bound(8 * cells, 12 * 6 * cells) + (None,)
 
     ms["render"] = (
         cuda_ms(lambda: R.render_noisy(r.tree, tf, st, inc, **kw), 20, 3),
@@ -471,11 +725,12 @@ def phase_headline(r, ps, err):
     ms["guided_filter"] = (
         cuda_ms(lambda: guided_filter(act, img, sup), 50, 3),
         cuda_ms(lambda: guided_filter_act_plain(act, img, sup), 5))
-    ms["lut_build"] = (cuda_ms(lambda: T.build_lut(chs, 2, 9), 3),
+    k3_ms = time_k3(chs, lut_k)
+    ms["lut_build"] = (k3_ms[0],
                        cuda_ms(lambda: T.lut_build_plain(chs, 2, 9), 1))
-    ms["skip_min"] = (
-        cuda_ms(lambda: T.add_skip_distances(lut_k.clone(), 512, 12), 3),
-        cuda_ms(lambda: T.add_skip_distances_plain(lut_k, 512, 12), 1))
+    ms["skip_distances"] = (
+        k3_ms[1], cuda_ms(lambda: T.add_skip_distances_plain(lut_k, 512, 12),
+                          1))
     del lut_k
     for k, (kms, pms) in ms.items():
         log(f"[timing] {k}: kernel {kms:.4f} ms, plain {pms:.3f} ms, bound "
@@ -627,12 +882,19 @@ def phase_probes(native, err):
     return counts, ms, bounds
 
 
-def main() -> int:
+def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this test needs one GPU",
               file=sys.stderr)
         return 1
+    if argv[:1] == ["--load-only"] and len(argv) == 2:
+        return load_only(argv[1])
+    if argv[:1] == ["--load-pairs"] and len(argv) in (2, 3):
+        return load_pairs(argv[1], int(argv[2]) if len(argv) == 3 else 10)
+    if argv:
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+        return 2
     from rt_octree_tpu_torch.native import build as native
 
     smi = subprocess.run(
@@ -653,8 +915,9 @@ def main() -> int:
     phase_k1(err)
     phase_pcg()
     phase_k2(err)
-    tree, tree_path = headline_tree_path()
+    tree, tree_path, gen = headline_tree_path()
     counts = phase_main(native, tree_path)
+    measure_load(tree_path, gen)
     r, ps = make_headline_renderer(tree)
     phase_quality(r, ps)
     ms, bounds = phase_headline(r, ps, err)
@@ -681,4 +944,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

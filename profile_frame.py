@@ -17,6 +17,13 @@ torch.profiler and prints:
   - K1's time on each of the 8 quality poses by CUDA events, and the peak
     device memory.
 The last line is the summary as one JSON object.
+
+    python3 profile_frame.py --k3 [--frames 5]
+
+profiles kernel K3 on the same tree instead: each of its kernels' device
+ms per entry call, for the LUT build and for the skip distances (the LUT
+restored before each call, outside the entry); the last line is one JSON
+object.
 """
 
 from __future__ import annotations
@@ -58,9 +65,51 @@ def busy_us(intervals) -> float:
     return total
 
 
+def kernel_ms(fn, reps: int, trace: str) -> dict:
+    """Device ms of each kernel (and copy) per call of ``fn``, from a
+    torch.profiler trace of ``reps`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(trace)
+    per = collections.defaultdict(float)
+    for name, s, e in device_intervals(trace):
+        short = name.replace("void ", "").replace("(anonymous namespace)::",
+                                                  "")
+        per[short.split("(")[0][:80]] += (e - s) / 1e3 / reps
+    return dict(per)
+
+
+def profile_k3(tree, reps: int, work: str) -> int:
+    from rt_octree_tpu_torch.ops import traversal as T
+    chs = T.upload_tree(tree, lut_levels=0, device="cuda").chs
+    res = 512
+    lut = T.build_lut(chs, 2, 9)
+    buf = lut.clone()
+    trace = os.path.join(work, "profile_k3_trace.json")
+    out = {}
+    for label, fn in (
+            ("build", lambda: T.build_lut(chs, 2, 9)),
+            ("skip", lambda: (
+                buf.copy_(lut), T.add_skip_distances(buf, res, 12)))):
+        out[label] = kernel_ms(fn, reps, trace)
+        print(f"{label}:")
+        for name, v in sorted(out[label].items(), key=lambda kv: -kv[1]):
+            print(f"{v:12.4f} ms  {name}")
+    print(json.dumps({"k3_kernel_ms_per_call": out}))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=20)
+    ap.add_argument("--k3", action="store_true",
+                    help="profile kernel K3 (LUT build, skip distances)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -73,6 +122,9 @@ def main(argv=None) -> int:
     from rt_octree_tpu_torch.render import renderer as R
 
     tree = synthetic.make_synthetic_tree("shell", depth=9, basis_dim=9)
+    os.makedirs(cs.WORK, exist_ok=True)
+    if args.k3:
+        return profile_k3(tree, args.frames, cs.WORK)
     r, ps = cs.make_headline_renderer(tree)
     pose = ps.poses[0]
     n = args.frames
@@ -88,7 +140,6 @@ def main(argv=None) -> int:
             r.advance_rng()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    os.makedirs(cs.WORK, exist_ok=True)
     trace = os.path.join(cs.WORK, "profile_frame_trace.json")
     prof.export_chrome_trace(trace)
     iv = device_intervals(trace)

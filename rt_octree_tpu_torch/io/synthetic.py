@@ -1,7 +1,8 @@
 """Procedural PlenOctree generation for tests and benchmarks.
 
 The port's own copy of rt_octree_tpu/io/synthetic.py (NumPy), without
-``refine_tree``.
+``refine_tree``, plus ``random_lut``, the random jump LUTs that kernel K3's
+skip distances are tested on.
 
 No scene data ships with this environment, so benchmarks and end-to-end
 tests build octrees with the same on-disk format, topology statistics
@@ -254,3 +255,15 @@ def tree_to_npz_dict(tree: N3Tree) -> dict:
 
 def save_npz(tree: N3Tree, path: str) -> None:
     np.savez(path, **tree_to_npz_dict(tree))
+
+
+def random_lut(res: int, occupancy: float, seed: int) -> np.ndarray:
+    """A [res^3, 2] int32 jump LUT of random packed entries whose sigma
+    lane holds random non-zero bits at a share ``occupancy`` of the cells
+    and 0 at the others."""
+    rs = np.random.default_rng(seed)
+    n = res ** 3
+    lut = rs.integers(-2 ** 31, 2 ** 31, (n, 2), dtype=np.int32)
+    occ = rs.random(n, dtype=np.float32) < occupancy
+    lut[:, 1] = np.where(occ, np.maximum(lut[:, 1] & 0x7fffffff, 1), 0)
+    return lut

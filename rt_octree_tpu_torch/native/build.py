@@ -13,8 +13,9 @@ rt_octree_tpu_torch.native.build`` builds all of them and prints what
 ``ptxas`` reports (registers, spills).
 
 The launch counters live here too: every kernel wrapper calls
-``count_launch`` exactly where it launches its kernel, so a run can show
-that the main path went through each kernel.
+``count_launch`` exactly where it launches its kernels, with the number of
+kernels its C entry reports it launched, so a run can show that the main
+path went through each kernel.
 """
 
 from __future__ import annotations
@@ -46,15 +47,18 @@ SOURCES = {
 HEADERS = ("common.cuh",)
 
 _V, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_PI, _PL = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong)
 # C entry points: name -> (library, argtypes); every entry returns the
-# cudaGetLastError() of its launch as an int.
+# cudaGetLastError() of its launches as an int.  The K3 entries launch
+# several kernels and write how many through their int pointer.
 ENTRIES = {
     "rt_render": ("render", [_V, _V]),
     "rt_render_params_size": ("render", []),
     "rt_guided_filter": ("filter", [_V, _L, _L, _L, _V, _V, _I, _V, _I, _I,
                                     _V]),
-    "rt_lut_build": ("lut", [_V, _V, _I, _I, _V]),
-    "rt_skip_distances": ("lut", [_V, _V, _V, _I, _I, _V]),
+    "rt_lut_build_scratch": ("lut", [_I, _I, _PL]),
+    "rt_lut_build": ("lut", [_V, _V, _V, _I, _I, _PI, _V]),
+    "rt_skip_distances": ("lut", [_V, _V, _V, _I, _I, _PI, _V]),
     "rt_probe_affine": ("probes", [_V, _V, _I, _V]),
     "rt_lane_gather": ("probes", [_V, _V, _V, _I, _I, _I, _V]),
     "rt_lane_gather_chain": ("probes", [_V, _V, _V, _I, _I, _I, _I, _V]),
@@ -63,9 +67,10 @@ ENTRIES = {
     "rt_flat_gather_chain": ("probes", [_V, _I, _V, _I, _I, _V, _V]),
 }
 
-# kernel name -> launches since the last reset_launches()
+# kernel (or K3 entry) name -> kernel launches since the last
+# reset_launches()
 LAUNCHES: Dict[str, int] = {
-    "render": 0, "guided_filter": 0, "lut_build": 0, "skip_min": 0,
+    "render": 0, "guided_filter": 0, "lut_build": 0, "skip_distances": 0,
     # the probe kernels of the measurement tools (csrc/probes.cu)
     "probe_affine": 0, "lane_gather": 0, "lane_gather_chain": 0,
     "row_sum_ring": 0, "row_ring_rounds": 0, "flat_gather_chain": 0}
@@ -74,8 +79,8 @@ _loaded: Dict[str, ctypes.CDLL] = {}
 _bound: Dict[str, ctypes._CFuncPtr] = {}
 
 
-def count_launch(kernel: str) -> None:
-    LAUNCHES[kernel] += 1
+def count_launch(kernel: str, n: int = 1) -> None:
+    LAUNCHES[kernel] += n
 
 
 def reset_launches() -> None:

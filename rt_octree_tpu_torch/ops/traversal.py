@@ -13,6 +13,7 @@ plain PyTorch versions, which CPU tensors take.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import sys
 from typing import Optional
@@ -109,7 +110,8 @@ def lut_build_plain(chs: torch.Tensor, N: int, levels: int) -> torch.Tensor:
 
 def build_lut(chs: torch.Tensor, N: int, levels: int) -> torch.Tensor:
     """K3 LUT build wrapper: plain version for a CPU tensor, the CUDA
-    kernel for a CUDA tensor."""
+    kernel for a CUDA tensor (one launch per 3 levels, the top launch
+    taking the remainder)."""
     if chs.device.type == "cpu":
         return lut_build_plain(chs, N, levels)
     _check_cuda_i32(chs, "chs")
@@ -117,12 +119,20 @@ def build_lut(chs: torch.Tensor, N: int, levels: int) -> torch.Tensor:
         raise ValueError("chs rows >= 2^27 cannot be packed into the LUT")
     res = N ** levels
     lut = torch.empty((res ** 3, 2), dtype=torch.int32, device=chs.device)
+    cells = ctypes.c_longlong()
+    native.check(native.entry("rt_lut_build_scratch")(
+        N, levels, ctypes.byref(cells)), "rt_lut_build_scratch")
+    # the coarse tables of the levels above, 3 levels apart
+    scratch = torch.empty((max(cells.value, 1), 2), dtype=torch.int32,
+                          device=chs.device)
+    launches = ctypes.c_int()
     fn = native.entry("rt_lut_build")
     with torch.cuda.device(chs.device):
-        rc = fn(chs.data_ptr(), lut.data_ptr(), N, levels,
+        rc = fn(chs.data_ptr(), lut.data_ptr(), scratch.data_ptr(), N,
+                levels, ctypes.byref(launches),
                 native.stream_ptr(chs.device))
-        native.count_launch("lut_build")
-    native.check(rc, "lut_build_kernel")
+        native.count_launch("lut_build", launches.value)
+    native.check(rc, "lut_step_kernel")
     return lut
 
 
@@ -149,8 +159,9 @@ def add_skip_distances_plain(lut: torch.Tensor, res: int,
 def add_skip_distances(lut: torch.Tensor, res: int,
                        cap: int = 12) -> torch.Tensor:
     """K3 skip-distance wrapper: plain version for a CPU tensor, the CUDA
-    kernels for a CUDA tensor (which update ``lut`` in place and return
-    it)."""
+    kernels for a CUDA tensor, which update ``lut`` in place and return it:
+    the same capped Chebyshev distance as three passes of a 1-D transform,
+    along z, y and x (csrc/lut.cu)."""
     if lut.device.type == "cpu":
         return add_skip_distances_plain(lut, res, cap)
     _check_cuda_i32(lut, "lut")
@@ -158,15 +169,17 @@ def add_skip_distances(lut: torch.Tensor, res: int,
         raise ValueError(f"skip cap {cap} outside 1..253 (uint8 scratch)")
     if lut.shape != (res ** 3, 2):
         raise ValueError(f"lut shape {tuple(lut.shape)} != ({res ** 3}, 2)")
+    # the per-axis distances after the z and the y pass
     scratch = torch.empty((2, res ** 3), dtype=torch.uint8,
                           device=lut.device)
+    launches = ctypes.c_int()
     fn = native.entry("rt_skip_distances")
     with torch.cuda.device(lut.device):
         rc = fn(lut.data_ptr(), scratch[0].data_ptr(),
-                scratch[1].data_ptr(), res, cap,
+                scratch[1].data_ptr(), res, cap, ctypes.byref(launches),
                 native.stream_ptr(lut.device))
-        native.count_launch("skip_min")
-    native.check(rc, "skip_min_kernel")
+        native.count_launch("skip_distances", launches.value)
+    native.check(rc, "skip_rows_kernel / skip_axis_kernel")
     return lut
 
 

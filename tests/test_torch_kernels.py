@@ -119,10 +119,13 @@ def test_cpu_tensors_take_the_plain_versions(shell):
 
 @pytest.mark.cuda
 def test_each_wrapper_counts_its_launch(shell, cuda_device):
+    """One count per kernel launched: the level-3 LUT build is one launch,
+    the skip distances three (a row pass and two axis passes)."""
     native.reset_launches()
     _launch_each_wrapper(shell, cuda_device)
     torch.cuda.synchronize()
-    assert native.LAUNCHES == {k: 1 for k in native.LAUNCHES}
+    assert native.LAUNCHES == {k: 3 if k == "skip_distances" else 1
+                               for k in native.LAUNCHES}
 
 
 @pytest.mark.cuda
@@ -217,6 +220,71 @@ def test_k3_kernel_matches_plain(shell, chain, cuda_device):
         res = 2 ** levels
         assert torch.equal(tt.add_skip_distances(lut_k.clone(), res, 12),
                            tt.add_skip_distances_plain(lut_p, res, 12))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels", range(1, 8))
+def test_k3_build_at_each_level_matches_plain(shell, chain, levels,
+                                              cuda_device):
+    """One to three launches, leaves found in a coarse table or below it,
+    and (chain) cells still internal at the LUT level."""
+    for tree in (shell, chain):
+        chs = tt.upload_tree(tree, 0, device=cuda_device).chs
+        assert torch.equal(tt.build_lut(chs, 2, levels),
+                           tt.lut_build_plain(chs, 2, levels))
+
+
+@pytest.mark.cuda
+def test_k3_generic_n_matches_plain(cuda_device):
+    """N = 3 takes the kernels' division paths: a 27^3 grid, whose rows
+    are not a multiple of 16 cells."""
+    tree = synthetic.build_tree(synthetic.shell_sigma,
+                                synthetic.position_color, depth=3, N=3,
+                                basis_dim=1)
+    chs = tt.upload_tree(tree, 0, device=cuda_device).chs
+    for levels in (1, 2, 3):
+        lut_k = tt.build_lut(chs, 3, levels)
+        lut_p = tt.lut_build_plain(chs, 3, levels)
+        assert torch.equal(lut_k, lut_p)
+    for cap in (1, 12, 253):
+        assert torch.equal(tt.add_skip_distances(lut_k.clone(), 27, cap),
+                           tt.add_skip_distances_plain(lut_p, 27, cap))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("res", [8, 64, 128])
+def test_k3_skip_on_random_luts_matches_plain(res, cuda_device):
+    """Any LUT handed straight to the skip entry, from empty to full."""
+    for i, occupancy in enumerate((0.0, 1e-4, 1e-2, 0.5, 1.0)):
+        lut = torch.from_numpy(synthetic.random_lut(res, occupancy, i)).to(
+            cuda_device)
+        for cap in (1, 5, 12, 253):
+            got = tt.add_skip_distances(lut.clone(), res, cap)
+            assert torch.equal(got, tt.add_skip_distances_plain(lut, res,
+                                                                cap)), (
+                occupancy, cap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("res", [16, 27, 64])
+def test_k3_skip_with_occupied_faces_matches_plain(res, cuda_device):
+    """Occupied cells only on the grid's faces, edges and corners, where
+    the passes' halos are cut by the grid."""
+    rs = np.random.default_rng(res)
+    occ = np.zeros((res, res, res), bool)
+    for axis in range(3):
+        for side in (0, res - 1):
+            face = [slice(None)] * 3
+            face[axis] = side
+            occ[tuple(face)] |= rs.random((res, res)) < 0.02
+    for c in np.ndindex(2, 2, 2):
+        occ[tuple(np.array(c) * (res - 1))] = True
+    lut = synthetic.random_lut(res, 0.0, 7)
+    lut[occ.reshape(-1), 1] = 0x3f800000
+    lut = torch.from_numpy(lut).to(cuda_device)
+    for cap in (1, 12, 253):
+        assert torch.equal(tt.add_skip_distances(lut.clone(), res, cap),
+                           tt.add_skip_distances_plain(lut, res, cap)), cap
 
 
 @pytest.mark.cuda
