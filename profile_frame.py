@@ -18,6 +18,14 @@ torch.profiler and prints:
     device memory.
 The last line is the summary as one JSON object.
 
+    python3 profile_frame.py --render_scale S [--frames 20]
+
+profiles the fast-mode frame instead (same output size and tree; K1
+marches at round(800 S) square, K4 upsamples, then the convs and K2 at
+800x800), with the fast net of that scale (fast.gnet at 0.5,
+fast_s0.4.gnet at 0.4, as chip_smoke.py's gates; fast.gnet otherwise);
+K1's per-pose times are then at the inner size.
+
     python3 profile_frame.py --k3 [--frames 5]
 
 profiles kernel K3 on the same tree instead: each of its kernels' device
@@ -110,6 +118,8 @@ def main(argv=None) -> int:
     ap.add_argument("--frames", type=int, default=20)
     ap.add_argument("--k3", action="store_true",
                     help="profile kernel K3 (LUT build, skip distances)")
+    ap.add_argument("--render_scale", type=float, default=1.0,
+                    help="profile the fast-mode frame at this scale")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -126,6 +136,15 @@ def main(argv=None) -> int:
     if args.k3:
         return profile_k3(tree, args.frames, cs.WORK)
     r, ps = cs.make_headline_renderer(tree)
+    if args.render_scale != 1.0:
+        gnet = cs.GATES_FAST.get(args.render_scale, ("fast.gnet",))[0]
+        r = R.Renderer(r.tree, 800, 800, r.fx, r.fy,
+                       options=cs.headline_options(),
+                       render_scale=args.render_scale)
+        r.set_denoiser(os.path.join(cs.KIT, gnet))
+        print(f"fast mode: render_scale {args.render_scale}, march "
+              f"{r.inner_width}x{r.inner_height}, {gnet}")
+    iw, ih = r.inner_width, r.inner_height
     pose = ps.poses[0]
     n = args.frames
     for _ in range(10):
@@ -162,12 +181,14 @@ def main(argv=None) -> int:
     for p in ps.poses[:8]:
         tf = r._transform(p)
         pose_ms.append(cs.cuda_ms(lambda: R.render_noisy(
-            r.tree, tf, r.rng.state, r.rng.inc, width=800, height=800,
-            fx=r.fx, fy=r.fy, opt=r.options, want_aux=False), 20, 3))
-    print("K1 ms on the 8 quality poses: "
+            r.tree, tf, r.rng.state, r.rng.inc, width=iw, height=ih,
+            fx=r.fx * (iw / 800), fy=r.fy * (ih / 800), opt=r.options,
+            want_aux=False), 20, 3))
+    print(f"K1 ms ({iw}x{ih}) on the 8 quality poses: "
           + ", ".join(f"{v:.4f}" for v in pose_ms))
     print(json.dumps({
-        "frames": n, "device_events_per_frame": len(iv) / n,
+        "frames": n, "render_scale": args.render_scale,
+        "march": f"{iw}x{ih}", "device_events_per_frame": len(iv) / n,
         "busy_ms_per_frame": busy_ms, "span_ms_per_frame": span_ms,
         "idle_share": idle, "host_wall_ms_per_frame": wall_ms,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}))

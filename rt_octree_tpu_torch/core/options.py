@@ -5,9 +5,9 @@ Reference: renderer/include/volrend/render_options.hpp:13-78 (defaults and
 the NLOHMANN serialized field set), renderer/src/opts.cpp:44-66 (flags),
 renderer/options/opt.json (shipped canonical config: spp=6, denoise=true).
 
-Note: ``stop_thresh`` is carried for config parity but, exactly like the
-reference CUDA path, the regular-tracking estimator does not use it (only
-the legacy GL marcher did, shaders/rt.frag:314).
+Note: like the reference CUDA path, the regular-tracking estimator does
+not use ``stop_thresh``; the classic estimator (the legacy GL marcher,
+shaders/rt.frag:314) stops a ray once its transmittance falls under it.
 """
 
 from __future__ import annotations
@@ -43,8 +43,8 @@ class RenderOptions:
 
     # Estimator selection: "rt" (batched regular tracking,
     # rt_core.cuh:195-332) or "classic" (exponential-transmittance marcher
-    # with the stop_thresh early-out, shaders/rt.frag:222-327; not ported
-    # yet, the Renderer refuses it)
+    # with the stop_thresh early-out, shaders/rt.frag:222-327; K1's
+    # render_classic variant)
     estimator: str = "rt"
 
     SPP_DEFAULT = 4

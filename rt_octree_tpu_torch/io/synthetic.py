@@ -267,3 +267,17 @@ def random_lut(res: int, occupancy: float, seed: int) -> np.ndarray:
     occ = rs.random(n, dtype=np.float32) < occupancy
     lut[:, 1] = np.where(occ, np.maximum(lut[:, 1] & 0x7fffffff, 1), 0)
     return lut
+
+
+def random_mesh_pass(seed: int, n: int, background=None):
+    """A mesh pass for ``n`` pixels as f32 arrays: colour [n, 3] in [0, 1)
+    and ray depth [n] in [2, 6), +inf (no mesh) on about half the pixels;
+    with ``background`` the neutral pass (no mesh anywhere, every pixel
+    that colour)."""
+    if background is not None:
+        return (np.full((n, 3), background, np.float32),
+                np.full(n, np.inf, np.float32))
+    rs = np.random.default_rng(seed)
+    depth = rs.uniform(2.0, 6.0, n).astype(np.float32)
+    depth[rs.random(n) < 0.5] = np.inf
+    return rs.random((n, 3), np.float32), depth

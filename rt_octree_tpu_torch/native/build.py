@@ -37,9 +37,11 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMMON_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 # No fast math anywhere.  render.cu and lut.cu also forbid FMA contraction:
 # it changes the rounding of t, the optical depth and the DDA, which can
-# move a threshold crossing away from the reference march.
+# move a threshold crossing away from the reference march; upsample.cu
+# forbids it so that its plain version rounds as it does.
 SOURCES = {
     "render": ("render.cu", ["-fmad=false"]),
+    "upsample": ("upsample.cu", ["-fmad=false"]),
     "filter": ("filter.cu", []),
     "lut": ("lut.cu", ["-fmad=false"]),
     "probes": ("probes.cu", []),
@@ -47,6 +49,7 @@ SOURCES = {
 HEADERS = ("common.cuh",)
 
 _V, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_F = ctypes.c_float
 _PI, _PL = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong)
 # C entry points: name -> (library, argtypes); every entry returns the
 # cudaGetLastError() of its launches as an int.  The K3 entries launch
@@ -54,6 +57,7 @@ _PI, _PL = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong)
 ENTRIES = {
     "rt_render": ("render", [_V, _V]),
     "rt_render_params_size": ("render", []),
+    "rt_upsample": ("upsample", [_V, _I, _I, _F, _F, _V, _V, _V, _I, _I, _V]),
     "rt_guided_filter": ("filter", [_V, _L, _L, _L, _V, _V, _I, _V, _I, _I,
                                     _V]),
     "rt_lut_build_scratch": ("lut", [_I, _I, _PL]),
@@ -70,7 +74,8 @@ ENTRIES = {
 # kernel (or K3 entry) name -> kernel launches since the last
 # reset_launches()
 LAUNCHES: Dict[str, int] = {
-    "render": 0, "guided_filter": 0, "lut_build": 0, "skip_distances": 0,
+    "render": 0, "render_classic": 0, "upsample": 0, "guided_filter": 0,
+    "lut_build": 0, "skip_distances": 0,
     # the probe kernels of the measurement tools (csrc/probes.cu)
     "probe_affine": 0, "lane_gather": 0, "lane_gather_chain": 0,
     "row_sum_ring": 0, "row_ring_rounds": 0, "flat_gather_chain": 0}

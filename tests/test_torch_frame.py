@@ -123,23 +123,35 @@ def test_want_aux_false_keeps_the_image(port_renderer, cam):
 @pytest.mark.parametrize("what", ["render_scale", "classic", "mesh",
                                   "show_grid", "enable_probe"])
 def test_unported_features_raise(tree, cam, what):
+    """Each feature that the first slices refused is ported now; what still
+    raises is its misuse: a render_scale outside (0, 1], an unknown
+    estimator, a mesh pass of the wrong size, show_grid without
+    set_grid_mesh, a probe point that is not x, y, z."""
     dt = tt.upload_tree(tree, lut_levels=2, device="cpu")
     if what == "render_scale":
-        with pytest.raises(NotImplementedError, match="B11"):
-            tr.Renderer(dt, W, H, cam.fx, cam.fy, render_scale=0.5)
+        for bad in (0.0, 1.5):
+            with pytest.raises(ValueError, match="render_scale"):
+                tr.Renderer(dt, W, H, cam.fx, cam.fy, render_scale=bad)
         return
     opt = _opt(False)
     kw = {}
     if what == "classic":
-        opt.estimator = "classic"
-    elif what == "mesh":
+        opt.estimator = "unknown"
+        with pytest.raises(ValueError, match="estimator"):
+            tr.Renderer(dt, W, H, cam.fx, cam.fy, options=opt)
+        return
+    if what == "mesh":
         kw = dict(mesh_color=np.zeros((H, W, 3), np.float32),
-                  mesh_depth=np.ones((H, W), np.float32))
+                  mesh_depth=np.ones((H + 1, W), np.float32))
+    elif what == "enable_probe":
+        opt.enable_probe = True
+        opt.probe = (0.0, 0.5)
     else:
-        setattr(opt, what, True)
+        opt.show_grid = True
     r = tr.Renderer(dt, W, H, cam.fx, cam.fy, options=opt)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        r.render(cam.transform, **kw)
+    err = RuntimeError if what == "show_grid" else ValueError
+    with pytest.raises(err):
+        r.render_with_probe(cam.transform, **kw)
 
 
 def _cli_scene(tmp_path):
@@ -190,6 +202,7 @@ def test_headless_writes_pngs_and_refuses_unported_flags(tmp_path, capsys):
                 "--device", "cpu", "--lut_levels", "3"]) == 0
     assert read_png(str(out / "r_1.png")).shape == (16, 16, 4)
     assert "[Timer] frames: 2" in capsys.readouterr().out
-    assert run([tree_path, poses_path, "--render_scale", "0.5",
-                "--device", "cpu"]) != 0
-    assert "not yet ported" in capsys.readouterr().err
+    # every flag of the JAX CLI is ported; an unknown flag still exits 2
+    assert run([tree_path, poses_path, "--no_such_flag",
+                "--device", "cpu"]) == 2
+    assert "unrecognized arguments: --no_such_flag" in capsys.readouterr().err

@@ -32,6 +32,11 @@ MODULES = [
     "rt_octree_tpu_torch.render.renderer",
     "rt_octree_tpu_torch.apps.headless",
     "rt_octree_tpu_torch.ops.probes",
+    "rt_octree_tpu_torch.ops.resize",
+    "rt_octree_tpu_torch.io.mesh",
+    "rt_octree_tpu_torch.io.wireframe",
+    "rt_octree_tpu_torch.render.raster",
+    "rt_octree_tpu_torch.render.probe",
     "rt_octree_tpu_torch.tools",
     "rt_octree_tpu_torch.tools.gpu_probe",
     "rt_octree_tpu_torch.tools.microbench_gather",
@@ -87,6 +92,41 @@ def test_port_runs_without_the_jax_package(tmp_path):
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "0 []"
     assert (tmp_path / "r_0.png").exists()
+
+
+def test_headless_new_flags_import_neither_jax_nor_the_jax_package(
+        tmp_path):
+    """The headless CLI on the CPU with fast mode, a drawlist, the grid, the
+    probe, the classic estimator, the profiler and --auto_schedule: no
+    module of ``rt_octree_tpu`` and no jax gets imported."""
+    code = (
+        "import json, sys\n"
+        "import numpy as np\n"
+        "from rt_octree_tpu_torch.core.camera import Camera\n"
+        "from rt_octree_tpu_torch.io import synthetic\n"
+        "from rt_octree_tpu_torch.apps import headless\n"
+        f"d = {str(tmp_path)!r}\n"
+        "synthetic.save_npz(synthetic.make_synthetic_tree('shell', depth=3,"
+        " basis_dim=4), d + '/tree.npz')\n"
+        "np.savez(d + '/d.npz', box='cube', box__scale=0.3)\n"
+        "pose = Camera().transform.tolist() + [[0, 0, 0, 1]]\n"
+        "json.dump({'camera_angle_x': 0.8, 'frames': [{'transform_matrix':"
+        " pose}]}, open(d + '/poses.json', 'w'))\n"
+        "common = [d + '/tree.npz', d + '/poses.json', '-o', d, '-w', '8',"
+        " '--height', '8', '--warmup', '0', '--device', 'cpu',"
+        " '--lut_levels', '3', '--grid', '1', '--probe', '0,0,0.5']\n"
+        "rcs = [headless.run(common + ['--render_scale', '0.5',"
+        " '--profile', d + '/prof', '--auto_schedule']),"
+        " headless.run(common + ['--draw', d + '/d.npz', '--estimator',"
+        " 'classic'])]\n"
+        f"print(rcs, sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN + ('rt_octree_tpu',)!r}))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=_clean_env(), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[0, 0] []"
+    assert (tmp_path / "prof" / "trace.json").exists()
 
 
 def test_tf32_disabled_on_import():

@@ -1,6 +1,7 @@
-"""The port's CUDA kernels (K1 render, K2 guided filter, K3 LUT + skip
-distances, G1-G4 the measurement tools' probes) against their plain
-PyTorch versions, and the launch counters.
+"""The port's CUDA kernels (K1 render and its classic variant, K2 guided
+filter, K3 LUT + skip distances, K4 fast mode's upsample, G1-G4 the
+measurement tools' probes) against their plain PyTorch versions, and the
+launch counters.
 
 This file imports no JAX, so it also runs on a GPU host that has none:
 
@@ -17,11 +18,14 @@ import torch
 from rt_octree_tpu_torch.core.camera import Camera
 from rt_octree_tpu_torch.core.options import RenderOptions
 from rt_octree_tpu_torch.io import synthetic
+from rt_octree_tpu_torch.io.n3tree import BasisFormat, DataFormat
 from rt_octree_tpu_torch.native import build as native
 from rt_octree_tpu_torch.ops import probes as pr
 from rt_octree_tpu_torch.ops import traversal as tt
 from rt_octree_tpu_torch.ops.filtering import guided_filter, \
     guided_filter_act_plain, guided_filter_plain, split_activation
+from rt_octree_tpu_torch.ops.resize import fast_upsample, \
+    fast_upsample_plain
 from rt_octree_tpu_torch.render import renderer as tr
 from rt_octree_tpu_torch.utils.rng import pcg32_uniforms_range
 
@@ -31,6 +35,9 @@ torch.set_num_threads(1)
 # division on both sides, so only summation order differs (the shade's
 # count-weighted sum; the filter's softmax sums of up to 49 taps).
 IMG_TOL, AUX_TOL, FILTER_TOL = 2e-5, 4e-5, 1e-5
+# K4 vs plain: the same f32 operations in the same order (both sides built
+# without FMA contraction), on values in [0, 1].
+UPSAMPLE_TOL = 1e-6
 
 
 @pytest.fixture(scope="module")
@@ -93,7 +100,11 @@ def _launch_each_wrapper(shell, device):
     lut = tt.build_lut(dt.chs, 2, 3)
     tt.add_skip_distances(lut, 8, 2)
     transform, kw = _render_args(1, 8, 8)
-    tr.render_noisy(dt, torch.from_numpy(transform).to(device), 1, 1, **kw)
+    tf = torch.from_numpy(transform).to(device)
+    _, aux, _ = tr.render_noisy(dt, tf, 1, 1, **kw)
+    kw["opt"] = RenderOptions(estimator="classic", denoise=False)
+    tr.render_noisy(dt, tf, 1, 1, **kw)
+    fast_upsample(aux, 16, 13)
     t = lambda a: torch.from_numpy(a).to(device)
     act, img = _filter_inputs(0, L=2, H=8, W=8)
     guided_filter(t(act).to(torch.bfloat16), t(img), (0, 1))
@@ -149,6 +160,119 @@ def test_k1_kernel_matches_plain(shell, spp, cuda_device):
         assert st.equals(tr.render_stats_plain(dt, tf, 12345, 7, **kw))
         assert int(st.steps.max()) > 0 and (levels == 5) == (
             int(st.descents.sum()) == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("estimator", ["rt", "classic"])
+def test_k1_with_a_mesh_pass_matches_plain(shell, estimator, cuda_device):
+    """Mesh depth clips the rays and mesh colour replaces the background,
+    in both variants, on a 37x23 image."""
+    transform, kw = _render_args(6, 37, 23)
+    kw["opt"].estimator = estimator
+    tf = torch.from_numpy(transform).to(cuda_device)
+    dt = tt.upload_tree(shell, lut_levels=5, device=cuda_device)
+    mc, md = (torch.from_numpy(a).to(cuda_device)
+              for a in synthetic.random_mesh_pass(3, 37 * 23))
+    got = tr.render_noisy(dt, tf, 99, 5, mesh_color=mc, mesh_depth=md, **kw)
+    ref = tr.render_noisy_plain(dt, tf, 99, 5, mesh_color=mc, mesh_depth=md,
+                                **kw)
+    for g, r, tol in zip(got, ref, (IMG_TOL, AUX_TOL, AUX_TOL)):
+        torch.testing.assert_close(g, r, atol=tol, rtol=0)
+    plain = tr.render_noisy(dt, tf, 99, 5, **kw)
+    assert not torch.equal(got[0], plain[0])  # the mesh showed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("estimator", ["rt", "classic"])
+def test_k1_null_mesh_is_bit_equal_to_a_neutral_pass(shell, estimator,
+                                                     cuda_device):
+    """Null mesh pointers give the frame of a pass with no mesh anywhere
+    (depth +inf, colour = background) bit for bit: the mesh inputs change
+    no operation of a frame without a mesh."""
+    transform, kw = _render_args(6, 37, 23)
+    kw["opt"].estimator = estimator
+    tf = torch.from_numpy(transform).to(cuda_device)
+    dt = tt.upload_tree(shell, lut_levels=5, device=cuda_device)
+    mc, md = (torch.from_numpy(a).to(cuda_device)
+              for a in synthetic.random_mesh_pass(
+                  0, 37 * 23, kw["opt"].background_brightness))
+    got = tr.render_noisy(dt, tf, 99, 5, **kw)
+    ref = tr.render_noisy(dt, tf, 99, 5, mesh_color=mc, mesh_depth=md, **kw)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spp", [1, 6, 32])
+@pytest.mark.parametrize("fmt", ["sh", "rgba"])
+def test_render_classic_matches_plain(shell, spp, fmt, cuda_device):
+    """The classic variant ignores SPP; SH and RGBA rows; full-depth LUT
+    (skips) and a level-3 LUT (descents); stop_thresh 1e-2 and 0.3 (an
+    early stop on most hit rays); the statistics equal to the plain
+    march's; odd max_steps rounds up to even as in the JAX loop."""
+    tree = shell
+    if fmt == "rgba":
+        tree = synthetic.make_synthetic_tree("shell", depth=5, basis_dim=1)
+        tree.data_format = DataFormat(BasisFormat.RGBA, -1)
+    transform, kw = _render_args(spp, 37, 23)
+    tf = torch.from_numpy(transform).to(cuda_device)
+    frames = []
+    for levels, stop in ((5, 1e-2), (3, 0.3)):
+        kw["opt"] = RenderOptions(spp=spp, denoise=False,
+                                  estimator="classic", stop_thresh=stop)
+        dt = tt.upload_tree(tree, lut_levels=levels, device=cuda_device)
+        got = tr.render_noisy(dt, tf, 12345, 7, **kw)
+        ref = tr.render_noisy_plain(dt, tf, 12345, 7, **kw)
+        for g, r, tol in zip(got, ref, (IMG_TOL, AUX_TOL, AUX_TOL)):
+            torch.testing.assert_close(g, r, atol=tol, rtol=0)
+        st = tr.render_stats(dt, tf, 12345, 7, **kw)
+        assert st.equals(tr.render_stats_plain(dt, tf, 12345, 7, **kw))
+        assert st.data_rows > 0
+        frames.append(got[0])
+        for max_steps in (3, 4):
+            st = tr.render_stats(dt, tf, 1, 1, max_steps=max_steps, **kw)
+            assert int(st.steps.max()) == 4
+            assert st.equals(tr.render_stats_plain(
+                dt, tf, 1, 1, max_steps=max_steps, **kw))
+    assert not torch.equal(frames[0], frames[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src,dst", [((400, 400), (800, 800)),
+                                     ((320, 320), (800, 800)),
+                                     ((37, 23), (75, 47)),
+                                     ((19, 30), (47, 75)),
+                                     ((33, 53), (47, 75)),
+                                     ((1, 1), (5, 3))])
+@pytest.mark.parametrize("want_aux", [True, False])
+def test_k4_kernel_matches_plain(src, dst, want_aux, cuda_device):
+    """The joint upsample at s = 0.5, 0.4 and 0.7-ish on odd sizes and a
+    1x1 source, with and without aux_chw; the squares are of the
+    upsampled values."""
+    rs = np.random.default_rng(sum(src) + sum(dst))
+    rgba = rs.random(src + (4,), np.float32)
+    aux = torch.from_numpy(np.concatenate([rgba, rgba * rgba], -1)).to(
+        cuda_device)
+    got = fast_upsample(aux, *dst, want_aux=want_aux)
+    ref = fast_upsample_plain(aux, *dst, want_aux=want_aux)
+    for g, r in zip(got, ref):
+        if r is None:
+            assert g is None
+            continue
+        torch.testing.assert_close(g, r, atol=UPSAMPLE_TOL, rtol=0)
+    assert bool((got[0][..., 3] == 1).all())
+    assert torch.equal(got[1][..., 4:], got[1][..., :4] * got[1][..., :4])
+
+
+@pytest.mark.cuda
+def test_k4_refuses_what_the_kernel_does_not_take(cuda_device):
+    aux = torch.zeros((8, 8, 8), device=cuda_device)
+    for bad in (lambda: fast_upsample(aux[..., :4], 16, 16),
+                lambda: fast_upsample(aux.double(), 16, 16),
+                lambda: fast_upsample(aux.transpose(0, 1), 16, 16),
+                lambda: fast_upsample(aux, 0, 16)):
+        with pytest.raises(ValueError):
+            bad()
 
 
 @pytest.mark.cuda
