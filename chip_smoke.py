@@ -26,7 +26,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      K2, K3 must launch), fast mode at s = 0.5 (fast.gnet; K1 at 400x400,
      K4, K2) and at s = 0.4 (fast_s0.4.gnet; 320x320), and a run with a
      drawlist, the grid, the probe and the classic estimator
-     (render_classic must launch); then the load of that
+     (render_classic must launch); the headline flags through the
+     dispatcher (``rtoctree render``, apps/cli.py), and the dispatcher's
+     ``lod`` (the tree pooled to depth 8) and ``compress`` (the quant
+     phase's depth-7 shell, --retain 1), which must launch no kernel; then
+     the load of that
      tree, step by step, printed as one JSON line {"load": ...} (npz read,
      host preparation, host-to-device copies, K3's two entries, Renderer
      and set_denoiser, the first frame, their sum, one whole upload_tree
@@ -51,7 +55,24 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      Renderer's noisy frame vs the plain chain, then its time with the
      phase split; the probe overlay and the host rasterizer, timed as
      plain rows ({"plain_rows": ...});
- 10. probes: the six probe kernels (csrc/probes.cu, the port of the Pallas
+ 10. the scenes of the JAX package's bench (SCENES: solid 800x800, tt
+     1920x1080 and its fast rung, the llff blobs scene in NDC at 1008x756
+     with its fast, LOD d8 and interactive rungs), each through the
+     Renderer with its kit's net: K1 vs its plain version on the scene's
+     own frame (tt: the central 64x64 pixels), fast rungs held at their
+     own shapes (K1 at the inner size, K4 on its output, the frame vs the
+     plain chain), K2 on the net's activation, the 8-pose gate against the
+     JAX package's CPU bars with denoise_recommended, the frame time and
+     phase split; then the quantized depth-7 shell (K1 held on its
+     decode, PSNR against the float frame and the npz bytes ratio against
+     the JAX package's), printed as one JSON line {"scenes": ...};
+ 11. the depth-11 shell (the headline tree refined 2 levels,
+     tools/bench_deep.py) uploaded with the partial-LUT skip and with
+     skip_cap=0: K3's marker lanes and distances vs its plain version on
+     the 512^3 partial LUT, K1 vs its plain version on a 128x128 crop of
+     both, the two 800x800 frames against each other, K1's statistics,
+     frame times and peak device memory, as one JSON line {"deep": ...};
+ 12. probes: the six probe kernels (csrc/probes.cu, the port of the Pallas
      kernels of tools/tpu_probe.py and tools/microbench_gather.py) vs their
      plain versions at the tools' own shapes (bit-equal; P4 within 1e-5
      relative of a float64 sum), each one's time vs its plain version, then
@@ -119,6 +140,49 @@ GATE_NOISY_TOL, GATE_DENOISED_TOL = 0.05, 0.10
 GATES_FAST = {0.5: ("fast.gnet", 43.124, 50.524),
               0.4: ("fast_s0.4.gnet", 40.869, 48.439)}
 GATE_CLASSIC = (62.368, 59.994)
+# The scenes of the JAX package's bench (bench.py:343-620), as data: the
+# depth-9 SH9 tree kind, the output size, the focal length (None: the
+# Camera's default), NDC, the kit under benchmarks/, its net, the fast-mode
+# scale and the LOD depth (0: none), SPP 6, step 1e-4, sigma threshold
+# 1e-2, background 1.0, LUT at min(9, depth); and the JAX package's own CPU
+# bars (noisy, denoised dB) from
+#   python tools/quality_gate_jax_cpu.py --scene SCENE \
+#       [--render_scale 0.5 --gnet benchmarks/KIT/fast.gnet] [--lod_depth 8]
+# held to the same distances as the headline's.  The llff rungs' kit has no
+# fast_lod8_s0.5.gnet: bench.py:_fast_denoiser's search ends at fast.gnet.
+_SOLID = dict(tree="solid", ndc=False, lod=0, crop=None)
+_TT = dict(_SOLID, size=(1920, 1080), focal=1158.0, kit="quality_tt")
+_LLFF = dict(tree="blobs", size=(1008, 756), focal=800.0, ndc=True,
+             kit="quality_blobs", crop=None)
+SCENES = {
+    "solid": dict(_SOLID, size=(800, 800), focal=None, kit="quality_solid",
+                  gnet="trained.gnet", scale=1.0, bars=(54.803, 54.835)),
+    "tt": dict(_TT, gnet="trained.gnet", scale=1.0, bars=(60.054, 60.095),
+               crop=64),
+    "tt fast s=0.5": dict(_TT, gnet="fast.gnet", scale=0.5,
+                          bars=(43.255, 43.98)),
+    "llff": dict(_LLFF, gnet="trained.gnet", scale=1.0, lod=0,
+                 bars=(28.66, 45.225)),
+    "llff fast s=0.5": dict(_LLFF, gnet="fast.gnet", scale=0.5, lod=0,
+                            bars=(32.686, 40.327)),
+    "llff lod d8": dict(_LLFF, gnet="trained.gnet", scale=1.0, lod=8,
+                        bars=(28.656, 45.234)),
+    "llff interactive": dict(_LLFF, gnet="fast.gnet", scale=0.5, lod=8,
+                             bars=(32.685, 40.327)),
+}
+# bench.py:quant_fidelity (:624-672): a depth-7 SH9 shell compressed with
+# --retain 1, float and quantized frames at 256x256, SPP 6, no denoise, the
+# default camera, LUT min(7, depth); the JAX package's PSNR of the
+# quantized frame against the float one, and the sizes of its two npz files
+# (python tools/quality_gate_jax_cpu.py --quant), which the port's copies
+# of the same NumPy code must write byte for byte.
+QUANT_DEPTH, QUANT_SIZE = 7, 256
+QUANT_PSNR, QUANT_PSNR_TOL = 42.882, 0.05
+QUANT_BYTES = (16141546, 2804348)  # float, quantized
+# tools/bench_deep.py:38-54: the headline depth-9 shell refined 2 levels
+# at its occupied deepest leaves, 800x800, SPP 6, no denoise, level-9 LUT;
+# K1 is held on the frame's central DEEP_CROP^2 pixels
+DEEP_LEVELS, DEEP_LUT, DEEP_SIZE, DEEP_CROP = 2, 9, 800, 128
 # K1 vs plain: both run on the card with the same libm (log1pf, expf) and
 # IEEE division, so they differ only by summation order in the shade.
 K1_IMG_TOL, K1_AUX_TOL = 2e-5, 4e-5
@@ -741,10 +805,11 @@ def main_paths(draw_path):
     }
 
 
-def phase_main(native, tree_path, label, flags, required):
-    """One headless run with the launch counts reset just before it and
+def phase_main(native, tree_path, label, flags, required, dispatcher=False):
+    """One headless run (``dispatcher``: through ``rtoctree render``, the
+    port's apps/cli.py) with the launch counts reset just before it and
     read just after; returns the counts."""
-    from rt_octree_tpu_torch.apps import headless
+    from rt_octree_tpu_torch.apps import cli, headless
     from rt_octree_tpu_torch.io.png import read_png
     out_dir = os.path.join(WORK, "frames_" + label.split(",")[0].replace(
         " ", "_").replace("=", ""))
@@ -752,10 +817,11 @@ def phase_main(native, tree_path, label, flags, required):
             "-o", out_dir] + flags
     shown = " ".join(os.path.relpath(a, HERE) if os.sep in a else a
                      for a in argv)
-    log(f"[main] {label}: headless {shown}")
+    log(f"[main] {label}: {'cli render' if dispatcher else 'headless'} "
+        f"{shown}")
     native.reset_launches()
     t0 = time.time()
-    rc = headless.run(argv)
+    rc = cli.main(["render"] + argv) if dispatcher else headless.run(argv)
     counts = dict(native.LAUNCHES)
     log(f"[main] {label}: rc {rc} in {time.time() - t0:.1f} s; launches "
         f"{counts}")
@@ -766,6 +832,40 @@ def phase_main(native, tree_path, label, flags, required):
         img = read_png(os.path.join(out_dir, f"r_{i}.png"))
         require(img.shape == (800, 800, 4), f"frame r_{i}: {img.shape}")
     return counts
+
+
+def phase_tool(native, label, argv, outputs):
+    """One run of the dispatcher's ``lod`` or ``compress`` (host NumPy)
+    with the launch counts reset just before it and read just after: it
+    must launch no kernel and write ``outputs``; returns the counts."""
+    from rt_octree_tpu_torch.apps import cli
+    shown = " ".join(os.path.relpath(a, HERE) if os.sep in a else a
+                     for a in argv)
+    log(f"[main] {label}: cli {shown}")
+    native.reset_launches()
+    t0 = time.time()
+    rc = cli.main(argv)
+    counts = dict(native.LAUNCHES)
+    log(f"[main] {label}: rc {rc} in {time.time() - t0:.1f} s; launches "
+        f"{counts}")
+    require(rc == 0, f"{label} failed")
+    require(not any(counts.values()), f"{label} launched a kernel: {counts}")
+    require(all(os.path.isfile(o) for o in outputs), f"{label}: no output")
+    return counts
+
+
+def tool_paths(tree_path, quant_src):
+    """The dispatcher's host commands on the main path: label -> (argv,
+    the files it must write).  ``lod`` pools the headline tree to depth 8;
+    ``compress`` quantizes the quant phase's depth-7 shell."""
+    qdir = os.path.join(WORK, "quant")
+    lod_out = os.path.join(WORK, "shell_d9_lod8.npz")
+    return {
+        "cli lod": (["lod", tree_path, "-d", "8", "-o", lod_out], [lod_out]),
+        "cli compress": (["compress", quant_src, "--out_dir", qdir,
+                          "--retain", "1", "--overwrite"],
+                         [os.path.join(qdir, os.path.basename(quant_src))]),
+    }
 
 
 def make_headline_renderer(tree):
@@ -780,22 +880,22 @@ def make_headline_renderer(tree):
     return r, ps
 
 
-def phase_quality(r, ps, label="headline",
-                  bars=(GATE_NOISY, GATE_DENOISED)):
+def phase_quality(r, poses, label="headline",
+                  bars=(GATE_NOISY, GATE_DENOISED), kit=KIT):
     """bench.quality_report's protocol: per pose rng.seed(20230418, 1),
-    noisy then denoised, whole-image PSNR vs the committed GT PNGs, held to
-    the JAX package's CPU bars."""
+    noisy then denoised, whole-image PSNR vs the committed GT PNGs of
+    ``kit``, held to the JAX package's CPU bars."""
     bar_noisy, bar_den = bars
     from rt_octree_tpu_torch.io.png import read_png
     acc = {"noisy": [], "denoised": []}
-    for i, pose in enumerate(ps.poses[:8]):
-        gt = read_png(os.path.join(KIT, "test", f"r_{i}.png"))[..., :3]
+    for i, pose in enumerate(poses[:8]):
+        gt = read_png(os.path.join(kit, "test", f"r_{i}.png"))[..., :3]
         r.rng.seed(20230418, 1)
         for mode in ("noisy", "denoised"):
             r.options.denoise = mode == "denoised"
             img = r.render(pose, want_aux=False)[0].cpu().numpy()
-            require(img.shape == (800, 800, 4) and np.isfinite(img).all(),
-                    f"pose {i} {mode}: bad frame")
+            require(img.shape == (r.height, r.width, 4)
+                    and np.isfinite(img).all(), f"pose {i} {mode}: bad frame")
             acc[mode].append(psnr(img, gt))
     r.options.denoise = True
     noisy = float(np.mean(acc["noisy"]))
@@ -813,9 +913,9 @@ def phase_quality(r, ps, label="headline",
     return noisy, den
 
 
-def k1_stats_line(r, st, kw):
-    """K1's statistics on the headline frame as one JSON line; returns
-    K1's bound (ms, "bytes" or "operations") from what the frame reads."""
+def k1_stats(tree, st, kw, frame):
+    """K1's statistics on one frame as a dict; K1's bound (ms, "bytes" or
+    "operations") from what the frame reads."""
     import torch
     from rt_octree_tpu_torch.render import renderer as R
     steps = st.steps.flatten().float()
@@ -826,14 +926,12 @@ def k1_stats_line(r, st, kw):
     # pixel; it reads the pose, each LUT cell and chs row once (8 B) and
     # each shaded f16 row once
     nbytes = (80 * n + 48 + 8 * (st.lut_cells + st.chs_rows)
-              + 2 * r.tree.data_dim * st.data_rows)
+              + 2 * tree.data_dim * st.data_rows)
     ops = (K1_OPS_PER_STEP * float(steps.sum())
-           + (6 * max(r.tree.basis_dim, 0) + 16) * st.data_rows)
+           + (6 * max(tree.basis_dim, 0) + 16) * st.data_rows)
     b_ms, b_by = bound(nbytes, ops)
-    log(json.dumps({"k1_stats": {
-        "frame": f"{kw['width']}x{kw['height']} spp {kw['opt'].spp} "
-                 "depth-9 shell, level-9 LUT, pose r_0",
-        "steps_mean": float(steps.mean()), "steps_p50": p50,
+    return {
+        "frame": frame, "steps_mean": float(steps.mean()), "steps_p50": p50,
         "steps_p99": p99, "steps_max": int(steps.max()),
         "rays_stepping": int((steps > 0).sum()), "rays": n,
         "steps_total": int(steps.sum()),
@@ -842,7 +940,17 @@ def k1_stats_line(r, st, kw):
                             for w, h in ((32, 1), (8, 4), (4, 8))},
         "lut_cells": st.lut_cells, "chs_rows": st.chs_rows,
         "data_rows": st.data_rows, "bound_bytes": nbytes,
-        "bound_f32_ops": ops, "bound_us": b_ms * 1e3, "bound_by": b_by}}))
+        "bound_f32_ops": ops, "bound_us": b_ms * 1e3,
+        "bound_by": b_by}, b_ms, b_by
+
+
+def k1_stats_line(r, st, kw):
+    """K1's statistics on the headline frame as one JSON line; returns
+    K1's bound (ms, "bytes" or "operations")."""
+    stats, b_ms, b_by = k1_stats(
+        r.tree, st, kw, f"{kw['width']}x{kw['height']} spp {kw['opt'].spp} "
+        "depth-9 shell, level-9 LUT, pose r_0")
+    log(json.dumps({"k1_stats": stats}))
     return b_ms, b_by
 
 
@@ -1072,13 +1180,14 @@ def phase_fast_classic(r, ps, err, tree_host):
     del aux, rgba
 
     # quality gates and frame times
-    phase_quality(rc, ps, "classic", GATE_CLASSIC)
+    phase_quality(rc, ps.poses, "classic", GATE_CLASSIC)
     for scale, (gnet, g_noisy, g_den) in GATES_FAST.items():
         rf = R.Renderer(r.tree, 800, 800, r.fx, r.fy,
                         options=headline_options(), render_scale=scale)
         rf.set_denoiser(os.path.join(KIT, gnet))
         hold_fast(rf, pose, err)
-        phase_quality(rf, ps, f"fast s={scale} ({gnet})", (g_noisy, g_den))
+        phase_quality(rf, ps.poses, f"fast s={scale} ({gnet})",
+                      (g_noisy, g_den))
         frame_timing(rf, pose, f"fast s={scale} ({rf.inner_width}x"
                      f"{rf.inner_height} march, 800x800 out, {gnet})")
 
@@ -1105,6 +1214,270 @@ def phase_fast_classic(r, ps, err, tree_host):
         "grid_pass": f"wireframe to depth 2 ({int(np.isfinite(depth).sum())}"
                      " px), 800x800, host NumPy"}}))
     return ms, bounds
+
+
+def cached_tree(name, make):
+    """The tree ``make()`` builds, saved as WORK/<name>.npz on the first
+    call and read from there after."""
+    from rt_octree_tpu_torch.io import n3tree, synthetic
+    path = os.path.join(WORK, f"{name}.npz")
+    t0 = time.perf_counter()
+    if os.path.isfile(path):
+        tree, how = n3tree.load(path), "read"
+    else:
+        tree, how = make(), "built"
+        os.makedirs(WORK, exist_ok=True)
+        synthetic.save_npz(tree, path)
+    log(f"[trees] {name}: {tree.capacity} nodes, max depth "
+        f"{tree.max_depth}, {how} in {time.perf_counter() - t0:.1f} s")
+    return tree
+
+
+def quant_source():
+    """bench.py:quant_fidelity's float tree, saved for ``cli compress``."""
+    from rt_octree_tpu_torch.io import synthetic
+    os.makedirs(WORK, exist_ok=True)
+    path = os.path.join(WORK, f"shell_d{QUANT_DEPTH}_sh9.npz")
+    synthetic.save_npz(synthetic.make_synthetic_tree(
+        "shell", depth=QUANT_DEPTH, basis_dim=9), path)
+    return path
+
+
+def scene_camera(cfg):
+    """bench.py's camera of a scene (the llff one looks down -z from near
+    the NDC origin)."""
+    from rt_octree_tpu_torch.core.camera import Camera
+    W, H = cfg["size"]
+    f = cfg["focal"]
+    cam = Camera(W, H) if f is None else Camera(W, H, fx=f, fy=f)
+    if cfg["ndc"]:
+        cam.center = np.array([0.02, 0.01, 0.3], np.float32)
+        cam.v_back = np.array([0.0, 0.0, 1.0], np.float32)
+        cam.v_world_up = np.array([0.0, 1.0, 0.0], np.float32)
+        cam.update()
+    return cam
+
+
+def phase_scenes(err, quant_src):
+    """Every scene and rung of SCENES through the Renderer: K1 vs its plain
+    version on the scene's own frame (tt: its central 64x64 pixels, whose
+    rays are the full frame's), fast rungs held at their own shapes
+    (hold_fast: K1 at the inner size, K4 on its output, the frame vs the
+    plain chain), K2 on the net's activation, the 8-pose gate against the
+    JAX CPU bars, the frame time and phase split; then the quantized tree
+    (K1 held on its decode, PSNR against the float frame, bytes ratio).
+    Prints one {"scenes": ...} line."""
+    import torch
+    from rt_octree_tpu_torch.io import synthetic
+    from rt_octree_tpu_torch.io.lod import build_lod
+    from rt_octree_tpu_torch.io.n3tree import load as load_npz
+    from rt_octree_tpu_torch.io.poses import load_poses
+    from rt_octree_tpu_torch.ops.filtering import (guided_filter,
+                                                   guided_filter_act_plain)
+    from rt_octree_tpu_torch.ops.traversal import upload_tree
+    from rt_octree_tpu_torch.render import renderer as R
+    from rt_octree_tpu_torch.core.options import RenderOptions
+    from rt_octree_tpu_torch.core.camera import Camera
+    trees, uploads, out = {}, {}, {}
+    for label, cfg in SCENES.items():
+        kind, lod = cfg["tree"], cfg["lod"]
+        if kind not in trees:
+            trees[kind] = cached_tree(f"{kind}_d9_sh9", lambda: (
+                synthetic.make_synthetic_tree(kind, depth=9, basis_dim=9)))
+            if cfg["ndc"]:
+                W, H = cfg["size"]
+                trees[kind].use_ndc = True
+                trees[kind].ndc_width = float(W)
+                trees[kind].ndc_height = float(H)
+                trees[kind].ndc_focal = float(cfg["focal"])
+        if (kind, lod) not in uploads:
+            tree = trees[kind]
+            if lod:
+                t0 = time.perf_counter()
+                tree = build_lod(tree, min(lod, tree.max_depth))
+                log(f"[trees] {kind} LOD d{lod}: {tree.capacity} nodes, "
+                    f"pooled in {time.perf_counter() - t0:.1f} s")
+            uploads[kind, lod] = upload_tree(
+                tree, lut_levels=min(9, tree.max_depth), device="cuda")
+        dt = uploads[kind, lod]
+        W, H = cfg["size"]
+        cam = scene_camera(cfg)
+        kit = os.path.join(HERE, "benchmarks", cfg["kit"])
+        r = R.Renderer(dt, W, H, cam.fx, cam.fy, options=headline_options(),
+                       render_scale=cfg["scale"])
+        r.set_denoiser(os.path.join(kit, cfg["gnet"]))
+        pose = cam.transform
+        if r.fast:
+            hold_fast(r, pose, err)
+        else:
+            c = cfg["crop"]
+            w, h = (c, c) if c else (W, H)
+            kw = dict(width=w, height=h, fx=r.fx, fy=r.fy, opt=r.options)
+            hold_k1(f"{label} {w}x{h}" + (f" (central crop of {W}x{H})"
+                                          if c else ""),
+                    dt, r._transform(pose), kw, "render", err)
+        img, aux_nhwc, _ = r.render_noisy(pose)
+        act = r.net_forward(aux_nhwc)
+        sup = r.net_cfg.supports()
+        e2 = float((guided_filter(act, img, sup)
+                    - guided_filter_act_plain(act, img, sup)).abs().max())
+        log(f"[scenes] {label}: K2 on the net's activation {tuple(act.shape)}"
+            f" (supports {sup}): max|diff| {e2:.3g}")
+        require(e2 <= K2_TOL, f"{label}: K2 disagrees with its plain version")
+        err["guided_filter"] = max(err["guided_filter"], e2)
+        del img, aux_nhwc, act
+        ps = load_poses("blender", os.path.join(kit, "transforms_test.json"),
+                        W, H)
+        noisy, den = phase_quality(r, ps.poses, label, cfg["bars"], kit)
+        log(f"[scenes] {label}: denoise_recommended "
+            f"{r.denoise_recommended}")
+        frame_ms, split = frame_timing(
+            r, pose, f"{label} ({r.inner_width}x{r.inner_height} march, "
+            f"{W}x{H} out, {cfg['gnet']})")
+        out[label] = {"size": f"{W}x{H}", "march": f"{r.inner_width}x"
+                      f"{r.inner_height}", "gnet": f"{cfg['kit']}/"
+                      f"{cfg['gnet']}", "lod": cfg["lod"],
+                      "nodes": int(dt.chs.shape[0] // 8),
+                      "psnr_noisy": noisy, "psnr_denoised": den,
+                      "bars": list(cfg["bars"]),
+                      "denoise_recommended": r.denoise_recommended,
+                      "frame_ms": frame_ms, "split_ms": split}
+        del r
+    del uploads
+    torch.cuda.empty_cache()
+
+    # the quantized tree (written by the main path's cli compress)
+    qpath = os.path.join(WORK, "quant", os.path.basename(quant_src))
+    cam = Camera(QUANT_SIZE, QUANT_SIZE)
+    opt = RenderOptions(spp=6, denoise=False)
+    imgs = {}
+    for label, path in (("float", quant_src), ("quant", qpath)):
+        t = load_npz(path)
+        dt = upload_tree(t, lut_levels=min(7, t.max_depth), device="cuda")
+        r = R.Renderer(dt, QUANT_SIZE, QUANT_SIZE, cam.fx, cam.fy,
+                       options=opt)
+        kw = dict(width=QUANT_SIZE, height=QUANT_SIZE, fx=cam.fx, fy=cam.fy,
+                  opt=opt)
+        hold_k1(f"quant d{QUANT_DEPTH} {label} tree {QUANT_SIZE}x"
+                f"{QUANT_SIZE}", dt, r._transform(cam.transform), kw,
+                "render", err, (r.rng.state, r.rng.inc))
+        imgs[label] = r.render(cam.transform,
+                               want_aux=False)[0].cpu().numpy()
+    mse = float(np.mean((imgs["float"][..., :3]
+                         - imgs["quant"][..., :3]) ** 2))
+    q_psnr = -10.0 * np.log10(max(mse, 1e-12))
+    sizes = (os.path.getsize(quant_src), os.path.getsize(qpath))
+    ratio = sizes[1] / sizes[0]
+    log(f"[scenes] quant d{QUANT_DEPTH}: PSNR vs float {q_psnr:.3f} dB (JAX "
+        f"{QUANT_PSNR}), npz bytes {sizes}, ratio {ratio:.5f} (JAX "
+        f"{QUANT_BYTES}, {QUANT_BYTES[1] / QUANT_BYTES[0]:.5f})")
+    require(abs(q_psnr - QUANT_PSNR) <= QUANT_PSNR_TOL,
+            f"quant PSNR {q_psnr:.3f} not within {QUANT_PSNR_TOL} dB")
+    require(sizes == QUANT_BYTES, "the npz files are not the JAX package's")
+    out["quant"] = {"depth": QUANT_DEPTH, "size": f"{QUANT_SIZE}x"
+                    f"{QUANT_SIZE}", "psnr_vs_float": q_psnr,
+                    "bar": QUANT_PSNR, "bytes": list(sizes),
+                    "bytes_ratio": ratio}
+    log(json.dumps({"scenes": out}))
+    return out
+
+
+def deep_tree(base):
+    """tools/bench_deep.py:get_tree: ``base`` (the headline depth-9 shell)
+    refined DEEP_LEVELS levels at its occupied deepest leaves."""
+    from rt_octree_tpu_torch.io import synthetic
+    thickness = max(3.0 / 2 ** base.max_depth, 0.02)
+    def make():
+        return synthetic.refine_tree(
+            base, lambda p: synthetic.shell_sigma(
+                p, thickness=thickness, amplitude=4.0 / thickness),
+            synthetic.position_color, levels=DEEP_LEVELS)
+    return cached_tree(f"shell_d{base.max_depth + DEEP_LEVELS}_refined",
+                       make)
+
+
+def phase_deep(err, base):
+    """The depth-11 shell uploaded twice, with the partial-LUT skip (LUT at
+    level 9 = max_depth - 2, internal cells marked) and with skip_cap=0:
+    K3's marker lanes and distances vs its plain version on the 512^3
+    partial LUT, K1 vs its plain version on a central 128x128 crop of both,
+    the two uploads' 800x800 frames against each other, K1's statistics,
+    frame times and peak device memory.  Prints one {"deep": ...} line."""
+    import torch
+    from rt_octree_tpu_torch.core.camera import Camera
+    from rt_octree_tpu_torch.core.options import RenderOptions
+    from rt_octree_tpu_torch.ops import traversal as T
+    from rt_octree_tpu_torch.render import renderer as R
+    tree = deep_tree(base)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dts = {"skip": T.upload_tree(tree, lut_levels=DEEP_LUT, device="cuda"),
+           "no skip": T.upload_tree(tree, lut_levels=DEEP_LUT, skip_cap=0,
+                                    device="cuda")}
+    res = 2 ** DEEP_LUT
+    require(dts["skip"].lut_levels == DEEP_LUT == tree.max_depth - 2
+            and dts["skip"].skip_cap == 12 and dts["no skip"].skip_cap == 0,
+            "the depth-11 tree did not get the partial-LUT skip")
+    chs, mark = dts["skip"].chs, T.LUT_INTERNAL_MARK
+    lut_k = T.build_lut(chs, 2, DEEP_LUT, mark)
+    lut_p = T.lut_build_plain(chs, 2, DEEP_LUT, mark)
+    d_lut = int((lut_k.long() - lut_p.long()).abs().max())
+    marked = int((lut_p[:, 1] == mark).sum())
+    skip_k = T.add_skip_distances(lut_k.clone(), res, 12)
+    skip_p = T.add_skip_distances_plain(lut_p, res, 12)
+    d_skip = int((skip_k.long() - skip_p.long()).abs().max())
+    lanes = skip_p[:, 1]
+    n_dist = int(((lanes > 0) & (lanes <= 12)).sum())
+    same = (torch.equal(skip_k, dts["skip"].lut)
+            and torch.equal(lut_k, dts["no skip"].lut))
+    log(f"[deep] K3 {res}^3 partial LUT: {marked} cells marked internal, "
+        f"{n_dist} carry a distance; lut max|diff| {d_lut}, skip max|diff| "
+        f"{d_skip}; equal to the uploads' LUTs: {same}")
+    require(d_lut == 0 and d_skip == 0 and same and marked > 0,
+            "K3 disagrees with its plain version on the partial LUT")
+    err["lut_build"] = max(err["lut_build"], float(d_lut))
+    err["skip_distances"] = max(err["skip_distances"], float(d_skip))
+    del lut_k, lut_p, skip_k, skip_p, lanes
+
+    S, C = DEEP_SIZE, DEEP_CROP
+    cam = Camera(S, S)
+    opt = RenderOptions(spp=6, denoise=False)
+    out = {"nodes": tree.capacity, "max_depth": tree.max_depth,
+           "lut_levels": DEEP_LUT, "marked_cells": marked,
+           "cells_with_distance": n_dist}
+    frames = {}
+    for label, dt in dts.items():
+        r = R.Renderer(dt, S, S, cam.fx, cam.fy, options=opt)
+        tf = r._transform(cam.transform)
+        rng = (r.rng.state, r.rng.inc)
+        crop = dict(width=C, height=C, fx=r.fx, fy=r.fy, opt=opt)
+        hold_k1(f"deep d{tree.max_depth} {label} {C}x{C} (central crop of "
+                f"{S}x{S})", dt, tf, crop, "render", err, rng)
+        kw = dict(width=S, height=S, fx=r.fx, fy=r.fy, opt=opt)
+        frames[label] = R.render_noisy(dt, tf, *rng, **kw)
+        st = R.render_stats(dt, tf, *rng, **kw)
+        stats = k1_stats(dt, st, kw, f"{S}x{S} spp 6 depth-{tree.max_depth}"
+                         f" refined shell, level-{DEEP_LUT} LUT, skip_cap "
+                         f"{dt.skip_cap}")[0]
+        frame_ms, split = frame_timing(r, cam.transform,
+                                       f"deep d{tree.max_depth} {label}")
+        out[label] = {"k1_stats": stats, "frame_ms": frame_ms,
+                      "split_ms": split}
+        del r, st
+    e_img = float((frames["skip"][0] - frames["no skip"][0]).abs().max())
+    e_aux = max(float((frames["skip"][i] - frames["no skip"][i]).abs().max())
+                for i in (1, 2))
+    log(f"[deep] {S}x{S} frame with vs without the partial-LUT skip: "
+        f"max|img diff| {e_img:.3g}, max|aux diff| {e_aux:.3g}")
+    require(e_img <= K1_IMG_TOL and e_aux <= K1_AUX_TOL,
+            "the partial-LUT skip changed the deep frame")
+    out["img_diff_skip_vs_no_skip"] = e_img
+    out["aux_diff_skip_vs_no_skip"] = e_aux
+    out["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    log(json.dumps({"deep": out}))
+    del dts, frames
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_probes(native, err):
@@ -1274,9 +1647,15 @@ def main(argv) -> int:
     phase_pcg()
     phase_k2(err)
     tree, tree_path, gen = headline_tree_path()
+    paths = main_paths(make_drawlist())
     runs = {label: phase_main(native, tree_path, label, flags, required)
-            for label, (flags, required)
-            in main_paths(make_drawlist()).items()}
+            for label, (flags, required) in paths.items()}
+    flags, required = paths["headline"]
+    runs["cli render"] = phase_main(native, tree_path, "cli render", flags,
+                                    required, dispatcher=True)
+    quant_src = quant_source()
+    for label, (argv, outputs) in tool_paths(tree_path, quant_src).items():
+        runs[label] = phase_tool(native, label, argv, outputs)
     # each kernel's launches in the main path that carries it
     counts = {k: runs["headline"][k] for k in
               ("render", "guided_filter", "lut_build", "skip_distances")}
@@ -1285,12 +1664,15 @@ def main(argv) -> int:
         "render_classic"]
     measure_load(tree_path, gen)
     r, ps = make_headline_renderer(tree)
-    phase_quality(r, ps)
+    phase_quality(r, ps.poses)
     ms, bounds = phase_headline(r, ps, err)
     ms_new, bounds_new = phase_fast_classic(r, ps, err, tree)
     ms.update(ms_new)
     bounds.update(bounds_new)
     del r
+    phase_scenes(err, quant_src)
+    phase_deep(err, tree)
+    del tree
     probe_counts, probe_ms, probe_bounds = phase_probes(native, err)
     counts.update(probe_counts)
     ms.update(probe_ms)

@@ -7,7 +7,9 @@
 // LUT build (rt_lut_build).  Every cell of the res^3 grid descends from the
 // root through the (child skip, sigma bits) rows of chs for `levels` levels
 // and gets (depth << 27 | ptr, sigma bits), or (31 << 27 | node, 0) when it
-// is still internal at the LUT level.  The cells of one subcube share the
+// is still internal at the LUT level (on a partial LUT of a deep tree,
+// (31 << 27 | node, mark): the caller's non-zero marker, so that the skip
+// distances count the cell as occupied).  The cells of one subcube share the
 // top of that descent, so the build goes down kStep = 3 levels a launch:
 // lut_step_kernel turns the table at level l, whose internal cells already
 // hold their node pointer, into the table at level l + 3.  Each cell reads
@@ -96,7 +98,7 @@ __device__ __forceinline__ int2 cell_entry(const int2* __restrict__ chs,
                                            const int2* __restrict__ coarse,
                                            unsigned long long i, int n_rt,
                                            int lev0, int k, int res,
-                                           int log2_res) {
+                                           int log2_res, int mark) {
   const int N = kN ? kN : n_rt;
   int x, y, z;
   if (kN == 2) {
@@ -150,20 +152,22 @@ __device__ __forceinline__ int2 cell_entry(const int2* __restrict__ chs,
     }
     node += row.x;
   }
-  return make_int2((int)(kInternalRoot | (uint32_t)node), 0);
+  return make_int2((int)(kInternalRoot | (uint32_t)node), mark);
 }
 
-// out: the table at level lev0 + k
+// out: the table at level lev0 + k; mark: the sigma lane of its internal
+// cells (a coarse table's internal cells are read for their node only)
 template <int kN>
 __global__ void __launch_bounds__(kBuildThreads)
     lut_step_kernel(const int2* __restrict__ chs,
                     const int2* __restrict__ coarse, int2* __restrict__ out,
                     int n_rt, int lev0, int k, int res, int log2_res,
-                    unsigned long long n_cells) {
+                    unsigned long long n_cells, int mark) {
   const unsigned long long i =
       (unsigned long long)blockIdx.x * kBuildThreads + threadIdx.x;
   if (i < n_cells)
-    out[i] = cell_entry<kN>(chs, coarse, i, n_rt, lev0, k, res, log2_res);
+    out[i] = cell_entry<kN>(chs, coarse, i, n_rt, lev0, k, res, log2_res,
+                            mark);
 }
 
 // ---------------------------------------------------------------------------
@@ -450,10 +454,12 @@ RT_API int rt_lut_build_scratch(int N, int levels, long long* cells) {
 }
 
 // chs: [M, 2] i32 (child skip, sigma bits); lut: [res^3, 2] i32 output;
-// scratch: rt_lut_build_scratch cells of int2.  *launches: kernels
-// launched.
+// scratch: rt_lut_build_scratch cells of int2; internal_mark: the sigma
+// lane of the LUT's internal cells (0, or a marker outside the skip
+// distances' 1..255).  *launches: kernels launched.
 RT_API int rt_lut_build(const void* chs, void* lut, void* scratch, int N,
-                        int levels, int* launches, void* stream) {
+                        int levels, int internal_mark, int* launches,
+                        void* stream) {
   BuildStep steps[kMaxSteps];
   const int n = build_steps(levels, steps);
   *launches = 0;
@@ -465,16 +471,17 @@ RT_API int rt_lut_build(const void* chs, void* lut, void* scratch, int N,
     const unsigned long long cells = (unsigned long long)cube(res);
     const bool last = i + 1 == n;
     int2* out = last ? (int2*)lut : next;
+    const int mark = last ? internal_mark : 0;
     const unsigned blocks =
         (unsigned)((cells + kBuildThreads - 1) / kBuildThreads);
     if (N == 2)
       lut_step_kernel<2><<<blocks, kBuildThreads, 0, (cudaStream_t)stream>>>(
           (const int2*)chs, coarse, out, N, steps[i].lev0, steps[i].k, res,
-          lev, cells);
+          lev, cells, mark);
     else
       lut_step_kernel<0><<<blocks, kBuildThreads, 0, (cudaStream_t)stream>>>(
           (const int2*)chs, coarse, out, N, steps[i].lev0, steps[i].k, res,
-          lev, cells);
+          lev, cells, mark);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     ++*launches;

@@ -1,8 +1,8 @@
 """Procedural PlenOctree generation for tests and benchmarks.
 
-The port's own copy of rt_octree_tpu/io/synthetic.py (NumPy), without
-``refine_tree``, plus ``random_lut``, the random jump LUTs that kernel K3's
-skip distances are tested on.
+The port's own copy of rt_octree_tpu/io/synthetic.py (NumPy), plus
+``random_lut``, the random jump LUTs that kernel K3's skip distances are
+tested on, and ``random_mesh_pass``.
 
 No scene data ships with this environment, so benchmarks and end-to-end
 tests build octrees with the same on-disk format, topology statistics
@@ -12,11 +12,33 @@ tests build octrees with the same on-disk format, topology statistics
 
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable
 
 import numpy as np
 
 from .n3tree import BasisFormat, DataFormat, N3Tree
+
+
+# Host threads for the density and colour functions.  The functions are
+# row-wise NumPy (ufuncs release the GIL), so a chunk's rows come out as
+# they would in one call: the tree is the JAX package's, bit for bit.  A
+# depth-9 blobs tree takes minutes in one thread.
+_WORKERS = min(os.cpu_count() or 1, 8)
+_ROWS = 1 << 22  # rows per threaded call of a leaf-data function
+
+
+def _rowwise(fn, pos: np.ndarray, *args) -> np.ndarray:
+    """fn(pos, *args) for a row-wise fn, in chunks of _ROWS rows on the
+    thread pool."""
+    n = pos.shape[0]
+    if n <= _ROWS or _WORKERS == 1:
+        return fn(pos, *args)
+    with ThreadPoolExecutor(_WORKERS) as ex:
+        parts = list(ex.map(lambda i: fn(pos[i:i + _ROWS], *args),
+                            range(0, n, _ROWS)))
+    return np.concatenate(parts)
 
 
 def _occupancy_pyramid(occ_fine: np.ndarray, N: int, depth: int):
@@ -52,12 +74,17 @@ def build_tree(
     g = ((np.arange(res, dtype=np.float32) + 0.5) / res)
     occ_fine = np.empty((res, res, res), bool)
     chunk = max(1, (1 << 24) // (res * res))
-    for x0 in range(0, res, chunk):
+    if res ** 3 > _ROWS:  # at least one chunk a thread
+        chunk = max(1, min(chunk, -(-res // _WORKERS)))
+
+    def fill(x0):
         xs = g[x0:x0 + chunk]
         X, Y, Z = np.meshgrid(xs, g, g, indexing="ij")
         pos = np.stack([X, Y, Z], -1).reshape(-1, 3)
         occ_fine[x0:x0 + chunk] = (
             sigma_fn(pos) > sigma_eps).reshape(len(xs), res, res)
+    with ThreadPoolExecutor(_WORKERS) as ex:
+        list(ex.map(fill, range(0, res, chunk)))
     occ = _occupancy_pyramid(occ_fine, N, depth)
 
     # nodes: level l in [0, depth-1]; a cell is a node iff occupied
@@ -114,8 +141,8 @@ def build_tree(
         centers = np.stack(
             [(ccx + 0.5) / rc, (ccy + 0.5) / rc, (ccz + 0.5) / rc],
             axis=-1).reshape(-1, 3)
-        sig = sigma_fn(centers).astype(np.float16)
-        col = color_fn(centers, basis_dim).astype(np.float16)
+        sig = _rowwise(sigma_fn, centers).astype(np.float16)
+        col = _rowwise(color_fn, centers, basis_dim).astype(np.float16)
         d = np.concatenate([col, sig[:, None]], axis=-1)
         data[node_ids] = d.reshape(len(cells), N3, data_dim)
 
@@ -209,6 +236,87 @@ def make_synthetic_tree(kind: str = "shell", depth: int = 7,
         return build_tree(solid_sigma, position_color, depth=depth,
                           basis_dim=basis_dim, sigma_eps=1e-2)
     raise ValueError(kind)
+
+
+def refine_tree(tree: N3Tree, sigma_fn: Callable, color_fn: Callable,
+                levels: int = 2, max_refine: int = 150_000,
+                sigma_eps: float = 1e-2) -> N3Tree:
+    """Subdivide the tree's DEEPEST occupied leaves ``levels`` further,
+    evaluating sigma/color at the finer cell centers.
+
+    Dense-grid generation at depth 11 needs a 2048^3 occupancy grid
+    (tens of GB); this instead deepens an existing tree only where
+    occupied -- the same surface-sparse structure real PlenOctrees have.
+    ``max_refine`` bounds the per-level refinement (deterministic
+    stride subsample)."""
+    N = tree.N
+    assert N == 2
+    N3 = 8
+    data_dim = tree.data_dim
+    child = tree.child.reshape(-1, N3).copy()
+    data = tree.data.reshape(-1, N3, data_dim).copy()
+
+    # level-order sweep: per-node depth + cell coords (resolution
+    # 2^depth), vectorized one frontier at a time
+    cap = child.shape[0]
+    node_depth = np.zeros(cap, np.int32)
+    node_cell = np.zeros((cap, 3), np.int64)
+    ii, jj, kk = np.meshgrid(np.arange(2), np.arange(2), np.arange(2),
+                             indexing="ij")
+    digits = np.stack([ii, jj, kk], -1).reshape(N3, 3)
+    frontier = np.array([0], np.int64)
+    d = 0
+    while len(frontier):
+        sk = child[frontier]  # [F, 8]
+        mask = sk != 0
+        kid_ids = (frontier[:, None] + sk)[mask]
+        kid_cells = (node_cell[frontier][:, None, :] * 2 +
+                     digits[None, :, :])[mask]
+        node_depth[kid_ids] = d + 1
+        node_cell[kid_ids] = kid_cells
+        frontier = kid_ids
+        d += 1
+
+    max_d = int(node_depth.max()) + 1  # leaf depth of the deepest slots
+    for lvl in range(levels):
+        depth_now = max_d + lvl
+        # leaf slots at the current deepest level with sigma > eps
+        deepest = node_depth == depth_now - 1
+        cand_nodes, cand_slots = np.nonzero(
+            (child == 0) & deepest[:, None] &
+            (data[..., data_dim - 1].astype(np.float32) > sigma_eps))
+        if len(cand_nodes) > max_refine:
+            stride = len(cand_nodes) // max_refine + 1
+            cand_nodes = cand_nodes[::stride]
+            cand_slots = cand_slots[::stride]
+        k = len(cand_nodes)
+        if k == 0:
+            break
+        base = child.shape[0]
+        child[cand_nodes, cand_slots] = (base + np.arange(k) -
+                                         cand_nodes).astype(np.int32)
+        # new nodes' cells = refined slot cells; children at depth_now+1
+        slot_cell = (node_cell[cand_nodes] * 2 + digits[cand_slots])
+        child_cells = (slot_cell[:, None, :] * 2 +
+                       digits[None, :, :])  # [k, 8, 3]
+        res = float(2 ** (depth_now + 1))
+        centers = ((child_cells.astype(np.float64) + 0.5) / res
+                   ).reshape(-1, 3).astype(np.float32)
+        sig = sigma_fn(centers).astype(np.float16)
+        col = color_fn(centers, (data_dim - 1) // 3).astype(np.float16)
+        nd = np.concatenate([col, sig[:, None]], -1).reshape(k, N3,
+                                                             data_dim)
+        child = np.concatenate([child, np.zeros((k, N3), np.int32)])
+        data = np.concatenate([data, nd])
+        node_depth = np.concatenate(
+            [node_depth, np.full(k, depth_now, np.int32)])
+        node_cell = np.concatenate([node_cell, slot_cell])
+
+    return N3Tree(
+        data=data.reshape(-1, data_dim), child=child.reshape(-1),
+        offset=tree.offset, scale=tree.scale, N=N, data_dim=data_dim,
+        data_format=tree.data_format, capacity=child.shape[0],
+        max_depth=int(node_depth.max()) + 1)
 
 
 def make_deep_chain_tree(depth: int, basis_dim: int = 1) -> N3Tree:

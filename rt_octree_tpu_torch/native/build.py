@@ -61,7 +61,7 @@ ENTRIES = {
     "rt_guided_filter": ("filter", [_V, _L, _L, _L, _V, _V, _I, _V, _I, _I,
                                     _V]),
     "rt_lut_build_scratch": ("lut", [_I, _I, _PL]),
-    "rt_lut_build": ("lut", [_V, _V, _V, _I, _I, _PI, _V]),
+    "rt_lut_build": ("lut", [_V, _V, _V, _I, _I, _I, _PI, _V]),
     "rt_skip_distances": ("lut", [_V, _V, _V, _I, _I, _PI, _V]),
     "rt_probe_affine": ("probes", [_V, _V, _I, _V]),
     "rt_lane_gather": ("probes", [_V, _V, _V, _I, _I, _I, _V]),

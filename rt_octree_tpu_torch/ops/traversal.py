@@ -4,7 +4,10 @@ vectorized query, in PyTorch.
 Counterpart of rt_octree_tpu/ops/traversal.py without its TPU wide-row
 machinery (brick tables, pair-packed data, sparse bricks): the port marches
 one thread per pixel over the packed jump LUT plus continued ``chs``
-descent, as the reference does (n3tree_query.hpp:13-48).
+descent, as the reference does (n3tree_query.hpp:13-48).  Where the JAX
+package anchors a deep tree's LUT at its sparse-brick level, the port
+anchors it at the same level and marks the cells still internal there
+occupied, so that the LUT carries the same empty-space skip distances.
 
 Kernel K3 (csrc/lut.cu) builds the LUT and its empty-space skip distances
 on the card; ``lut_build_plain`` and ``add_skip_distances_plain`` are its
@@ -27,6 +30,13 @@ from ..native import build as native
 LUT_PTR_BITS = 27
 LUT_DEPTH_SENTINEL = (1 << 5) - 1  # depth field all-ones => internal node
 LUT_PTR_MASK = (1 << LUT_PTR_BITS) - 1
+# sigma lane of the internal cells of a deep tree's partial LUT: non-zero
+# (occupied for the skip build) and above the distances' 1..255; as f32
+# bits a denormal.  The march descends from such a cell and reads the
+# leaf's own sigma, never this lane.
+LUT_INTERNAL_MARK = 1 << 8
+# deepest LUT level of a deep tree's partial LUT (JAX: its sparse bricks)
+PARTIAL_LUT_MAX_LEVELS = 9
 # cells per chunk of the plain LUT build (bounds its int64 temporaries)
 _PLAIN_CHUNK = 1 << 22
 
@@ -42,7 +52,8 @@ class DeviceTree:
     scale: torch.Tensor  # [3] f32
     extra: torch.Tensor  # [E] f32 (SG/ASG) or [0]
     # lut[:, 0] = packed (depth<<27 | ptr); lut[:, 1] = f32 sigma bits of
-    # the shallow leaf (0 when still internal), or the skip distance bits
+    # the shallow leaf, or the skip distance bits; 0 when still internal
+    # (LUT_INTERNAL_MARK on a deep tree's partial LUT)
     lut: torch.Tensor  # [res^3, 2] i32, or [0, 2]
     N: int
     data_dim: int
@@ -68,52 +79,64 @@ class DeviceTree:
 # kernel K3: LUT build + skip distances
 # ---------------------------------------------------------------------------
 
-def lut_build_plain(chs: torch.Tensor, N: int, levels: int) -> torch.Tensor:
+def lut_build_plain(chs: torch.Tensor, N: int, levels: int,
+                    internal_mark: int = 0) -> torch.Tensor:
     """Plain version of K3's LUT build (traversal.py:_device_lut_build):
     per cell of the (N^levels)^3 grid, the root-to-level descent into
-    (depth<<27 | ptr, sigma bits)."""
-    res = N ** levels
-    n_cells = res ** 3
+    (depth<<27 | ptr, sigma bits), or (31<<27 | node, ``internal_mark``)
+    where the cell is still internal.  Built level by level, as the kernel
+    builds it 3 levels a launch: a cell copies its parent cell when that is
+    a leaf, and otherwise descends one level from the parent's node."""
+    dev = chs.device
     N3 = N ** 3
-    out = torch.empty((n_cells, 2), dtype=torch.int32, device=chs.device)
     chs64 = chs.to(torch.int64)
-    for c0 in range(0, n_cells, _PLAIN_CHUNK):
-        idx = torch.arange(c0, min(c0 + _PLAIN_CHUNK, n_cells),
-                           dtype=torch.int64, device=chs.device)
-        z = idx % res
-        y = (idx // res) % res
-        x = idx // (res * res)
-        node = torch.zeros_like(idx)
-        out_ptr = torch.zeros_like(idx)
-        out_depth = torch.full_like(idx, LUT_DEPTH_SENTINEL)
-        sig = torch.zeros_like(idx)
-        done = torch.zeros(idx.shape, dtype=torch.bool, device=chs.device)
-        for lev in range(levels):
-            div = N ** (levels - 1 - lev)
-            ci = (((x // div) % N) * N + (y // div) % N) * N + (z // div) % N
-            sub = node * N3 + ci
-            row = chs64[torch.where(done, 0, sub)]
-            is_leaf = (row[:, 0] == 0) & ~done
-            out_ptr = torch.where(is_leaf, sub, out_ptr)
-            out_depth = torch.where(is_leaf, lev + 1, out_depth)
-            sig = torch.where(is_leaf, row[:, 1], sig)
-            done = done | is_leaf
-            node = torch.where(done, node, node + row[:, 0])
-        out_ptr = torch.where(done, out_ptr, node)
-        packed = (out_depth << LUT_PTR_BITS) | out_ptr
-        # wrap to i32 two's complement (depth 31 sets the sign bit)
-        packed = torch.where(packed >= (1 << 31), packed - (1 << 32), packed)
-        out[c0:c0 + idx.numel(), 0] = packed.to(torch.int32)
-        out[c0:c0 + idx.numel(), 1] = sig.to(torch.int32)
-    return out
+    # level 0: the root, internal, node 0; entries (packed, sigma bits) in
+    # int64 so that depth 31 stays positive until the last level
+    table = torch.tensor([[LUT_DEPTH_SENTINEL << LUT_PTR_BITS, 0]],
+                         dtype=torch.int64, device=dev)
+    for lev in range(levels):
+        res, pres = N ** (lev + 1), N ** lev
+        n_cells = res ** 3
+        last = lev == levels - 1
+        mark = internal_mark if last else 0
+        out = torch.empty((n_cells, 2), dtype=torch.int64, device=dev)
+        for c0 in range(0, n_cells, _PLAIN_CHUNK):
+            idx = torch.arange(c0, min(c0 + _PLAIN_CHUNK, n_cells),
+                               dtype=torch.int64, device=dev)
+            z = idx % res
+            y = (idx // res) % res
+            x = idx // (res * res)
+            parent = table[((x // N) * pres + y // N) * pres + z // N]
+            node = parent[:, 0] & LUT_PTR_MASK
+            internal = (parent[:, 0] >> LUT_PTR_BITS) == LUT_DEPTH_SENTINEL
+            sub = node * N3 + ((x % N) * N + y % N) * N + z % N
+            row = chs64[torch.where(internal, sub, 0)]
+            leaf = internal & (row[:, 0] == 0)
+            inner = internal & ~leaf
+            packed = torch.where(leaf, ((lev + 1) << LUT_PTR_BITS) | sub,
+                                 parent[:, 0])
+            packed = torch.where(inner, (LUT_DEPTH_SENTINEL << LUT_PTR_BITS)
+                                 | (node + row[:, 0]), packed)
+            sig = torch.where(leaf, row[:, 1], parent[:, 1])
+            out[c0:c0 + idx.numel(), 0] = packed
+            out[c0:c0 + idx.numel(), 1] = torch.where(inner, mark, sig)
+        table = out
+    if levels <= 0:
+        table[:, 1] = internal_mark
+    # wrap to i32 two's complement (depth 31 sets the sign bit)
+    table[:, 0] = torch.where(table[:, 0] >= (1 << 31),
+                              table[:, 0] - (1 << 32), table[:, 0])
+    return table.to(torch.int32)
 
 
-def build_lut(chs: torch.Tensor, N: int, levels: int) -> torch.Tensor:
+def build_lut(chs: torch.Tensor, N: int, levels: int,
+              internal_mark: int = 0) -> torch.Tensor:
     """K3 LUT build wrapper: plain version for a CPU tensor, the CUDA
     kernel for a CUDA tensor (one launch per 3 levels, the top launch
-    taking the remainder)."""
+    taking the remainder).  ``internal_mark`` goes into the sigma lane of
+    the cells still internal at ``levels``."""
     if chs.device.type == "cpu":
-        return lut_build_plain(chs, N, levels)
+        return lut_build_plain(chs, N, levels, internal_mark)
     _check_cuda_i32(chs, "chs")
     if chs.shape[0] >= (1 << LUT_PTR_BITS):
         raise ValueError("chs rows >= 2^27 cannot be packed into the LUT")
@@ -129,7 +152,7 @@ def build_lut(chs: torch.Tensor, N: int, levels: int) -> torch.Tensor:
     fn = native.entry("rt_lut_build")
     with torch.cuda.device(chs.device):
         rc = fn(chs.data_ptr(), lut.data_ptr(), scratch.data_ptr(), N,
-                levels, ctypes.byref(launches),
+                levels, internal_mark, ctypes.byref(launches),
                 native.stream_ptr(chs.device))
         native.count_launch("lut_build", launches.value)
     native.check(rc, "lut_step_kernel")
@@ -142,14 +165,20 @@ def add_skip_distances_plain(lut: torch.Tensor, res: int,
     ``cap`` rounds of the 3x3x3 min-window + 1 give the capped Chebyshev
     distance to the nearest occupied (sigma bits != 0) cell, stored as the
     integer bits 1..cap in the sigma lane of empty cells."""
-    occ = (lut[:, 1] != 0).reshape(1, 1, res, res, res)
+    occ = (lut[:, 1] != 0).reshape(res, res, res)
     inf = float(cap + 1)
     d = torch.where(occ, 0.0, inf)
     for _ in range(cap):
-        # min-window as -maxpool(-d); the pool ignores out-of-grid taps,
-        # which is the INF padding of the reference (the centre tap is in
-        # every window, so padding never lowers a minimum)
-        m = -torch.nn.functional.max_pool3d(-d, 3, stride=1, padding=1)
+        # the 3x3x3 min-window, one axis at a time (a min over a box is
+        # separable); taps outside the grid are left out, which is the INF
+        # padding of the reference (the centre tap is in every window, so
+        # padding never lowers a minimum)
+        m = d.clone()
+        for ax in range(3):
+            prev = m.clone()
+            lo, hi = m.narrow(ax, 1, res - 1), m.narrow(ax, 0, res - 1)
+            torch.minimum(lo, prev.narrow(ax, 0, res - 1), out=lo)
+            torch.minimum(hi, prev.narrow(ax, 1, res - 1), out=hi)
         d = torch.minimum(d, m + 1.0)
     d = torch.clamp(d, max=float(cap)).reshape(-1).to(torch.int32)
     lane1 = torch.where(occ.reshape(-1), lut[:, 1], d)
@@ -198,22 +227,35 @@ def _check_cuda_i32(t: torch.Tensor, name: str) -> None:
 # ---------------------------------------------------------------------------
 
 def upload_tree(tree: N3Tree, lut_levels: int = 7, *, device,
-                skip_cap: int = 12) -> DeviceTree:
+                skip_cap: int = 12,
+                force_sparse_brick: bool = False) -> DeviceTree:
     """Host tree -> tensors on ``device``.  ``lut_levels=0`` disables the
-    LUT.  The LUT is built on the device (kernel K3).  When it reaches the
-    tree's full depth it witnesses every leaf's occupancy, and
-    ``skip_cap > 0`` bakes the Chebyshev empty-space skip distances into
-    its sigma lane.  Trees with >= 2^27 sub-pointers, which the packed LUT
-    cannot address, fall back EXPLICITLY (stderr) to per-level descent."""
+    LUT.  The LUT is built on the device (kernel K3).  When it witnesses
+    every leaf's occupancy, ``skip_cap > 0`` bakes the Chebyshev
+    empty-space skip distances into its sigma lane: at the tree's full
+    depth, or on the partial LUT of a deep tree (N = 2, depth > 9, or any
+    depth >= 3 with ``force_sparse_brick``, kept for tests under the JAX
+    package's name).  That LUT is anchored where the JAX package anchors
+    its sparse bricks, at min(lut_levels, max_depth - 2, 9), and when it
+    lands on max_depth - 2 its internal cells carry LUT_INTERNAL_MARK, so
+    that they count as occupied.  Trees with >= 2^27 sub-pointers, which
+    the packed LUT cannot address, fall back EXPLICITLY (stderr) to
+    per-level descent."""
     device = torch.device(device)
     sigma_np = np.ascontiguousarray(tree.data[:, tree.data_dim - 1])
     sigma_bits = sigma_np.astype(np.float32).view(np.int32)
     chs_np = np.stack([tree.child.astype(np.int32), sigma_bits], axis=-1)
     chs = torch.from_numpy(chs_np).to(device)
 
+    partial = tree.N == 2 and tree.max_depth >= 3 and (
+        tree.max_depth > PARTIAL_LUT_MAX_LEVELS or force_sparse_brick)
     eff_levels = 0
     if lut_levels > 0 and tree.max_depth > 0:
         lut_levels = min(lut_levels, tree.max_depth)
+        if partial:
+            lut_levels = min(lut_levels, tree.max_depth - 2,
+                             PARTIAL_LUT_MAX_LEVELS)
+            partial = lut_levels == tree.max_depth - 2
         max_ptr = max(tree.child.shape[0], 1)
         if max_ptr < (1 << LUT_PTR_BITS):
             eff_levels = lut_levels
@@ -226,12 +268,17 @@ def upload_tree(tree: N3Tree, lut_levels: int = 7, *, device,
         print(f"[rt-octree] max_depth {tree.max_depth} > 11: marching "
               f"with a level-{eff_levels} LUT + descent", file=sys.stderr)
 
+    # a tree's max_depth is its deepest leaf, so level max_depth - 2 has
+    # internal cells wherever the partial rule applies
+    marked = partial and eff_levels > 0
     if eff_levels > 0:
-        lut = build_lut(chs, tree.N, eff_levels)
+        lut = build_lut(chs, tree.N, eff_levels,
+                        LUT_INTERNAL_MARK if marked else 0)
     else:
         lut = torch.zeros((0, 2), dtype=torch.int32, device=device)
     eff_skip = 0
-    if skip_cap > 0 and eff_levels > 0 and eff_levels == tree.max_depth:
+    if skip_cap > 0 and eff_levels > 0 and (
+            eff_levels == tree.max_depth or marked):
         lut = add_skip_distances(lut, tree.N ** eff_levels, skip_cap)
         eff_skip = skip_cap
 

@@ -862,8 +862,9 @@ def render_timed(renderer: Renderer, transform, timer, mesh_color=None,
     fast mode is refused (Renderer.render takes both)."""
     has_mesh = mesh_color is not None and mesh_depth is not None
     if renderer.fast and has_mesh:
-        raise ValueError("render_timed: mesh compositing under fast mode is "
-                         "only wired through Renderer.render()")
+        raise NotImplementedError(
+            "render_timed: mesh compositing under fast mode is only "
+            "wired through Renderer.render()")
     with timer.phase(T_RENDER):
         img, aux_nhwc, aux_chw = renderer.render_noisy(
             transform, mesh_color=mesh_color, mesh_depth=mesh_depth)

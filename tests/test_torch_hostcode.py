@@ -1,6 +1,7 @@
 """The port's own copies of the JAX package's NumPy host code (core.options,
-core.camera, io.n3tree, io.poses, io.synthetic) against the originals on the
-same inputs: equal arrays, equal metadata."""
+core.camera, io.n3tree, io.poses, io.synthetic with refine_tree, io.lod,
+apps.compress) against the originals on the same inputs: equal arrays,
+equal metadata, equal npz files key by key."""
 
 import dataclasses
 import json
@@ -9,14 +10,18 @@ import os
 import numpy as np
 import pytest
 
+from rt_octree_tpu.apps import compress as jcomp
 from rt_octree_tpu.apps.compress import main as compress_main
 from rt_octree_tpu.core import camera as jcam
 from rt_octree_tpu.core import options as jopt
+from rt_octree_tpu.io import lod as jlod
 from rt_octree_tpu.io import n3tree as jn3
 from rt_octree_tpu.io import poses as jposes
 from rt_octree_tpu.io import synthetic as jsyn
+from rt_octree_tpu_torch.apps import compress as tcomp
 from rt_octree_tpu_torch.core import camera as tcam
 from rt_octree_tpu_torch.core import options as topt
+from rt_octree_tpu_torch.io import lod as tlod
 from rt_octree_tpu_torch.io import n3tree as tn3
 from rt_octree_tpu_torch.io import poses as tposes
 from rt_octree_tpu_torch.io import synthetic as tsyn
@@ -48,6 +53,18 @@ def test_synthetic_trees_equal_the_originals(kind, depth, bd):
     else:
         got, ref = (m.make_synthetic_tree(kind, depth=depth, basis_dim=bd)
                     for m in (tsyn, jsyn))
+    assert_trees_equal(got, ref)
+
+
+@pytest.mark.parametrize("kind", ["shell", "blobs", "solid"])
+def test_threaded_synthetic_build_equals_the_original(kind, monkeypatch):
+    """The port builds the occupancy grid and the leaf data in chunks on a
+    thread pool; with chunks of 100 rows (many a level) the tree is still
+    the original's, bit for bit."""
+    monkeypatch.setattr(tsyn, "_ROWS", 100)
+    monkeypatch.setattr(tsyn, "_WORKERS", 3)
+    got, ref = (m.make_synthetic_tree(kind, depth=5, basis_dim=4)
+                for m in (tsyn, jsyn))
     assert_trees_equal(got, ref)
 
 
@@ -154,3 +171,84 @@ def test_camera_equals_the_original(pose):
     np.testing.assert_array_equal(got.transform, ref.transform)
     np.testing.assert_array_equal(got.w2c, ref.w2c)
     assert (got.fx, got.fy) == (ref.fx, ref.fy) == (40.0, 40.0)
+
+
+def _refine(mod, base):
+    thickness = max(3.0 / 2 ** 4, 0.02)
+    return mod.refine_tree(
+        base, lambda p: mod.shell_sigma(p, thickness=thickness,
+                                        amplitude=4.0 / thickness),
+        mod.position_color, levels=2)
+
+
+def test_refine_tree_equals_the_original():
+    """A depth-4 shell refined 2 levels (tests/test_deep_tree.py:92-110)."""
+    got = _refine(tsyn, tsyn.make_synthetic_tree("shell", 4, 4))
+    ref = _refine(jsyn, jsyn.make_synthetic_tree("shell", 4, 4))
+    assert got.max_depth == 6
+    assert_trees_equal(got, ref)
+
+
+@pytest.fixture(scope="module")
+def lod_tree():
+    return jsyn.make_synthetic_tree("blobs", depth=6, basis_dim=4)
+
+
+@pytest.mark.parametrize("depth", range(1, 8))
+def test_lod_equals_the_original(lod_tree, depth):
+    np.testing.assert_array_equal(
+        tlod.node_depths(lod_tree.child, lod_tree.N3),
+        jlod.node_depths(lod_tree.child, lod_tree.N3))
+    got, ref = tlod.build_lod(lod_tree, depth), jlod.build_lod(lod_tree, depth)
+    assert_trees_equal(got, ref)
+    assert got.npz_path == ref.npz_path == ""
+    assert got.max_depth == min(depth, 6)
+
+
+@pytest.mark.parametrize("bits,weighted", [(4, False), (7, True)])
+def test_median_cut_equals_the_original(bits, weighted):
+    rs = np.random.default_rng(bits)
+    pts = rs.standard_normal((3000, 3)).astype(np.float32)
+    w = rs.random(3000) if weighted else None
+    for got, ref in zip(tcomp.median_cut(pts, bits, w),
+                        jcomp.median_cut(pts, bits, w)):
+        assert got.dtype == ref.dtype
+        np.testing.assert_array_equal(got, ref)
+
+
+def _npz(path):
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _assert_dicts_equal(got, ref):
+    assert sorted(got) == sorted(ref)
+    for k in ref:
+        g, r = np.asarray(got[k]), np.asarray(ref[k])
+        assert g.dtype == r.dtype and g.shape == r.shape, k
+        np.testing.assert_array_equal(g, r, err_msg=k)
+
+
+@pytest.mark.parametrize("retain,weighted", [(1, False), (0, True)])
+def test_compress_tree_dict_equals_the_original(retain, weighted):
+    z = jsyn.tree_to_npz_dict(jsyn.make_synthetic_tree("shell", 4, 4))
+    _assert_dicts_equal(
+        tcomp.compress_tree_dict(z, 8, 0.0, retain, weighted),
+        jcomp.compress_tree_dict(z, 8, 0.0, retain, weighted))
+
+
+def test_compress_cli_writes_the_originals_npz(tmp_path):
+    """Both CLIs with --retain 1 --sigma_thresh 0.0 (16-bit codebooks):
+    the same keys and arrays, and the port's loader reads the result."""
+    src = str(tmp_path / "tree.npz")
+    jsyn.save_npz(jsyn.make_synthetic_tree("shell", 4, 4), src)
+    outs = {}
+    for name, main in (("port", tcomp.main), ("jax", compress_main)):
+        out_dir = str(tmp_path / name)
+        assert main([src, "--out_dir", out_dir, "--retain", "1",
+                     "--sigma_thresh", "0.0"]) == 0
+        outs[name] = os.path.join(out_dir, "tree.npz")
+    got, ref = _npz(outs["port"]), _npz(outs["jax"])
+    assert "quant_colors" in ref and "quant_map" in ref
+    _assert_dicts_equal(got, ref)
+    assert_trees_equal(tn3.load(outs["port"]), jn3.load(outs["jax"]))

@@ -40,6 +40,9 @@ MODULES = [
     "rt_octree_tpu_torch.tools",
     "rt_octree_tpu_torch.tools.gpu_probe",
     "rt_octree_tpu_torch.tools.microbench_gather",
+    "rt_octree_tpu_torch.io.lod",
+    "rt_octree_tpu_torch.apps.compress",
+    "rt_octree_tpu_torch.apps.cli",
 ]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "triton", "msgpack", "imageio")
 
@@ -127,6 +130,36 @@ def test_headless_new_flags_import_neither_jax_nor_the_jax_package(
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[0, 0] []"
     assert (tmp_path / "prof" / "trace.json").exists()
+
+
+def test_dispatcher_lod_and_compress_import_neither_jax_nor_the_jax_package(
+        tmp_path):
+    """``python -m rt_octree_tpu_torch.apps.cli lod`` and ``compress`` on a
+    tiny tree: no module of ``rt_octree_tpu`` and no jax gets imported."""
+    code = (
+        "import sys\n"
+        "from rt_octree_tpu_torch.io import synthetic\n"
+        "from rt_octree_tpu_torch.apps import cli\n"
+        f"d = {str(tmp_path)!r}\n"
+        "synthetic.save_npz(synthetic.make_synthetic_tree('shell', depth=4,"
+        " basis_dim=4), d + '/tree.npz')\n"
+        "rcs = [cli.main(['lod', d + '/tree.npz', '-d', '2', '-o',"
+        " d + '/lod.npz']), cli.main(['compress', d + '/tree.npz',"
+        " '--out_dir', d + '/q', '--retain', '1', '--bits', '8'])]\n"
+        f"print(rcs, sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN + ('rt_octree_tpu',)!r}))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=_clean_env(), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[0, 0] []"
+    assert (tmp_path / "lod.npz").exists()
+    assert (tmp_path / "q" / "tree.npz").exists()
+    out = subprocess.run([sys.executable, "-m", "rt_octree_tpu_torch.apps.cli",
+                          "tools"], cwd=REPO, env=_clean_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 2
+    assert out.stderr.strip() == "not yet ported: tools"
 
 
 def test_tf32_disabled_on_import():

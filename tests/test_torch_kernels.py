@@ -11,6 +11,8 @@ This file imports no JAX, so it also runs on a GPU host that has none:
 the card carry the ``cuda`` marker and skip without one.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -243,11 +245,14 @@ def test_render_classic_matches_plain(shell, spp, fmt, cuda_device):
                                      ((37, 23), (75, 47)),
                                      ((19, 30), (47, 75)),
                                      ((33, 53), (47, 75)),
-                                     ((1, 1), (5, 3))])
+                                     ((1, 1), (5, 3)),
+                                     ((378, 504), (756, 1008)),
+                                     ((540, 960), (1080, 1920))])
 @pytest.mark.parametrize("want_aux", [True, False])
 def test_k4_kernel_matches_plain(src, dst, want_aux, cuda_device):
-    """The joint upsample at s = 0.5, 0.4 and 0.7-ish on odd sizes and a
-    1x1 source, with and without aux_chw; the squares are of the
+    """The joint upsample at s = 0.5, 0.4 and 0.7-ish on odd sizes, a 1x1
+    source and the llff and tt fast frames (504x378 -> 1008x756, 960x540
+    -> 1920x1080), with and without aux_chw; the squares are of the
     upsampled values."""
     rs = np.random.default_rng(sum(src) + sum(dst))
     rgba = rs.random(src + (4,), np.float32)
@@ -344,6 +349,96 @@ def test_k3_kernel_matches_plain(shell, chain, cuda_device):
         res = 2 ** levels
         assert torch.equal(tt.add_skip_distances(lut_k.clone(), res, 12),
                            tt.add_skip_distances_plain(lut_p, res, 12))
+
+
+@pytest.fixture(scope="module")
+def refined():
+    """A depth-6 shell: the depth-4 shell refined 2 levels."""
+    base = synthetic.make_synthetic_tree("shell", depth=4, basis_dim=4)
+    thickness = max(3.0 / 2 ** 4, 0.02)
+    return synthetic.refine_tree(
+        base, lambda p: synthetic.shell_sigma(p, thickness=thickness,
+                                              amplitude=4.0 / thickness),
+        synthetic.position_color, levels=2)
+
+
+@pytest.mark.cuda
+def test_k3_marked_partial_lut_matches_plain(refined, cuda_device):
+    """A deep tree's partial LUT: the internal cells' marker and the skip
+    distances around them integer-equal to the plain version, and equal
+    to what upload_tree builds."""
+    dt = tt.upload_tree(refined, lut_levels=4, device=cuda_device,
+                        force_sparse_brick=True)
+    assert dt.lut_levels == 4 and dt.skip_cap == 12
+    mark = tt.LUT_INTERNAL_MARK
+    lut_k = tt.build_lut(dt.chs, 2, 4, mark)
+    lut_p = tt.lut_build_plain(dt.chs, 2, 4, mark)
+    assert torch.equal(lut_k, lut_p)
+    assert int((lut_p[:, 1] == mark).sum()) > 0
+    skip_k = tt.add_skip_distances(lut_k.clone(), 16, 12)
+    assert torch.equal(skip_k, tt.add_skip_distances_plain(lut_p, 16, 12))
+    assert torch.equal(skip_k, dt.lut)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skip_cap", [12, 0])
+def test_k1_on_a_partial_lut_matches_plain(refined, skip_cap, cuda_device):
+    """K1 on the refined shell's marked level-4 LUT, with and without its
+    skip distances, at an odd size: within IMG_TOL / AUX_TOL of the plain
+    version, the statistics' counts equal."""
+    transform, kw = _render_args(6, 37, 23)
+    tf = torch.from_numpy(transform).to(cuda_device)
+    dt = tt.upload_tree(refined, lut_levels=4, device=cuda_device,
+                        skip_cap=skip_cap, force_sparse_brick=True)
+    assert dt.skip_cap == skip_cap
+    got = tr.render_noisy(dt, tf, 12345, 7, **kw)
+    ref = tr.render_noisy_plain(dt, tf, 12345, 7, **kw)
+    for g, r, tol in zip(got, ref, (IMG_TOL, AUX_TOL, AUX_TOL)):
+        torch.testing.assert_close(g, r, atol=tol, rtol=0)
+    st = tr.render_stats(dt, tf, 12345, 7, **kw)
+    assert st.equals(tr.render_stats_plain(dt, tf, 12345, 7, **kw))
+    assert int(st.descents.sum()) > 0
+
+
+@pytest.mark.cuda
+def test_k1_ignores_the_internal_marker(refined, cuda_device):
+    """K1 on the marked partial LUT without skip distances equals, bit for
+    bit, K1 on the same LUT without the marker: the kernel descends from an
+    internal cell and reads the leaf's own sigma, never the cell's lane."""
+    transform, kw = _render_args(6, 37, 23)
+    tf = torch.from_numpy(transform).to(cuda_device)
+    marked = tt.upload_tree(refined, lut_levels=4, device=cuda_device,
+                            skip_cap=0, force_sparse_brick=True)
+    unmarked = dataclasses.replace(marked,
+                                   lut=tt.build_lut(marked.chs, 2, 4))
+    assert not torch.equal(marked.lut, unmarked.lut)
+    for got, ref in zip(tr.render_noisy(marked, tf, 12345, 7, **kw),
+                        tr.render_noisy(unmarked, tf, 12345, 7, **kw)):
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_k1_ndc_at_an_odd_size_matches_plain(cuda_device):
+    """K1's NDC rays on a blobs tree at 41x29 (the llff camera, focal
+    scaled to the width): within IMG_TOL / AUX_TOL of the plain version."""
+    tree = synthetic.make_synthetic_tree("blobs", depth=5, basis_dim=4)
+    tree.use_ndc = True
+    tree.ndc_width, tree.ndc_height, tree.ndc_focal = 1008.0, 756.0, 800.0
+    cam = Camera(width=41, height=29, fx=800.0 * 41 / 1008,
+                 fy=800.0 * 41 / 1008)
+    cam.center = np.array([0.02, 0.01, 0.3], np.float32)
+    cam.v_back = np.array([0.0, 0.0, 1.0], np.float32)
+    cam.v_world_up = np.array([0.0, 1.0, 0.0], np.float32)
+    cam.update()
+    dt = tt.upload_tree(tree, lut_levels=5, device=cuda_device)
+    tf = torch.from_numpy(cam.transform.astype(np.float32)).to(cuda_device)
+    kw = dict(width=41, height=29, fx=cam.fx, fy=cam.fy,
+              opt=RenderOptions(spp=6, denoise=False))
+    got = tr.render_noisy(dt, tf, 12345, 7, **kw)
+    ref = tr.render_noisy_plain(dt, tf, 12345, 7, **kw)
+    for g, r, tol in zip(got, ref, (IMG_TOL, AUX_TOL, AUX_TOL)):
+        torch.testing.assert_close(g, r, atol=tol, rtol=0)
+    assert float(got[2][3].max()) > 0.5  # the blobs are in view
 
 
 @pytest.mark.cuda

@@ -231,7 +231,7 @@ def test_render_timed_with_mesh_and_probe(tree, cam, mesh_pass):
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
     assert timer.cnt == 1
     _, fast = _pair(tree, opt, scale=0.5)
-    with pytest.raises(ValueError, match="fast mode"):
+    with pytest.raises(NotImplementedError, match="fast mode"):
         tr.render_timed(fast, cam.transform, timer, mesh_color=color,
                         mesh_depth=depth)
     with pytest.raises(ValueError, match="mesh pass"):
