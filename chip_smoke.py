@@ -54,7 +54,20 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      version, K4 on what K1 wrote there vs its plain version, and the
      Renderer's noisy frame vs the plain chain, then its time with the
      phase split; the probe overlay and the host rasterizer, timed as
-     plain rows ({"plain_rows": ...});
+     plain rows ({"plain_rows": ...}); then the training path: a kit
+     rendered by the port's tools/make_quality_dataset.py from the
+     headline tree (32 train and 8 test poses at 800x800, SPP 6 aux and
+     classic-estimator GT, under build/chip_smoke/train_kit), K5 (the
+     batched guided filter) and K6 (its backward) vs their plain versions
+     on a real batch of 32 80x80 slices with the ladder and the identity
+     supports, the f32 train step with both kernels vs the plain chain,
+     ``rtoctree train`` on configs/blender.txt for TRAIN_EPOCHS epochs
+     (its launch counts reset just before it and read just after: K5 and
+     K6 once a step), a resume of one more epoch, the test and compact
+     tasks, the exported .gnet in the headline Renderer (PSNR on the 8
+     poses, no bar), the step's time and split (net forward, K5, loss,
+     K6, net backward, Adam) and K5's and K6's times, printed as one JSON
+     line {"train": ...};
  10. the scenes of the JAX package's bench (SCENES: solid 800x800, tt
      1920x1080 and its fast rung, the llff blobs scene in NDC at 1008x756
      with its fast, LOD d8 and interactive rungs), each through the
@@ -189,6 +202,18 @@ K1_IMG_TOL, K1_AUX_TOL = 2e-5, 4e-5
 # K4 vs plain: the same f32 operations in the same order, on [0, 1] values.
 UPSAMPLE_TOL = 1e-6
 K2_TOL = 1e-5  # f32 sums of up to 49 softmax taps, in another order
+# K5 vs plain: the same sums as K2's (up to 81 taps at support 4); K6 vs
+# plain: the gather of up to 81 taps of exp * (u.x - v) with FMA
+# contraction, within 1e-4 of the plain gradient's largest magnitude; the
+# f32 train step with kernels vs the plain chain (torch autograd through
+# the plain filter): each parameter's gradient within rtol 1e-4 of its
+# largest magnitude (sums over 204,800 pixels round in f32 either way: on
+# the CPU both routes sit ~1e-5 of that from a float64 step).
+K5_TOL, K6_REL_TOL, STEP_RTOL = 1e-5, 1e-4, 1e-4
+# the train phase: configs/blender.txt on a kit that the port renders from
+# the headline tree (32 train and 8 test poses at 800x800); TRAIN_EPOCHS
+# epochs, then a resume of one more
+TRAIN_EPOCHS = 5
 # The least time for a kernel's work on an H100 SXM (NVIDIA's data sheet):
 # the bytes it must move over the memory rate, or its f32 operations over
 # the f32 peak, whichever is larger.
@@ -213,6 +238,13 @@ FRAME_KERNELS = {
     "skip_distances": ("rt_octree_tpu_torch/csrc/lut.cu",
                        "rt_octree_tpu/ops/traversal.py:173"),
 }
+# the training step's kernels (the batched filter and its backward)
+TRAIN_KERNELS = {
+    "guided_filter_batch": ("rt_octree_tpu_torch/csrc/filter.cu",
+                            "rt_octree_tpu/ops/filtering.py:188"),
+    "guided_filter_batch_bwd": ("rt_octree_tpu_torch/csrc/filter.cu",
+                                "rt_octree_tpu/ops/filtering.py:188"),
+}
 # the probe kernels: launch name -> the Pallas call they replace
 PROBE_KERNELS = {
     "probe_affine": "tools/tpu_probe.py:46",
@@ -222,7 +254,7 @@ PROBE_KERNELS = {
     "row_ring_rounds": "tools/microbench_gather.py:132",
     "flat_gather_chain": "tools/microbench_gather.py:183",
 }
-KERNELS = {**FRAME_KERNELS,
+KERNELS = {**FRAME_KERNELS, **TRAIN_KERNELS,
            **{k: ("rt_octree_tpu_torch/csrc/probes.cu", v)
               for k, v in PROBE_KERNELS.items()}}
 
@@ -880,12 +912,11 @@ def make_headline_renderer(tree):
     return r, ps
 
 
-def phase_quality(r, poses, label="headline",
-                  bars=(GATE_NOISY, GATE_DENOISED), kit=KIT):
+def quality_psnr(r, poses, kit=KIT):
     """bench.quality_report's protocol: per pose rng.seed(20230418, 1),
     noisy then denoised, whole-image PSNR vs the committed GT PNGs of
-    ``kit``, held to the JAX package's CPU bars."""
-    bar_noisy, bar_den = bars
+    ``kit`` -> (noisy mean, denoised mean, per-pose lists); every frame
+    must be finite."""
     from rt_octree_tpu_torch.io.png import read_png
     acc = {"noisy": [], "denoised": []}
     for i, pose in enumerate(poses[:8]):
@@ -898,8 +929,16 @@ def phase_quality(r, poses, label="headline",
                     and np.isfinite(img).all(), f"pose {i} {mode}: bad frame")
             acc[mode].append(psnr(img, gt))
     r.options.denoise = True
-    noisy = float(np.mean(acc["noisy"]))
-    den = float(np.mean(acc["denoised"]))
+    return float(np.mean(acc["noisy"])), float(np.mean(acc["denoised"])), acc
+
+
+def phase_quality(r, poses, label="headline",
+                  bars=(GATE_NOISY, GATE_DENOISED), kit=KIT):
+    """bench.quality_report's protocol: per pose rng.seed(20230418, 1),
+    noisy then denoised, whole-image PSNR vs the committed GT PNGs of
+    ``kit``, held to the JAX package's CPU bars."""
+    bar_noisy, bar_den = bars
+    noisy, den, acc = quality_psnr(r, poses, kit)
     log(f"[quality] {label}, 8 poses, whole-image PSNR: noisy {noisy:.3f} "
         f"dB (JAX {bar_noisy}), denoised {den:.3f} dB (JAX {bar_den})")
     for mode in ("noisy", "denoised"):
@@ -1214,6 +1253,273 @@ def phase_fast_classic(r, ps, err, tree_host):
         "grid_pass": f"wireframe to depth 2 ({int(np.isfinite(depth).sum())}"
                      " px), 800x800, host NumPy"}}))
     return ms, bounds
+
+
+def train_argv(kit, epochs, task="train"):
+    """``rtoctree train`` on the kit with configs/blender.txt: a checkpoint
+    and a .gnet every epoch, no test inside the run."""
+    return ["train", "--config", os.path.join(HERE, "configs", "blender.txt"),
+            "--task", task, "--data_dir", kit,
+            "--logs_root", os.path.join(WORK, "train_logs"),
+            "--exp_name", "shell", "--epochs", str(epochs), "--i_save", "1",
+            "--device", "cuda"]
+
+
+def train_cli(native, label, argv, required=(), absent=()):
+    """One ``rtoctree train`` run with the launch counts reset just before
+    it and read just after; returns the counts."""
+    from rt_octree_tpu_torch.apps import cli
+    log(f"[train] {label}: cli train " + " ".join(
+        os.path.relpath(a, HERE) if os.sep in a else a for a in argv[1:]))
+    native.reset_launches()
+    t0 = time.time()
+    rc = cli.main(argv)
+    counts = dict(native.LAUNCHES)
+    log(f"[train] {label}: rc {rc} in {time.time() - t0:.1f} s; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    require(rc == 0, f"rtoctree train failed ({label})")
+    require(all(counts[k] > 0 for k in required),
+            f"a kernel of the train path never launched ({label})")
+    require(not any(counts[k] for k in absent),
+            f"{label} launched a training kernel")
+    return counts
+
+
+def train_step_split(runner, batch, reps=20, warmup=5):
+    """Mean ms of the training step over ``reps`` steps after ``warmup``,
+    by CUDA events: the whole step (Runner.train_step), then the same step
+    staged as net forward, K5, loss (forward and backward), K6, net
+    backward and Adam (the gradients cut at the filter's inputs and
+    output, so each part is its own span)."""
+    import torch
+    from rt_octree_tpu_torch.ops.filtering import guided_filter_batch
+    aux, img, gt = batch
+    whole = cuda_ms(lambda: runner.train_step(aux, img, gt), reps, warmup)
+    names = ("net_forward", "k5", "loss", "k6", "net_backward", "adam")
+    sums = dict.fromkeys(names, 0.0)
+    for it in range(warmup + reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+        runner.optimizer.zero_grad(set_to_none=True)
+        ev[0].record()
+        w, g = runner.model(aux.permute(0, 2, 3, 1))
+        ev[1].record()
+        wd, gd = w.detach().requires_grad_(), g.detach().requires_grad_()
+        out = guided_filter_batch(wd, gd, img, runner.supports)
+        ev[2].record()
+        od = out.detach().requires_grad_()
+        runner.loss_fn(od[..., :3], gt[..., :3]).backward()
+        ev[3].record()
+        out.backward(od.grad)
+        ev[4].record()
+        torch.autograd.backward([w, g], [wd.grad, gd.grad])
+        ev[5].record()
+        runner.optimizer_step()
+        ev[6].record()
+        torch.cuda.synchronize()
+        if it >= warmup:
+            for i, k in enumerate(names):
+                sums[k] += ev[i].elapsed_time(ev[i + 1])
+    split = {k: v / reps for k, v in sums.items()}
+    return whole, split
+
+
+def phase_train(native, r, tree_path, err):
+    """The training path: a kit rendered by the port from the headline
+    tree; K5 and K6 held against their plain versions on a real batch of
+    32 80x80 slices (the net's weight and guidance, the loss's gradient)
+    with the identity supports and the ladder; the f32 train step with
+    the kernels against the plain chain; ``rtoctree train`` on the
+    canonical config for TRAIN_EPOCHS epochs, a resume of one more, the
+    test and compact tasks; the exported .gnet in the headline Renderer
+    (PSNR on benchmarks/quality's 8 poses, no bar); the step's time and
+    split; K5's and K6's times and bounds.  Prints {"train": ...} and
+    returns (launch counts, ms, bounds) of K5 and K6."""
+    import torch
+    from rt_octree_tpu_torch.models.guidance_net import (GuidanceNet,
+                                                         params_to_numpy)
+    from rt_octree_tpu_torch.ops.filtering import (
+        guided_filter_backward_plain, guided_filter_batch,
+        guided_filter_batch_bwd, guided_filter_batch_fwd,
+        guided_filter_batch_plain)
+    from rt_octree_tpu_torch.tools import make_quality_dataset as mq
+    from rt_octree_tpu_torch.train.config import parse_args
+    from rt_octree_tpu_torch.train.dataset import (BlenderDataset,
+                                                   DatasetConfig)
+    from rt_octree_tpu_torch.train.runner import Runner
+    out = {}
+    kit = os.path.join(WORK, "train_kit")
+    t0 = time.time()
+    if not os.path.isfile(os.path.join(kit, "transforms_test.json")):
+        require(mq.main(["--out", kit, "--tree", tree_path,
+                         "--device", "cuda"]) == 0, "kit build failed")
+    out["kit_s"] = time.time() - t0
+    t0 = time.time()
+    ds = BlenderDataset(DatasetConfig(data_dir=kit, spp=6, nx=10, ny=10))
+    out["load_s"] = time.time() - t0
+    args = parse_args(train_argv(kit, TRAIN_EPOCHS)[1:])
+    out["slices"] = len(ds.splits["train"].aux)
+    out["steps_per_epoch"] = ds.num_batches("train", args.batch_size)
+    log(f"[train] kit {out['kit_s']:.1f} s, loaded in {out['load_s']:.1f} s:"
+        f" {out['slices']} train slices of 80x80 (of 3200), "
+        f"{out['steps_per_epoch']} steps of {args.batch_size} an epoch")
+
+    # ---- K5 / K6 on a real batch ----
+    runner = Runner(args, dataset=ds)
+    aux_all, in_all, gt_all = ds.device_split("train", "cuda")
+    idx = torch.from_numpy(next(ds.iter_batch_indices(
+        "train", args.batch_size, shuffle=True, seed=1))).cuda()
+    batch = (aux_all[idx], in_all[idx], gt_all[idx])
+    aux, img, gt = batch
+    with torch.no_grad():
+        w, g = runner.model(aux.permute(0, 2, 3, 1))
+    w, g = w.contiguous(), g.contiguous()
+    worst = {"guided_filter_batch": 0.0, "guided_filter_batch_bwd": 0.0}
+    for label, sup in (("ladder", (1, 2, 3, 4)), ("identity", (0, 1, 2, 3))):
+        ref = guided_filter_batch_plain(w, g, img, sup).requires_grad_()
+        runner.loss_fn(ref[..., :3], gt[..., :3]).backward()
+        G = ref.grad
+        ref = ref.detach()
+        o, saved = guided_filter_batch_fwd(w, g, img, sup)
+        e5 = float((o - ref).abs().max())
+        gw, gg = guided_filter_batch_bwd(G, w, g, img, saved, sup)
+        rw, rg = guided_filter_backward_plain(G, w, g, img, sup)
+        e_w, e_g = float((gw - rw).abs().max()), float((gg - rg).abs().max())
+        m_w, m_g = float(rw.abs().max()), float(rg.abs().max())
+        log(f"[train] K5 {label} {tuple(w.shape)}: max|diff| {e5:.3g}; K6 "
+            f"dL/dw max|diff| {e_w:.3g} of {m_w:.3g}, dL/dg {e_g:.3g} of "
+            f"{m_g:.3g}; guidance range {float(g.max() - g.min()):.3g}")
+        require(e5 <= K5_TOL and bool(torch.isfinite(o).all()),
+                f"K5 disagrees with its plain version ({label})")
+        require(e_w <= K6_REL_TOL * m_w and e_g <= K6_REL_TOL * m_g
+                and bool(torch.isfinite(gg).all()),
+                f"K6 disagrees with its plain version ({label})")
+        worst["guided_filter_batch"] = max(worst["guided_filter_batch"], e5)
+        worst["guided_filter_batch_bwd"] = max(
+            worst["guided_filter_batch_bwd"], e_w, e_g)
+    err.update(worst)
+
+    # ---- the f32 train step: kernels vs the plain chain ----
+    grads = {}
+    for route in ("kernels", "plain"):
+        net = GuidanceNet(runner.net_cfg, dtype=torch.float32).cuda()
+        net.load_state_dict(runner.model.state_dict())
+        wt, gt_ = net(aux.permute(0, 2, 3, 1))
+        o = (guided_filter_batch(wt, gt_, img, runner.supports)
+             if route == "kernels" else
+             guided_filter_batch_plain(wt, gt_, img, runner.supports))
+        loss = runner.loss_fn(o[..., :3], gt[..., :3])
+        loss.backward()
+        grads[route] = (loss.item(), params_to_numpy(
+            runner.net_cfg, {n: p.grad for n, p in net.named_parameters()}))
+    loss_k, gk = grads["kernels"]
+    loss_p, gp = grads["plain"]
+    worst_step = 0.0
+    for bname in gp:
+        for conv in gp[bname]:
+            for leaf in ("kernel", "bias"):
+                a, b = gk[bname][conv][leaf], gp[bname][conv][leaf]
+                rel = float(np.abs(a - b).max() / np.abs(b).max())
+                worst_step = max(worst_step, rel)
+                require(rel <= STEP_RTOL, f"f32 train step: {bname}/{conv}/"
+                        f"{leaf} gradient disagrees with the plain chain")
+    log(f"[train] f32 step, kernels vs plain chain: loss {loss_k:.7g} vs "
+        f"{loss_p:.7g}; gradients within {worst_step:.3g} of each "
+        f"tensor's largest (bar {STEP_RTOL})")
+
+    # ---- the main path: rtoctree train, resume, test, compact ----
+    work = os.path.join(WORK, "train_logs", "shell")
+    if os.path.isdir(work):
+        import shutil
+        shutil.rmtree(work)
+    counts = train_cli(native, "train", train_argv(kit, TRAIN_EPOCHS),
+                       required=TRAIN_KERNELS)
+    steps = out["steps_per_epoch"] * TRAIN_EPOCHS
+    require(all(counts[k] == steps for k in TRAIN_KERNELS),
+            f"K5 / K6 launches {[counts[k] for k in TRAIN_KERNELS]} != "
+            f"{steps} steps")
+    c2 = train_cli(native, "resume", train_argv(kit, TRAIN_EPOCHS + 1),
+                   required=TRAIN_KERNELS)
+    require(all(c2[k] == out["steps_per_epoch"] for k in TRAIN_KERNELS),
+            "the resume did not run one epoch")
+    train_cli(native, "test", train_argv(kit, TRAIN_EPOCHS + 1, "test"),
+              required=("guided_filter",), absent=TRAIN_KERNELS)
+    train_cli(native, "compact",
+              train_argv(kit, TRAIN_EPOCHS + 1, "compact"),
+              absent=TRAIN_KERNELS)
+    with open(os.path.join(work, "log.jsonl")) as f:
+        logs = [json.loads(line) for line in f]
+    losses = [d["train/loss"] for d in logs if "train/loss" in d]
+    tests = [d for d in logs if "test/psnr" in d]
+    out["loss_per_epoch"] = losses
+    out["test"] = {k.split("/")[1]: v for k, v in tests[-1].items()
+                   if k.startswith("test/")}
+    log(f"[train] loss per epoch {losses}; test split {out['test']}")
+    require(len(losses) == TRAIN_EPOCHS + 1 and losses[-1] < losses[0],
+            f"the loss did not fall: {losses}")
+    gnet = os.path.join(work, "ts_latest.gnet")
+    require(all(os.path.isfile(os.path.join(work, f)) for f in (
+        "ts_latest.gnet", f"ts_{TRAIN_EPOCHS + 1:06d}.gnet",
+        f"checkpoint_{TRAIN_EPOCHS + 1:06d}.pt")), "artifacts missing")
+
+    # ---- the exported net in the headline Renderer ----
+    from rt_octree_tpu_torch.io.poses import load_poses
+    r.set_denoiser(gnet)
+    ps = load_poses("blender", os.path.join(KIT, "transforms_test.json"),
+                    800, 800)
+    noisy, den, _ = quality_psnr(r, ps.poses)
+    out["quality"] = {"noisy_db": noisy, "denoised_db": den}
+    log(f"[train] the exported .gnet in the headline Renderer, 8 poses of "
+        f"benchmarks/quality: noisy {noisy:.3f} dB, denoised {den:.3f} dB "
+        f"({TRAIN_EPOCHS + 1} epochs; no bar)")
+
+    # ---- the step's time and split; K5 and K6 alone ----
+    runner.optimizer = runner.make_optimizer()
+    runner._steps_per_epoch = out["steps_per_epoch"]
+    whole, split = train_step_split(runner, batch)
+    out["step_ms"] = whole
+    out["step_split_ms"] = split
+    log(f"[timing] train step (batch {args.batch_size} x 80x80, bf16 net, "
+        f"K5, SMAPE, K6, Adam): {whole:.3f} ms over 20 steps; split "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+    sup = runner.supports
+    with torch.no_grad():
+        w, g = runner.model(aux.permute(0, 2, 3, 1))
+    w, g = w.contiguous(), g.contiguous()
+    _, saved = guided_filter_batch_fwd(w, g, img, sup)
+    G = torch.randn_like(img)
+    # device_ms for the kernels: a call's host code may outlast its kernel
+    ms = {"guided_filter_batch": (
+              device_ms(lambda: guided_filter_batch_fwd(w, g, img, sup), 50,
+                        3),
+              cuda_ms(lambda: guided_filter_batch_plain(w, g, img, sup), 3)),
+          "guided_filter_batch_bwd": (
+              device_ms(lambda: guided_filter_batch_bwd(G, w, g, img, saved,
+                                                        sup), 50, 3),
+              cuda_ms(lambda: guided_filter_backward_plain(G, w, g, img,
+                                                           sup), 3))}
+    B, L, H, W = w.shape
+    n, nl = B * H * W, B * L * H * W
+    taps = sum((2 * s + 1) ** 2 for s in sup if s > 0)
+    # K5: weight and guidance (8 B a pixel and level) and rgba (16 B) in,
+    # out (16 B) and fm, den (20 B a pixel and level) written; a tap is a
+    # subtraction, an expf, an add and three multiply-adds (9 operations),
+    # a level's blend 6.  K6: G and rgba (32 B), weight, guidance, fm, den
+    # (28 B a pixel and level) in, two gradients (8 B) out; a tap of the
+    # gather is a subtraction, an expf, three multiply-adds for u.x, a
+    # subtraction and a multiply-add (12 operations), a staged pixel 12
+    bounds = {
+        "guided_filter_batch": bound(n * 32 + nl * 28,
+                                     n * (9 * taps + 6 * L)) + (None,),
+        "guided_filter_batch_bwd": bound(n * 32 + nl * 36,
+                                         n * (12 * taps + 12 * L)) + (None,)}
+    for k, (kms, pms) in ms.items():
+        log(f"[timing] {k} {tuple(w.shape)} supports {sup}: kernel "
+            f"{kms:.4f} ms, plain {pms:.3f} ms, bound {bounds[k][0]:.4f} ms "
+            f"({bounds[k][1]}), library none")
+    out["k5_ms"], out["k6_ms"] = (ms["guided_filter_batch"][0],
+                                  ms["guided_filter_batch_bwd"][0])
+    log(json.dumps({"train": out}))
+    return ({k: counts[k] for k in TRAIN_KERNELS}, ms, bounds)
 
 
 def cached_tree(name, make):
@@ -1667,6 +1973,10 @@ def main(argv) -> int:
     phase_quality(r, ps.poses)
     ms, bounds = phase_headline(r, ps, err)
     ms_new, bounds_new = phase_fast_classic(r, ps, err, tree)
+    ms.update(ms_new)
+    bounds.update(bounds_new)
+    train_counts, ms_new, bounds_new = phase_train(native, r, tree_path, err)
+    counts.update(train_counts)
     ms.update(ms_new)
     bounds.update(bounds_new)
     del r

@@ -15,8 +15,8 @@ from __future__ import annotations
 import sys
 
 # the JAX package's commands that the port has not ported yet: they print a
-# line and run nothing (ROADMAP A.3, A.4)
-NOT_PORTED = ("view", "anim", "train", "tools")
+# line and run nothing (ROADMAP A.4)
+NOT_PORTED = ("view", "anim", "tools")
 
 
 def main(argv=None) -> int:
@@ -31,6 +31,9 @@ def main(argv=None) -> int:
     if cmd == "compress":
         from .compress import main as compress_main
         return compress_main(rest)
+    if cmd == "train":
+        from ..train.main import main as train_main
+        return train_main(rest)
     if cmd == "lod":
         from ..io.lod import main as lod_main
         return lod_main(rest)

@@ -60,6 +60,9 @@ ENTRIES = {
     "rt_upsample": ("upsample", [_V, _I, _I, _F, _F, _V, _V, _V, _I, _I, _V]),
     "rt_guided_filter": ("filter", [_V, _L, _L, _L, _V, _V, _I, _V, _I, _I,
                                     _V]),
+    "rt_guided_filter_batch": ("filter", [_V] * 6 + [_I, _I, _V, _I, _I, _V]),
+    "rt_guided_filter_batch_bwd": ("filter",
+                                   [_V] * 8 + [_I, _I, _V, _I, _I, _V]),
     "rt_lut_build_scratch": ("lut", [_I, _I, _PL]),
     "rt_lut_build": ("lut", [_V, _V, _V, _I, _I, _I, _PI, _V]),
     "rt_skip_distances": ("lut", [_V, _V, _V, _I, _I, _PI, _V]),
@@ -76,6 +79,8 @@ ENTRIES = {
 LAUNCHES: Dict[str, int] = {
     "render": 0, "render_classic": 0, "upsample": 0, "guided_filter": 0,
     "lut_build": 0, "skip_distances": 0,
+    # the training step's batched filter (K5) and its backward (K6)
+    "guided_filter_batch": 0, "guided_filter_batch_bwd": 0,
     # the probe kernels of the measurement tools (csrc/probes.cu)
     "probe_affine": 0, "lane_gather": 0, "lane_gather_chain": 0,
     "row_sum_ring": 0, "row_ring_rounds": 0, "flat_gather_chain": 0}

@@ -13,6 +13,24 @@ weights are ``softmax(x[:, :L])`` and the guidance is ``x[:, L:]``, both in
 f32.  ``guided_filter`` dispatches on the device: ``guided_filter_act_plain``
 (that split, then ``guided_filter_plain``, the exact path of the JAX
 module) for CPU tensors, the kernel for CUDA tensors.
+
+Training filters a batch and differentiates it (the JAX package's
+``guided_filter_batch`` under ``jax.value_and_grad``, filtering.py:188-193,
+with the window max under ``stop_gradient``).  ``guided_filter_batch`` is a
+``torch.autograd.Function`` over f32 weight and guidance [B, L, H, W] and
+the image [B, H, W, 4] (data: it gets no gradient).  On CUDA tensors its
+forward is kernel K5 (``guided_filter_batch_fwd``), which also saves each
+level's window max m, denominator D and filtered rgb f, and its backward
+is kernel K6 (``guided_filter_batch_bwd``); on CPU tensors they are
+``guided_filter_batch_plain`` and ``guided_filter_backward_plain``.  With
+the window max a constant, per level l of support s > 0,
+
+    dL/dw_lp = G_p . f_lp,
+    dL/dg_q  = sum_{p in N(q)} exp(g_q - m_p) (w_lp / D_p)
+                               (G_p . x_q - G_p . f_lp),
+
+where G_p = dL/dout_p (rgb); a support-0 level (f = x) gets no guidance
+gradient.
 """
 
 from __future__ import annotations
@@ -39,22 +57,29 @@ def resolve_supports(L: int, supports) -> tuple:
     return supports
 
 
-def _level_exact(rgb: torch.Tensor, g: torch.Tensor, s: int) -> torch.Tensor:
-    """One level: [H, W, 3] rgb, [H, W] guidance -> filtered [H, W, 3]
+def _level_sums(rgb: torch.Tensor, g: torch.Tensor, s: int):
+    """One level of support s > 0 on a batch: [B, H, W, 3] rgb, [B, H, W]
+    guidance -> (filtered rgb, window max m, denominator D)
     (filtering.py:_level_exact)."""
-    H, W, _ = rgb.shape
+    H, W = g.shape[-2:]
     K = 2 * s + 1
     gp = F.pad(g, (s, s, s, s), value=float("-inf"))
-    gmax = F.max_pool2d(gp[None, None], K, stride=1)[0, 0]
+    # a constant under autograd, as JAX's stop_gradient (filtering.py:64)
+    gmax = F.max_pool2d(gp[:, None], K, stride=1)[:, 0].detach()
     ip = F.pad(rgb, (0, 0, s, s, s, s))
     num = torch.zeros_like(rgb)
-    den = torch.zeros((H, W), dtype=rgb.dtype, device=rgb.device)
+    den = torch.zeros_like(g)
     for dy in range(K):
         for dx in range(K):
-            k = torch.exp(gp[dy:dy + H, dx:dx + W] - gmax)
+            k = torch.exp(gp[:, dy:dy + H, dx:dx + W] - gmax)
             den = den + k
-            num = num + ip[dy:dy + H, dx:dx + W] * k[..., None]
-    return num / den[..., None]
+            num = num + ip[:, dy:dy + H, dx:dx + W] * k[..., None]
+    return num / den[..., None], gmax, den
+
+
+def _level_exact(rgb: torch.Tensor, g: torch.Tensor, s: int) -> torch.Tensor:
+    """One level: [H, W, 3] rgb, [H, W] guidance -> filtered [H, W, 3]."""
+    return _level_sums(rgb[None], g[None], s)[0][0]
 
 
 def guided_filter_plain(weight_map: torch.Tensor, guidance_map: torch.Tensor,
@@ -129,3 +154,171 @@ def guided_filter(act: torch.Tensor, img_in: torch.Tensor,
         native.count_launch("guided_filter")
     native.check(rc, "guided_filter_kernel")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the batched filter for training: K5 (forward) and K6 (backward)
+# ---------------------------------------------------------------------------
+
+def guided_filter_batch_plain(weight: torch.Tensor, guidance: torch.Tensor,
+                              img: torch.Tensor, supports=None) -> torch.Tensor:
+    """Plain version of kernel K5: ``guided_filter_plain`` on each image.
+    weight, guidance [B, L, H, W]; img [B, H, W, >=3] -> [B, H, W, 4]."""
+    return torch.stack([guided_filter_plain(w, g, x, supports)
+                        for w, g, x in zip(weight, guidance, img)])
+
+
+def guided_filter_backward_plain(grad_out: torch.Tensor,
+                                 weight: torch.Tensor,
+                                 guidance: torch.Tensor, img: torch.Tensor,
+                                 supports=None):
+    """Plain version of kernel K6: the closed-form gradients of
+    ``guided_filter_batch`` (module doc) -> (dL/dweight, dL/dguidance),
+    both [B, L, H, W].  grad_out [B, H, W, >=3] (only rgb is read)."""
+    B, L, H, W = weight.shape
+    supports = resolve_supports(L, supports)
+    G, x = grad_out[..., :3], img[..., :3]
+    gw = torch.empty_like(weight)
+    gg = torch.zeros_like(guidance)
+    for l, s in enumerate(supports):
+        if s == 0:
+            gw[:, l] = (G * x).sum(-1)
+            continue
+        K, g = 2 * s + 1, guidance[:, l]
+        f, m, den = _level_sums(x, g, s)
+        gf = (G * f).sum(-1)
+        gw[:, l] = gf
+        a = weight[:, l] / den
+        u, v = G * a[..., None], a * gf
+        # pixel q gathers from p = q + (dy - s, dx - s) in N(q); outside
+        # the image m is +inf and u, v are 0, so the tap adds exp(-inf) * 0
+        mp = F.pad(m, (s, s, s, s), value=float("inf"))
+        up = F.pad(u, (0, 0, s, s, s, s))
+        vp = F.pad(v, (s, s, s, s))
+        acc = torch.zeros_like(g)
+        for dy in range(K):
+            for dx in range(K):
+                k = torch.exp(g - mp[:, dy:dy + H, dx:dx + W])
+                ux = (up[:, dy:dy + H, dx:dx + W] * x).sum(-1)
+                acc = acc + k * (ux - vp[:, dy:dy + H, dx:dx + W])
+        gg[:, l] = acc
+    return gw, gg
+
+
+def _check_batch(name: str, weight, guidance, img, supports):
+    """The kernels' contract: contiguous f32 CUDA tensors on one device,
+    weight and guidance [B, L, H, W], img [B, H, W, 4], 1..8 levels of
+    support <= 8."""
+    B, L, H, W = weight.shape
+    for t, shape in ((weight, (B, L, H, W)), (guidance, (B, L, H, W)),
+                     (img, (B, H, W, 4))):
+        if (t.device.type != "cuda" or t.device != weight.device
+                or t.dtype != torch.float32 or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"{name}: needs contiguous f32 CUDA tensors weight, guidance "
+                f"{(B, L, H, W)} and img {(B, H, W, 4)} on one device, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if not 1 <= L <= MAX_LEVELS or max(supports) > MAX_SUPPORT:
+        raise ValueError(f"{name}: the kernel takes 1..{MAX_LEVELS} levels "
+                         f"of support <= {MAX_SUPPORT}, got {supports}")
+
+
+def guided_filter_batch_fwd(weight: torch.Tensor, guidance: torch.Tensor,
+                            img: torch.Tensor, supports=None):
+    """Kernel K5 wrapper -> (out [B, H, W, 4], saved): ``saved`` is
+    (fm [B, L, H, W, 4] holding each level's filtered rgb f and window max
+    m, den [B, L, H, W] its denominator D), what K6 reads (support-0
+    levels leave theirs unwritten)."""
+    if weight.dim() != 4:
+        raise ValueError(f"guided_filter_batch: weight must be [B, L, H, W],"
+                         f" got {tuple(weight.shape)}")
+    B, L, H, W = weight.shape
+    supports = resolve_supports(L, supports)
+    _check_batch("guided_filter_batch", weight, guidance, img, supports)
+    dev = img.device
+    out = torch.empty((B, H, W, 4), dtype=torch.float32, device=dev)
+    fm = torch.empty((B, L, H, W, 4), dtype=torch.float32, device=dev)
+    den = torch.empty((B, L, H, W), dtype=torch.float32, device=dev)
+    sup = (ctypes.c_int * L)(*supports)
+    fn = native.entry("rt_guided_filter_batch")
+    with torch.cuda.device(dev):
+        rc = fn(weight.data_ptr(), guidance.data_ptr(), img.data_ptr(),
+                out.data_ptr(), fm.data_ptr(), den.data_ptr(), B, L,
+                ctypes.cast(sup, ctypes.c_void_p), H, W,
+                native.stream_ptr(dev))
+        native.count_launch("guided_filter_batch")
+    native.check(rc, "guided_filter_batch_kernel")
+    return out, (fm, den)
+
+
+def guided_filter_batch_bwd(grad_out: torch.Tensor, weight: torch.Tensor,
+                            guidance: torch.Tensor, img: torch.Tensor,
+                            saved, supports=None):
+    """Kernel K6 wrapper: grad_out [B, H, W, 4] and what K5 saved ->
+    (dL/dweight, dL/dguidance), both [B, L, H, W]."""
+    B, L, H, W = weight.shape
+    supports = resolve_supports(L, supports)
+    _check_batch("guided_filter_batch_bwd", weight, guidance, img, supports)
+    fm, den = saved
+    for t, shape in ((grad_out, (B, H, W, 4)), (fm, (B, L, H, W, 4)),
+                     (den, (B, L, H, W))):
+        if (t.device != weight.device or t.dtype != torch.float32
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(
+                f"guided_filter_batch_bwd: needs a contiguous f32 tensor "
+                f"{shape} on {weight.device}, got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}")
+    dev = img.device
+    gw = torch.empty((B, L, H, W), dtype=torch.float32, device=dev)
+    gg = torch.empty((B, L, H, W), dtype=torch.float32, device=dev)
+    sup = (ctypes.c_int * L)(*supports)
+    fn = native.entry("rt_guided_filter_batch_bwd")
+    with torch.cuda.device(dev):
+        rc = fn(grad_out.data_ptr(), weight.data_ptr(), guidance.data_ptr(),
+                img.data_ptr(), fm.data_ptr(), den.data_ptr(), gw.data_ptr(),
+                gg.data_ptr(), B, L, ctypes.cast(sup, ctypes.c_void_p), H, W,
+                native.stream_ptr(dev))
+        native.count_launch("guided_filter_batch_bwd")
+    native.check(rc, "guided_filter_batch_bwd_kernel")
+    return gw, gg
+
+
+class _GuidedFilterBatch(torch.autograd.Function):
+    """Forward K5, backward K6 on CUDA tensors; the plain versions on CPU
+    tensors.  Gradients for weight and guidance only."""
+
+    @staticmethod
+    def forward(ctx, weight, guidance, img, supports):
+        ctx.supports = supports
+        if img.device.type == "cpu":
+            ctx.save_for_backward(weight, guidance, img)
+            return guided_filter_batch_plain(weight, guidance, img, supports)
+        out, (fm, den) = guided_filter_batch_fwd(weight, guidance, img,
+                                                 supports)
+        ctx.save_for_backward(weight, guidance, img, fm, den)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        weight, guidance, img, *saved = ctx.saved_tensors
+        if img.device.type == "cpu":
+            gw, gg = guided_filter_backward_plain(grad_out, weight, guidance,
+                                                  img, ctx.supports)
+        else:
+            gw, gg = guided_filter_batch_bwd(grad_out.contiguous(), weight,
+                                             guidance, img, saved,
+                                             ctx.supports)
+        return gw, gg, None, None
+
+
+def guided_filter_batch(weight: torch.Tensor, guidance: torch.Tensor,
+                        img: torch.Tensor, supports=None) -> torch.Tensor:
+    """The differentiable batched filter: weight, guidance [B, L, H, W]
+    (f32 on CUDA), img [B, H, W, 4] -> [B, H, W, 4] with alpha 1.  CUDA
+    tensors go through K5 / K6 (weight and guidance made contiguous here,
+    img must be), CPU tensors through the plain versions."""
+    supports = resolve_supports(weight.shape[1], supports)
+    if img.device.type != "cpu":
+        weight, guidance = weight.contiguous(), guidance.contiguous()
+    return _GuidedFilterBatch.apply(weight, guidance, img, supports)

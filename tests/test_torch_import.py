@@ -43,6 +43,14 @@ MODULES = [
     "rt_octree_tpu_torch.io.lod",
     "rt_octree_tpu_torch.apps.compress",
     "rt_octree_tpu_torch.apps.cli",
+    "rt_octree_tpu_torch.train.config",
+    "rt_octree_tpu_torch.train.dataset",
+    "rt_octree_tpu_torch.train.logger",
+    "rt_octree_tpu_torch.train.metrics",
+    "rt_octree_tpu_torch.train.lpips",
+    "rt_octree_tpu_torch.train.runner",
+    "rt_octree_tpu_torch.train.main",
+    "rt_octree_tpu_torch.tools.make_quality_dataset",
 ]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "triton", "msgpack", "imageio")
 
@@ -160,6 +168,41 @@ def test_dispatcher_lod_and_compress_import_neither_jax_nor_the_jax_package(
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 2
     assert out.stderr.strip() == "not yet ported: tools"
+
+
+def test_dispatcher_train_imports_neither_jax_nor_the_jax_package(
+        tmp_path):
+    """``rtoctree train`` (train, then test and compact) on the CPU over a
+    micro-blender kit made by the port's make_quality_dataset from a tiny
+    tree: no module of ``rt_octree_tpu`` and no jax gets imported, and the
+    exported .gnet is there."""
+    code = (
+        "import sys\n"
+        "from rt_octree_tpu_torch.io import synthetic\n"
+        "from rt_octree_tpu_torch.apps import cli\n"
+        "from rt_octree_tpu_torch.tools import make_quality_dataset as mq\n"
+        f"d = {str(tmp_path)!r}\n"
+        "synthetic.save_npz(synthetic.make_synthetic_tree('shell', depth=3,"
+        " basis_dim=4), d + '/tree.npz')\n"
+        "rcs = [mq.main(['--out', d + '/kit', '--tree', d + '/tree.npz',"
+        " '--n_train', '2', '--n_test', '1', '--res', '16', '--device',"
+        " 'cpu'])]\n"
+        "common = ['--config', 'configs/blender.txt', '--data_dir',"
+        " d + '/kit', '--logs_root', d + '/logs', '--device', 'cpu',"
+        " '--nx', '2', '--ny', '2', '--batch_size', '4', '--mid_channels',"
+        " '4', '--i_save', '1']\n"
+        "for task in ('train', 'test', 'compact'):\n"
+        "    rcs.append(cli.main(['train', '--task', task, '--epochs', '1']"
+        " + common))\n"
+        f"print(rcs, sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN + ('rt_octree_tpu',)!r}))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=_clean_env(), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[0, 0, 0, 0] []"
+    for name in ("ts_000001.gnet", "checkpoint_000001.pt", "ts_latest.gnet"):
+        assert (tmp_path / "logs" / "lego" / name).exists()
 
 
 def test_tf32_disabled_on_import():

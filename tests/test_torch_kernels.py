@@ -1,5 +1,6 @@
 """The port's CUDA kernels (K1 render and its classic variant, K2 guided
-filter, K3 LUT + skip distances, K4 fast mode's upsample, G1-G4 the
+filter, K3 LUT + skip distances, K4 fast mode's upsample, K5 / K6 the
+training step's batched guided filter and its backward, G1-G4 the
 measurement tools' probes) against their plain PyTorch versions, and the
 launch counters.
 
@@ -25,7 +26,9 @@ from rt_octree_tpu_torch.native import build as native
 from rt_octree_tpu_torch.ops import probes as pr
 from rt_octree_tpu_torch.ops import traversal as tt
 from rt_octree_tpu_torch.ops.filtering import guided_filter, \
-    guided_filter_act_plain, guided_filter_plain, split_activation
+    guided_filter_act_plain, guided_filter_backward_plain, \
+    guided_filter_batch, guided_filter_batch_bwd, guided_filter_batch_fwd, \
+    guided_filter_batch_plain, guided_filter_plain, split_activation
 from rt_octree_tpu_torch.ops.resize import fast_upsample, \
     fast_upsample_plain
 from rt_octree_tpu_torch.render import renderer as tr
@@ -40,6 +43,10 @@ IMG_TOL, AUX_TOL, FILTER_TOL = 2e-5, 4e-5, 1e-5
 # K4 vs plain: the same f32 operations in the same order (both sides built
 # without FMA contraction), on values in [0, 1].
 UPSAMPLE_TOL = 1e-6
+# K6 vs plain: the gather of up to 81 taps of exp * (u.x - v) in the plain
+# version's order, with FMA contraction: within 1e-4 of the plain
+# gradient's largest magnitude.
+GRAD_REL_TOL = 1e-4
 
 
 @pytest.fixture(scope="module")
@@ -76,6 +83,19 @@ def _filter_inputs(seed, L=4, H=64, W=48, gscale=3.0):
     return act[None].astype(np.float32), img
 
 
+def _batch_inputs(seed, B=2, L=4, H=37, W=53, gscale=3.0):
+    """f32 level weights (softmaxed), guidance, image and dL/dout for the
+    batched filter."""
+    rs = np.random.default_rng(seed)
+    logits = rs.standard_normal((B, L, H, W)) * 2.0
+    w = np.exp(logits) / np.exp(logits).sum(1, keepdims=True)
+    g = rs.standard_normal((B, L, H, W)) * gscale
+    if gscale > 10:  # one window spans > 60 nats
+        g[0, 1, 3, 4], g[0, 1, 4, 5] = 70.0, -5.0
+    return tuple(a.astype(np.float32) for a in (
+        w, g, rs.random((B, H, W, 4)), rs.standard_normal((B, H, W, 4))))
+
+
 def _lane_inputs(seed, dtype, T=64, R=40, W=12):
     rs = np.random.default_rng(seed)
     tab = (rs.random((T, W)) if dtype == np.float32
@@ -110,6 +130,9 @@ def _launch_each_wrapper(shell, device):
     t = lambda a: torch.from_numpy(a).to(device)
     act, img = _filter_inputs(0, L=2, H=8, W=8)
     guided_filter(t(act).to(torch.bfloat16), t(img), (0, 1))
+    w, g, x, G = (t(a) for a in _batch_inputs(0, B=1, L=2, H=8, W=8))
+    w.requires_grad_()
+    guided_filter_batch(w, g, x, (0, 1)).backward(G)
     tab, idx = _lane_inputs(1, np.float32)
     pr.probe_affine(t(tab))
     pr.lane_gather(t(tab), t(idx))
@@ -334,6 +357,69 @@ def test_k2_refuses_what_the_kernel_does_not_take(cuda_device):
                 lambda: guided_filter(act.float(), img, (0, 1)),
                 lambda: guided_filter(act, img[..., :3].contiguous(), (0, 1)),
                 lambda: guided_filter(act[:, :3], img, (0, 1))):
+        with pytest.raises(ValueError):
+            bad()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 37, 53), (32, 80, 80)],
+                         ids=["2x37x53", "32x80x80"])
+@pytest.mark.parametrize("supports,gscale", [
+    ((1, 2, 3, 4), 3.0), ((0, 1, 2, 3), 3.0), ((0, 1, 2, 3), 40.0)],
+    ids=["ladder", "identity", "range > 60 nats"])
+def test_k5_k6_match_plain(shape, supports, gscale, cuda_device):
+    """K5's output within FILTER_TOL of the plain batched filter; K6's
+    weight and guidance gradients within GRAD_REL_TOL of the largest
+    plain gradient, at a size that is no multiple of the 32x8 tile and at
+    the training batch (32 slices of 80x80), on the reference ladder, the
+    identity supports, and a window whose guidance spans > 60 nats."""
+    B, H, W = shape
+    w, g, x, G = (torch.from_numpy(a).to(cuda_device) for a in
+                  _batch_inputs(11, B, 4, H, W, gscale))
+    out, saved = guided_filter_batch_fwd(w, g, x, supports)
+    ref = guided_filter_batch_plain(w, g, x, supports)
+    torch.testing.assert_close(out, ref, atol=FILTER_TOL, rtol=0)
+    gw, gg = guided_filter_batch_bwd(G, w, g, x, saved, supports)
+    rw, rg = guided_filter_backward_plain(G, w, g, x, supports)
+    for got, want in ((gw, rw), (gg, rg)):
+        assert bool(torch.isfinite(got).all())
+        assert float((got - want).abs().max()) <= \
+            GRAD_REL_TOL * float(want.abs().max())
+    if supports[0] == 0:
+        assert not gg[:, 0].any()
+
+
+@pytest.mark.cuda
+def test_k5_k6_autograd_function_launches_each_once(cuda_device):
+    """guided_filter_batch on CUDA tensors: one K5 launch forward, one K6
+    launch backward, and gradients only for weight and guidance, equal to
+    the kernels' called directly."""
+    w, g, x, G = (torch.from_numpy(a).to(cuda_device) for a in
+                  _batch_inputs(12, 3, 4, 24, 40))
+    wr, gr = w.clone().requires_grad_(), g.clone().requires_grad_()
+    native.reset_launches()
+    guided_filter_batch(wr, gr, x, (1, 2, 3, 4)).backward(G)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["guided_filter_batch"] == 1
+    assert native.LAUNCHES["guided_filter_batch_bwd"] == 1
+    _, saved = guided_filter_batch_fwd(w, g, x, (1, 2, 3, 4))
+    gw, gg = guided_filter_batch_bwd(G, w, g, x, saved, (1, 2, 3, 4))
+    assert torch.equal(wr.grad, gw) and torch.equal(gr.grad, gg)
+
+
+@pytest.mark.cuda
+def test_k5_k6_refuse_what_the_kernels_do_not_take(cuda_device):
+    w, g, x, G = (torch.from_numpy(a).to(cuda_device) for a in
+                  _batch_inputs(13, 1, 2, 16, 16))
+    _, saved = guided_filter_batch_fwd(w, g, x, (0, 1))
+    for bad in (lambda: guided_filter_batch_fwd(w, g, x, (0, 9)),
+                lambda: guided_filter_batch_fwd(w.double(), g, x, (0, 1)),
+                lambda: guided_filter_batch_fwd(w, g[..., :8], x, (0, 1)),
+                lambda: guided_filter_batch_fwd(w, g, x[..., :3], (0, 1)),
+                lambda: guided_filter_batch_fwd(w.transpose(2, 3), g, x,
+                                                (0, 1)),
+                lambda: guided_filter_batch_bwd(G[..., :3], w, g, x, saved,
+                                                (0, 1))):
         with pytest.raises(ValueError):
             bad()
 

@@ -173,11 +173,19 @@ def test_dispatcher_render_is_the_headless_cli(tmp_path):
         assert dumps["cli", fname] == dumps["headless", fname], fname
 
 
-@pytest.mark.parametrize("command", ["view", "anim", "train", "tools"])
+@pytest.mark.parametrize("command", ["view", "anim", "tools"])
 def test_dispatcher_refuses_what_is_not_ported(command, capsys):
     assert tcli.main([command, "--help"]) == 2
     out, err = capsys.readouterr()
     assert err.strip() == f"not yet ported: {command}" and out == ""
+
+
+def test_dispatcher_train_help_exits_0(capsys):
+    """``rtoctree train --help`` is the training CLI's argparse help."""
+    with pytest.raises(SystemExit) as e:
+        tcli.main(["train", "--help"])
+    assert e.value.code == 0
+    assert "--config" in capsys.readouterr().out
 
 
 def test_dispatcher_help_prints_the_docstring(capsys):
