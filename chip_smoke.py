@@ -19,14 +19,18 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   5. PCG32: the kernel's per-pixel uniforms equal the tensor twin, bit-exact;
   6. K2 (guided filter from the net's bf16 activation) vs its plain version
      at 800x800, L=4, both support ladders, channels-last strides and a
-     guidance range above 60 nats;
+     guidance range above 60 nats; K7 (the compact GuidanceNet) vs its
+     plain version (compact_activation_plain) on random aux at 800x800
+     with trained.gnet and at 256x256 with random nets of one block, of
+     4 and 6 channels and a 3-block chain, and on a permuted NCHW aux;
   7. the main paths, each a headless CLI run on the depth-9 SH9 shell tree
      with the level-9 LUT, SPP 6, denoise on, its launch counts reset just
      before it and read just after: the headline frame (trained.gnet; K1,
      K2, K3 must launch), fast mode at s = 0.5 (fast.gnet; K1 at 400x400,
      K4, K2) and at s = 0.4 (fast_s0.4.gnet; 320x320), and a run with a
      drawlist, the grid, the probe and the classic estimator
-     (render_classic must launch); the headline flags through the
+     (render_classic must launch; K7 in every run); the headline flags
+     through the
      dispatcher (``rtoctree render``, apps/cli.py), and the dispatcher's
      ``lod`` (the tree pooled to depth 8) and ``compress`` (the quant
      phase's depth-7 shell, --retain 1), which must launch no kernel; then
@@ -39,11 +43,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      headline frame, fast mode at s = 0.5 and 0.4 with their nets, and the
      classic estimator;
   9. every kernel vs its plain version on the main path's own inputs (the
-     800x800 SPP 6 frame of the depth-9 tree, the net's activation, the
-     512^3 LUT and skip lanes); K1's statistics variant on that frame,
-     printed as one JSON line {"k1_stats": ...} (steps per ray, SIMT lane
-     efficiency of fixed warp tiles, the distinct LUT cells and data rows
-     read, and K1's bound); then each
+     800x800 SPP 6 frame of the depth-9 tree, K7 on its aux, the net's
+     activation, the 512^3 LUT and skip lanes); K1's statistics variant on
+     that frame, printed as one JSON line {"k1_stats": ...} (steps per
+     ray, SIMT lane efficiency of fixed warp tiles, the distinct LUT cells
+     and data rows read, and K1's bound); then each
      kernel's time vs its plain version there (each K3 entry alone: the
      LUT it updates in place is restored outside the timed window), and
      the headline frame's time, by CUDA events; render_classic vs its plain
@@ -51,8 +55,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      the fourth run's drawlist pass, its statistics and time; K4 at
      400->800 timed against F.interpolate; for each fast frame (s = 0.5,
      0.4), K1 at its inner size and scaled focal lengths vs its plain
-     version, K4 on what K1 wrote there vs its plain version, and the
-     Renderer's noisy frame vs the plain chain, then its time with the
+     version, K4 on what K1 wrote there vs its plain version, K7 on K4's
+     aux with the rung's net, and the Renderer's noisy frame vs the plain
+     chain, then its time with the
      phase split; the probe overlay and the host rasterizer, timed as
      plain rows ({"plain_rows": ...}); then the training path: a kit
      rendered by the port's tools/make_quality_dataset.py from the
@@ -74,9 +79,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      Renderer with its kit's net: K1 vs its plain version on the scene's
      own frame (tt: the central 64x64 pixels), fast rungs held at their
      own shapes (K1 at the inner size, K4 on its output, the frame vs the
-     plain chain), K2 on the net's activation, the 8-pose gate against the
-     JAX package's CPU bars with denoise_recommended, the frame time and
-     phase split; then the quantized depth-7 shell (K1 held on its
+     plain chain, K7 on K4's aux), K7 on the scene's aux with its net
+     (and its time at the scene's size), K2 on the net's activation, the
+     8-pose gate against the JAX package's CPU bars with
+     denoise_recommended, the frame time and phase split; then the
+     quantized depth-7 shell (K1 held on its
      decode, PSNR against the float frame and the npz bytes ratio against
      the JAX package's), printed as one JSON line {"scenes": ...};
  11. the depth-11 shell (the headline tree refined 2 levels,
@@ -92,6 +99,12 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      the tools' entry points (gpu_probe basic vgather vgather_loop dma,
      microbench_gather b and c) with the counts reset: every probe kernel's
      launch count in that run must be > 0.
+
+After phase 10 it prints K7's holds and times as one JSON line
+{"k7": ...}: per input, the largest difference from the plain version in
+bf16 ulps of the tensor's largest magnitude and of each element's, the
+share of elements not bit-equal; K7, its plain version and the cuDNN chain
+it replaces at 800x800 and 1920x1080.
 
 Prints the kernel table as one JSON line (per kernel: launches on the main
 path, max abs error, ms, plain ms, the bound in ms and whether bytes or
@@ -210,14 +223,24 @@ K2_TOL = 1e-5  # f32 sums of up to 49 softmax taps, in another order
 # largest magnitude (sums over 204,800 pixels round in f32 either way: on
 # the CPU both routes sit ~1e-5 of that from a float64 step).
 K5_TOL, K6_REL_TOL, STEP_RTOL = 1e-5, 1e-4, 1e-4
+# K7 vs plain: both sum each conv in f32, in other orders (tensor cores /
+# cuDNN), so a bf16 rounding may land one ulp apart; it moves the next
+# block's sums, and a bias that cancels its conv output turns one ulp of
+# the conv into many of the result.  So each element is held within K7_ULPS
+# bf16 ulps of the tensor's largest magnitude, and at most
+# K7_UNEQUAL_SHARE of the elements may differ at all (rounding the conv
+# and the bias in one step fails that: tests/test_torch_net.py).
+K7_ULPS, K7_UNEQUAL_SHARE = 2.0, 1e-3
 # the train phase: configs/blender.txt on a kit that the port renders from
 # the headline tree (32 train and 8 test poses at 800x800); TRAIN_EPOCHS
 # epochs, then a resume of one more
 TRAIN_EPOCHS = 5
 # The least time for a kernel's work on an H100 SXM (NVIDIA's data sheet):
-# the bytes it must move over the memory rate, or its f32 operations over
-# the f32 peak, whichever is larger.
+# the bytes it must move over the memory rate, or its operations over the
+# peak of their type (f32 on the CUDA cores; K7's bf16 products on the
+# tensor cores, dense), whichever is larger.
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
+BF16_TC_OPS_PER_S = 989e12
 # K1's f32 operations, counted from csrc/render.cu and kept as a floor
 # (integer work, the ray setup and the basis are left out): a leaf step
 # ~100 (clip 12, LUT cell 18, leaf cube ~10, DDA 22, skip box 36), a shaded
@@ -233,6 +256,8 @@ FRAME_KERNELS = {
                  "rt_octree_tpu/render/renderer.py:1302"),
     "guided_filter": ("rt_octree_tpu_torch/csrc/filter.cu",
                       "rt_octree_tpu/ops/filtering.py:153"),
+    "guidance_net": ("rt_octree_tpu_torch/csrc/net.cu",
+                     "rt_octree_tpu/models/guidance_net.py:124"),
     "lut_build": ("rt_octree_tpu_torch/csrc/lut.cu",
                   "rt_octree_tpu/ops/traversal.py:102"),
     "skip_distances": ("rt_octree_tpu_torch/csrc/lut.cu",
@@ -263,9 +288,9 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def bound(nbytes: float, ops: float = 0.0):
+def bound(nbytes: float, ops: float = 0.0, ops_per_s: float = F32_OPS_PER_S):
     """(bound ms, "bytes" or "operations")."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -379,7 +404,7 @@ def hold_k1(label, dt, tf, kw, err_key, err, rng=(20230418, 1), **mesh):
     return got, ref
 
 
-def hold_fast(rf, pose, err):
+def hold_fast(rf, pose, err, scene="headline"):
     """The fast frame as the main path makes it, vs its plain chain: K1 at
     the inner size with fx, fy scaled by inner / output (vs its plain
     version), K4 on what K1 wrote there (vs its plain version on the same
@@ -394,6 +419,8 @@ def hold_fast(rf, pose, err):
     inner_k, inner_p = hold_k1(label, rf.tree, rf._transform(pose), kw,
                                "render", err, rng)
     got = rf.render_noisy(pose)
+    hold_k7(f"{scene} {label} -> {W}x{H}, K4's aux, the rung's net",
+            rf.net, got[1][None], err)
     own = fast_upsample_plain(inner_k[1], H, W, True)
     chain = fast_upsample_plain(inner_p[1], H, W, True)
     e_k4 = max(float((g - o).abs().max()) for g, o in zip(got, own))
@@ -561,6 +588,138 @@ def phase_k2(err):
     log(f"[k2] support-0 passthrough bit-exact: {exact}")
     require(exact and bool((out[..., 3] == 1).all()), "K2 passthrough")
     err["guided_filter"] = worst
+
+
+def bf16_ulps(got, ref):
+    """(largest difference in bf16 ulps of the tensor's largest magnitude,
+    largest in ulps of each element's larger magnitude, share of elements
+    not equal, largest absolute difference)."""
+    import torch
+    g, r = got.float(), ref.float()
+    d = (g - r).abs()
+    big = torch.maximum(g.abs(), r.abs())
+
+    def ulp(m):
+        return torch.exp2(torch.floor(torch.log2(m.clamp_min(2.0 ** -126)))
+                          - 7)
+    return (float(d.max() / ulp(big.max())), float((d / ulp(big)).max()),
+            float((g != r).float().mean()), float(d.max()))
+
+
+def hold_k7(label, net, aux_nhwc, err):
+    """K7 (net.activation on the card) vs compact_activation_plain on the
+    same aux [B, H, W, C], at K7_ULPS and K7_UNEQUAL_SHARE."""
+    import torch
+    from rt_octree_tpu_torch.models.guidance_net import \
+        compact_activation_plain
+    with torch.no_grad():
+        act = net.activation(aux_nhwc)
+        ref = compact_activation_plain(aux_nhwc,
+                                       [c.weight for c in net.convs],
+                                       [c.bias for c in net.convs])
+    t_ulps, e_ulps, share, e = bf16_ulps(act, ref)
+    log(f"[k7] {label}: {tuple(act.shape)}, max|diff| {e:.3g} = {t_ulps:g} "
+        f"ulps of the largest |value| ({e_ulps:g} of the element's), "
+        f"{share:.3g} of the elements not bit-equal")
+    require(act.shape == ref.shape and bool(torch.isfinite(
+        act.float()).all()), f"K7 output bad on {label}")
+    require(t_ulps <= K7_ULPS and share <= K7_UNEQUAL_SHARE,
+            f"K7 disagrees with its plain version on {label}")
+    err["guidance_net"] = max(err.get("guidance_net", 0.0), e)
+    # K7's holds and times, printed after phase 10 as {"k7": ...}
+    k7 = err.setdefault("k7", {"holds": {}, "ms": {}})
+    k7["holds"][label] = {"ulps_of_max": t_ulps, "ulps_of_element":
+                               e_ulps, "unequal_share": share,
+                               "max_abs": e, "elements": act.numel()}
+
+
+def k7_bound(net, n):
+    """K7's bound on n pixels: the f32 aux read and the bf16 activation
+    written once; 2 operations a multiply-add of every block's 3x3 taps,
+    on the bf16 tensor cores."""
+    chans = net.config.layer_channels()
+    nbytes = n * (4 * chans[0][0] + 2 * chans[-1][1])
+    ops = n * 2 * 9 * sum(cin * cout for cin, cout in chans)
+    return bound(nbytes, ops, BF16_TC_OPS_PER_S)
+
+
+def time_k7(label, net, aux_nhwc, err):
+    """K7, its plain version and the cuDNN chain it replaces on aux_nhwc
+    [1, H, W, C]: (kernel ms, plain ms, chain ms), recorded in err["k7"].
+    The kernel and the chain by device_ms (their launches are shorter than
+    the host's queuing), the plain version as every plain row, cuda_ms."""
+    import torch
+    from rt_octree_tpu_torch.models.guidance_net import \
+        compact_activation_plain
+    ws = [c.weight for c in net.convs]
+    bs = [c.bias for c in net.convs]
+    with torch.no_grad():
+        k_ms = device_ms(lambda: net.activation(aux_nhwc), 200, 10)
+        p_ms = cuda_ms(lambda: compact_activation_plain(aux_nhwc, ws, bs),
+                       20, 3)
+        # the chain K7 replaces: permute, cast, then per block conv
+        # (cuDNN), bias add, relu6, with the weights cast once outside
+        wb = [w.to(torch.bfloat16) for w in ws]
+        bb = [b.to(torch.bfloat16)[None, :, None, None] for b in bs]
+
+        def chain():
+            x = aux_nhwc.permute(0, 3, 1, 2).to(torch.bfloat16)
+            for w, b in zip(wb, bb):
+                x = torch.nn.functional.relu6(
+                    torch.nn.functional.conv2d(x, w, padding=1) + b)
+            return x
+        l_ms = device_ms(chain, 200, 10)
+    H, W = aux_nhwc.shape[1:3]
+    b_ms, b_by = k7_bound(net, H * W)
+    log(f"[timing] K7 {label} {W}x{H}: kernel {k_ms:.4f} ms, plain "
+        f"{p_ms:.4f} ms, cuDNN chain {l_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by})")
+    err["k7"]["ms"][f"{W}x{H}"] = {"net": label, "kernel": k_ms, "plain": p_ms,
+                                 "cudnn_chain": l_ms, "bound": b_ms,
+                                 "bound_by": b_by}
+    return k_ms, p_ms, l_ms
+
+
+def k7_aux(H, W, C=8, seed=11):
+    """Random f32 aux [1, H, W, C] on the card like K1's: rgba-like means
+    in [0, 1], then their squares."""
+    import torch
+    rs = np.random.default_rng(seed)
+    aux = rs.random((1, H, W, C), np.float32)
+    aux[..., C // 2:2 * (C // 2)] = aux[..., :C // 2] ** 2
+    return torch.from_numpy(aux).cuda()
+
+
+def phase_k7(err):
+    """K7 vs its plain version on random aux: trained.gnet at 800x800 and
+    on a permuted NCHW aux (the runner's test split), random nets of the
+    JAX tests' shapes and a 3-block chain at 256x256."""
+    from rt_octree_tpu_torch.models.guidance_net import (GuidanceNetConfig,
+                                                         build_compact,
+                                                         load_model)
+    net, _ = load_model(os.path.join(KIT, "trained.gnet"), "cuda")
+    aux = k7_aux(800, 800)
+    hold_k7("random aux 800x800, trained.gnet", net, aux, err)
+    nchw = aux.permute(0, 3, 1, 2).contiguous()
+    hold_k7("random aux 800x800 read from NCHW, trained.gnet", net,
+            nchw.permute(0, 2, 3, 1), err)
+    rs = np.random.default_rng(12)
+    for cfg in (GuidanceNetConfig(mid_channels=4, num_layers=1,
+                                  kernel_levels=2),
+                GuidanceNetConfig(mid_channels=4, kernel_levels=2),
+                GuidanceNetConfig(in_channels=6, mid_channels=6,
+                                  kernel_levels=3),
+                GuidanceNetConfig(mid_channels=8, num_layers=3)):
+        params = {f"block_{i}": {
+            "kernel": (rs.standard_normal((3, 3, cin, cout)) * 0.4).astype(
+                np.float32),
+            "bias": (rs.standard_normal(cout) * 0.1).astype(np.float32)}
+            for i, (cin, cout) in enumerate(cfg.layer_channels())}
+        chans = " -> ".join(str(c) for c in [cfg.in_channels] + [
+            cout for _, cout in cfg.layer_channels()])
+        hold_k7(f"random aux 256x256, random net {chans}",
+                build_compact(cfg, params, "cuda"),
+                k7_aux(256, 256, cfg.in_channels), err)
 
 
 def headline_tree_path():
@@ -823,17 +982,19 @@ def main_paths(draw_path):
               "--device", "cuda"]
     return {
         "headline": (["--gnet", net("trained.gnet")] + common,
-                     ("render", "guided_filter", "lut_build",
-                      "skip_distances")),
+                     ("render", "guidance_net", "guided_filter",
+                      "lut_build", "skip_distances")),
         "fast s=0.5": (["--render_scale", "0.5", "--gnet", net("fast.gnet")]
-                       + common, ("render", "upsample", "guided_filter")),
+                       + common, ("render", "upsample", "guidance_net",
+                                  "guided_filter")),
         "fast s=0.4": (["--render_scale", "0.4",
                         "--gnet", net("fast_s0.4.gnet")] + common,
-                       ("render", "upsample", "guided_filter")),
+                       ("render", "upsample", "guidance_net",
+                        "guided_filter")),
         "mesh, grid, probe, classic": (
             ["--draw", draw_path, "--grid", "4", "--probe", "0.6,0,0",
              "--estimator", "classic", "--gnet", net("trained.gnet")]
-            + common, ("render_classic", "guided_filter")),
+            + common, ("render_classic", "guidance_net", "guided_filter")),
     }
 
 
@@ -1028,6 +1189,8 @@ def phase_headline(r, ps, err):
     require(same, "K1's statistics disagree with the plain march's")
     bounds["render"] = k1_stats_line(r, stats, kw) + (None,)
 
+    hold_k7("headline aux 800x800 (K1, pose r_0), trained.gnet", r.net,
+            nk[None], err)
     act = r.net_forward(nk)
     img = ik
     sup = r.net_cfg.supports()
@@ -1077,6 +1240,10 @@ def phase_headline(r, ps, err):
     ms["guided_filter"] = (
         cuda_ms(lambda: guided_filter(act, img, sup), 50, 3),
         cuda_ms(lambda: guided_filter_act_plain(act, img, sup), 5))
+    k_ms, p_ms, l_ms = time_k7("headline aux, trained.gnet", r.net, nk[None],
+                               err)
+    ms["guidance_net"] = (k_ms, p_ms)
+    bounds["guidance_net"] = k7_bound(r.net, n) + (l_ms,)
     k3_ms = time_k3(chs, lut_k)
     ms["lut_build"] = (k3_ms[0],
                        cuda_ms(lambda: T.lut_build_plain(chs, 2, 9), 1))
@@ -1614,7 +1781,7 @@ def phase_scenes(err, quant_src):
         r.set_denoiser(os.path.join(kit, cfg["gnet"]))
         pose = cam.transform
         if r.fast:
-            hold_fast(r, pose, err)
+            hold_fast(r, pose, err, label)
         else:
             c = cfg["crop"]
             w, h = (c, c) if c else (W, H)
@@ -1623,6 +1790,12 @@ def phase_scenes(err, quant_src):
                                           if c else ""),
                     dt, r._transform(pose), kw, "render", err)
         img, aux_nhwc, _ = r.render_noisy(pose)
+        if not r.fast:  # hold_fast held K7 on K4's aux
+            hold_k7(f"{label} aux {W}x{H}, {cfg['kit']}/{cfg['gnet']}",
+                    r.net, aux_nhwc[None], err)
+        if label == "tt":
+            time_k7(f"{cfg['kit']}/{cfg['gnet']}", r.net, aux_nhwc[None],
+                    err)
         act = r.net_forward(aux_nhwc)
         sup = r.net_cfg.supports()
         e2 = float((guided_filter(act, img, sup)
@@ -1952,6 +2125,7 @@ def main(argv) -> int:
     phase_k4(err)
     phase_pcg()
     phase_k2(err)
+    phase_k7(err)
     tree, tree_path, gen = headline_tree_path()
     paths = main_paths(make_drawlist())
     runs = {label: phase_main(native, tree_path, label, flags, required)
@@ -1964,7 +2138,8 @@ def main(argv) -> int:
         runs[label] = phase_tool(native, label, argv, outputs)
     # each kernel's launches in the main path that carries it
     counts = {k: runs["headline"][k] for k in
-              ("render", "guided_filter", "lut_build", "skip_distances")}
+              ("render", "guidance_net", "guided_filter", "lut_build",
+               "skip_distances")}
     counts["upsample"] = runs["fast s=0.5"]["upsample"]
     counts["render_classic"] = runs["mesh, grid, probe, classic"][
         "render_classic"]
@@ -1981,6 +2156,7 @@ def main(argv) -> int:
     bounds.update(bounds_new)
     del r
     phase_scenes(err, quant_src)
+    log(json.dumps({"k7": err["k7"]}))
     phase_deep(err, tree)
     del tree
     probe_counts, probe_ms, probe_bounds = phase_probes(native, err)

@@ -21,7 +21,7 @@ The last line is the summary as one JSON object.
     python3 profile_frame.py --render_scale S [--frames 20]
 
 profiles the fast-mode frame instead (same output size and tree; K1
-marches at round(800 S) square, K4 upsamples, then the convs and K2 at
+marches at round(800 S) square, K4 upsamples, then K7 (the net) and K2 at
 800x800), with the fast net of that scale (fast.gnet at 0.5,
 fast_s0.4.gnet at 0.4, as chip_smoke.py's gates; fast.gnet otherwise);
 K1's per-pose times are then at the inner size.

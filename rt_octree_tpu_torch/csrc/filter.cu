@@ -8,8 +8,7 @@
 // reference kernel is filtering.cu:108-228.
 //
 // Input: the net's last bf16 activation x [1, 2L, H, W], read through its
-// strides (cuDNN may hand it back in channels-last strides; nothing is
-// copied).  Prologue, per pixel: the level weights w = softmax(x[:L]) in
+// strides (K7 hands it over channels last; nothing is copied).  Prologue, per pixel: the level weights w = softmax(x[:L]) in
 // f32; the guidance g[l] = x[L + l] cast to f32.  Then for each level l with
 // support s (window 2s+1):
 //   gmax = max of g[l] over the in-image window,

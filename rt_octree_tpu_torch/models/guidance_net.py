@@ -27,9 +27,14 @@ as it is (ops/filtering.py); ``forward`` casts it to f32 and splits it as
 the Flax model does: the first L channels softmaxed into the level
 ``weight`` map, the last L the raw ``guidance`` logits.
 
-The convs run through ``torch.nn.functional.conv2d`` (cuDNN on the card):
-the JAX package leaves them to XLA outside any kernel of its own.  The bias
-is added after the conv, in the compute type, where Flax adds it.
+On a CUDA device ``activation`` is kernel K7 (ops/guidance.py,
+csrc/net.cu): the whole net from the f32 aux in one launch, with the
+weights packed once into K7's bf16 layout by ``pack`` (``build_compact``
+calls it).  Its plain version ``compact_activation_plain`` runs
+``torch.nn.functional.conv2d`` per block and adds the bias after the conv,
+in the compute type, where Flax adds it; CPU tensors take it, as do the
+tests and chip_smoke.py's holds of K7.  The trainable ``GuidanceNet``
+keeps ``F.conv2d`` (cuDNN on the card) for its autograd.
 
 ``load_compact`` reads the committed ``.gnet`` artifacts (``GNET0001``
 header, JSON meta, flax msgpack blob) without flax or msgpack;
@@ -49,6 +54,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..io.gnet_msgpack import packb, unpackb
+from ..ops.guidance import guidance_net, pack_layer
 
 _MAGIC = b"GNET0001"
 
@@ -183,6 +189,19 @@ def compact_params(cfg: GuidanceNetConfig, params: dict) -> dict:
     return out
 
 
+def compact_activation_plain(aux_nhwc: torch.Tensor, weights, biases,
+                             dtype: torch.dtype = torch.bfloat16):
+    """Plain version of kernel K7: aux [B, H, W, cin] through the folded
+    blocks (OIHW ``weights``, ``biases``) -> the last block's output
+    [B, 2L, H, W] in ``dtype``: per block the conv in ``dtype``, then the
+    bias added in ``dtype``, then relu6 (guidance_net.py:124-136)."""
+    x = aux_nhwc.permute(0, 3, 1, 2).to(dtype)
+    for w, b in zip(weights, biases):
+        x = F.conv2d(x, w.to(dtype), padding=1)
+        x = F.relu6(x + b.to(dtype)[None, :, None, None])
+    return x
+
+
 class GuidanceNetCompact(nn.Module):
     """aux [B, H, W, 8] -> (weight [B, L, H, W] softmaxed over L,
     guidance [B, L, H, W]), both f32."""
@@ -195,15 +214,35 @@ class GuidanceNetCompact(nn.Module):
         self.convs = nn.ModuleList(
             nn.Conv2d(cin, cout, 3, padding=1)
             for cin, cout in config.layer_channels())
+        self.packed = None
+
+    @torch.no_grad()
+    def pack(self) -> None:
+        """Pack every block's weights and bias into K7's bf16 layout
+        (ops/guidance.py:pack_layer), once, on the weights' device."""
+        self.packed = [pack_layer(c.weight.detach().float().cpu()
+                                  .permute(2, 3, 1, 0), c.bias.detach()
+                                  .float().cpu()).to(c.weight.device)
+                       for c in self.convs]
 
     def activation(self, aux_nhwc: torch.Tensor) -> torch.Tensor:
-        """aux [B, H, W, 8] -> the last block's output [B, 2L, H, W] in the
-        compute dtype (strides as the convolutions leave them)."""
-        x = aux_nhwc.permute(0, 3, 1, 2).to(self.dtype)
-        for conv in self.convs:
-            x = F.conv2d(x, conv.weight.to(self.dtype), padding=1)
-            x = F.relu6(x + conv.bias.to(self.dtype)[None, :, None, None])
-        return x
+        """aux [B, H, W, cin] f32 -> the last block's output [B, 2L, H, W]
+        in the compute dtype.  CPU tensors take compact_activation_plain;
+        on a CUDA device kernel K7, whose output is channels last (a
+        permuted view), from the weights ``pack`` packed."""
+        if aux_nhwc.device.type == "cpu":
+            return compact_activation_plain(
+                aux_nhwc, [c.weight for c in self.convs],
+                [c.bias for c in self.convs], self.dtype)
+        if self.dtype != torch.bfloat16:
+            raise ValueError(f"GuidanceNetCompact: kernel K7 computes in "
+                             f"bf16, this net in {self.dtype}")
+        if self.packed is None or \
+                self.packed[0].w.device != aux_nhwc.device:
+            raise ValueError(f"GuidanceNetCompact: no weights packed for "
+                             f"{aux_nhwc.device}; call pack() after moving "
+                             "the net")
+        return guidance_net(aux_nhwc, self.packed).permute(0, 3, 1, 2)
 
     def forward(self, aux_nhwc: torch.Tensor):
         return _split_forward(self.activation(aux_nhwc),
@@ -268,10 +307,15 @@ def params_to_numpy(cfg: GuidanceNetConfig, state_dict: dict) -> dict:
 
 def build_compact(cfg: GuidanceNetConfig, params: dict, device,
                   dtype: torch.dtype = torch.bfloat16) -> GuidanceNetCompact:
-    """GuidanceNetCompact on ``device`` with Flax-layout ``params``."""
+    """GuidanceNetCompact on ``device`` with Flax-layout ``params``; on a
+    CUDA device its weights are also packed for kernel K7 there (a block
+    beyond K7's limits raises ValueError)."""
     model = GuidanceNetCompact(cfg, dtype=dtype)
     model.load_state_dict(params_from_numpy(cfg, params))
-    return model.to(device).eval()
+    model = model.to(device).eval()
+    if model.convs[0].weight.device.type == "cuda":
+        model.pack()
+    return model
 
 
 def save_compact(path: str, cfg: GuidanceNetConfig, folded_params: dict,

@@ -45,6 +45,7 @@ SOURCES = {
     "filter": ("filter.cu", []),
     "lut": ("lut.cu", ["-fmad=false"]),
     "probes": ("probes.cu", []),
+    "net": ("net.cu", []),
 }
 HEADERS = ("common.cuh",)
 
@@ -66,6 +67,9 @@ ENTRIES = {
     "rt_lut_build_scratch": ("lut", [_I, _I, _PL]),
     "rt_lut_build": ("lut", [_V, _V, _V, _I, _I, _I, _PI, _V]),
     "rt_skip_distances": ("lut", [_V, _V, _V, _I, _I, _PI, _V]),
+    "rt_guidance_net": ("net", [_V, _L, _L, _L, _L, _I, _I, _I, _V, _V, _I,
+                                _I, _V, _V, _I, _I, _V, _I, _I, _I, _I, _I,
+                                _V]),
     "rt_probe_affine": ("probes", [_V, _V, _I, _V]),
     "rt_lane_gather": ("probes", [_V, _V, _V, _I, _I, _I, _V]),
     "rt_lane_gather_chain": ("probes", [_V, _V, _V, _I, _I, _I, _I, _V]),
@@ -81,6 +85,8 @@ LAUNCHES: Dict[str, int] = {
     "lut_build": 0, "skip_distances": 0,
     # the training step's batched filter (K5) and its backward (K6)
     "guided_filter_batch": 0, "guided_filter_batch_bwd": 0,
+    # the compact GuidanceNet (K7): one launch for a net of 1 or 2 blocks
+    "guidance_net": 0,
     # the probe kernels of the measurement tools (csrc/probes.cu)
     "probe_affine": 0, "lane_gather": 0, "lane_gather_chain": 0,
     "row_sum_ring": 0, "row_ring_rounds": 0, "flat_gather_chain": 0}

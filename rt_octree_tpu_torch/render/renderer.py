@@ -27,8 +27,9 @@ PyTorch turns a division by a host scalar into a multiplication by its
 reciprocal, which rounds differently from the kernel and the JAX package.
 
 ``Renderer`` owns the per-frame RNG protocol and the denoiser:
-GuidanceNetCompact (cuDNN convs) hands its last bf16 activation to kernel
-K2 (ops/filtering.py), which splits it into level weights and guidance.
+GuidanceNetCompact, kernel K7 (ops/guidance.py, csrc/net.cu) from K1's
+aux, hands its last bf16 activation to kernel K2 (ops/filtering.py), which
+splits it into level weights and guidance.
 In fast mode (``render_scale < 1``) K1 marches at the inner size and
 kernel K4 (ops/resize.py) joint-upsamples its image and aux to the output
 size before the net.  ``show_grid`` composites the octree's wireframe
@@ -776,9 +777,10 @@ class Renderer:
         return out
 
     def net_forward(self, aux_nhwc):
-        """GuidanceNet on the [H, W, 8] aux -> its last activation
-        [1, 2L, H, W] in the net's dtype, which kernel K2 splits into level
-        weights and guidance itself."""
+        """GuidanceNet on the [H, W, 8] f32 aux as K1 (or K4) wrote it ->
+        its last activation [1, 2L, H, W] in the net's dtype (on the card
+        kernel K7's channels-last output), which kernel K2 splits into
+        level weights and guidance itself."""
         with torch.inference_mode():
             return self.net.activation(aux_nhwc[None])
 

@@ -246,6 +246,7 @@ class Runner:
                 "test", 1)):
             aux_t = torch.from_numpy(aux).to(dev)
             gt = torch.from_numpy(img_gt[..., :3]).to(dev)
+            # K7 on the card (reads the permuted aux through its strides)
             act = compact_model.activation(aux_t.permute(0, 2, 3, 1))
             out = guided_filter(act, torch.from_numpy(img_in[0]).to(dev),
                                 self.supports)[None]

@@ -26,6 +26,7 @@ MODULES = [
     "rt_octree_tpu_torch.ops.sh",
     "rt_octree_tpu_torch.ops.traversal",
     "rt_octree_tpu_torch.ops.filtering",
+    "rt_octree_tpu_torch.ops.guidance",
     "rt_octree_tpu_torch.models.guidance_net",
     "rt_octree_tpu_torch.io.gnet_msgpack",
     "rt_octree_tpu_torch.io.png",

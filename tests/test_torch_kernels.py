@@ -2,7 +2,7 @@
 filter, K3 LUT + skip distances, K4 fast mode's upsample, K5 / K6 the
 training step's batched guided filter and its backward, G1-G4 the
 measurement tools' probes) against their plain PyTorch versions, and the
-launch counters.
+launch counters (K7, the GuidanceNet, is held in tests/test_torch_net.py).
 
 This file imports no JAX, so it also runs on a GPU host that has none:
 
@@ -22,6 +22,8 @@ from rt_octree_tpu_torch.core.camera import Camera
 from rt_octree_tpu_torch.core.options import RenderOptions
 from rt_octree_tpu_torch.io import synthetic
 from rt_octree_tpu_torch.io.n3tree import BasisFormat, DataFormat
+from rt_octree_tpu_torch.models.guidance_net import GuidanceNetConfig, \
+    build_compact
 from rt_octree_tpu_torch.native import build as native
 from rt_octree_tpu_torch.ops import probes as pr
 from rt_octree_tpu_torch.ops import traversal as tt
@@ -130,6 +132,13 @@ def _launch_each_wrapper(shell, device):
     t = lambda a: torch.from_numpy(a).to(device)
     act, img = _filter_inputs(0, L=2, H=8, W=8)
     guided_filter(t(act).to(torch.bfloat16), t(img), (0, 1))
+    cfg = GuidanceNetConfig(mid_channels=4, kernel_levels=2)
+    rs = np.random.default_rng(6)
+    net = build_compact(cfg, {f"block_{i}": {
+        "kernel": rs.standard_normal((3, 3, cin, cout)).astype(np.float32),
+        "bias": rs.standard_normal(cout).astype(np.float32)}
+        for i, (cin, cout) in enumerate(cfg.layer_channels())}, device)
+    net.activation(aux[None])
     w, g, x, G = (t(a) for a in _batch_inputs(0, B=1, L=2, H=8, W=8))
     w.requires_grad_()
     guided_filter_batch(w, g, x, (0, 1)).backward(G)
