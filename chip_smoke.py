@@ -22,7 +22,12 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      guidance range above 60 nats; K7 (the compact GuidanceNet) vs its
      plain version (compact_activation_plain) on random aux at 800x800
      with trained.gnet and at 256x256 with random nets of one block, of
-     4 and 6 channels and a 3-block chain, and on a permuted NCHW aux;
+     4 and 6 channels, a 3-block chain, 8 -> 64 -> 16 and 64 -> 64 -> 64,
+     and on a permuted NCHW aux; then trained.gnet and the chain at
+     K7_EDGES (sizes one pixel past K7's 56x16 tiles and exact multiples,
+     frames with fewer tiles than the persistent grid's blocks, a batch of
+     three images), and the chain on the nets and aux of K7_CHAIN_SEEDS
+     at 799x801;
   7. the main paths, each a headless CLI run on the depth-9 SH9 shell tree
      with the level-9 LUT, SPP 6, denoise on, its launch counts reset just
      before it and read just after: the headline frame (trained.gnet; K1,
@@ -53,7 +58,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      the headline frame's time, by CUDA events; render_classic vs its plain
      version on the headline tree at 800x800, without a mesh pass and with
      the fourth run's drawlist pass, its statistics and time; K4 at
-     400->800 timed against F.interpolate; for each fast frame (s = 0.5,
+     400->800 timed (F.interpolate on its rgba planes as a note: no
+     PyTorch call writes K4's image and aux); for each fast frame (s = 0.5,
      0.4), K1 at its inner size and scaled focal lengths vs its plain
      version, K4 on what K1 wrote there vs its plain version, K7 on K4's
      aux with the rung's net, and the Renderer's noisy frame vs the plain
@@ -104,7 +110,9 @@ After phase 10 it prints K7's holds and times as one JSON line
 {"k7": ...}: per input, the largest difference from the plain version in
 bf16 ulps of the tensor's largest magnitude and of each element's, the
 share of elements not bit-equal; K7, its plain version and the cuDNN chain
-it replaces at 800x800 and 1920x1080.
+it replaces at 800x800 and 1920x1080, with one run of K7's statistics
+instance at each (per phase, staging, block 0, block 1 and its stores, the
+clock64() cycles a tile summed over the blocks, and their shares).
 
 Prints the kernel table as one JSON line (per kernel: launches on the main
 path, max abs error, ms, plain ms, the bound in ms and whether bytes or
@@ -119,9 +127,10 @@ Needs one CUDA card; exits non-zero without one.
     python3 chip_smoke.py --load-only TREE.npz
 
 loads an npz of the headline tree twice with the package found beside this
-file and times each K3 entry alone, printing the {"load": ...} lines and
-one {"k3_ms": ...} line; run from a copy of another commit's tree, it times
-that commit's load by the same code.
+file and times each K3 entry alone, then the headline frame five times (as
+phase 9 does), printing the {"load": ...} lines, one {"k3_ms": ...} line and
+one {"frame_ms": [...]} line; run from a copy of another commit's tree, it
+times that commit's load and frame by the same code.
 
     python3 chip_smoke.py --load-pairs OTHER_ROOT [PAIRS]
 
@@ -129,8 +138,19 @@ runs --load-only in PAIRS (default 10) pairs of processes, this checkout's
 and OTHER_ROOT's in turns (other, this, this, other, ...; a copy of this
 script must stand in OTHER_ROOT), on the headline npz (made first if it is
 not there), and prints each side's least value, quartiles and largest
-value of every step, and those of the paired differences of the sums, as
-one JSON line {"load_pairs": ...}.
+value of every step and of the median headline frame, and those of the
+paired differences of the sums and frames, as one JSON line
+{"load_pairs": ...}.
+
+    python3 chip_smoke.py --k7-only
+    python3 chip_smoke.py --k7-pairs OTHER_ROOT [PAIRS]
+
+--k7-only times K7 of the package beside this file alone (as phase 9
+does) at 800x800 with benchmarks/quality/trained.gnet and at 1920x1080
+with benchmarks/quality_tt/trained.gnet, beside its bound, as one JSON line
+{"k7_ms": ...}; --k7-pairs runs it in PAIRS (default 6) pairs of processes
+as --load-pairs does, and prints each side's times and their paired
+differences as one JSON line {"k7_pairs": ...}.
 """
 
 from __future__ import annotations
@@ -231,6 +251,11 @@ K5_TOL, K6_REL_TOL, STEP_RTOL = 1e-5, 1e-4, 1e-4
 # K7_UNEQUAL_SHARE of the elements may differ at all (rounding the conv
 # and the bias in one step fails that: tests/test_torch_net.py).
 K7_ULPS, K7_UNEQUAL_SHARE = 2.0, 1e-3
+# (images, height, width) at K7's 56x16 output tiles' edges
+K7_EDGES = ((1, 1, 19), (1, 2, 1), (1, 16, 56), (1, 17, 57), (1, 33, 113),
+            (3, 17, 57), (1, 801, 799))
+# seeds of the 3-block chain's further nets and aux (phase 6)
+K7_CHAIN_SEEDS = (101, 102, 103, 104, 105, 106)
 # the train phase: configs/blender.txt on a kit that the port renders from
 # the headline tree (32 train and 8 test poses at 800x800); TRAIN_EPOCHS
 # epochs, then a resume of one more
@@ -643,18 +668,28 @@ def k7_bound(net, n):
     return bound(nbytes, ops, BF16_TC_OPS_PER_S)
 
 
+def k7_ms(net, aux_nhwc):
+    """K7 alone on aux_nhwc: device_ms of 200 launches after 10 untimed
+    (its launches are shorter than the host's queuing)."""
+    import torch
+    with torch.no_grad():
+        return device_ms(lambda: net.activation(aux_nhwc), 200, 10)
+
+
 def time_k7(label, net, aux_nhwc, err):
     """K7, its plain version and the cuDNN chain it replaces on aux_nhwc
-    [1, H, W, C]: (kernel ms, plain ms, chain ms), recorded in err["k7"].
+    [1, H, W, C]: (kernel ms, plain ms, chain ms), recorded in err["k7"]
+    with one run of K7's statistics instance (cycles a tile of each phase).
     The kernel and the chain by device_ms (their launches are shorter than
     the host's queuing), the plain version as every plain row, cuda_ms."""
     import torch
     from rt_octree_tpu_torch.models.guidance_net import \
         compact_activation_plain
+    from rt_octree_tpu_torch.ops.guidance import guidance_net_stats
     ws = [c.weight for c in net.convs]
     bs = [c.bias for c in net.convs]
+    k_ms = k7_ms(net, aux_nhwc)
     with torch.no_grad():
-        k_ms = device_ms(lambda: net.activation(aux_nhwc), 200, 10)
         p_ms = cuda_ms(lambda: compact_activation_plain(aux_nhwc, ws, bs),
                        20, 3)
         # the chain K7 replaces: permute, cast, then per block conv
@@ -677,6 +712,11 @@ def time_k7(label, net, aux_nhwc, err):
     err["k7"]["ms"][f"{W}x{H}"] = {"net": label, "kernel": k_ms, "plain": p_ms,
                                  "cudnn_chain": l_ms, "bound": b_ms,
                                  "bound_by": b_by}
+    with torch.no_grad():
+        st = guidance_net_stats(aux_nhwc, net.packed)
+    log(f"[k7] statistics {W}x{H}: {st['tiles']} tiles on {st['blocks']} "
+        f"blocks, cycles a tile {st['cycles_per_tile']}")
+    err["k7"].setdefault("stats", {})[f"{W}x{H}"] = {"net": label, **st}
     return k_ms, p_ms, l_ms
 
 
@@ -693,7 +733,10 @@ def k7_aux(H, W, C=8, seed=11):
 def phase_k7(err):
     """K7 vs its plain version on random aux: trained.gnet at 800x800 and
     on a permuted NCHW aux (the runner's test split), random nets of the
-    JAX tests' shapes and a 3-block chain at 256x256."""
+    JAX tests' shapes, a 3-block chain and two wide nets at 256x256, then
+    trained.gnet and the chain at K7_EDGES, and the chain with the nets
+    and aux of K7_CHAIN_SEEDS at 799x801."""
+    import torch
     from rt_octree_tpu_torch.models.guidance_net import (GuidanceNetConfig,
                                                          build_compact,
                                                          load_model)
@@ -703,23 +746,48 @@ def phase_k7(err):
     nchw = aux.permute(0, 3, 1, 2).contiguous()
     hold_k7("random aux 800x800 read from NCHW, trained.gnet", net,
             nchw.permute(0, 2, 3, 1), err)
+    def random_params(cfg, rs):
+        return {f"block_{i}": {
+            "kernel": (rs.standard_normal((3, 3, cin, cout)) * 0.4).astype(
+                np.float32),
+            "bias": (rs.standard_normal(cout) * 0.1).astype(np.float32)}
+            for i, (cin, cout) in enumerate(cfg.layer_channels())}
     rs = np.random.default_rng(12)
+    chain_cfg = GuidanceNetConfig(mid_channels=8, num_layers=3)
+    # the JAX tests' shapes, the chain, and two wide nets: block 0's
+    # weights through the cache, two and eight n-tiles in the last block,
+    # 4-row tiles at 64 -> 64 -> 64
     for cfg in (GuidanceNetConfig(mid_channels=4, num_layers=1,
                                   kernel_levels=2),
                 GuidanceNetConfig(mid_channels=4, kernel_levels=2),
                 GuidanceNetConfig(in_channels=6, mid_channels=6,
                                   kernel_levels=3),
-                GuidanceNetConfig(mid_channels=8, num_layers=3)):
-        params = {f"block_{i}": {
-            "kernel": (rs.standard_normal((3, 3, cin, cout)) * 0.4).astype(
-                np.float32),
-            "bias": (rs.standard_normal(cout) * 0.1).astype(np.float32)}
-            for i, (cin, cout) in enumerate(cfg.layer_channels())}
+                chain_cfg,
+                GuidanceNetConfig(mid_channels=64, kernel_levels=8),
+                GuidanceNetConfig(in_channels=64, mid_channels=64,
+                                  kernel_levels=32)):
+        params = random_params(cfg, rs)
         chans = " -> ".join(str(c) for c in [cfg.in_channels] + [
             cout for _, cout in cfg.layer_channels()])
         hold_k7(f"random aux 256x256, random net {chans}",
                 build_compact(cfg, params, "cuda"),
                 k7_aux(256, 256, cfg.in_channels), err)
+        if cfg is chain_cfg:
+            chain = build_compact(cfg, params, "cuda")
+    # K7's 56x16 tiles at their edges (one pixel past a multiple, exact
+    # multiples), frames with fewer tiles than the persistent grid's
+    # blocks, and three images walked by one grid
+    for B, H, W in K7_EDGES:
+        aux = torch.cat([k7_aux(H, W, seed=13 + b) for b in range(B)])
+        for name, m in (("trained.gnet", net), ("random net 8 -> 8 -> 8 "
+                                                "-> 8", chain)):
+            hold_k7(f"random aux {B}x{W}x{H}, {name}", m, aux, err)
+    # the chain reads nearest the ulps bar: more nets and aux at 799x801
+    for seed in K7_CHAIN_SEEDS:
+        hold_k7(f"random aux 1x799x801, chain seed {seed}",
+                build_compact(chain_cfg, random_params(
+                    chain_cfg, np.random.default_rng(seed)), "cuda"),
+                k7_aux(801, 799, seed=seed), err)
 
 
 def headline_tree_path():
@@ -889,6 +957,11 @@ def load_only(tree_path):
     b_ms, s_ms = time_k3(chs, lut)
     log(json.dumps({"k3_ms": {"lut_build": b_ms, "skip_distances": s_ms,
                               "root": HERE}}))
+    del chs, lut
+    r, ps = make_headline_renderer(n3tree.load(tree_path))
+    log(json.dumps({"frame_ms": [frame_timing(r, ps.poses[0],
+                                              HEADLINE_FRAME)[0]
+                                 for _ in range(5)]}))
     return 0
 
 
@@ -897,66 +970,128 @@ LOAD_KEYS = ("read_s", "host_prep_s", "h2d_s", "k3_s", "lut_build_ms",
              "upload_tree_s", "peak_allocated_bytes")
 
 
-def load_pairs(other_root, pairs):
-    """--load-pairs: ``pairs`` pairs of --load-only processes, OTHER_ROOT's
-    and this checkout's in turns, on the headline npz; each side's least
-    value, quartiles and largest value of each step, for the first load of
-    a process ("fresh"), its second ("warm") and K3's entries alone."""
+def alternate(other_root, pairs, argv, name):
+    """``pairs`` pairs of processes, OTHER_ROOT's copy of this script and
+    this one in turns (other, this, this, other, ...), each run as
+    ``chip_smoke.py ARGV`` from its own root; yields (pair, side, the JSON
+    lines it printed) and records them in build/chip_smoke/NAME.jsonl."""
     other_root = os.path.abspath(other_root)
     require(os.path.isfile(os.path.join(other_root, "chip_smoke.py")),
             f"no chip_smoke.py in {other_root}")
-    tree_path = os.path.join(WORK, "shell_d9_sh9.npz")
-    if not os.path.isfile(tree_path):
-        headline_tree_path()
     roots = {"other": other_root, "this": HERE}
-    runs = {side: {"fresh": [], "warm": [], "k3_ms": []} for side in roots}
-    raw = os.path.join(WORK, "load_pairs.jsonl")
-    with open(raw, "w") as f:
+    os.makedirs(WORK, exist_ok=True)
+    with open(os.path.join(WORK, f"{name}.jsonl"), "w") as f:
         for i in range(pairs):
             for side in (("other", "this") if i % 2 == 0
                          else ("this", "other")):
                 t0 = time.perf_counter()
                 out = subprocess.run(
                     [sys.executable, os.path.join(roots[side],
-                                                  "chip_smoke.py"),
-                     "--load-only", tree_path], capture_output=True,
-                    text=True, cwd=roots[side])
-                require(out.returncode == 0,
-                        f"{side} load {i} failed:\n{out.stderr[-3000:]}")
+                                                  "chip_smoke.py"), *argv],
+                    capture_output=True, text=True, cwd=roots[side])
+                require(out.returncode == 0, f"{name}: {side} process {i} "
+                        f"failed:\n{out.stderr[-3000:]}")
                 lines = [json.loads(ln) for ln in out.stdout.splitlines()
                          if ln.startswith("{")]
-                loads = [ln["load"] for ln in lines if "load" in ln]
-                k3 = [ln["k3_ms"] for ln in lines if "k3_ms" in ln]
-                require(len(loads) == 2 and len(k3) == 1,
-                        f"{side} load {i}: unexpected output")
-                runs[side]["fresh"].append(loads[0])
-                runs[side]["warm"].append(loads[1])
-                runs[side]["k3_ms"].append(k3[0])
                 f.write(json.dumps({"pair": i, "side": side,
-                                    "root": roots[side], "loads": loads,
-                                    "k3_ms": k3[0]}) + "\n")
-                log(f"[load-pairs] pair {i} {side}: warm sum "
-                    f"{loads[1]['total_s']:.3f} s, process "
+                                    "root": roots[side], "lines": lines})
+                        + "\n")
+                log(f"[{name}] pair {i} {side}: process "
                     f"{time.perf_counter() - t0:.1f} s")
+                yield i, side, lines
 
-    def spread(values):
-        q = np.percentile(values, [0, 25, 50, 75, 100])
-        return dict(zip(("min", "q1", "median", "q3", "max"),
-                        map(float, q)))
+
+def spread(values):
+    """The least value, quartiles and largest value of ``values``."""
+    q = np.percentile(values, [0, 25, 50, 75, 100])
+    return dict(zip(("min", "q1", "median", "q3", "max"), map(float, q)))
+
+
+def load_pairs(other_root, pairs):
+    """--load-pairs: ``pairs`` pairs of --load-only processes, OTHER_ROOT's
+    and this checkout's in turns, on the headline npz; each side's least
+    value, quartiles and largest value of each step, for the first load of
+    a process ("fresh"), its second ("warm") and K3's entries alone."""
+    tree_path = os.path.join(WORK, "shell_d9_sh9.npz")
+    if not os.path.isfile(tree_path):
+        headline_tree_path()
+    runs = {side: {"fresh": [], "warm": [], "k3_ms": [], "frame_ms": []}
+            for side in ("other", "this")}
+    for i, side, lines in alternate(other_root, pairs,
+                                    ["--load-only", tree_path],
+                                    "load_pairs"):
+        loads = [ln["load"] for ln in lines if "load" in ln]
+        k3 = [ln["k3_ms"] for ln in lines if "k3_ms" in ln]
+        fr = [ln["frame_ms"] for ln in lines if "frame_ms" in ln]
+        require(len(loads) == 2 and len(k3) == 1 and len(fr) == 1,
+                f"{side} load {i}: unexpected output")
+        runs[side]["fresh"].append(loads[0])
+        runs[side]["warm"].append(loads[1])
+        runs[side]["k3_ms"].append(k3[0])
+        runs[side]["frame_ms"].append(float(np.median(fr[0])))
     summary = {"pairs": pairs, "order": "other, this, this, other, ...",
-               "roots": roots, "raw": os.path.relpath(raw, HERE)}
+               "roots": {"other": os.path.abspath(other_root),
+                         "this": HERE}}
     for side, r in runs.items():
         summary[side] = {
             **{kind: {k: spread([ld[k] for ld in r[kind]])
                       for k in LOAD_KEYS} for kind in ("fresh", "warm")},
             "k3_ms": {k: spread([x[k] for x in r["k3_ms"]])
-                      for k in ("lut_build", "skip_distances")}}
+                      for k in ("lut_build", "skip_distances")},
+            "frame_ms": spread(r["frame_ms"])}
     # within each pair: this checkout's sum less the other's
     summary["total_s_this_less_other"] = {
         kind: spread([a["total_s"] - b["total_s"] for a, b in zip(
             runs["this"][kind], runs["other"][kind])])
         for kind in ("fresh", "warm")}
+    summary["frame_ms_this_less_other"] = spread(np.subtract(
+        runs["this"]["frame_ms"], runs["other"]["frame_ms"]))
     log(json.dumps({"load_pairs": summary}))
+    return 0
+
+
+# K7 alone: (size, height, width, the kit whose trained.gnet it runs)
+K7_SIZES = (("800x800", 800, 800, "quality"),
+            ("1920x1080", 1080, 1920, "quality_tt"))
+
+
+def k7_only():
+    """--k7-only: K7 of the package beside this file at K7_SIZES, on
+    k7_aux, by k7_ms, beside its bound; one JSON line {"k7_ms": ...}."""
+    from rt_octree_tpu_torch.models.guidance_net import load_model
+    from rt_octree_tpu_torch.native import build as native
+    native.build()
+    res = {"root": HERE}
+    for label, H, W, kit in K7_SIZES:
+        net, _ = load_model(os.path.join(HERE, "benchmarks", kit,
+                                         "trained.gnet"), "cuda")
+        b_ms, b_by = k7_bound(net, H * W)
+        res[label] = {"kernel": k7_ms(net, k7_aux(H, W)), "bound": b_ms,
+                      "bound_by": b_by}
+    log(json.dumps({"k7_ms": res}))
+    return 0
+
+
+def k7_pairs(other_root, pairs):
+    """--k7-pairs: ``pairs`` pairs of --k7-only processes, OTHER_ROOT's and
+    this checkout's in turns; each side's K7 times at K7_SIZES (least,
+    quartiles, largest) and this side's less the other's within a pair."""
+    ms = {side: {s[0]: [] for s in K7_SIZES} for side in ("other", "this")}
+    for i, side, lines in alternate(other_root, pairs, ["--k7-only"],
+                                    "k7_pairs"):
+        k7 = [ln["k7_ms"] for ln in lines if "k7_ms" in ln]
+        require(len(k7) == 1, f"{side} K7 process {i}: unexpected output")
+        for label in ms[side]:
+            ms[side][label].append(k7[0][label]["kernel"])
+    log(json.dumps({"k7_pairs": {
+        "pairs": pairs, "order": "other, this, this, other, ...",
+        "roots": {"other": os.path.abspath(other_root), "this": HERE},
+        "raw_ms": ms,
+        **{side: {k: spread(v) for k, v in ms[side].items()}
+           for side in ms},
+        "this_less_other": {k: spread(np.subtract(ms["this"][k],
+                                                  ms["other"][k]))
+                            for k in ms["this"]}}}))
     return 0
 
 
@@ -1164,7 +1299,6 @@ def phase_headline(r, ps, err):
     from rt_octree_tpu_torch.ops.filtering import (guided_filter,
                                                    guided_filter_act_plain)
     from rt_octree_tpu_torch.render import renderer as R
-    from rt_octree_tpu_torch.utils.timer import PhaseTimer
     ms, bounds = {}, {}
     pose = ps.poses[0]
     tf = r._transform(pose)
@@ -1254,20 +1388,11 @@ def phase_headline(r, ps, err):
     for k, (kms, pms) in ms.items():
         log(f"[timing] {k}: kernel {kms:.4f} ms, plain {pms:.3f} ms, bound "
             f"{bounds[k][0]:.4f} ms ({bounds[k][1]})")
-
-    def frame():
-        r.render(pose, want_aux=False)
-        r.advance_rng()
-    frame_ms = cuda_ms(frame, 20, 3)
-    timer = PhaseTimer("cuda")
-    for _ in range(20):
-        R.render_timed(r, pose, timer)
-        r.advance_rng()
-    log(f"[timing] headline frame (800x800, SPP 6, denoise on, depth-9 "
-        f"shell, pose r_0): {frame_ms:.3f} ms/frame "
-        f"({1000.0 / frame_ms:.2f} FPS) over 20 frames")
-    log(timer.report())
+    frame_timing(r, pose, HEADLINE_FRAME)
     return ms, bounds
+
+
+HEADLINE_FRAME = "headline (800x800, SPP 6, denoise on, depth-9 shell, pose r_0)"
 
 
 def frame_timing(r, pose, label):
@@ -1295,7 +1420,8 @@ def phase_fast_classic(r, ps, err, tree_host):
     """The slice's new paths on the headline tree: render_classic vs its
     plain version at 800x800, without a mesh pass and with the fourth CLI
     run's drawlist pass, with its statistics, bound and time; K4 at
-    400->800 against F.interpolate; the classic gate; each fast frame held
+    400->800 (F.interpolate on its rgba planes timed as a note); the
+    classic gate; each fast frame held
     at its own shapes (hold_fast), its gate, time and phase split; the
     probe overlay and the host rasterizer as plain rows.  Returns (ms,
     bounds) of the two new kernels."""
@@ -1372,10 +1498,16 @@ def phase_fast_classic(r, ps, err, tree_host):
     ms["upsample"] = (
         device_ms(lambda: fast_upsample(aux, 800, 800), 200, 10),
         device_ms(lambda: fast_upsample_plain(aux, 800, 800), 20, 3))
-    lib_ms = device_ms(lambda: F.interpolate(
+    # no single PyTorch call writes K4's image and aux, so its library
+    # column is none; F.interpolate on the rgba planes alone (a quarter of
+    # K4's output) is timed as a note
+    rgba_ms = device_ms(lambda: F.interpolate(
         rgba, size=(800, 800), mode="bilinear", align_corners=False,
         antialias=False), 200, 10)
-    bounds["upsample"] = bound(16 * 400 * 400 + 80 * n) + (lib_ms,)
+    log(f"[timing] note: F.interpolate on the rgba planes alone, 400->800 "
+        f"(not K4's function: {4 * 4 * n} of K4's {80 * n} bytes written): "
+        f"{rgba_ms:.4f} ms")
+    bounds["upsample"] = bound(16 * 400 * 400 + 80 * n) + (None,)
     no_aux = device_ms(lambda: fast_upsample(aux, 800, 800, False), 200, 10)
     log(f"[timing] upsample 400->800 without aux_chw: {no_aux:.4f} ms "
         f"(bound {bound(16 * 400 * 400 + 48 * n)[0]:.4f} ms)")
@@ -2100,6 +2232,10 @@ def main(argv) -> int:
         return load_only(argv[1])
     if argv[:1] == ["--load-pairs"] and len(argv) in (2, 3):
         return load_pairs(argv[1], int(argv[2]) if len(argv) == 3 else 10)
+    if argv == ["--k7-only"]:
+        return k7_only()
+    if argv[:1] == ["--k7-pairs"] and len(argv) in (2, 3):
+        return k7_pairs(argv[1], int(argv[2]) if len(argv) == 3 else 6)
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2

@@ -17,63 +17,160 @@
 // must move (the f32 aux read, the bf16 activation written; 30.7 MB at
 // 800x800, 9.2 us at 3.35 TB/s) against 9,216 operations a pixel on the
 // bf16 tensor cores (6.0 us at 989 TFLOP/s): bytes, if the 32-channel
-// intermediate never reaches device memory.  Design: one launch for a
-// two-block net.  A block of 8 warps owns a 16x16 tile of output pixels:
-//   1. it stages the input tile with a 2-pixel halo in shared memory,
-//      rounded to bf16 as it is read (through the input's strides; as
-//      float4 where the channels are contiguous), zero outside the image
-//      and in the padded channels;
-//   2. it computes block 0 on the tile plus a 1-pixel halo (18x18, 27 %
-//      recomputed) into shared memory, writing 0 where the halo leaves the
-//      image (block 1's zero padding);
-//   3. it computes block 1 on the tile and writes its channels.
-// Both products are implicit GEMMs on mma.sync.m16n8k16 (bf16 in, f32
-// accumulate): M = 16 pixels, N = 8 output channels an n-tile, K = the
-// 3x3 taps x the input channels padded to CP (8, 16, 32 or 64), tap-major,
-// padded to a multiple of 16 with zero weights.  Each k-step's A fragment
-// is one ldmatrix.x4: an 8-wide k half is 8 channels of one tap, 16
-// contiguous bytes of one pixel in shared memory (pixels CP + 8 channels
-// apart for CP > 8, so the 8 rows of a matrix fall in distinct banks).  The
-// B fragments are packed once on the host in the mma's own lane order
-// (ops/guidance.py:pack_layer) and read as one 8-byte load a lane, through
-// the read-only cache, once for the two 16-pixel chunks that a warp
-// computes together (the biases once a block, into registers).  One or
-// two blocks run in one launch; a deeper net
-// runs as a chain of one-block launches whose bf16 intermediates keep
-// their padded channels (0) so that the next launch reads whole 16-byte
-// groups.
+// intermediate never reaches device memory.  On mma.sync the tensor cores
+// take an m16n8k16 every 6 cycles a sub-partition (ptxas's own stall
+// count): this design's 2.76 a pixel (2.25 without its halo and padding)
+// take about 11 us at 800x800.  What a kernel pays on top is on chip: the
+// shared-memory reads of the A and B fragments, the epilogues' bf16
+// rounding, the staging, and the latency of each.
+//
+// Design: a persistent grid (one block of 8 warps an SM, each block
+// walking the tiles blockIdx.x, + gridDim.x, ...).  An output tile is
+// 56 x 16 pixels (4 column strips of 14, see 3.).  Per tile:
+//   1. staging: the tile's f32 input with a 2-pixel halo (60 x 20 x 8
+//      channels) was copied into a staging buffer by one tensor copy (TMA,
+//      cp.async.bulk.tensor, zero-filled outside the image and in the
+//      padded channels, completing on an mbarrier) while the previous
+//      tile computed; it is rounded to bf16 into the input buffer, and the
+//      next tile's copy is issued at once.  (Inputs the tensor copy does
+//      not take, an f32 one with strided channels or a chain's bf16 one,
+//      go by cp.async from every thread.)
+//   2. block 0 on the tile plus a 1-pixel halo (58 x 18, 1.17 pixels a
+//      pixel of output) into shared memory, 0 where the halo leaves the
+//      image (block 1's zero padding): an implicit GEMM on
+//      mma.sync.m16n8k16 (bf16 in, f32 accumulate), M = 16 pixels, N = 8
+//      output channels an n-tile, K = tap * CP + ci (tap = 3 ky + kx, the
+//      input channels padded to CP), padded to a multiple of 16 with zero
+//      weights.  Each k-step's A fragment is one ldmatrix.x4; a warp runs
+//      chunks c and c + 8 against each B fragment; bias and relu6 in bf16
+//      pairs, stored by stmatrix.
+//   3. block 1 (the last block) as one product of each input pixel with
+//      all nine taps, Z = X . [W_tap0 ... W_tap8] (9 n-tiles of 8 per A
+//      fragment), each input row's A fragments loaded once.  A warp owns a
+//      16-pixel column strip of block 0's output and half of its rows; it
+//      runs 4 output rows at once (4 chains), each in one f32 accumulator:
+//      the kx = 0 partials at the input pixels, moved one pixel (one row of
+//      the C fragment, by __shfl_sync) onto the output pixels, the kx = 1
+//      partials added there, moved one pixel on, the kx = 2 partials added,
+//      and the sum moved back one pixel.  A strip's two edge pixels have no
+//      neighbour in the fragment, so a strip of 16 writes 14 outputs and
+//      strips overlap by 2.
+// The weights go on chip once a block, into registers: block 0's B
+// fragments when they fit 20 (KS0 x NT0 = 5 x 4 at 8 -> 32 -> 8), else
+// block 0 reads them through the cache on every k-step; the last block's
+// for one n-tile (KSL x 9 = 18 at 8 -> 32 -> 8), loaded once a block when
+// the last block has one n-tile, else reloaded through the cache for each
+// n-tile of each tile.  Biases into registers.
+//
+// Shared-memory bytes a pixel of output at 8 -> 32 -> 8 (the first
+// version's in brackets).  Read: block 1's A fragments 91 (576: the 3x3
+// window of 32 bf16 channels read nine times), block 0's A fragments 189
+// (210), the staging's rounding 43; no B fragment (about 400 through L1
+// before).  Written: the tensor copy 43, the bf16 input 21, block 0's
+// output 75.  Plus 12 shuffles a row of 14 pixels.  The sum order of
+// block 1 (kx, then ky, then 16 channels) differs from the first
+// version's (tap-major, as block 0's), so a rare rounding lands elsewhere.
+//
+// Layout in shared memory: a pixel's channels in groups of 8 (16 bytes,
+// one ldmatrix row), group cg of pixel q at 16 * (q * G + (cg ^ swz(q)))
+// with G groups a pixel and swz(q) = (q >> (3 - log2 G)) & (G - 1), so that
+// the 8 rows of an ldmatrix matrix (8 consecutive pixels) fall in distinct
+// banks.  The last block reads 16 channels a k-step, so its input keeps at
+// least 2 groups (channels 8-15 zero at 8 channels).  Shapes: 1 or 2
+// blocks in one launch, input channels 1-64 (padded to 8, 16, 32 or 64),
+// 2-64 output channels; a deeper net runs as a chain of one-block launches
+// whose bf16 intermediates keep their padded channels (0).  Wider blocks
+// get fewer tile rows (16, 8 or 4) to fit 227 KB of shared memory.
+//
+// Statistics instance (kStats, compiled out of the frame's instances; the
+// 8 -> 32 -> 8 shape): per block the clock64() cycles of staging (the wait
+// for the copy, the bf16 rounding and the next copy's issue), block 0,
+// block 1 and its stores (warp 0's), and the tiles the block computed.
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kTile = 16;  // output tile: kTile x kTile pixels
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kChunks = 2;  // pixel chunks a warp computes at once
-
-struct Layer {
-  const uint2* w;           // [ks][nt][32 lanes] x 4 bf16 (pack_layer)
-  const __nv_bfloat16* b;   // [nt * 8]
-  int cpl;                  // log2 of the padded input channels CP
-  int ks;                   // k-steps: ceil(9 * CP / 16)
-};
+constexpr int kStrips = 4;                // column strips of the last block
+constexpr int kBands = kWarps / kStrips;  // row bands a strip is split into
+constexpr int kOut = 14;                  // output columns a strip writes
+constexpr int kTileW = kStrips * kOut;    // output tile width
+constexpr int kSmemMax = 232448;          // 227 KB a block
+constexpr int kStatWords = 5;
 
 struct Params {
   const void* in;  // f32 [B, H, W, cin] through strides, or bf16 [B, H, W, CP]
   long long sb, sh, sw, sc;  // element strides of the f32 input
   int cin;
-  bool vec4;  // f32 input read as float4: channels contiguous, aligned
-  Layer l0, l1;
+  bool tma;  // f32 input staged by a tensor copy (channels contiguous)
+  const uint2* w0;  // block 0 of a two-block launch: [ks][nt][32] x 4 bf16
+  const __nv_bfloat16* b0;
+  const uint2* wl;  // the last block: [nt][ks][9 taps][32] x 4 bf16
+  const __nv_bfloat16* bl;
+  int ntl;             // the last block's n-tiles
   __nv_bfloat16* out;  // [B, H, W, ostride]
   int ostride, cout;   // channels a pixel in out, channels written
-  int height, width;
+  int batch, height, width;
+  long long* stats;  // statistics instance: [blocks][kStatWords], else null
 };
 
-// bf16 elements between two pixels of a staged tile (module note)
-__host__ __device__ __forceinline__ int pixel_stride(int cp) {
-  return cp == 8 ? 8 : cp + 8;
+constexpr int log2i(int v) { return v <= 1 ? 0 : 1 + log2i(v / 2); }
+
+// Sizes of one instance: F32_IN (else bf16 input), NL blocks, CP0 input
+// channels (padded), NT0 block 0's n-tiles when NL == 2.
+template <bool F32_IN, int NL, int CP0, int NT0>
+struct Cfg {
+  static constexpr int CPL = NL == 2 ? 8 * NT0 : CP0;  // last block's input
+  static constexpr int LGL = log2i((CPL < 16 ? 16 : CPL) / 8);
+  static constexpr int KSL = (1 << LGL) / 2;  // its k-steps of 16 channels
+  static constexpr int LG0 = NL == 2 ? log2i(CP0 / 8) : LGL;  // xin layout
+  static constexpr int KS0 = (9 * CP0 + 15) / 16;
+  // block 0's B fragments in registers when they fit 20 fragments, else
+  // read through the cache
+  static constexpr bool kW0Regs = NL == 2 && KS0 * NT0 <= 20;
+  static constexpr int ESZ = F32_IN ? 4 : 2;
+  static constexpr int WI = kTileW + 2 * NL, WM = kTileW + 2;
+  static constexpr int bytes(int th) {
+    return 128 + (th + 2 * NL) * WI * (CP0 * ESZ + (16 << LG0)) +
+           (NL == 2 ? ((th + 2) * WM + 15) / 16 * 16 * (16 << LGL) : 0);
+  }
+  static constexpr int TH = bytes(16) <= kSmemMax  ? 16
+                            : bytes(8) <= kSmemMax ? 8
+                                                   : 4;
+  static constexpr int RB = TH / kBands;  // output rows a warp walks
+  static constexpr int HI = TH + 2 * NL;
+  static constexpr int STAGE = HI * WI * CP0 * ESZ;
+  static constexpr int XIN = HI * WI * (16 << LG0);
+  static constexpr int SMEM = bytes(TH);
+  static_assert(SMEM <= kSmemMax, "K7 instance does not fit shared memory");
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// byte offset of channel group cg of pixel q, 2^LG groups a pixel (note)
+template <int LG>
+__device__ __forceinline__ uint32_t act_off(int q, int cg) {
+  const int sw = LG == 0 ? 0 : (q >> (3 - LG)) & ((1 << LG) - 1);
+  return static_cast<uint32_t>(((q << LG) + (cg ^ sw)) * 16);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes));
 }
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
@@ -92,241 +189,545 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
       : "r"(addr));
 }
 
+__device__ __forceinline__ void stmatrix_x4(uint32_t addr, uint32_t r0,
+                                            uint32_t r1, uint32_t r2,
+                                            uint32_t r3) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1,%2,%3,%4};\n" ::"r"(
+          addr),
+      "r"(r0), "r"(r1), "r"(r2), "r"(r3));
+}
+
 // bf16_rn(bf16_rn(y) + b) for a bf16 bias b, then relu6 (NaN passes, as
-// jnp.maximum's)
-__device__ __forceinline__ float bias_relu6(float y, float b) {
-  const float z = __bfloat162float(__float2bfloat16_rn(
-      __fadd_rn(__bfloat162float(__float2bfloat16_rn(y)), b)));
-  return z < 0.f ? 0.f : (z > 6.f ? 6.f : z);
+// jnp.maximum's), on two channels: the bf16 add is exact-then-rounded, as
+// Flax's f32 add then bf16 rounding is (f32 holds 24 >= 2 * 8 + 2 bits, so
+// the double rounding is innocuous)
+__device__ __forceinline__ uint32_t bias_relu6(float y0, float y1,
+                                               __nv_bfloat162 b) {
+  const uint32_t kZero = 0u, kSix = 0x40c040c0u;  // bf16 pairs (0, 0), (6, 6)
+  const __nv_bfloat162 zero = *reinterpret_cast<const __nv_bfloat162*>(&kZero);
+  const __nv_bfloat162 six = *reinterpret_cast<const __nv_bfloat162*>(&kSix);
+  const __nv_bfloat162 z = __hmin2_nan(
+      __hmax2_nan(__hadd2(__floats2bfloat162_rn(y0, y1), b), zero), six);
+  return *reinterpret_cast<const uint32_t*>(&z);
 }
 
-// One block's conv on up to kChunks chunks of 16 destination pixels, chunk
-// c = ``first + c * kWarps`` for c < nvalid, of a region ``dst_w`` pixels
-// wide and ``n_dst`` pixels in all, reading the staged source region
-// (``dst_w + 2`` wide, a 1-pixel halo around it): acc[c][nt] is the mma's
-// C fragment of chunk c, n-tile nt.  Each B fragment is loaded once for
-// the warp's chunks.
-template <int NT>
-__device__ __forceinline__ void conv_chunks(const __nv_bfloat16* src,
-                                            int dst_w, int n_dst, int first,
-                                            int nvalid, const Layer& l,
-                                            int lane,
-                                            float (&acc)[kChunks][NT][4]) {
-#pragma unroll
-  for (int c = 0; c < kChunks; ++c)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-      acc[c][nt][0] = acc[c][nt][1] = acc[c][nt][2] = acc[c][nt][3] = 0.f;
-  // ldmatrix: lane l gives the row of matrix l / 8: pixels 0-7 / 8-15
-  // (bit 3), k half 0 / 1 (bit 4)
-  const int m = (lane & 7) + (lane & 8);
-  const int src_w = dst_w + 2, ps = pixel_stride(1 << l.cpl);
-  uint32_t base[kChunks];
-#pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
-    // past the end: any pixel (not written)
-    const int p = min((first + c * kWarps) * 16 + m, n_dst - 1);
-    base[c] = static_cast<uint32_t>(__cvta_generic_to_shared(
-        src + ((p / dst_w) * src_w + p % dst_w) * ps));
-  }
-  const int cmask = (1 << l.cpl) - 1;
-  const uint2* w = l.w + lane;
-#pragma unroll 2
-  for (int ks = 0; ks < l.ks; ++ks) {
-    const int k0 = ks * 16 + (lane & 16) / 2;
-    const int tap = min(k0 >> l.cpl, 8);  // K padding: its weights are 0
-    const int ky = tap / 3, kx = tap - 3 * ky;
-    const uint32_t off = ((ky * src_w + kx) * ps + (k0 & cmask)) * 2;
-    uint32_t a[kChunks][4];
-#pragma unroll
-    for (int c = 0; c < kChunks; ++c)
-      if (c < nvalid) ldmatrix_x4(a[c], base[c] + off);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const uint2 b = __ldg(w + (ks * NT + nt) * 32);
-#pragma unroll
-      for (int c = 0; c < kChunks; ++c)
-        if (c < nvalid) mma_bf16(acc[c][nt], a[c], b);
+__device__ __forceinline__ __nv_bfloat162 load_bias(const __nv_bfloat16* b,
+                                                    int n) {
+  return *reinterpret_cast<const __nv_bfloat162*>(b + n);
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// tile t -> (image, first output row, first output column)
+template <class C>
+__device__ __forceinline__ void tile_origin(const Params& p, int t, int& bz,
+                                            int& ty, int& tx) {
+  const int tiles_x = (p.width + kTileW - 1) / kTileW;
+  const int tiles_y = (p.height + C::TH - 1) / C::TH;
+  bz = t / (tiles_x * tiles_y);
+  const int r = t - bz * tiles_x * tiles_y;
+  ty = (r / tiles_x) * C::TH;
+  tx = (r % tiles_x) * kTileW;
+}
+
+// 1. issue the copies of tile t's input region (HI x WI pixels, CP0
+// channels, as they are) into the staging buffer, zero outside: one tensor
+// copy by one thread (completing on the barrier ``bar``), else cp.async by
+// every thread
+template <class C, bool F32_IN, int NL, int CP0>
+__device__ __forceinline__ void stage_async(const CUtensorMap& tmap,
+                                            const Params& p, int t,
+                                            uint32_t stage, uint32_t bar) {
+  int bz, ty, tx;
+  tile_origin<C>(p, t, bz, ty, tx);
+  const int y0 = ty - NL, x0 = tx - NL, H = p.height, W = p.width;
+  if (F32_IN && p.tma) {
+    if (threadIdx.x == kThreads - 1) {  // the warp with the least of block 0
+      // the staging buffer's last reads (generic proxy) before the copy
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile(
+          "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+              bar),
+          "r"(C::STAGE)
+          : "memory");
+      asm volatile(
+          "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+          "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(
+              stage),
+          "l"(reinterpret_cast<uint64_t>(&tmap)), "r"(0), "r"(x0), "r"(y0),
+          "r"(bz), "r"(bar)
+          : "memory");
     }
+    return;
   }
-}
-
-// this lane's bias pairs (C fragment columns t2, t2 + 1 of each n-tile)
-template <int NT>
-__device__ __forceinline__ void load_bias(const __nv_bfloat16* b, int t2,
-                                          float2 (&out)[NT]) {
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-    out[nt] = make_float2(__bfloat162float(b[nt * 8 + t2]),
-                          __bfloat162float(b[nt * 8 + t2 + 1]));
-}
-
-template <bool F32_IN, int NL, int NT0, int NT1>
-__global__ void __launch_bounds__(kThreads)
-    guidance_net_kernel(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int IW = kTile + 2 * NL;  // staged input tile, square
-  constexpr int MW = kTile + 2;       // block 0's region when NL == 2
-  const int cp0 = 1 << p.l0.cpl, ps0 = pixel_stride(cp0);
-  __nv_bfloat16* xin = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* xmid = xin + IW * IW * ps0;
-  const int bz = blockIdx.z;
-  const int ty = blockIdx.y * kTile, tx = blockIdx.x * kTile;
-  const int H = p.height, W = p.width;
-
-  // 1. the input tile with an NL-pixel halo, bf16, zero outside
-  if (F32_IN && p.vec4) {
+  if (F32_IN) {  // through the strides, 4 bytes a copy
     const float* in = static_cast<const float*>(p.in) + bz * p.sb;
-    const int V = cp0 / 4;  // groups of 4 channels a pixel
-    for (int i = threadIdx.x; i < IW * IW * V; i += kThreads) {
-      const int c = (i % V) * 4, pix = i / V;
-      const int y = ty - NL + pix / IW, x = tx - NL + pix % IW;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (c < p.cin && y >= 0 && y < H && x >= 0 && x < W)
-        v = *reinterpret_cast<const float4*>(in + y * p.sh + x * p.sw + c);
-      __nv_bfloat162* d =
-          reinterpret_cast<__nv_bfloat162*>(xin + pix * ps0 + c);
-      d[0] = __floats2bfloat162_rn(v.x, v.y);
-      d[1] = __floats2bfloat162_rn(v.z, v.w);
-    }
-  } else if (F32_IN) {
-    const float* in = static_cast<const float*>(p.in) + bz * p.sb;
-    for (int i = threadIdx.x; i < IW * IW * cp0; i += kThreads) {
-      const int c = i & (cp0 - 1), pix = i >> p.l0.cpl;
-      const int y = ty - NL + pix / IW, x = tx - NL + pix % IW;
-      float v = 0.f;
-      if (c < p.cin && y >= 0 && y < H && x >= 0 && x < W)
-        v = in[y * p.sh + x * p.sw + c * p.sc];
-      xin[pix * ps0 + c] = __float2bfloat16_rn(v);
+    for (int i = threadIdx.x; i < C::HI * C::WI * CP0; i += kThreads) {
+      const int c = i % CP0, pix = i / CP0;
+      const int y = y0 + pix / C::WI, x = x0 + pix % C::WI;
+      const bool ok = c < p.cin && y >= 0 && y < H && x >= 0 && x < W;
+      cp_async4(stage + i * 4,
+                ok ? in + y * p.sh + x * p.sw + c * p.sc : in, ok ? 4 : 0);
     }
   } else {
-    const int V = cp0 / 8;  // 16-byte groups a pixel
+    constexpr int V = CP0 / 8;  // 16-byte groups a pixel
     const uint4* in = static_cast<const uint4*>(p.in) +
                       static_cast<long long>(bz) * H * W * V;
-    for (int i = threadIdx.x; i < IW * IW * V; i += kThreads) {
+    for (int i = threadIdx.x; i < C::HI * C::WI * V; i += kThreads) {
       const int v = i % V, pix = i / V;
-      const int y = ty - NL + pix / IW, x = tx - NL + pix % IW;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (y >= 0 && y < H && x >= 0 && x < W)
-        val = in[(static_cast<long long>(y) * W + x) * V + v];
-      *reinterpret_cast<uint4*>(xin + pix * ps0 + v * 8) = val;
+      const int y = y0 + pix / C::WI, x = x0 + pix % C::WI;
+      const bool ok = y >= 0 && y < H && x >= 0 && x < W;
+      cp_async16(stage + i * 16,
+                 ok ? in + (static_cast<long long>(y) * W + x) * V + v : in,
+                 ok ? 16 : 0);
     }
   }
-  __syncthreads();
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t2 = (lane % 4) * 2;  // C fragment: row, column
+// wait for the staged tile: the barrier's phase ``parity`` (tensor copy),
+// else this thread's cp.async groups
+__device__ __forceinline__ void stage_wait(bool tma, uint32_t bar,
+                                           uint32_t parity) {
+  if (!tma) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    return;
+  }
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
 
-  // 2. block 0 on the tile and a 1-pixel halo, into shared memory
-  if (NL == 2) {
-    constexpr int n1 = (MW * MW + 15) / 16;  // chunks
-    const int ps1 = pixel_stride(1 << p.l1.cpl);
-    float2 bias[NT0];
-    load_bias<NT0>(p.l0.b, t2, bias);
-    for (int first = warp; first < n1; first += kChunks * kWarps) {
-      const int nvalid = min(kChunks, (n1 - first + kWarps - 1) / kWarps);
-      float acc[kChunks][NT0][4];
-      conv_chunks<NT0>(xin, MW, MW * MW, first, nvalid, p.l0, lane, acc);
+// 1. the staged region rounded to bf16 into xin's layout (groups past CP0
+// are 0)
+template <class C, bool F32_IN, int CP0>
+__device__ __forceinline__ void convert(const unsigned char* stage,
+                                        unsigned char* xin) {
+  constexpr int G = 1 << C::LG0;
+  for (int i = threadIdx.x; i < C::HI * C::WI * G; i += kThreads) {
+    const int cg = i % G, q = i / G;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (cg * 8 < CP0) {
+      if (F32_IN) {
+        const float4* s =
+            reinterpret_cast<const float4*>(stage + (q * CP0 + cg * 8) * 4);
+        const float4 a = s[0], b = s[1];
+        v = make_uint4(bf16x2_bits(a.x, a.y), bf16x2_bits(a.z, a.w),
+                       bf16x2_bits(b.x, b.y), bf16x2_bits(b.z, b.w));
+      } else {
+        v = *reinterpret_cast<const uint4*>(stage + (q * CP0 + cg * 8) * 2);
+      }
+    }
+    *reinterpret_cast<uint4*>(xin + act_off<C::LG0>(q, cg)) = v;
+  }
+}
+
+// one k-step of block 0 on a warp's one or two chunks (A rows at pixels
+// q0[r] of xin, the tap and channel group of this lane's k half)
+template <class C, int CP0, int NT0>
+__device__ __forceinline__ void first_kstep(int ks, int khalf, uint32_t xin,
+                                            const int (&q0)[2], bool two,
+                                            const uint2 (&b)[NT0],
+                                            float (&acc)[2][NT0][4]) {
+  const int k0 = ks * 16 + khalf;
+  const int tap = min(k0 / CP0, 8);  // K padding: its weights are 0
+  const int ky = tap / 3, kx = tap - 3 * ky, cg = (k0 % CP0) / 8;
+  uint32_t a[2][4];
+  ldmatrix_x4(a[0], xin + act_off<C::LG0>(q0[0] + ky * C::WI + kx, cg));
+  if (two)
+    ldmatrix_x4(a[1], xin + act_off<C::LG0>(q0[1] + ky * C::WI + kx, cg));
 #pragma unroll
-      for (int c = 0; c < kChunks; ++c) {
-        if (c >= nvalid) break;
+  for (int nt = 0; nt < NT0; ++nt) {
+    mma_bf16(acc[0][nt], a[0], b[nt]);
+    if (two) mma_bf16(acc[1][nt], a[1], b[nt]);
+  }
+}
+
+// 2. block 0 on the region around the tile (TH + 2 x WM pixels) from xin into
+// xmid, zero outside the image
+template <class C, int CP0, int NT0>
+__device__ __forceinline__ void first_block(
+    const Params& p,
+    const uint2 (&wr)[C::kW0Regs ? C::KS0 : 1][C::kW0Regs ? NT0 : 1],
+    uint32_t xin, uint32_t xmid, int ty, int tx, int warp, int lane) {
+  constexpr int NPIX = (C::TH + 2) * C::WM, NCH = (NPIX + 15) / 16;
+  const int g = lane >> 2, t2 = (lane & 3) * 2;
+  const int row = (lane & 7) + (lane & 8), khalf = (lane >> 4) * 8;
+  __nv_bfloat162 bias[NT0];
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int pix = (first + c * kWarps) * 16 + g + 8 * half;
-          if (pix >= MW * MW) continue;
-          const int r = pix / MW, col = pix % MW;
-          const int y = ty - 1 + r, x = tx - 1 + col;
-          const bool inside = y >= 0 && y < H && x >= 0 && x < W;
+  for (int nt = 0; nt < NT0; ++nt) bias[nt] = load_bias(p.b0, nt * 8 + t2);
+  // chunks c and c + kWarps together: the odd chunk at the end is a pass of
+  // one chunk
+  for (int c0 = warp; c0 < NCH; c0 += 2 * kWarps) {
+    const bool two = c0 + kWarps < NCH;
+    float acc[2][NT0][4];
+    int q0[2];
 #pragma unroll
-          for (int nt = 0; nt < NT0; ++nt) {
-            __nv_bfloat162 v = __floats2bfloat162_rn(0.f, 0.f);
-            if (inside)
-              v = __floats2bfloat162_rn(
-                  bias_relu6(acc[c][nt][2 * half], bias[nt].x),
-                  bias_relu6(acc[c][nt][2 * half + 1], bias[nt].y));
-            *reinterpret_cast<__nv_bfloat162*>(xmid + pix * ps1 + nt * 8 +
-                                               t2) = v;
-          }
+    for (int r = 0; r < 2; ++r) {
+#pragma unroll
+      for (int nt = 0; nt < NT0; ++nt)
+        acc[r][nt][0] = acc[r][nt][1] = acc[r][nt][2] = acc[r][nt][3] = 0.f;
+      const int m = min((c0 + r * kWarps) * 16 + row, NPIX - 1);  // past: any
+      q0[r] = (m / C::WM) * C::WI + m % C::WM;
+    }
+    if constexpr (C::kW0Regs) {
+#pragma unroll
+      for (int ks = 0; ks < C::KS0; ++ks)
+        first_kstep<C, CP0, NT0>(ks, khalf, xin, q0, two, wr[ks], acc);
+    } else {
+#pragma unroll 2
+      for (int ks = 0; ks < C::KS0; ++ks) {
+        uint2 b[NT0];
+#pragma unroll
+        for (int nt = 0; nt < NT0; ++nt)
+          b[nt] = __ldg(p.w0 + (ks * NT0 + nt) * 32 + lane);
+        first_kstep<C, CP0, NT0>(ks, khalf, xin, q0, two, b, acc);
+      }
+    }
+    // relu6(conv + bias) in bf16, 0 outside the image, stored as 8x8
+    // matrices (pixels x 8 channels): lane l gives the row address of
+    // matrix l / 8, rows g and g + 8 of n-tile nt are its registers
+    constexpr int NP = NT0 < 2 ? 2 : NT0;  // n-tiles stored, 8-15 zero at 1
+    const int mrow = (lane & 7) + 8 * ((lane >> 3) & 1), mnt = lane >> 4;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (r == 1 && !two) break;
+      uint32_t v[2][NP];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int m = (c0 + r * kWarps) * 16 + g + 8 * half;
+        const int y = ty - 1 + m / C::WM, x = tx - 1 + m % C::WM;
+        const bool inside = m < NPIX && y >= 0 && y < p.height && x >= 0 &&
+                            x < p.width;
+#pragma unroll
+        for (int nt = 0; nt < NP; ++nt) {
+          const uint32_t val =
+              nt < NT0 ? bias_relu6(acc[r][nt < NT0 ? nt : 0][2 * half],
+                                    acc[r][nt < NT0 ? nt : 0][2 * half + 1],
+                                    bias[nt < NT0 ? nt : 0])
+                       : 0u;
+          v[half][nt] = inside ? val : 0u;
         }
       }
-    }
-    __syncthreads();
-  }
-
-  // 3. the last block on the tile, written to out
-  constexpr int NTL = NL == 2 ? NT1 : NT0;
-  constexpr int n2 = kTile * kTile / 16;  // chunks, kChunks a warp
-  static_assert(n2 == kChunks * kWarps, "one pass over the tile");
-  const Layer last = NL == 2 ? p.l1 : p.l0;
-  const __nv_bfloat16* src = NL == 2 ? xmid : xin;
-  __nv_bfloat16* out = p.out + static_cast<long long>(bz) * H * W * p.ostride;
-  float2 bias[NTL];
-  load_bias<NTL>(last.b, t2, bias);
-  float acc[kChunks][NTL][4];
-  conv_chunks<NTL>(src, kTile, kTile * kTile, warp, kChunks, last, lane, acc);
+      const int m = (c0 + r * kWarps) * 16 + mrow;  // past NPIX: the padding
 #pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int pix = (warp + c * kWarps) * 16 + g + 8 * half;
-      const int y = ty + pix / kTile, x = tx + pix % kTile;
-      if (y >= H || x >= W) continue;
-      __nv_bfloat16* o = out + (static_cast<long long>(y) * W + x) *
-                                   p.ostride;
-#pragma unroll
-      for (int nt = 0; nt < NTL; ++nt) {
-        const int n = nt * 8 + t2;
-        if (n >= p.cout) continue;  // cout is even: n + 1 < cout too
-        *reinterpret_cast<__nv_bfloat162*>(o + n) = __floats2bfloat162_rn(
-            bias_relu6(acc[c][nt][2 * half], bias[nt].x),
-            bias_relu6(acc[c][nt][2 * half + 1], bias[nt].y));
-      }
+      for (int np = 0; np < NP; np += 2)
+        stmatrix_x4(xmid + act_off<C::LGL>(m, np + mnt), v[0][np], v[1][np],
+                    v[0][np + 1], v[1][np + 1]);
     }
   }
 }
 
-template <bool F32_IN, int NL, int NT0, int NT1>
-int launch(const Params& p, int batch, cudaStream_t stream) {
-  constexpr int IW = kTile + 2 * NL, MW = kTile + 2;
-  const int bytes =
-      (IW * IW * pixel_stride(1 << p.l0.cpl) +
-       (NL == 2 ? MW * MW * pixel_stride(1 << p.l1.cpl) : 0)) * 2;
-  auto kernel = guidance_net_kernel<F32_IN, NL, NT0, NT1>;
-  if (bytes > 48 * 1024) {  // at most 104,832 bytes (CP 64 at both blocks)
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return (int)e;
+// the last block's B fragments of n-tile nt, [ks][tap]
+template <class C>
+__device__ __forceinline__ void load_last(const Params& p, int nt, int lane,
+                                          uint2 (&wr)[C::KSL][9]) {
+#pragma unroll
+  for (int ks = 0; ks < C::KSL; ++ks)
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap)
+      wr[ks][tap] = __ldg(p.wl + ((nt * C::KSL + ks) * 9 + tap) * 32 + lane);
+}
+
+// a C fragment moved by one pixel (one row of M): row r takes row r - 1
+// (kUp) or r + 1.  Lane g holds rows g and g + 8, so a row's neighbour is in
+// lane g - 1 or g + 1, wrapping across the halves at g = 0 and g = 7; the
+// row that would come from outside the fragment takes another row
+template <bool kUp>
+__device__ __forceinline__ void shift_rows(float (&c)[4], int g, int lane) {
+  const int src = kUp ? (lane + 28) & 31 : (lane + 4) & 31;
+  float s[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) s[e] = __shfl_sync(0xffffffffu, c[e], src);
+  if (kUp) {
+    c[0] = s[0];
+    c[1] = s[1];
+    c[2] = g ? s[2] : s[0];
+    c[3] = g ? s[3] : s[1];
+  } else {
+    c[0] = g < 7 ? s[0] : s[2];
+    c[1] = g < 7 ? s[1] : s[3];
+    c[2] = s[2];
+    c[3] = s[3];
   }
-  const dim3 grid((p.width + kTile - 1) / kTile,
-                  (p.height + kTile - 1) / kTile, batch);
-  kernel<<<grid, kThreads, bytes, stream>>>(p);
+}
+
+// 3. the last block on the tile from src (TH + 2 x WM pixels) to out (note).
+// Output row o of the band sums its nine taps in one f32 accumulator, kx
+// outer, then ky, then the k-steps: the kx = 0 partials at the input
+// pixels, moved up one pixel; the kx = 1 partials added at the output
+// pixels, moved up one pixel again; the kx = 2 partials added, and the sum
+// moved down one pixel: each tap's partial reaches its output pixel in the
+// same accumulator.  P output rows run together (P chains), from the
+// P + 2 input rows' A fragments, each loaded once.
+template <class C, bool kStats>
+__device__ __forceinline__ void last_block(const Params& p,
+                                           uint2 (&wr)[C::KSL][9],
+                                           uint32_t src, int bz, int ty,
+                                           int tx, int warp, int lane,
+                                           long long& store_clk) {
+  constexpr int P = C::RB <= 4 ? C::RB : C::RB / 2;
+  static_assert(C::RB % P == 0, "whole groups of rows");
+  const int strip = warp % kStrips, band = warp / kStrips;
+  const int g = lane >> 2, t2 = (lane & 3) * 2;
+  const int row = (lane & 7) + (lane & 8), khalf = lane >> 4;
+  __nv_bfloat16* out =
+      p.out + static_cast<long long>(bz) * p.height * p.width * p.ostride;
+  // this lane's two output pixels, rows g and g + 8 of the strip (its rows
+  // 0 and 15 have no output)
+  const int x_lo = tx + strip * kOut + g - 1, x_hi = x_lo + 8;
+  const bool lo_ok = g >= 1 && x_lo < p.width;
+  const bool hi_ok = g <= 6 && x_hi < p.width;
+  for (int nt = 0; nt < p.ntl; ++nt) {
+    if (p.ntl > 1) load_last<C>(p, nt, lane, wr);  // else loaded once
+    const int n = nt * 8 + t2;
+    const __nv_bfloat162 bias = load_bias(p.bl, n);
+    uint32_t a[P + 2][C::KSL][4];  // the group's input rows
+#pragma unroll
+    for (int grp = 0; grp < C::RB / P; ++grp) {
+      const int i0 = grp * P;  // its first output row = first input row
+#pragma unroll
+      for (int j = 0; j < P + 2; ++j) {
+        if (grp > 0 && j < 2) {  // the previous group's last two rows
+#pragma unroll
+          for (int ks = 0; ks < C::KSL; ++ks)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) a[j][ks][e] = a[P + j][ks][e];
+          continue;
+        }
+        const int q = (band * C::RB + i0 + j) * C::WM + strip * kOut + row;
+#pragma unroll
+        for (int ks = 0; ks < C::KSL; ++ks)
+          ldmatrix_x4(a[j][ks], src + act_off<C::LGL>(q, 2 * ks + khalf));
+      }
+      float c[P][4];
+#pragma unroll
+      for (int j = 0; j < P; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
+#pragma unroll
+      for (int kx = 0; kx < 3; ++kx) {
+#pragma unroll
+        for (int ky = 0; ky < 3; ++ky)
+#pragma unroll
+          for (int ks = 0; ks < C::KSL; ++ks)
+#pragma unroll
+            for (int j = 0; j < P; ++j)
+              mma_bf16(c[j], a[j + ky][ks], wr[ks][ky * 3 + kx]);
+#pragma unroll
+        for (int j = 0; j < P; ++j) {
+          if (kx < 2)
+            shift_rows<true>(c[j], g, lane);
+          else
+            shift_rows<false>(c[j], g, lane);
+        }
+      }
+      long long t0 = 0;
+      if (kStats) t0 = clock64();
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        const int y = ty + band * C::RB + i0 + j;
+        if (y >= p.height || n >= p.cout) continue;  // cout even: n + 1 too
+        __nv_bfloat16* o =
+            out + static_cast<long long>(y) * p.width * p.ostride + n;
+        if (lo_ok)
+          *reinterpret_cast<uint32_t*>(o + x_lo * p.ostride) =
+              bias_relu6(c[j][0], c[j][1], bias);
+        if (hi_ok)
+          *reinterpret_cast<uint32_t*>(o + x_hi * p.ostride) =
+              bias_relu6(c[j][2], c[j][3], bias);
+      }
+      if (kStats) store_clk += clock64() - t0;
+    }
+  }
+}
+
+template <bool F32_IN, int NL, int CP0, int NT0, bool kStats>
+__global__ void __launch_bounds__(kThreads, 1)
+    guidance_net_kernel(const __grid_constant__ CUtensorMap tmap,
+                        const Params p) {
+  using C = Cfg<F32_IN, NL, CP0, NT0>;
+  // [barrier | staging | xin | xmid]
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t bar = smem_addr(smem);
+  unsigned char* stage_p = smem + 128;  // the tensor copy's 128-byte rule
+  unsigned char* xin = stage_p + C::STAGE;
+  unsigned char* xmid = xin + C::XIN;
+  const uint32_t stage = smem_addr(stage_p);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ntiles = p.batch * ((p.height + C::TH - 1) / C::TH) *
+                     ((p.width + kTileW - 1) / kTileW);
+  const int first = blockIdx.x, step = gridDim.x;
+
+  if (F32_IN && p.tma && threadIdx.x == kThreads - 1) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  uint32_t parity = 0;
+  if (first < ntiles)
+    stage_async<C, F32_IN, NL, CP0>(tmap, p, first, stage, bar);
+  // the weights, once a block, into registers: block 0's when they fit 20
+  // fragments (else first_block reads them through the cache), the last
+  // block's first n-tile
+  uint2 wr0[C::kW0Regs ? C::KS0 : 1][C::kW0Regs ? NT0 : 1];
+  if constexpr (C::kW0Regs) {
+#pragma unroll
+    for (int ks = 0; ks < C::KS0; ++ks)
+#pragma unroll
+      for (int nt = 0; nt < NT0; ++nt)
+        wr0[ks][nt] = __ldg(p.w0 + (ks * NT0 + nt) * 32 + lane);
+  }
+  uint2 wrl[C::KSL][9];
+  load_last<C>(p, 0, lane, wrl);
+
+  long long clk[4] = {0, 0, 0, 0}, t0 = 0, store_clk = 0;
+  int tiles = 0;
+  for (int t = first; t < ntiles; t += step) {
+    if (kStats) t0 = clock64();
+    stage_wait(F32_IN && p.tma, bar, parity);
+    parity ^= 1u;
+    __syncthreads();  // tile t staged; the previous tile's reads are done
+    convert<C, F32_IN, CP0>(stage_p, xin);
+    __syncthreads();  // xin ready, the staging buffer free
+    if (t + step < ntiles)
+      stage_async<C, F32_IN, NL, CP0>(tmap, p, t + step, stage, bar);
+    if (kStats) {
+      const long long t1 = clock64();
+      clk[0] += t1 - t0;
+      t0 = t1;
+    }
+    int bz, ty, tx;
+    tile_origin<C>(p, t, bz, ty, tx);
+    if constexpr (NL == 2) {
+      first_block<C, CP0, NT0>(p, wr0, smem_addr(xin), smem_addr(xmid), ty,
+                               tx, warp, lane);
+      __syncthreads();
+      if (kStats) {
+        const long long t1 = clock64();
+        clk[1] += t1 - t0;
+        t0 = t1;
+      }
+    }
+    const long long s0 = store_clk;
+    last_block<C, kStats>(p, wrl, smem_addr(NL == 2 ? xmid : xin), bz, ty,
+                          tx, warp, lane, store_clk);
+    if (kStats) {
+      __syncthreads();
+      const long long t1 = clock64();
+      clk[2] += t1 - t0 - (store_clk - s0);
+      clk[3] += store_clk - s0;
+      ++tiles;
+    }
+  }
+  if (kStats && threadIdx.x == 0) {
+    long long* st = p.stats + static_cast<long long>(blockIdx.x) * kStatWords;
+    for (int i = 0; i < 4; ++i) st[i] = clk[i];
+    st[4] = tiles;
+  }
+}
+
+// the tensor map of the f32 input [B, H, W, cin] (element strides sb, sh,
+// sw, channels contiguous) for boxes of CP0 x WI x HI x 1, zero-filled
+// outside; cuTensorMapEncodeTiled through the runtime's driver entry point
+int encode_input(const Params& p, int cp0, int wi, int hi, CUtensorMap* map) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (!encode) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &q);
+    if (e != cudaSuccess) return (int)e;
+    if (q != cudaDriverEntryPointSuccess || !fn)
+      return (int)cudaErrorNotSupported;
+    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+  }
+  const cuuint64_t dims[4] = {(cuuint64_t)p.cin, (cuuint64_t)p.width,
+                              (cuuint64_t)p.height, (cuuint64_t)p.batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)p.sw * 4, (cuuint64_t)p.sh * 4,
+                                 (cuuint64_t)p.sb * 4};
+  const cuuint32_t box[4] = {(cuuint32_t)cp0, (cuuint32_t)wi, (cuuint32_t)hi,
+                             1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(p.in), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <bool F32_IN, int NL, int CP0, int NT0, bool kStats>
+int launch(const Params& p, cudaStream_t stream) {
+  using C = Cfg<F32_IN, NL, CP0, NT0>;
+  auto kernel = guidance_net_kernel<F32_IN, NL, CP0, NT0, kStats>;
+  // the shared-memory attribute, and the blocks an SM holds, once a device
+  static int per_sm[64] = {}, sms[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (per_sm[dev] == 0) {
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                                 dev);
+    int n = 0;
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads,
+                                                        C::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    if (n < 1) return (int)cudaErrorInvalidConfiguration;
+    per_sm[dev] = n;
+  }
+  const long long ntiles = static_cast<long long>(p.batch) *
+                           ((p.height + C::TH - 1) / C::TH) *
+                           ((p.width + kTileW - 1) / kTileW);
+  if (ntiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const long long slots = static_cast<long long>(sms[dev]) * per_sm[dev];
+  const int grid = static_cast<int>(ntiles < slots ? ntiles : slots);
+  CUtensorMap map{};
+  if (F32_IN && p.tma) {
+    const int rc = encode_input(p, CP0, C::WI, C::HI, &map);
+    if (rc) return rc;
+  }
+  kernel<<<grid, kThreads, C::SMEM, stream>>>(map, p);
   return (int)cudaGetLastError();
 }
 
-template <int NT0>
-int launch_pair(const Params& p, int nt1, int batch, cudaStream_t s) {
-  switch (nt1) {
-    case 1: return launch<true, 2, NT0, 1>(p, batch, s);
-    case 2: return launch<true, 2, NT0, 2>(p, batch, s);
-    case 4: return launch<true, 2, NT0, 4>(p, batch, s);
-    case 8: return launch<true, 2, NT0, 8>(p, batch, s);
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
-// the template instance for the n-tiles of block 0 (and block 1)
-int dispatch(const Params& p, bool f32_in, int layers, int nt0, int nt1,
-             int batch, cudaStream_t s) {
-#define RT_NET_CASE(NT)                                           \
-  case NT:                                                        \
-    if (layers == 2) return launch_pair<NT>(p, nt1, batch, s);    \
-    if (f32_in) return launch<true, 1, NT, 1>(p, batch, s);       \
-    return launch<false, 1, NT, 1>(p, batch, s);
-  switch (nt0) {
-    RT_NET_CASE(1)
-    RT_NET_CASE(2)
-    RT_NET_CASE(4)
-    RT_NET_CASE(8)
+// the template instance for the input's channels (and block 0's n-tiles)
+int dispatch(const Params& p, bool f32_in, int layers, int cpl0, int nt0,
+             cudaStream_t s) {
+  if (p.stats)  // the statistics instance: the committed nets' shape
+    return layers == 2 && cpl0 == 3 && nt0 == 4
+               ? launch<true, 2, 8, 4, true>(p, s)
+               : (int)cudaErrorInvalidValue;
+#define RT_NET_CASE(CPL, CP)                                       \
+  case CPL:                                                        \
+    if (layers == 1)                                               \
+      return f32_in ? launch<true, 1, CP, 1, false>(p, s)          \
+                    : launch<false, 1, CP, 1, false>(p, s);        \
+    switch (nt0) {                                                 \
+      case 1: return launch<true, 2, CP, 1, false>(p, s);          \
+      case 2: return launch<true, 2, CP, 2, false>(p, s);          \
+      case 4: return launch<true, 2, CP, 4, false>(p, s);          \
+      case 8: return launch<true, 2, CP, 8, false>(p, s);          \
+    }                                                              \
+    break;
+  switch (cpl0) {
+    RT_NET_CASE(3, 8)
+    RT_NET_CASE(4, 16)
+    RT_NET_CASE(5, 32)
+    RT_NET_CASE(6, 64)
   }
 #undef RT_NET_CASE
   return (int)cudaErrorInvalidValue;
@@ -341,26 +742,29 @@ bool layer_ok(int cpl, int nt) {
 // One launch of K7: ``layers`` (1 or 2) blocks from ``in`` to ``out``.
 // in: f32 [B, H, W, cin] through the element strides (sb, sh, sw, sc) when
 // f32_in, else bf16 [B, H, W, 1 << cpl0] contiguous (a previous launch's
-// out).  Block i: packed weights w_i, bias b_i (pack_layer), input
-// channels padded to 1 << cpl_i (8 to 64), nt_i n-tiles of 8 output
-// channels; a second block's input is the first's output
-// (1 << cpl1 == 8 * nt0).  out:
-// bf16 [B, H, W, ostride], channels 0..cout-1 written (cout and ostride
-// even, cout at most the last block's nt * 8).
+// out).  Block 0: its K-major packed weights w0 and bias b0 (pack_layer's
+// ``w`` and ``b``; read only with two blocks), input channels padded to
+// 1 << cpl0 (8 to 64), nt0 n-tiles of 8 output channels.  The last block
+// (block 1, or block 0 itself when layers == 1): its tap-major packed
+// weights w1 (pack_layer's ``wt``) and bias b1, input channels 1 << cpl1
+// (8 * nt0 with two blocks), nt1 n-tiles.  out: bf16 [B, H, W, ostride],
+// channels 0..cout-1 written (cout and ostride even, cout at most
+// nt1 * 8).  A non-null ``stats`` (int64 [blocks][5] with a row for each
+// of up to min(132, 56 x 16 tiles) blocks) selects the statistics
+// instance, which takes 8 -> 32 -> 8 only.
 RT_API int rt_guidance_net(const void* in, long long sb, long long sh,
                            long long sw, long long sc, int f32_in, int cin,
                            int layers, const void* w0, const void* b0,
                            int cpl0, int nt0, const void* w1, const void* b1,
                            int cpl1, int nt1, void* out, int ostride,
                            int cout, int batch, int height, int width,
-                           void* stream) {
-  const int nt_last = layers == 2 ? nt1 : nt0;
+                           void* stats, void* stream) {
   if ((layers != 1 && layers != 2) || !layer_ok(cpl0, nt0) ||
-      (layers == 2 && (!f32_in || !layer_ok(cpl1, nt1) ||
-                       (1 << cpl1) != nt0 * 8)) ||
-      cin < 1 || cin > (1 << cpl0) || (!f32_in && cin != (1 << cpl0)) ||
-      cout < 2 || cout % 2 || cout > nt_last * 8 || ostride < cout ||
-      ostride % 2 ||
+      !layer_ok(cpl1, nt1) ||
+      (layers == 2 && (!f32_in || (1 << cpl1) != nt0 * 8)) ||
+      (layers == 1 && (cpl1 != cpl0 || nt1 != nt0)) || cin < 1 ||
+      cin > (1 << cpl0) || (!f32_in && cin != (1 << cpl0)) || cout < 2 ||
+      cout % 2 || cout > nt1 * 8 || ostride < cout || ostride % 2 ||
       batch < 1 || batch > 65535 || height < 1 || width < 1)
     return (int)cudaErrorInvalidValue;
   Params p;
@@ -370,21 +774,22 @@ RT_API int rt_guidance_net(const void* in, long long sb, long long sh,
   p.sw = sw;
   p.sc = sc;
   p.cin = cin;
-  p.vec4 = f32_in && sc == 1 && cin % 4 == 0 && sw % 4 == 0 &&
-           sh % 4 == 0 && sb % 4 == 0 &&
-           reinterpret_cast<uintptr_t>(in) % 16 == 0;
-  p.l0 = {static_cast<const uint2*>(w0),
-          static_cast<const __nv_bfloat16*>(b0), cpl0,
-          (9 * (1 << cpl0) + 15) / 16};
-  const int cpl_1 = layers == 2 ? cpl1 : 3;  // unused with one block
-  p.l1 = {static_cast<const uint2*>(w1),
-          static_cast<const __nv_bfloat16*>(b1), cpl_1,
-          (9 * (1 << cpl_1) + 15) / 16};
+  // the tensor copy takes 16-byte aligned rows of 16-byte multiples (and
+  // strides below 2^40 bytes: cuTensorMapEncodeTiled refuses others)
+  p.tma = f32_in && sc == 1 && cin % 4 == 0 && sw % 4 == 0 && sh % 4 == 0 &&
+          sb % 4 == 0 && reinterpret_cast<uintptr_t>(in) % 16 == 0;
+  p.w0 = static_cast<const uint2*>(w0);
+  p.b0 = static_cast<const __nv_bfloat16*>(b0);
+  p.wl = static_cast<const uint2*>(w1);
+  p.bl = static_cast<const __nv_bfloat16*>(b1);
+  p.ntl = nt1;
   p.out = static_cast<__nv_bfloat16*>(out);
   p.ostride = ostride;
   p.cout = cout;
+  p.batch = batch;
   p.height = height;
   p.width = width;
-  return dispatch(p, f32_in != 0, layers, nt0, nt1, batch,
+  p.stats = static_cast<long long*>(stats);
+  return dispatch(p, f32_in != 0, layers, cpl0, nt0,
                   static_cast<cudaStream_t>(stream));
 }

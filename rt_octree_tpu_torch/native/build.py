@@ -69,7 +69,7 @@ ENTRIES = {
     "rt_skip_distances": ("lut", [_V, _V, _V, _I, _I, _PI, _V]),
     "rt_guidance_net": ("net", [_V, _L, _L, _L, _L, _I, _I, _I, _V, _V, _I,
                                 _I, _V, _V, _I, _I, _V, _I, _I, _I, _I, _I,
-                                _V]),
+                                _V, _V]),
     "rt_probe_affine": ("probes", [_V, _V, _I, _V]),
     "rt_lane_gather": ("probes", [_V, _V, _V, _I, _I, _I, _V]),
     "rt_lane_gather_chain": ("probes", [_V, _V, _V, _I, _I, _I, _I, _V]),

@@ -8,14 +8,23 @@ K7 computes a net of one or two blocks in one launch, from the f32 aux
 loaded) to the last block's activation [B, H, W, cout] in bf16, channels
 last; a deeper net runs as a chain of one-block launches.
 
-``pack_layer`` packs a block's HWIO kernel and bias once into K7's layout:
-the implicit GEMM's K index is ``tap * CP + ci`` (tap = 3 ky + kx, the
-input channels padded to CP = 8, 16, 32 or 64), padded to a multiple of
-16; the output channels are padded to 8, 16, 32 or 64 (n-tiles of 8); the
-weights are stored as mma.m16n8k16 B fragments, ``w[ks, nt, lane, j] =
-W[ks * 16 + 2 (lane % 4) + (j % 2) + 8 (j // 2), nt * 8 + lane // 4]``,
-so that each lane reads its fragment as one 8-byte load.  Padded weights
-and biases are 0, so padded output channels are relu6(0) = 0.
+``pack_layer`` packs a block's HWIO kernel and bias once into K7's two
+layouts, both mma.m16n8k16 B fragments in the mma's lane order, so that
+each lane reads its fragment as one 8-byte load (``j`` the fragment's
+element, ``r(lane, j) = 2 (lane % 4) + (j % 2) + 8 (j // 2)`` its row in a
+k-step of 16, ``lane // 4`` its column in an n-tile of 8):
+
+- ``w``, block 0's implicit GEMM (K-major): its K index is ``tap * CP +
+  ci`` (tap = 3 ky + kx, the input channels padded to CP = 8, 16, 32 or
+  64), padded to a multiple of 16; ``w[ks, nt, lane, j] = W[ks * 16 +
+  r(lane, j), nt * 8 + lane // 4]``;
+- ``wt``, the last block's product with all nine taps (tap-major): K is
+  the input channels padded to max(CP, 16), one matrix a tap;
+  ``wt[nt, ks, tap, lane, j] = W_tap[ks * 16 + r(lane, j), nt * 8 +
+  lane // 4]``.
+
+The output channels are padded to 8, 16, 32 or 64 (n-tiles of 8).  Padded
+weights and biases are 0, so padded output channels are relu6(0) = 0.
 
 ``guidance_net`` is K7's wrapper, for CUDA tensors only; its plain
 version is ``models.guidance_net.compact_activation_plain``, and
@@ -46,10 +55,12 @@ def padded_channels(c: int) -> int:
 
 @dataclasses.dataclass
 class PackedLayer:
-    """One folded block in K7's layout: ``w`` bf16 [KS, NT, 32, 4] (B
-    fragments), ``b`` bf16 [NT * 8]; ``cin`` / ``cout`` the block's own
-    channels, ``cp`` the padded input channels."""
+    """One folded block in K7's layouts (module doc): ``w`` bf16 [KS, NT,
+    32, 4] and ``wt`` bf16 [NT, max(CP, 16) / 16, 9, 32, 4] (B fragments),
+    ``b`` bf16 [NT * 8]; ``cin`` / ``cout`` the block's own channels, ``cp``
+    the padded input channels."""
     w: torch.Tensor
+    wt: torch.Tensor
     b: torch.Tensor
     cin: int
     cout: int
@@ -61,6 +72,7 @@ class PackedLayer:
 
     def to(self, device) -> "PackedLayer":
         return dataclasses.replace(self, w=self.w.to(device),
+                                   wt=self.wt.to(device),
                                    b=self.b.to(device))
 
 
@@ -83,27 +95,41 @@ def pack_layer(kernel: torch.Tensor, bias: torch.Tensor) -> PackedLayer:
         kernel.reshape(9, cin, cout).to(torch.bfloat16)
     lane = torch.arange(32, device=dev)
     j = torch.arange(4, device=dev)
-    rows = (torch.arange(ks, device=dev)[:, None, None, None] * 16
-            + (lane % 4 * 2)[None, None, :, None]
-            + (j % 2 + j // 2 * 8)[None, None, None, :])
-    cols = (torch.arange(npad // 8, device=dev)[None, :, None, None] * 8
-            + (lane // 4)[None, None, :, None])
+    r = (lane % 4 * 2)[:, None] + (j % 2 + j // 2 * 8)[None, :]  # [32, 4]
+    col = (lane // 4)[:, None]
+    nts = torch.arange(npad // 8, device=dev)
+    rows = torch.arange(ks, device=dev)[:, None, None, None] * 16 + r
+    cols = nts[None, :, None, None] * 8 + col
+    # the last block's taps, K = the channels padded to at least 16
+    kst = max(cp, 16) // 16
+    wtap = torch.zeros((9, kst * 16, npad), dtype=torch.bfloat16, device=dev)
+    wtap[:, :cin, :cout] = kernel.reshape(9, cin, cout).to(torch.bfloat16)
+    trows = torch.arange(kst, device=dev)[None, :, None, None, None] * 16 + r
+    tcols = nts[:, None, None, None, None] * 8 + col
+    taps = torch.arange(9, device=dev)[None, None, :, None, None]
+    wt = wtap[taps, trows, tcols]
     b = torch.zeros(npad, dtype=torch.bfloat16, device=dev)
     b[:cout] = bias.to(torch.bfloat16)
-    return PackedLayer(wk[rows, cols].contiguous(), b, cin, cout, cp)
+    return PackedLayer(wk[rows, cols].contiguous(), wt.contiguous(), b, cin,
+                       cout, cp)
 
 
-def _launch(x, f32_in, cin, blocks, out, stream):
-    """One K7 launch of ``blocks`` (one or two) from x to out."""
+STAT_PHASES = ("staging", "block0", "block1", "store")
+
+
+def _launch(x, f32_in, cin, blocks, out, stream, stats=None):
+    """One K7 launch of ``blocks`` (one or two) from x to out; ``stats``
+    (int64 [rows, 5], zeroed) selects the statistics instance."""
     B, H, W = x.shape[:3]
     sb, sh, sw, sc = x.stride() if f32_in else (0, 0, 0, 0)
     first, last = blocks[0], blocks[-1]
     rc = native.entry("rt_guidance_net")(
         x.data_ptr(), sb, sh, sw, sc, int(f32_in), cin, len(blocks),
         first.w.data_ptr(), first.b.data_ptr(), first.cp.bit_length() - 1,
-        first.nt, last.w.data_ptr(), last.b.data_ptr(),
+        first.nt, last.wt.data_ptr(), last.b.data_ptr(),
         last.cp.bit_length() - 1, last.nt, out.data_ptr(), out.shape[-1],
-        out.shape[-1], B, H, W, stream)
+        out.shape[-1], B, H, W, 0 if stats is None else stats.data_ptr(),
+        stream)
     native.count_launch("guidance_net")
     native.check(rc, "guidance_net_kernel")
 
@@ -149,3 +175,34 @@ def guidance_net(aux_nhwc: torch.Tensor, layers) -> torch.Tensor:
             _launch(x, f32_in, cin, [layer], out, stream)
             x, f32_in, cin = out, False, width
         return out
+
+
+def guidance_net_stats(aux_nhwc: torch.Tensor, layers) -> dict:
+    """K7's statistics instance on a net of two blocks (8 -> 32 -> 8, the
+    committed nets' shape): one launch, and per block the clock64() cycles
+    of each phase (STAT_PHASES) and its tiles.  Returns the blocks that ran,
+    the tiles, per phase the cycles a tile (summed over blocks / tiles) and
+    its share, and the largest block's cycles; the activation is
+    discarded."""
+    layers = list(layers)
+    B, H, W, C = aux_nhwc.shape
+    if len(layers) != 2 or aux_nhwc.device.type != "cuda":
+        raise ValueError("guidance_net_stats: a two-block net on a CUDA "
+                         "tensor")
+    dev = aux_nhwc.device
+    rows = B * -(-H // 2) * -(-W // 14)  # more than K7's tiles
+    st = torch.zeros((rows, len(STAT_PHASES) + 1), dtype=torch.int64,
+                     device=dev)
+    with torch.cuda.device(dev):
+        out = torch.empty((B, H, W, layers[-1].cout), dtype=torch.bfloat16,
+                          device=dev)
+        _launch(aux_nhwc, True, C, layers, out, native.stream_ptr(dev), st)
+    st = st[st[:, -1] > 0].double().cpu()
+    tiles = float(st[:, -1].sum())
+    cyc = st[:, :-1].sum(0)
+    return {"blocks": int(st.shape[0]), "tiles": int(tiles),
+            "cycles_per_tile": {k: float(c) / tiles
+                                for k, c in zip(STAT_PHASES, cyc)},
+            "share": {k: float(c / cyc.sum())
+                      for k, c in zip(STAT_PHASES, cyc)},
+            "largest_block_cycles": float(st[:, :-1].sum(1).max())}

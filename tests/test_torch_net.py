@@ -67,7 +67,20 @@ CONFIGS = {
     "identity 8-32-8": dict(identity_level=True),
     "chain 8-8-8-8": dict(in_channels=8, mid_channels=8, num_layers=3,
                           kernel_levels=4),
+    # wider than the committed nets: K7's other instances (csrc/net.cu) --
+    # a one-block launch of two n-tiles, block 0's weights read through the
+    # cache (36, 40 and 288 fragments), a last block of 2 and 8 n-tiles,
+    # tiles of 8 and 4 rows
+    "l1 8-16": dict(in_channels=8, mid_channels=16, num_layers=1,
+                    kernel_levels=8),
+    "in16 16-32-8": dict(in_channels=16, mid_channels=32, kernel_levels=4),
+    "mid64 8-64-16": dict(in_channels=8, mid_channels=64, kernel_levels=8),
+    "in32 32-64-8": dict(in_channels=32, mid_channels=64, kernel_levels=4),
+    "wide 64-64-64": dict(in_channels=64, mid_channels=64,
+                          kernel_levels=32),
 }
+WIDE = ["l1 8-16", "in16 16-32-8", "mid64 8-64-16", "in32 32-64-8",
+        "wide 64-64-64"]
 PLAIN_FLAX_ULPS, K7_ULPS, K7_UNEQUAL_SHARE = 1.0, 2.0, 1e-3
 
 
@@ -197,8 +210,9 @@ def _packs(cfg, params):
 
 
 def _unpack(p):
-    """The pack read back by the fragment order of ops/guidance.py:
-    (Wk [K, N] bf16 bits with K = ks * 16, N = nt * 8, b [N] bits)."""
+    """The K-major pack (block 0 of a two-block launch) read back by the
+    fragment order of ops/guidance.py: (Wk [K, N] bf16 bits with K = ks *
+    16, N = nt * 8, b [N] bits)."""
     w = _bits(p.w)
     ks, nt = w.shape[:2]
     wk = np.zeros((ks * 16, nt * 8), np.uint16)
@@ -209,6 +223,22 @@ def _unpack(p):
             n = np.arange(nt)[None, :] * 8 + lane // 4
             wk[k, n] = w[:, :, lane, j]
     return wk, _bits(p.b)
+
+
+def _unpack_taps(p):
+    """The tap-major pack (the last block of a launch) read back: W_tap [9,
+    K, N] bf16 bits, K = the input channels padded to max(CP, 16)."""
+    w = _bits(p.wt)
+    nt, ks = w.shape[:2]
+    wt = np.zeros((9, ks * 16, nt * 8), np.uint16)
+    for lane in range(32):
+        for j in range(4):
+            k = np.arange(ks)[None, :] * 16 + lane % 4 * 2 + j % 2 + \
+                j // 2 * 8
+            n = np.arange(nt)[:, None] * 8 + lane // 4
+            for tap in range(9):
+                wt[tap, k, n] = w[:, :, tap, lane, j]
+    return wt
 
 
 @pytest.mark.parametrize("name", list(CONFIGS) + ["trained 8-32-8"])
@@ -233,6 +263,10 @@ def test_packed_layout_unpacks_bit_for_bit(name):
         np.testing.assert_array_equal(taps[:, :cin, :cout], ref)
         assert not taps[:, cin:].any() and not taps[:, :, cout:].any()
         assert not wk[9 * p.cp:].any()
+        wt = _unpack_taps(p)
+        assert wt.shape == (9, max(p.cp, 16), og.padded_channels(cout))
+        np.testing.assert_array_equal(wt[:, :cin, :cout], ref)
+        assert not wt[:, cin:].any() and not wt[:, :, cout:].any()
         np.testing.assert_array_equal(
             bb[:cout], _bits(torch.from_numpy(b).to(torch.bfloat16)))
         assert not bb[cout:].any()
@@ -245,32 +279,48 @@ def _bf16(a):
 
 def _k7_numpy(aux, packs, fold_bias=False):
     """K7's arithmetic over the packs, in its order: the input rounded to
-    bf16 and zero-padded to CP channels; per block the implicit GEMM with
-    K = tap * CP + ci (tap = 3 ky + kx), zero outside the image, summed a
-    k-step of 16 products at a time into an f32 accumulator (the mma's
-    shape), rounded to bf16, the bias added and rounded, relu6; the padded
-    output channels (0) feed the next block.  aux [1, H, W, cin] -> each
-    block's output [H, W, padded cout] (f32 holding bf16 values).
-    ``fold_bias``: the bias added to the f32 sum, one rounding (not
-    Flax's order)."""
+    bf16 and zero-padded to CP channels, zero outside the image; each
+    block's sums in one f32 accumulator, a k-step of 16 products at a time
+    (the mma's shape), then rounded to bf16, the bias added and rounded,
+    relu6; the padded output channels (0) feed the next block.  Block 0 of
+    a two-block launch sums K = tap * CP + ci in order (tap = 3 ky + kx);
+    the last block of a launch (the only one of a one-block launch, every
+    block of a chain) sums kx outer, then ky, then 16 channels at a time.
+    aux [1, H, W, cin] -> each block's output [H, W, padded cout] (f32
+    holding bf16 values).  ``fold_bias``: the bias added to the f32 sum,
+    one rounding (not Flax's order)."""
     x = _bf16(aux[0])
     H, W = x.shape[:2]
     outs = []
-    for p in packs:
+    for i, p in enumerate(packs):
+        first = len(packs) == 2 and i == 0
         wk, bb = _unpack(p)
-        wk = wk.astype(np.uint32) << 16
-        wk = wk.view(np.float32).astype(np.float64)
+        if first:
+            wk = wk.astype(np.uint32) << 16
+            wk = wk.view(np.float32).astype(np.float64)
+        else:
+            wk = (_unpack_taps(p).astype(np.uint32) << 16).view(
+                np.float32).astype(np.float64)
         bias = (bb.astype(np.uint32) << 16).view(np.float32)
-        xc = np.zeros((H + 2, W + 2, p.cp), np.float32)
+        cps = p.cp if first else max(p.cp, 16)
+        xc = np.zeros((H + 2, W + 2, cps), np.float32)
         xc[1:-1, 1:-1, :x.shape[2]] = x
-        cols = np.zeros((H, W, wk.shape[0]), np.float64)
-        cols[..., :9 * p.cp] = np.stack(
-            [xc[ky:ky + H, kx:kx + W] for ky in range(3)
-             for kx in range(3)], 2).reshape(H, W, 9 * p.cp)
-        acc = np.zeros((H, W, wk.shape[1]), np.float32)
-        for s in range(0, wk.shape[0], 16):
-            acc = (acc + cols[..., s:s + 16] @ wk[s:s + 16]).astype(
-                np.float32)
+        acc = np.zeros((H, W, wk.shape[-1]), np.float32)
+        if first:
+            cols = np.zeros((H, W, wk.shape[0]), np.float64)
+            cols[..., :9 * p.cp] = np.stack(
+                [xc[ky:ky + H, kx:kx + W] for ky in range(3)
+                 for kx in range(3)], 2).reshape(H, W, 9 * p.cp)
+            for s in range(0, wk.shape[0], 16):
+                acc = (acc + cols[..., s:s + 16] @ wk[s:s + 16]).astype(
+                    np.float32)
+        else:
+            for kx in range(3):
+                for ky in range(3):
+                    for s in range(0, cps, 16):
+                        acc = (acc + xc[ky:ky + H, kx:kx + W, s:s + 16]
+                               .astype(np.float64)
+                               @ wk[3 * ky + kx, s:s + 16]).astype(np.float32)
         y = _bf16(acc + bias) if fold_bias else _bf16(_bf16(acc) + bias)
         x = np.clip(y, 0.0, 6.0)
         outs.append(x)
@@ -432,6 +482,56 @@ def test_k7_matches_plain(name, size, cuda_device):
     # one launch for 1 or 2 blocks, a chain of one a block beyond
     assert native.LAUNCHES["guidance_net"] == (
         1 if cfg.num_layers <= 2 else cfg.num_layers)
+    with torch.no_grad():
+        ref = tg.compact_activation_plain(aux, [c.weight for c in net.convs],
+                                          [c.bias for c in net.convs])
+    st = ulp_stats(act.cpu(), ref.cpu())
+    assert act.shape == ref.shape and bool(torch.isfinite(act.float()).all())
+    assert st[0] <= K7_ULPS and st[2] <= K7_UNEQUAL_SHARE, st
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1, 19), (1, 2, 1), (1, 16, 56),
+                                   (1, 17, 57), (1, 33, 113), (3, 17, 57),
+                                   (1, 801, 799)],
+                         ids=["1x19", "2x1", "56x16", "57x17", "113x33",
+                              "3x57x17", "799x801"])
+@pytest.mark.parametrize("name", ["trained 8-32-8", "l1 8-4", "mid16 8-16-8",
+                                  "chain 8-8-8-8"] + WIDE)
+def test_k7_matches_plain_at_tile_edges(name, shape, cuda_device):
+    """K7's 56x16 output tiles at their ragged edges (one pixel past a
+    multiple, exact multiples), frames with fewer tiles than the persistent
+    grid has blocks, and a batch of three images walked by one grid; the
+    wide nets' tiles of 8 and 4 rows at the same sizes."""
+    if name == "trained 8-32-8":
+        cfg, params = tg.load_compact(TRAINED)
+    else:
+        cfg = _config(name)
+        params = _params(cfg)
+    B, H, W = shape
+    aux = np.concatenate([_aux(H, W, cfg.in_channels, seed=7 + b)
+                          for b in range(B)])
+    aux = torch.from_numpy(aux).to(cuda_device)
+    net = tg.build_compact(cfg, params, cuda_device)
+    act = net.activation(aux)
+    with torch.no_grad():
+        ref = tg.compact_activation_plain(aux, [c.weight for c in net.convs],
+                                          [c.bias for c in net.convs])
+    st = ulp_stats(act.cpu(), ref.cpu())
+    assert act.shape == ref.shape and bool(torch.isfinite(act.float()).all())
+    assert st[0] <= K7_ULPS and st[2] <= K7_UNEQUAL_SHARE, st
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [101, 102, 103, 104, 105, 106])
+def test_k7_chain_on_more_seeds(seed, cuda_device):
+    """The 3-block chain, whose largest difference reads nearest the ulps
+    bar, on more random nets and aux at 799x801."""
+    cfg = _config("chain 8-8-8-8")
+    params = _params(cfg, seed)
+    aux = torch.from_numpy(_aux(801, 799, seed=seed)).to(cuda_device)
+    net = tg.build_compact(cfg, params, cuda_device)
+    act = net.activation(aux)
     with torch.no_grad():
         ref = tg.compact_activation_plain(aux, [c.weight for c in net.convs],
                                           [c.bias for c in net.convs])
