@@ -5,7 +5,9 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
   1. the card: ``nvidia-smi --query-gpu=name,power.limit``;
-  2. build every kernel from csrc/ with nvcc (sm_90a);
+  2. build every kernel from csrc/ with nvcc (sm_90a); ptxas's report of
+     every render_classic instance (registers; no stack frame, no spills),
+     printed as one JSON line {"ptxas_render_classic": ...};
   3. K3 (LUT build + skip distances) vs its plain version, integer-exact,
      on a depth-7 shell, a deep chain and a random 512^3 LUT (occupancy
      1e-3, cap 12);
@@ -13,7 +15,14 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      depth-7 shell tree and an NDC blobs tree; then on both scenes K1 with a
      random mesh pass, K1's classic variant (render_classic) with and
      without one, and K1 with the octree grid's mesh pass (show_grid),
-     each vs its plain version; and K4 (fast mode's joint upsample) vs its
+     each vs its plain version; render_classic on each of its instances
+     (depth-6 shells with SH rows at basis_dim 1, 4, 9, 16, 25, raw rgb
+     rows, SG and ASG rows, an RGBA-format tree with a basis_dim) with the
+     full-depth and a level-3 LUT, on SH9 and SH25 rows that start off 8
+     bytes, and on SH9 with a basis_minmax mask, stop_thresh 0.3 and
+     1e-6, max_steps 1 to 5 and ragged sizes (1x1, 37x23, 33x9), each vs
+     its plain version and with its statistics equal to the plain
+     march's; and K4 (fast mode's joint upsample) vs its
      plain version at 400->800, 320->800 and odd sizes (75x47 from
      s = 0.5, 0.4, 0.7), with and without aux_chw;
   5. PCG32: the kernel's per-pixel uniforms equal the tensor twin, bit-exact;
@@ -56,8 +65,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      kernel's time vs its plain version there (each K3 entry alone: the
      LUT it updates in place is restored outside the timed window), and
      the headline frame's time, by CUDA events; render_classic vs its plain
-     version on the headline tree at 800x800, without a mesh pass and with
-     the fourth run's drawlist pass, its statistics and time; K4 at
+     version on the headline tree at 800x800, without a mesh pass, with
+     the fourth run's drawlist pass and at the ground-truth settings of
+     make_quality_dataset (max_steps 16384), its statistics as one JSON
+     line {"classic_stats": ...} (steps per ray, shaded steps, lane
+     efficiency, distinct reads, bound, its time at both settings); K4 at
      400->800 timed (F.interpolate on its rgba planes as a note: no
      PyTorch call writes K4's image and aux); for each fast frame (s = 0.5,
      0.4), K1 at its inner size and scaled focal lengths vs its plain
@@ -83,7 +95,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      1920x1080 and its fast rung, the llff blobs scene in NDC at 1008x756
      with its fast, LOD d8 and interactive rungs), each through the
      Renderer with its kit's net: K1 vs its plain version on the scene's
-     own frame (tt: the central 64x64 pixels), fast rungs held at their
+     own frame (tt: the central 64x64 pixels), render_classic the same way
+     on solid, tt and llff, fast rungs held at their
      own shapes (K1 at the inner size, K4 on its output, the frame vs the
      plain chain, K7 on K4's aux), K7 on the scene's aux with its net
      (and its time at the scene's size), K2 on the net's activation, the
@@ -151,6 +164,20 @@ with benchmarks/quality_tt/trained.gnet, beside its bound, as one JSON line
 {"k7_ms": ...}; --k7-pairs runs it in PAIRS (default 6) pairs of processes
 as --load-pairs does, and prints each side's times and their paired
 differences as one JSON line {"k7_pairs": ...}.
+
+    python3 chip_smoke.py --classic-only [ROOT]
+    python3 chip_smoke.py --classic-pairs OTHER_ROOT [PAIRS]
+
+--classic-only times render_classic of the package under ROOT (default:
+beside this file) alone on the headline tree (build/chip_smoke's npz, made
+first if absent) at 800x800, pose r_0, at CLASSIC_SETTINGS (the CLI's
+defaults and make_quality_dataset's ground-truth settings), and K1 and the
+headline frame the same way, with each frame's digest, as one JSON line
+{"classic_ms": ...}; --classic-pairs runs it in PAIRS (default 6) pairs of
+processes, this script on OTHER_ROOT's package and on its own in turns
+(OTHER_ROOT needs no copy of this script), and prints each side's times,
+their paired differences and whether the two sides' frames are bit-equal,
+as one JSON line {"classic_pairs": ...}.
 """
 
 from __future__ import annotations
@@ -164,7 +191,12 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-sys.path.insert(0, HERE)
+# --classic-only ROOT imports the package of another checkout (the timer of
+# --classic-pairs); every other mode imports the one beside this file
+PKG_ROOT = (os.path.abspath(sys.argv[2])
+            if sys.argv[1:2] == ["--classic-only"] and len(sys.argv) == 3
+            else HERE)
+sys.path.insert(0, PKG_ROOT)
 
 from rt_octree_tpu_torch.utils.timer import cuda_ms, device_ms  # noqa: E402
 
@@ -256,6 +288,13 @@ K7_EDGES = ((1, 1, 19), (1, 2, 1), (1, 16, 56), (1, 17, 57), (1, 33, 113),
             (3, 17, 57), (1, 801, 799))
 # seeds of the 3-block chain's further nets and aux (phase 6)
 K7_CHAIN_SEEDS = (101, 102, 103, 104, 105, 106)
+# render_classic on the headline tree at 800x800, pose r_0: the CLI's
+# defaults (the headline flags with --estimator classic) and the
+# ground-truth settings of rt_octree_tpu_torch/tools/make_quality_dataset.py
+# (SPP 1, no denoise, the classic estimator, GT_MAX_STEPS), as (label,
+# max_steps)
+CLASSIC_SETTINGS = (("cli", 8192), ("ground_truth", 16384))
+CLASSIC_REPS = 50  # timed calls a setting, after 5 untimed
 # the train phase: configs/blender.txt on a kit that the port renders from
 # the headline tree (32 train and 8 test poses at 800x800); TRAIN_EPOCHS
 # epochs, then a resume of one more
@@ -329,6 +368,56 @@ def psnr(img, gt_u8) -> float:
     gt = gt_u8.astype(np.float32) / 255.0
     mse = float(np.mean((img[..., :3] - gt) ** 2))
     return -10.0 * np.log10(mse)
+
+
+def ptxas_kernels(report, kernel):
+    """ptxas's -v report -> {mangled name: {"registers", "stack_bytes",
+    "spill_store_bytes", "spill_load_bytes"}} of every entry function whose
+    name holds ``kernel``."""
+    import re
+    out, cur = {}, None
+    for line in report.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)'?", line)
+        if m:
+            cur = m.group(1) if kernel in m.group(1) else None
+            if cur:
+                out.setdefault(cur, {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[cur].update(zip(("stack_bytes", "spill_store_bytes",
+                                 "spill_load_bytes"), map(int, m.groups())))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+    return out
+
+
+def phase_ptxas(native):
+    """Every render_classic_kernel instance (7 row layouts, each with and
+    without statistics) as ptxas compiled it: no stack frame, no spills.
+    Prints one {"ptxas_render_classic": ...} line."""
+    import re
+    found = ptxas_kernels(native.PTXAS.get("render", ""),
+                          "render_classic_kernel")
+    table = {}
+    for name, v in found.items():
+        m = re.search(r"render_classic_kernelIL(i|in)(\d+)ELb([01])EE", name)
+        bd = (-1 if m.group(1) == "in" else 1) * int(m.group(2))
+        layout = {-1: "rgba", 0: "any"}.get(bd, f"sh{bd}")
+        table[layout + (" stats" if m.group(3) == "1" else "")] = v
+    log(json.dumps({"ptxas_render_classic": table}))
+    require(len(table) == 14 and all(len(v) == 4 for v in table.values()),
+            f"ptxas reported {sorted(table)}, not the 14 render_classic "
+            "instances")
+    require(all(v["stack_bytes"] == v["spill_store_bytes"]
+                == v["spill_load_bytes"] == 0 for v in table.values()),
+            "a render_classic instance has a stack frame or spills")
+    return table
 
 
 def phase_k3(err):
@@ -500,6 +589,115 @@ def phase_k1_mesh_classic(err):
                 "px of wireframe)", dt, tf, kw, "render", err,
                 mesh_color=torch.from_numpy(color.reshape(-1, 3)).cuda(),
                 mesh_depth=torch.from_numpy(depth.reshape(-1)).cuda())
+
+
+def classic_layout_trees():
+    """A depth-6 shell in each row layout render_classic is instantiated
+    on: SH at basis_dim 1, 4, 9, 16, 25, raw rgb, SG and ASG at basis_dim
+    4 and 25 (random lobes), and an RGBA-format tree with a basis_dim (a
+    zero basis, the "any" instance); as (label, tree, layout)."""
+    from rt_octree_tpu_torch.io import synthetic
+    from rt_octree_tpu_torch.io.n3tree import BasisFormat, DataFormat
+    out = []
+    for bd in (1, 4, 9, 16, 25):
+        out.append((f"SH{bd}", synthetic.make_synthetic_tree(
+            "shell", depth=6, basis_dim=bd), f"sh{bd}"))
+    rgba = synthetic.make_synthetic_tree("shell", depth=6, basis_dim=1)
+    rgba.data_format = DataFormat(BasisFormat.RGBA, -1)
+    rgb = rgba.data[:, :3].astype(np.float32)
+    rgba.data[:, :3] = (1.0 / (1.0 + np.exp(-rgb))).astype(np.float16)
+    out.append(("RGBA", rgba, "rgba"))
+    rs = np.random.default_rng(17)
+    for fmt, width in ((BasisFormat.SG, 4), (BasisFormat.ASG, 11)):
+        for bd in (4, 25):
+            t = synthetic.make_synthetic_tree("shell", depth=6, basis_dim=bd)
+            t.data_format = DataFormat(fmt, bd)
+            extra = rs.standard_normal((bd, width))
+            extra[:, :width - 9 if fmt == BasisFormat.ASG else 1] = \
+                rs.uniform(0.5, 4.0, (bd, 2 if fmt == BasisFormat.ASG else 1))
+            t.extra = extra.astype(np.float32)
+            out.append((f"{fmt.name}{bd}", t, "any"))
+    zero = synthetic.make_synthetic_tree("shell", depth=6, basis_dim=4)
+    zero.data_format = DataFormat(BasisFormat.RGBA, 4)
+    out.append(("RGBA-format basis_dim 4", zero, "any"))
+    return out
+
+
+def hold_classic_stats(label, dt, tf, kw):
+    """render_classic's statistics instance == the plain march's counts."""
+    from rt_octree_tpu_torch.render import renderer as R
+    st = R.render_stats(dt, tf, 0, 0, **kw)
+    same = st.equals(R.render_stats_plain(dt, tf, 0, 0, **kw))
+    log(f"[classic] {label}: statistics == plain march's: {same} (steps "
+        f"{int(st.steps.sum())}, max {int(st.steps.max())}, shaded "
+        f"{int(st.shaded.sum())}, rows {st.data_rows})")
+    require(same, f"{label}: render_classic's statistics disagree with the "
+            "plain march's")
+    return st
+
+
+def phase_classic_layouts(err):
+    """render_classic on every instance vs its plain version and its
+    statistics vs the plain march's: each layout of classic_layout_trees
+    at 128x128 with the full-depth LUT (skips) and a level-3 LUT
+    (descents); on SH9 and SH25 rows that start off 8 bytes (the data seen
+    through a view 1 and 3 halfs in), a basis_minmax mask, stop_thresh
+    0.3 and 1e-6, max_steps 1 to 5 (around the one-step lookahead) and
+    ragged sizes 1x1, 37x23 and 33x9."""
+    import dataclasses
+    import torch
+    from rt_octree_tpu_torch.core.camera import Camera
+    from rt_octree_tpu_torch.core.options import RenderOptions
+    from rt_octree_tpu_torch.ops.traversal import upload_tree
+    from rt_octree_tpu_torch.render import renderer as R
+
+    def opt(**k):
+        return RenderOptions(**{"spp": 1, "denoise": False,
+                                "estimator": "classic", **k})
+
+    def frame(size):
+        cam = Camera(width=size[0], height=size[1], fx=175.0 * size[0] / 128,
+                     fy=175.0 * size[0] / 128)
+        return (torch.from_numpy(cam.transform.astype(np.float32)).cuda(),
+                dict(width=cam.width, height=cam.height, fx=cam.fx,
+                     fy=cam.fy))
+    tf, base = frame((128, 128))
+    seen = set()
+    trees = classic_layout_trees()
+    for label, tree, layout in trees:
+        for levels in (6, 3):
+            dt = upload_tree(tree, lut_levels=levels, device="cuda")
+            require(R.classic_layout(dt.fmt, dt.basis_dim, dt.data_dim)
+                    == layout, f"{label}: not the {layout} instance")
+            kw = dict(base, opt=opt())
+            name = f"{label} LUT {levels} 128x128"
+            hold_k1(f"{name} classic", dt, tf, kw, "render_classic", err)
+            hold_classic_stats(name, dt, tf, kw)
+            seen.add(layout)
+        if label in ("SH9", "SH25"):
+            for off in (1, 3):
+                flat = torch.zeros(dt.data.numel() + 4, dtype=dt.data.dtype,
+                                   device="cuda")
+                view = flat[off:off + dt.data.numel()].view(dt.data.shape)
+                view.copy_(dt.data)
+                skew = dataclasses.replace(dt, data=view)
+                hold_k1(f"{label} rows {off} half(s) off 8 bytes classic",
+                        skew, tf, dict(base, opt=opt()), "render_classic",
+                        err)
+    require(seen == set(R.CLASSIC_LAYOUTS), f"instances held: {seen}")
+    sh9 = upload_tree(trees[2][1], lut_levels=6, device="cuda")
+    cases = [("basis_minmax (2, 5)", {}, opt(basis_minmax=(2, 5)), (128, 128)),
+             ("stop_thresh 0.3", {}, opt(stop_thresh=0.3), (128, 128)),
+             ("stop_thresh 1e-6", {}, opt(stop_thresh=1e-6), (128, 128))]
+    cases += [(f"max_steps {m}", {"max_steps": m}, opt(), (128, 128))
+              for m in (1, 2, 3, 4, 5)]
+    cases += [(f"{w}x{h}", {}, opt(), (w, h))
+              for w, h in ((1, 1), (37, 23), (33, 9))]
+    for label, extra, o, size in cases:
+        tf_s, kw = frame(size)
+        kw = dict(kw, opt=o, **extra)
+        hold_k1(f"SH9 {label} classic", sh9, tf_s, kw, "render_classic", err)
+        hold_classic_stats(f"SH9 {label}", sh9, tf_s, kw)
 
 
 UPSAMPLE_CASES = [((400, 400), (800, 800)), ((320, 320), (800, 800)),
@@ -970,14 +1168,17 @@ LOAD_KEYS = ("read_s", "host_prep_s", "h2d_s", "k3_s", "lut_build_ms",
              "upload_tree_s", "peak_allocated_bytes")
 
 
-def alternate(other_root, pairs, argv, name):
+def alternate(other_root, pairs, argv, name, own_script=False):
     """``pairs`` pairs of processes, OTHER_ROOT's copy of this script and
     this one in turns (other, this, this, other, ...), each run as
     ``chip_smoke.py ARGV`` from its own root; yields (pair, side, the JSON
-    lines it printed) and records them in build/chip_smoke/NAME.jsonl."""
+    lines it printed) and records them in build/chip_smoke/NAME.jsonl.
+    ``own_script``: both sides run this script, the other side as
+    ``chip_smoke.py ARGV OTHER_ROOT`` (it imports OTHER_ROOT's package)."""
     other_root = os.path.abspath(other_root)
-    require(os.path.isfile(os.path.join(other_root, "chip_smoke.py")),
-            f"no chip_smoke.py in {other_root}")
+    require(os.path.exists(os.path.join(
+        other_root, "rt_octree_tpu_torch" if own_script else "chip_smoke.py")),
+        f"no {'package' if own_script else 'chip_smoke.py'} in {other_root}")
     roots = {"other": other_root, "this": HERE}
     os.makedirs(WORK, exist_ok=True)
     with open(os.path.join(WORK, f"{name}.jsonl"), "w") as f:
@@ -985,10 +1186,13 @@ def alternate(other_root, pairs, argv, name):
             for side in (("other", "this") if i % 2 == 0
                          else ("this", "other")):
                 t0 = time.perf_counter()
-                out = subprocess.run(
-                    [sys.executable, os.path.join(roots[side],
-                                                  "chip_smoke.py"), *argv],
-                    capture_output=True, text=True, cwd=roots[side])
+                cmd = ([os.path.join(HERE, "chip_smoke.py"), *argv]
+                       + ([other_root] if side == "other" else [])
+                       if own_script else
+                       [os.path.join(roots[side], "chip_smoke.py"), *argv])
+                out = subprocess.run([sys.executable, *cmd],
+                                     capture_output=True, text=True,
+                                     cwd=roots[side])
                 require(out.returncode == 0, f"{name}: {side} process {i} "
                         f"failed:\n{out.stderr[-3000:]}")
                 lines = [json.loads(ln) for ln in out.stdout.splitlines()
@@ -1092,6 +1296,110 @@ def k7_pairs(other_root, pairs):
         "this_less_other": {k: spread(np.subtract(ms["this"][k],
                                                   ms["other"][k]))
                             for k in ms["this"]}}}))
+    return 0
+
+
+def classic_options(label):
+    """The RenderOptions of a CLASSIC_SETTINGS label."""
+    from rt_octree_tpu_torch.core.options import RenderOptions
+    if label == "ground_truth":
+        return RenderOptions(spp=1, denoise=False, estimator="classic")
+    opt = headline_options()
+    opt.estimator = "classic"
+    return opt
+
+
+def frame_digest(frame) -> str:
+    """The first 16 hex digits of the sha256 of a frame's tensors."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in frame:
+        if t is not None:
+            h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def classic_only(root):
+    """--classic-only [ROOT]: render_classic of the package under ROOT
+    (default: beside this file) alone on the headline tree at 800x800, pose
+    r_0, at CLASSIC_SETTINGS, by cuda_ms over CLASSIC_REPS calls after a
+    warm-up; K1 alone and the headline frame (K1, K7, K2) the same way; and
+    each frame's digest, so that two checkouts' frames can be compared bit
+    for bit.  One JSON line {"classic_ms": ...}."""
+    import torch
+    from rt_octree_tpu_torch.io import n3tree
+    from rt_octree_tpu_torch.io.poses import load_poses
+    from rt_octree_tpu_torch.native import build as native
+    from rt_octree_tpu_torch.ops.traversal import upload_tree
+    from rt_octree_tpu_torch.render import renderer as R
+    native.build()
+    tree_path = os.path.join(WORK, "shell_d9_sh9.npz")
+    if not os.path.isfile(tree_path):
+        headline_tree_path()
+    dt = upload_tree(n3tree.load(tree_path), lut_levels=9, device="cuda")
+    ps = load_poses("blender", os.path.join(KIT, "transforms_test.json"),
+                    800, 800)
+    r = R.Renderer(dt, 800, 800, ps.fx, ps.fy, options=headline_options())
+    r.set_denoiser(os.path.join(KIT, "trained.gnet"))
+    pose = ps.poses[0]
+    tf = r._transform(pose)
+    res = {"root": root, "package": os.path.dirname(os.path.dirname(
+        os.path.abspath(R.__file__)))}
+    for label, max_steps in CLASSIC_SETTINGS:
+        kw = dict(width=800, height=800, fx=ps.fx, fy=ps.fy,
+                  opt=classic_options(label), max_steps=max_steps)
+        res[label] = {
+            "ms": cuda_ms(lambda: R.render_noisy(dt, tf, 0, 0, **kw),
+                          CLASSIC_REPS, 5),
+            "max_steps": max_steps,
+            "digest": frame_digest(R.render_noisy(dt, tf, 0, 0, **kw))}
+    kw = dict(width=800, height=800, fx=ps.fx, fy=ps.fy, opt=r.options)
+    rng = (r.rng.state, r.rng.inc)
+    res["k1"] = {"ms": cuda_ms(lambda: R.render_noisy(dt, tf, *rng, **kw),
+                               CLASSIC_REPS, 5),
+                 "digest": frame_digest(R.render_noisy(dt, tf, *rng, **kw))}
+
+    def frame():
+        r.render(pose, want_aux=False)
+        r.advance_rng()
+    res["headline_frame"] = {"ms": cuda_ms(frame, CLASSIC_REPS, 5)}
+    log(json.dumps({"classic_ms": res}))
+    return 0
+
+
+def classic_pairs(other_root, pairs):
+    """--classic-pairs: ``pairs`` pairs of --classic-only processes, this
+    script on OTHER_ROOT's package and on its own in turns; each side's
+    times (least, quartiles, largest), this side's less the other's within
+    a pair, and whether the two sides' frames are bit-equal.  One JSON line
+    {"classic_pairs": ...}."""
+    if not os.path.isfile(os.path.join(WORK, "shell_d9_sh9.npz")):
+        headline_tree_path()
+    keys = [label for label, _ in CLASSIC_SETTINGS] + ["k1",
+                                                       "headline_frame"]
+    ms = {side: {k: [] for k in keys} for side in ("other", "this")}
+    digests = {side: {} for side in ms}
+    for i, side, lines in alternate(other_root, pairs, ["--classic-only"],
+                                    "classic_pairs", own_script=True):
+        got = [ln["classic_ms"] for ln in lines if "classic_ms" in ln]
+        require(len(got) == 1, f"{side} classic process {i}: unexpected "
+                "output")
+        for k in keys:
+            ms[side][k].append(got[0][k]["ms"])
+            if "digest" in got[0][k]:
+                digests[side].setdefault(k, set()).add(got[0][k]["digest"])
+    log(json.dumps({"classic_pairs": {
+        "pairs": pairs, "order": "other, this, this, other, ...",
+        "roots": {"other": os.path.abspath(other_root), "this": HERE},
+        "raw_ms": ms,
+        **{side: {k: spread(v) for k, v in ms[side].items()} for side in ms},
+        "this_less_other": {k: spread(np.subtract(ms["this"][k],
+                                                  ms["other"][k]))
+                            for k in keys},
+        "bit_equal": {k: len(digests["this"][k] | digests["other"][k]) == 1
+                      for k in digests["this"]},
+        "digests": {side: {k: sorted(v) for k, v in d.items()}
+                    for side, d in digests.items()}}}))
     return 0
 
 
@@ -1446,6 +1754,13 @@ def phase_fast_classic(r, ps, err, tree_host):
     kw = dict(width=800, height=800, fx=r.fx, fy=r.fy, opt=opt)
     plain = hold_k1("headline tree 800x800 classic, pose r_0", r.tree, tf,
                     kw, "render_classic", err)[0][0]
+    # at the ground-truth settings of make_quality_dataset
+    kw_gt = dict(width=800, height=800, fx=r.fx, fy=r.fy,
+                 opt=classic_options("ground_truth"),
+                 max_steps=dict(CLASSIC_SETTINGS)["ground_truth"])
+    hold_k1("headline tree 800x800 classic at the ground-truth settings "
+            f"(max_steps {kw_gt['max_steps']}), pose r_0", r.tree, tf, kw_gt,
+            "render_classic", err)
     # with the drawlist's pass, rasterized as the fourth CLI run composites
     # it (background 1, pose r_0)
     cam = Camera(800, 800, r.fx, r.fy)
@@ -1465,30 +1780,40 @@ def phase_fast_classic(r, ps, err, tree_host):
     log(f"[headline] the drawlist pass changes {changed} px of the classic "
         "frame")
     require(covered > 0, "the drawlist pass covers no pixel")
-    st = R.render_stats(r.tree, tf, 0, 0, **kw)
-    same = st.equals(R.render_stats_plain(r.tree, tf, 0, 0, **kw))
-    log(f"[headline] render_classic statistics == plain march's counts: "
-        f"{same}")
-    require(same, "render_classic's statistics disagree with the plain "
-            "march's")
-    steps = float(st.steps.sum())
+    st = hold_classic_stats("headline tree 800x800", r.tree, tf, kw)
+    steps = st.steps.flatten().float()
+    p50, p99 = torch.quantile(
+        steps, torch.tensor([0.5, 0.99], device=steps.device)).tolist()
+    shaded = int(st.shaded.sum())
     # as K1's bound: the three outputs, each LUT cell and chs row read once
-    # (8 B), each shaded f16 row once; a classic step shades
+    # (8 B), each shaded f16 row once; every step marches, a shaded step
+    # also shades
     nbytes = (80 * n + 48 + 8 * (st.lut_cells + st.chs_rows)
               + 2 * r.tree.data_dim * st.data_rows)
-    ops = (K1_OPS_PER_STEP + 6 * max(r.tree.basis_dim, 0) + 16) * steps
+    ops = (K1_OPS_PER_STEP * float(steps.sum())
+           + (6 * max(r.tree.basis_dim, 0) + 16) * shaded)
     bounds["render_classic"] = bound(nbytes, ops) + (None,)
+    ms["render_classic"] = (
+        cuda_ms(lambda: R.render_noisy(r.tree, tf, 0, 0, **kw),
+                CLASSIC_REPS, 5),
+        cuda_ms(lambda: R.render_noisy_plain(r.tree, tf, 0, 0, **kw), 1))
+    gt_ms = cuda_ms(lambda: R.render_noisy(r.tree, tf, 0, 0, **kw_gt),
+                    CLASSIC_REPS, 5)
     log(json.dumps({"classic_stats": {
         "frame": "800x800 classic depth-9 shell, level-9 LUT, pose r_0",
-        "steps_total": int(steps), "steps_max": int(st.steps.max()),
-        "rays_stepping": int((st.steps > 0).sum()),
+        "steps_mean": float(steps.mean()), "steps_p50": p50,
+        "steps_p99": p99, "steps_max": int(steps.max()),
+        "rays_stepping": int((steps > 0).sum()), "rays": n,
+        "steps_total": int(steps.sum()), "shaded_total": shaded,
+        "shaded_share": shaded / max(float(steps.sum()), 1.0),
+        "descents_total": int(st.descents.sum()),
+        "lane_efficiency": {f"{w}x{h}": R.lane_efficiency(st.steps, w, h)
+                            for w, h in ((32, 1), (8, 4), (4, 8))},
         "lut_cells": st.lut_cells, "chs_rows": st.chs_rows,
         "data_rows": st.data_rows, "bound_bytes": nbytes,
         "bound_f32_ops": ops, "bound_us": bounds["render_classic"][0] * 1e3,
-        "bound_by": bounds["render_classic"][1]}}))
-    ms["render_classic"] = (
-        cuda_ms(lambda: R.render_noisy(r.tree, tf, 0, 0, **kw), 20, 3),
-        cuda_ms(lambda: R.render_noisy_plain(r.tree, tf, 0, 0, **kw), 1))
+        "bound_by": bounds["render_classic"][1],
+        "ms": {"cli": ms["render_classic"][0], "ground_truth": gt_ms}}}))
 
     # K4 at the s = 0.5 frame's size, with aux_chw as the CLI's frames
     # take it (16 B read per inner pixel, 80 B written per output pixel);
@@ -1918,9 +2243,14 @@ def phase_scenes(err, quant_src):
             c = cfg["crop"]
             w, h = (c, c) if c else (W, H)
             kw = dict(width=w, height=h, fx=r.fx, fy=r.fy, opt=r.options)
-            hold_k1(f"{label} {w}x{h}" + (f" (central crop of {W}x{H})"
-                                          if c else ""),
-                    dt, r._transform(pose), kw, "render", err)
+            name = f"{label} {w}x{h}" + (f" (central crop of {W}x{H})"
+                                         if c else "")
+            hold_k1(name, dt, r._transform(pose), kw, "render", err)
+            if not lod:  # render_classic on the scene's own rays
+                opt = headline_options()
+                opt.estimator = "classic"
+                hold_k1(f"{name} classic", dt, r._transform(pose),
+                        dict(kw, opt=opt), "render_classic", err)
         img, aux_nhwc, _ = r.render_noisy(pose)
         if not r.fast:  # hold_fast held K7 on K4's aux
             hold_k7(f"{label} aux {W}x{H}, {cfg['kit']}/{cfg['gnet']}",
@@ -2236,6 +2566,10 @@ def main(argv) -> int:
         return k7_only()
     if argv[:1] == ["--k7-pairs"] and len(argv) in (2, 3):
         return k7_pairs(argv[1], int(argv[2]) if len(argv) == 3 else 6)
+    if argv[:1] == ["--classic-only"] and len(argv) in (1, 2):
+        return classic_only(PKG_ROOT)
+    if argv[:1] == ["--classic-pairs"] and len(argv) in (2, 3):
+        return classic_pairs(argv[1], int(argv[2]) if len(argv) == 3 else 6)
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -2252,12 +2586,14 @@ def main(argv) -> int:
 
     err = {}
     t0 = time.time()
-    paths = native.build(verbose=True)
+    paths = native.build(verbose=True, force=True)
     log(f"[build] {len(paths)} libraries in {time.time() - t0:.1f} s: "
         f"{sorted(os.path.basename(p) for p in paths.values())}")
+    phase_ptxas(native)
     phase_k3(err)
     phase_k1(err)
     phase_k1_mesh_classic(err)
+    phase_classic_layouts(err)
     phase_k4(err)
     phase_pcg()
     phase_k2(err)

@@ -70,7 +70,14 @@
 // 2 steps (unroll=2, :1117-1125), so a ray stops after max_steps rounded up
 // to even; the kernel does the same.  Its bound is the same dependent LUT
 // chain as the rt march, with a shade (a data row and 6 bd + 16 flops) on
-// every step that meets density.
+// every step that meets density.  Two things keep the shade off that
+// chain.  The kernel is instantiated on the tree's row layout (SH at
+// basis_dim 1, 4, 9, 16, 25, raw rgb, and one SG / ASG instance unrolled
+// over kMaxBasis), so the basis stays in registers and a row's loads are
+// all issued at once.  And the march runs one step ahead of the shade: a
+// step's weight, light, stop test and next t need only its sigma, so the
+// row of step i is loaded while step i + 1's LUT read is in flight and
+// summed after it, in step order (render_classic_kernel).
 #include <cuda_fp16.h>
 
 #include <cstring>
@@ -103,6 +110,7 @@ struct RenderParams {
   unsigned* lut_bits;      // [ceil(res^3 / 32)] LUT cells read
   unsigned* chs_bits;      // [ceil(M / 32)] chs rows read
   unsigned* data_bits;     // [ceil(M / 32)] data rows shaded
+  int* stat_shaded;        // [H * W] shaded leaf steps (classic stats run)
   const float* mesh_color; // [H * W, 3] or null (no mesh pass)
   const float* mesh_depth; // [H * W] ray distance, +inf where no mesh
   unsigned long long rng_state;
@@ -111,11 +119,12 @@ struct RenderParams {
   float step_size, sigma_thresh, background, stop_thresh;
   float bbox[6];
   float rot[3];
+  float rot_cos, rot_sin;  // of |rot|, rounded from double by the wrapper
   float ndc_ax, ndc_ay;  // -(2 focal / width), -(2 focal / height)
   int width, height, spp, max_steps;
   int N, lut_levels, max_depth, skip_cap;
   int basis_dim, data_dim, fmt, basis_lo, basis_hi, use_ndc;
-  int classic;  // 1: the classic estimator (render_classic_kernel)
+  int classic;  // 0: render_kernel; else a ClassicLayout
 };
 
 __device__ __forceinline__ void mark(unsigned* bits, long long i) {
@@ -156,7 +165,8 @@ __device__ uint64_t pcg_advance(uint64_t state, uint64_t inc,
 
 // ---- basis functions (ops/sh.py; lumisphere.hpp:8-91) ----
 
-__device__ void eval_sh(int bd, float x, float y, float z, float* out) {
+__device__ __forceinline__ void eval_sh(int bd, float x, float y, float z,
+                                        float* out) {
   const float xx = x * x, yy = y * y, zz = z * z;
   const float xy = x * y, yz = y * z, xz = x * z;
   out[0] = 0.28209479177387814f;
@@ -326,6 +336,9 @@ struct Ray : RayGeom {
 };
 
 // Camera ray, view direction, NDC warp and march setup of pixel (px, py).
+// kHostTrig takes the rotation's cosine and sine from the wrapper instead
+// of cosf / sinf, whose reduction of a huge angle needs a stack frame.
+template <bool kHostTrig = false>
 __device__ __forceinline__ void setup_geom(const RenderParams& p, int px,
                                            int py, RayGeom& r) {
   const int W = p.width, H = p.height;
@@ -355,7 +368,8 @@ __device__ __forceinline__ void setup_geom(const RenderParams& p, int px,
     if (!(angle < 1e-6f)) {
       const float safe = fmaxf(angle, 1e-12f);
       const float k[3] = {a[0] / safe, a[1] / safe, a[2] / safe};
-      const float ca = cosf(angle), sa = sinf(angle);
+      const float ca = kHostTrig ? p.rot_cos : cosf(angle);
+      const float sa = kHostTrig ? p.rot_sin : sinf(angle);
       const float cr[3] = {k[1] * dir[2] - k[2] * dir[1],
                            k[2] * dir[0] - k[0] * dir[2],
                            k[0] * dir[1] - k[1] * dir[0]};
@@ -640,39 +654,159 @@ __device__ __forceinline__ void finish_ray(const RenderParams& p,
 
 // ---- the classic estimator (trace_rays_classic) ----
 
-// One leaf step: shade the leaf with weight light * (1 - att), then the
-// stop_thresh early-out.
-template <bool kStats>
-__device__ __forceinline__ void classic_step(const RenderParams& p, int res,
-                                             RayGeom& r, const float* basis,
-                                             float& light, float rgb[3]) {
-  Leaf leaf;
-  const float t_sub = query_step<kStats>(p, res, r, leaf);
-  const float sigma = __int_as_float(leaf.bits);
-  const float delta_t = t_sub + p.step_size;
-  bool stop = false;
-  if (sigma > p.sigma_thresh) {
-    const float att = fminf(expf(-delta_t * r.delta_scale * sigma), 1.0f);
-    const float weight = light * (1.0f - att);
-    if (kStats) mark(p.data_bits, leaf.ptr);
-    float v[3];
-    leaf_rgb(p, leaf.ptr, basis, v);
-    for (int ch = 0; ch < 3; ++ch) rgb[ch] = rgb[ch] + weight * v[ch];
-    const float light_new = light * att;
-    stop = light_new < p.stop_thresh;
-    if (stop) {
-      for (int ch = 0; ch < 3; ++ch) rgb[ch] = rgb[ch] / (1.0f - light_new);
-      light = 0.0f;
-    } else {
-      light = light_new;
+// The row layouts the classic kernel is instantiated on (p.classic, chosen
+// by render/renderer.py:classic_layout): SH rows of a fixed basis_dim, raw
+// rgb rows, and one instance for SG / ASG rows (or a format without a
+// basis) of any basis_dim <= kMaxBasis.
+enum ClassicLayout : int {
+  kClassicSh1 = 1, kClassicSh4, kClassicSh9, kClassicSh16, kClassicSh25,
+  kClassicRgba, kClassicAny
+};
+// the kBd of the two layouts that are not SH
+constexpr int kBdRgba = -1, kBdAny = 0;
+
+// The masked basis of the view direction v, in registers: eval_sh at a
+// compile-time bd for SH; for kBdAny, eval_basis's expressions for every
+// b < kMaxBasis, unrolled, with the guard b < basis_dim.
+template <int kBd>
+__device__ __forceinline__ void classic_basis(const RenderParams& p,
+                                              const float v[3],
+                                              float basis[kMaxBasis]) {
+  if constexpr (kBd > 0) {
+    eval_sh(kBd, v[0], v[1], v[2], basis);
+  } else {
+    const int bd = p.basis_dim;
+    const float fbd = (float)bd;
+#pragma unroll
+    for (int b = 0; b < kMaxBasis; ++b) {
+      float out = 0.f;
+      if (b < bd && p.fmt == 2) {
+        const float* q = p.extra + 4 * b;
+        const float dot = v[0] * q[1] + v[1] * q[2] + v[2] * q[3];
+        out = expf(q[0] * (dot - 1.0f)) / fbd;
+      } else if (b < bd && p.fmt == 3) {
+        const float* q = p.extra + 11 * b;
+        const float S = v[0] * q[8] + v[1] * q[9] + v[2] * q[10];
+        const float dx = v[0] * q[2] + v[1] * q[3] + v[2] * q[4];
+        const float dy = v[0] * q[5] + v[1] * q[6] + v[2] * q[7];
+        out = S * expf(-q[0] * dx * dx - q[1] * dy * dy) / fbd;
+      }
+      basis[b] = out;
     }
   }
-  r.t = r.t + delta_t;
-  r.active = !stop && (r.t < r.tmax);
-  r.steps += 1;
+  constexpr int n = kBd > 0 ? kBd : kMaxBasis;
+#pragma unroll
+  for (int b = 0; b < n; ++b)
+    if (b < p.basis_lo || b > p.basis_hi) basis[b] = 0.f;
 }
 
-template <bool kStats>
+// One shaded leaf's row: issue() starts its loads into registers and
+// channels() sums them a step later, so that the row's latency runs beside
+// the next step's query.  Fixed layouts (SH at kBd, raw rgb): the aligned
+// 8-byte words that cover the row's kN halfs, all issued before any is
+// used (7 at SH9, 19 at SH25); a row that does not start on 8 bytes
+// (data_dim % 4 != 0, as at SH4 and SH16) takes up to one word more and is
+// realigned in registers by byte permutes.
+template <int kBd>
+struct ClassicRow {
+  static constexpr int kN = kBd > 0 ? 3 * kBd : 3;
+  static constexpr int kWords = (kN + 3 + 3) / 4;  // the row may start 3 in
+  static constexpr int kPairs = (kN + 1) / 2;      // halfs 2j and 2j + 1
+  uint2 w[kWords];
+  int skew;  // the row's first half within its first word, 0..3
+
+  __device__ __forceinline__ void issue(const RenderParams& p, int ptr) {
+    const uintptr_t a =
+        reinterpret_cast<uintptr_t>(p.data + (long long)ptr * p.data_dim);
+    const uint2* words = reinterpret_cast<const uint2*>(a & ~uintptr_t{7});
+    skew = (int)((a & 7) >> 1);
+#pragma unroll
+    for (int k = 0; k < kWords; ++k)
+      w[k] = 4 * k < skew + kN ? __ldg(words + k) : make_uint2(0u, 0u);
+  }
+
+  // 32-bit word i of the loaded words (i known at compile time)
+  __device__ __forceinline__ uint32_t word32(int i) const {
+    return i >= 2 * kWords ? 0u : (i & 1) ? w[i >> 1].y : w[i >> 1].x;
+  }
+
+  // The 3 logits (raw rgb for kBdRgba): each channel's dot with the basis
+  // in the order of b, from 0 (leaf_channels' order).
+  __device__ __forceinline__ void channels(const RenderParams&,
+                                           const float* basis,
+                                           float out[3]) const {
+    uint32_t u[kPairs];
+    if (skew == 0) {
+#pragma unroll
+      for (int j = 0; j < kPairs; ++j) u[j] = word32(j);
+    } else {
+      const bool up = skew & 2, odd = skew & 1;
+#pragma unroll
+      for (int j = 0; j < kPairs; ++j) {
+        const uint32_t lo = up ? word32(j + 1) : word32(j);
+        const uint32_t hi = up ? word32(j + 2) : word32(j + 1);
+        u[j] = odd ? __byte_perm(lo, hi, 0x5432) : lo;
+      }
+    }
+    out[0] = out[1] = out[2] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kN; ++c) {
+      __half2 h;
+      memcpy(&h, &u[c >> 1], sizeof(h));
+      const float f = (c & 1) ? __high2float(h) : __low2float(h);
+      if constexpr (kBd < 0) {
+        out[c] = f;
+      } else {
+        out[c / kBd] = out[c / kBd] + f * basis[c % kBd];
+      }
+    }
+  }
+};
+
+// SG / ASG rows of a runtime basis_dim: one 2-byte load per coefficient,
+// unrolled over kMaxBasis with the guard b < basis_dim, all issued before
+// any is used.
+template <>
+struct ClassicRow<kBdAny> {
+  unsigned short e[3][kMaxBasis];
+
+  __device__ __forceinline__ void issue(const RenderParams& p, int ptr) {
+    const int bd = p.basis_dim;
+    const unsigned short* row =
+        reinterpret_cast<const unsigned short*>(p.data) +
+        (long long)ptr * p.data_dim;
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch)
+#pragma unroll
+      for (int b = 0; b < kMaxBasis; ++b)
+        e[ch][b] = b < bd ? __ldg(row + ch * bd + b) : (unsigned short)0;
+  }
+
+  __device__ __forceinline__ void channels(const RenderParams& p,
+                                           const float* basis,
+                                           float out[3]) const {
+    const int bd = p.basis_dim;
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      out[ch] = 0.f;
+#pragma unroll
+      for (int b = 0; b < kMaxBasis; ++b)
+        if (b < bd)
+          out[ch] = out[ch] + __half2float(__ushort_as_half(e[ch][b])) *
+                                  basis[b];
+    }
+  }
+};
+
+// The march runs one step ahead of the shade.  A leaf step needs only the
+// leaf's sigma for its weight light * (1 - att), the new light, the stop
+// test and the next t, so the loop issues the row loads of step i, queries
+// step i + 1 (whose LUT read waits beside those loads), and only then sums
+// step i's row into rgb: rgb += weight_i * sigmoid(row_i . basis) in step
+// order, then rgb /= 1 - light after the stop step's own addition, light =
+// 0 after a stop; the same f32 operations in the same order as a shade in
+// place.
+template <int kBd, bool kStats>
 __global__ void __launch_bounds__(kThreads) render_classic_kernel(
     const RenderParams p) {
   const int tiles_x = (p.width + kTileW - 1) / kTileW;
@@ -683,17 +817,69 @@ __global__ void __launch_bounds__(kThreads) render_classic_kernel(
   if (px >= p.width || py >= p.height) return;  // the ragged edge
   const int res = rt::ipow(p.N, p.lut_levels);
   RayGeom r;
-  setup_geom(p, px, py, r);
+  setup_geom<true>(p, px, py, r);
   float basis[kMaxBasis];
-  if (r.active && p.basis_dim >= 0)
-    eval_basis(p, r.vdir[0], r.vdir[1], r.vdir[2], basis);
+  if (kBd != kBdRgba && r.active) classic_basis<kBd>(p, r.vdir, basis);
   float light = 1.0f;
   float rgb[3] = {0.f, 0.f, 0.f};
   // the JAX loop tests max_steps every 2 steps
   const int max_steps = p.max_steps + (p.max_steps & 1);
-  while (r.active && r.steps < max_steps)
-    classic_step<kStats>(p, res, r, basis, light, rgb);
+  ClassicRow<kBd> row;  // the previous step's row while pend
+  bool pend = false, pend_stop = false;
+  float pend_w = 0.f, pend_norm = 1.f;
+  int shaded = 0;
+  for (;;) {
+    const bool live = r.active && r.steps < max_steps;
+    bool sh = false, stop = false;
+    int ptr = 0;
+    float w = 0.f, norm = 1.f;
+    if (live) {  // the march: step i + 1
+      Leaf leaf;
+      const float t_sub = query_step<kStats>(p, res, r, leaf);
+      const float sigma = __int_as_float(leaf.bits);
+      const float delta_t = t_sub + p.step_size;
+      if (sigma > p.sigma_thresh) {
+        const float att = fminf(expf(-delta_t * r.delta_scale * sigma), 1.0f);
+        w = light * (1.0f - att);
+        const float light_new = light * att;
+        stop = light_new < p.stop_thresh;
+        if (stop) {
+          norm = 1.0f - light_new;
+          light = 0.0f;
+        } else {
+          light = light_new;
+        }
+        sh = true;
+        ptr = leaf.ptr;
+      }
+      r.t = r.t + delta_t;
+      r.active = !stop && (r.t < r.tmax);
+      r.steps += 1;
+    }
+    if (pend) {  // the shade: step i
+      float v[3];
+      row.channels(p, basis, v);
+      if (kBd != kBdRgba)
+        for (int ch = 0; ch < 3; ++ch) v[ch] = 1.0f / (1.0f + expf(-v[ch]));
+      for (int ch = 0; ch < 3; ++ch) rgb[ch] = rgb[ch] + pend_w * v[ch];
+      if (pend_stop)
+        for (int ch = 0; ch < 3; ++ch) rgb[ch] = rgb[ch] / pend_norm;
+    }
+    if (!live) break;
+    pend = sh;
+    if (sh) {
+      if (kStats) {
+        mark(p.data_bits, ptr);
+        ++shaded;
+      }
+      row.issue(p, ptr);
+      pend_w = w;
+      pend_stop = stop;
+      pend_norm = norm;
+    }
+  }
   write_pixel<kStats>(p, r, rgb, 1.0f - light);
+  if (kStats) p.stat_shaded[r.idx] = shaded;
 }
 
 // ---- the frame: one thread per pixel, one 8x4 tile per warp ----
@@ -725,20 +911,52 @@ int launch(const RenderParams& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <bool kStats>
+template <int kBd, bool kStats>
 int launch_classic(const RenderParams& p, cudaStream_t stream) {
   const long long tiles = (long long)((p.width + kTileW - 1) / kTileW) *
                           ((p.height + kTileH - 1) / kTileH);
   const int warps_per_block = kThreads / 32;
-  render_classic_kernel<kStats>
+  render_classic_kernel<kBd, kStats>
       <<<(int)((tiles + warps_per_block - 1) / warps_per_block), kThreads, 0,
          stream>>>(p);
   return (int)cudaGetLastError();
 }
 
+// The instance of p.classic, if the tree's format and basis_dim fit it.
+template <bool kStats>
+int launch_layout(const RenderParams& p, cudaStream_t s) {
+  const int bd = p.basis_dim;
+  const bool sh = p.fmt == 1;
+  switch (p.classic) {
+    case kClassicSh1:
+      if (sh && bd == 1) return launch_classic<1, kStats>(p, s);
+      break;
+    case kClassicSh4:
+      if (sh && bd == 4) return launch_classic<4, kStats>(p, s);
+      break;
+    case kClassicSh9:
+      if (sh && bd == 9) return launch_classic<9, kStats>(p, s);
+      break;
+    case kClassicSh16:
+      if (sh && bd == 16) return launch_classic<16, kStats>(p, s);
+      break;
+    case kClassicSh25:
+      if (sh && bd == 25) return launch_classic<25, kStats>(p, s);
+      break;
+    case kClassicRgba:
+      if (bd < 0) return launch_classic<kBdRgba, kStats>(p, s);
+      break;
+    case kClassicAny:
+      if (!sh && bd >= 0 && bd <= kMaxBasis)
+        return launch_classic<kBdAny, kStats>(p, s);
+      break;
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 template <bool kStats>
 int launch_spp(const RenderParams& p, cudaStream_t s) {
-  if (p.classic) return launch_classic<kStats>(p, s);  // spp not used
+  if (p.classic) return launch_layout<kStats>(p, s);  // spp not used
   switch (p.spp) {
     case 1: return launch<1, kStats>(p, s);
     case 2: return launch<2, kStats>(p, s);
@@ -755,8 +973,8 @@ int launch_spp(const RenderParams& p, cudaStream_t s) {
 }  // namespace
 
 // One frame; spp must be one of 1, 2, 3, 4, 6, 8, 16, 32 (volrend.cu:266-278)
-// unless classic is set.  A non-null stat_steps selects the statistics
-// variant.
+// unless classic names a ClassicLayout that fits the tree.  A non-null
+// stat_steps selects the statistics variant.
 RT_API int rt_render(const RenderParams* params, void* stream) {
   const RenderParams p = *params;
   if (p.width <= 0 || p.height <= 0) return (int)cudaErrorInvalidValue;

@@ -91,6 +91,9 @@ LAUNCHES: Dict[str, int] = {
     "probe_affine": 0, "lane_gather": 0, "lane_gather_chain": 0,
     "row_sum_ring": 0, "row_ring_rounds": 0, "flat_gather_chain": 0}
 
+# source name -> what ptxas reported when build(verbose=True) compiled it
+PTXAS: Dict[str, str] = {}
+
 _loaded: Dict[str, ctypes.CDLL] = {}
 _bound: Dict[str, ctypes._CFuncPtr] = {}
 
@@ -121,16 +124,19 @@ def _lib_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
-def build(names=None, verbose: bool = False) -> Dict[str, str]:
+def build(names=None, verbose: bool = False,
+          force: bool = False) -> Dict[str, str]:
     """Compile the named sources (default: all) that have no library for
-    their current content, in parallel.  Returns name -> library path;
-    raises RuntimeError with the compiler's output if a build fails."""
+    their current content (``force``: all of them), in parallel.  Returns
+    name -> library path; raises RuntimeError with the compiler's output if
+    a build fails.  ``verbose`` prints ptxas's report of each compiled
+    source and keeps it in PTXAS."""
     names = list(SOURCES) if names is None else list(names)
     os.makedirs(BUILD_DIR, exist_ok=True)
     paths = {n: _lib_path(n) for n in names}
     procs = {}
     for n in names:
-        if os.path.exists(paths[n]):
+        if os.path.exists(paths[n]) and not force:
             continue
         src, flags = SOURCES[n]
         tmp = f"{paths[n]}.{os.getpid()}.tmp"
@@ -145,6 +151,7 @@ def build(names=None, verbose: bool = False) -> Dict[str, str]:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {SOURCES[n][0]}:\n{out}")
         if verbose and out:
+            PTXAS[n] = out
             print(f"[build] {SOURCES[n][0]}:\n{out.rstrip()}", file=sys.stderr)
         os.replace(tmp, paths[n])
     return paths

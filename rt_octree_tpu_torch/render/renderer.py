@@ -8,7 +8,8 @@ distinct-leaf shade, compositing and the aux buffers (volrend.cu:84-213,
 rt_core.cuh:195-332).  With ``estimator="classic"`` it launches K1's
 classic variant (``render_classic``, trace_rays_classic): the
 exponential-transmittance march that shades every leaf step and stops
-early at ``stop_thresh``.  A rasterized mesh pass (``mesh_color`` [R, 3],
+early at ``stop_thresh``, on the instance of the tree's row layout that
+``classic_layout`` picks.  A rasterized mesh pass (``mesh_color`` [R, 3],
 ``mesh_depth`` [R]) clips the rays and replaces the background.
 ``render_stats`` runs K1's statistics variant: per-ray step counts and
 the distinct LUT cells, chs rows and data rows the frame reads.
@@ -41,6 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
 import os
 from typing import Optional
 
@@ -267,7 +269,8 @@ def march_classic_plain(tree: DeviceTree, dirs, vdirs, cens,
     once light < stop_thresh the rgb is renormalized by 1 / (1 - light)
     and the ray stops.  Returns (out [R, 4] = [rgb, 1 - light], steps [R]
     i32).  Like the JAX loop (unroll=2) it tests ``max_steps`` every two
-    steps.  ``touched`` also receives ``"data"`` [M], the rows shaded."""
+    steps.  ``touched`` also receives ``"data"`` [M], the rows shaded, and
+    ``"shaded"`` [R] i32, the shaded steps per ray."""
     R = dirs.shape[0]
     dev = dirs.device
     cen_t, d_t, invdir, delta_scale, t, tmax, active = _init_march(
@@ -279,6 +282,7 @@ def march_classic_plain(tree: DeviceTree, dirs, vdirs, cens,
     light = torch.ones(R, dtype=F32, device=dev)
     rgb = torch.zeros((R, 3), dtype=F32, device=dev)
     steps = torch.zeros(R, dtype=torch.int32, device=dev)
+    shaded = torch.zeros(R, dtype=torch.int32, device=dev)
     for _ in range(0, max_steps, 2):
         if not bool(active.any()):
             break
@@ -293,6 +297,7 @@ def march_classic_plain(tree: DeviceTree, dirs, vdirs, cens,
                               max=1.0)
             weight = torch.where(has, light * (1.0 - att), 0.0)
             ptr = torch.where(has, sub_ptr, 0)
+            shaded = shaded + has.to(torch.int32)
             if touched is not None:
                 touched["data"][ptr[has].to(torch.int64)] = True
             rgb = rgb + weight[:, None] * _leaf_rgb(tree, ptr, basis)
@@ -303,6 +308,8 @@ def march_classic_plain(tree: DeviceTree, dirs, vdirs, cens,
             light = torch.where(stop, 0.0, light_new)
             t = torch.where(active, t + delta_t, t)
             active = active & (t < tmax) & ~stop
+    if touched is not None:
+        touched["shaded"] = shaded
     return torch.cat([rgb, (1.0 - light)[:, None]], dim=1), steps
 
 
@@ -425,11 +432,12 @@ class _RenderParams(ctypes.Structure):
         ("aux_nhwc", _V), ("aux_chw", _V), ("uniforms", _V),
         ("stat_steps", _V), ("stat_descents", _V),
         ("lut_bits", _V), ("chs_bits", _V), ("data_bits", _V),
-        ("mesh_color", _V), ("mesh_depth", _V),
+        ("stat_shaded", _V), ("mesh_color", _V), ("mesh_depth", _V),
         ("rng_state", ctypes.c_uint64), ("rng_inc", ctypes.c_uint64),
         ("fx", _F), ("fy", _F), ("step_size", _F), ("sigma_thresh", _F),
         ("background", _F), ("stop_thresh", _F), ("bbox", _F * 6),
-        ("rot", _F * 3), ("ndc_ax", _F), ("ndc_ay", _F),
+        ("rot", _F * 3), ("rot_cos", _F), ("rot_sin", _F),
+        ("ndc_ax", _F), ("ndc_ay", _F),
         ("width", _I), ("height", _I), ("spp", _I), ("max_steps", _I),
         ("N", _I), ("lut_levels", _I), ("max_depth", _I), ("skip_cap", _I),
         ("basis_dim", _I), ("data_dim", _I), ("fmt", _I), ("basis_lo", _I),
@@ -438,6 +446,36 @@ class _RenderParams(ctypes.Structure):
 
 
 SPP_KERNEL = (1, 2, 3, 4, 6, 8, 16, 32)  # csrc/render.cu:rt_render
+# The classic kernel's instances, one a row layout, in the order of
+# csrc/render.cu:ClassicLayout (its code is the index + 1).
+CLASSIC_LAYOUTS = ("sh1", "sh4", "sh9", "sh16", "sh25", "rgba", "any")
+CLASSIC_MAX_BASIS = 25  # csrc/render.cu:kMaxBasis
+
+
+def classic_layout(fmt: int, basis_dim: int, data_dim: int) -> str:
+    """The ``render_classic`` instance for a tree's row layout (fmt: a
+    BasisFormat value): "sh<bd>" for SH rows at basis_dim 1, 4, 9, 16 and
+    25; "rgba" for raw rgb rows (basis_dim < 0, any format); "any" for SG
+    and ASG rows, and RGBA-format rows that carry a basis_dim (their basis
+    is 0), at 0 <= basis_dim <= 25.  Raises ValueError for any other
+    layout, and for rows shorter than the channels they are read for."""
+    if fmt not in tuple(f.value for f in BasisFormat):
+        raise ValueError(f"render_classic: unknown basis format {fmt}")
+    n = 3 * basis_dim if basis_dim >= 0 else 3
+    if data_dim < n:
+        raise ValueError(f"render_classic: rows of {data_dim} halfs hold no "
+                         f"{n} channel values")
+    if basis_dim < 0:
+        return "rgba"
+    if fmt == BasisFormat.SH.value:
+        if f"sh{basis_dim}" not in CLASSIC_LAYOUTS:
+            raise ValueError(f"render_classic: no SH basis of dimension "
+                             f"{basis_dim} (1, 4, 9, 16 or 25)")
+        return f"sh{basis_dim}"
+    if basis_dim > CLASSIC_MAX_BASIS:
+        raise ValueError(f"render_classic: basis_dim {basis_dim} > "
+                         f"{CLASSIC_MAX_BASIS}")
+    return "any"
 
 _render_fn = None
 
@@ -471,10 +509,11 @@ def _launch_k1(tree: DeviceTree, transform: torch.Tensor, rng_state: int,
                uniforms_out: Optional[torch.Tensor],
                stats: Optional[tuple] = None, mesh_color=None,
                mesh_depth=None):
-    """Check the inputs, launch K1 (``render_classic`` for the classic
-    estimator) on the tree's CUDA device and return (img, aux_nhwc,
-    aux_chw or None).  ``stats``: the statistics variant's buffers (steps,
-    descents, lut_bits, chs_bits, data_bits)."""
+    """Check the inputs, launch K1 (``render_classic``, on the instance of
+    the tree's row layout, for the classic estimator) on the tree's CUDA
+    device and return (img, aux_nhwc, aux_chw or None).  ``stats``: the
+    statistics variant's buffers (steps, descents, lut_bits, chs_bits,
+    data_bits, and for the classic estimator shaded)."""
     dev = tree.device
     spp = int(opt.spp)
     classic = opt.estimator == "classic"
@@ -489,6 +528,8 @@ def _launch_k1(tree: DeviceTree, transform: torch.Tensor, rng_state: int,
             or tree.chs.dtype != torch.int32 or tree.data.dtype != torch.float16:
         raise ValueError(f"render_noisy: unsupported spp {spp} / basis_dim "
                          f"{tree.basis_dim} / tree dtypes")
+    layout = (CLASSIC_LAYOUTS.index(classic_layout(
+        tree.fmt, tree.basis_dim, tree.data_dim)) + 1 if classic else 0)
     if width < 1 or height < 1:
         raise ValueError(f"render_noisy: image {width}x{height}")
     R = width * height
@@ -525,7 +566,9 @@ def _launch_k1(tree: DeviceTree, transform: torch.Tensor, rng_state: int,
         p.mesh_depth = mesh_depth.data_ptr()
     if stats is not None:
         (p.stat_steps, p.stat_descents, p.lut_bits, p.chs_bits,
-         p.data_bits) = (t.data_ptr() for t in stats)
+         p.data_bits) = (t.data_ptr() for t in stats[:5])
+        if classic:
+            p.stat_shaded = stats[5].data_ptr()
     p.rng_state = rng_state
     p.rng_inc = rng_inc
     p.fx, p.fy = fx, fy
@@ -535,6 +578,13 @@ def _launch_k1(tree: DeviceTree, transform: torch.Tensor, rng_state: int,
     p.stop_thresh = opt.stop_thresh
     p.bbox[:] = [float(v) for v in opt.render_bbox]
     p.rot[:] = [float(v) for v in opt.rot_dirs]
+    if classic:
+        # the classic kernel's rotation: cos and sin of |rot| in f32 as the
+        # kernel forms it, evaluated in double and rounded
+        rot = np.asarray(opt.rot_dirs, np.float32)
+        angle = float(np.sqrt(rot[0] * rot[0] + rot[1] * rot[1]
+                              + rot[2] * rot[2]))
+        p.rot_cos, p.rot_sin = math.cos(angle), math.sin(angle)
     if tree.ndc is not None:
         w, h, focal = tree.ndc
         p.ndc_ax, p.ndc_ay = -((2 * focal) / w), -((2 * focal) / h)
@@ -544,7 +594,7 @@ def _launch_k1(tree: DeviceTree, transform: torch.Tensor, rng_state: int,
     p.skip_cap = tree.skip_cap
     p.basis_dim, p.data_dim, p.fmt = tree.basis_dim, tree.data_dim, tree.fmt
     p.basis_lo, p.basis_hi = (int(v) for v in opt.basis_minmax)
-    p.classic = int(classic)
+    p.classic = layout
     fn = _render_entry()
     with torch.cuda.device(dev):
         rc = fn(ctypes.addressof(p), native.stream_ptr(dev))
@@ -585,12 +635,18 @@ class MarchStats:
     lut_cells: int  # distinct LUT cells read
     chs_rows: int  # distinct chs rows read
     data_rows: int  # distinct data rows shaded
+    # [H, W] i32 shaded leaf steps per ray (the classic estimator; None for
+    # the regular tracker)
+    shaded: Optional[torch.Tensor] = None
 
     def equals(self, other: "MarchStats") -> bool:
         return (torch.equal(self.steps, other.steps)
                 and torch.equal(self.descents, other.descents)
                 and (self.lut_cells, self.chs_rows, self.data_rows)
-                == (other.lut_cells, other.chs_rows, other.data_rows))
+                == (other.lut_cells, other.chs_rows, other.data_rows)
+                and (self.shaded is None) == (other.shaded is None)
+                and (self.shaded is None
+                     or torch.equal(self.shaded, other.shaded)))
 
 
 def _popcount(bits: torch.Tensor) -> int:
@@ -615,10 +671,13 @@ def render_stats_plain(tree: DeviceTree, transform: torch.Tensor,
     render_noisy_plain(tree, transform, rng_state, rng_inc, width=width,
                        height=height, fx=fx, fy=fy, opt=opt,
                        max_steps=max_steps, want_aux=False, stats=st)
+    shaded = st.get("shaded")
     return MarchStats(st["steps"].reshape(height, width),
                       st["descents"].reshape(height, width),
                       int(st["lut"].sum()), int(st["chs"].sum()),
-                      int(st["data"].sum()))
+                      int(st["data"].sum()),
+                      None if shaded is None else shaded.reshape(height,
+                                                                 width))
 
 
 def render_stats(tree: DeviceTree, transform: torch.Tensor, rng_state: int,
@@ -626,8 +685,9 @@ def render_stats(tree: DeviceTree, transform: torch.Tensor, rng_state: int,
                  fy: float, opt: RenderOptions,
                  max_steps: int = 8192) -> MarchStats:
     """K1's statistics variant on one frame, for either estimator (the
-    frame's pixels are the same as render_noisy's and are dropped).  CPU
-    tensors take render_stats_plain."""
+    frame's pixels are the same as render_noisy's and are dropped; the
+    classic estimator also counts the shaded steps).  CPU tensors take
+    render_stats_plain."""
     R, M = width * height, tree.chs.shape[0]
     dev = tree.device
     if dev.type == "cpu":
@@ -637,14 +697,18 @@ def render_stats(tree: DeviceTree, transform: torch.Tensor, rng_state: int,
 
     def bitmap(n):
         return torch.zeros((n + 31) // 32, dtype=torch.int32, device=dev)
+    classic = opt.estimator == "classic"
     bufs = (torch.empty(R, dtype=torch.int32, device=dev),
             torch.empty(R, dtype=torch.int32, device=dev),
-            bitmap(max(tree.lut.shape[0], 1)), bitmap(M), bitmap(M))
+            bitmap(max(tree.lut.shape[0], 1)), bitmap(M), bitmap(M),
+            *((torch.empty(R, dtype=torch.int32, device=dev),) if classic
+              else ()))
     _launch_k1(tree, transform, rng_state, rng_inc, width, height, fx, fy,
                opt, max_steps, False, None, bufs)
     return MarchStats(bufs[0].reshape(height, width),
                       bufs[1].reshape(height, width),
-                      *(_popcount(b) for b in bufs[2:]))
+                      *(_popcount(b) for b in bufs[2:5]),
+                      bufs[5].reshape(height, width) if classic else None)
 
 
 def lane_efficiency(steps: torch.Tensor, tile_w: int, tile_h: int) -> float:

@@ -146,3 +146,32 @@ def test_classic_fast_mode_matches_jax(tree):
     img, aux, img_j, aux_j = _frames(tree, cam, _opt(), 5, scale=0.5)
     np.testing.assert_allclose(img, img_j, atol=TOL, rtol=0)
     np.testing.assert_allclose(aux, aux_j, atol=TOL, rtol=0)
+
+
+def _lobes(tree, fmt, seed):
+    """Random SG ([bd, 4]) or ASG ([bd, 11]) lobes on ``tree``'s rows."""
+    bd = tree.data_format.basis_dim
+    rs = np.random.default_rng(seed)
+    width = 4 if fmt == BasisFormat.SG else 11
+    extra = rs.standard_normal((bd, width))
+    sharp = 1 if fmt == BasisFormat.SG else 2
+    extra[:, :sharp] = rs.uniform(0.5, 4.0, (bd, sharp))
+    tree.data_format = DataFormat(fmt, bd)
+    tree.extra = extra.astype(np.float32)
+    return tree
+
+
+@pytest.mark.parametrize("layout", ["SH1", "SH16", "SH25", "SG4", "ASG9"])
+def test_classic_row_layouts_match_jax(layout):
+    """Each row layout the classic kernel has an instance for (besides the
+    SH9 / SH4 / RGBA frames above): SH at basis_dim 1, 16 and 25, SG and
+    ASG lobes, through the plain march vs JAX."""
+    fmt = layout.rstrip("0123456789")
+    bd = int(layout[len(fmt):])
+    tree = synthetic.make_synthetic_tree("shell", depth=4, basis_dim=bd)
+    if fmt != "SH":
+        tree = _lobes(tree, BasisFormat[fmt], bd)
+    img, aux, img_j, aux_j = _frames(tree, _cam(16, 16), _opt(), 4)
+    np.testing.assert_allclose(img, img_j, atol=TOL, rtol=0)
+    np.testing.assert_allclose(aux, aux_j, atol=TOL, rtol=0)
+    assert aux[3].max() > 0.5

@@ -236,39 +236,191 @@ def test_k1_null_mesh_is_bit_equal_to_a_neutral_pass(shell, estimator,
         assert torch.equal(g, r)
 
 
+def _classic_tree(layout, depth=5):
+    """A shell in one of render_classic's row layouts: "SH<bd>", "RGBA"
+    (raw rgb rows), "SG<bd>" / "ASG<bd>" (random lobes)."""
+    fmt = layout.rstrip("0123456789")
+    bd = int(layout[len(fmt):] or 1)
+    tree = synthetic.make_synthetic_tree("shell", depth=depth, basis_dim=bd)
+    if fmt == "RGBA":
+        tree.data_format = DataFormat(BasisFormat.RGBA, -1)
+        rgb = tree.data[:, :3].astype(np.float32)
+        tree.data[:, :3] = (1.0 / (1.0 + np.exp(-rgb))).astype(np.float16)
+    elif fmt in ("SG", "ASG"):
+        rs = np.random.default_rng(bd)
+        width, sharp = (4, 1) if fmt == "SG" else (11, 2)
+        extra = rs.standard_normal((bd, width))
+        extra[:, :sharp] = rs.uniform(0.5, 4.0, (bd, sharp))
+        tree.data_format = DataFormat(BasisFormat[fmt], bd)
+        tree.extra = extra.astype(np.float32)
+    return tree
+
+
+def _classic_opt(**kw):
+    return RenderOptions(**{"spp": 1, "denoise": False,
+                            "estimator": "classic", **kw})
+
+
+def _hold_classic(dt, tf, kw, rng=(12345, 7)):
+    """render_classic within IMG_TOL / AUX_TOL of its plain version and its
+    statistics (shaded steps too) equal to the plain march's; returns the
+    kernel's frame and statistics."""
+    got = tr.render_noisy(dt, tf, *rng, **kw)
+    ref = tr.render_noisy_plain(dt, tf, *rng, **kw)
+    for g, r, tol in zip(got, ref, (IMG_TOL, AUX_TOL, AUX_TOL)):
+        torch.testing.assert_close(g, r, atol=tol, rtol=0)
+    st = tr.render_stats(dt, tf, *rng, **kw)
+    assert st.equals(tr.render_stats_plain(dt, tf, *rng, **kw))
+    return got, st
+
+
+CLASSIC_LAYOUTS = ["SH1", "SH4", "SH9", "SH16", "SH25", "RGBA", "SG4",
+                   "ASG25"]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("spp", [1, 6, 32])
-@pytest.mark.parametrize("fmt", ["sh", "rgba"])
-def test_render_classic_matches_plain(shell, spp, fmt, cuda_device):
-    """The classic variant ignores SPP; SH and RGBA rows; full-depth LUT
-    (skips) and a level-3 LUT (descents); stop_thresh 1e-2 and 0.3 (an
-    early stop on most hit rays); the statistics equal to the plain
-    march's; odd max_steps rounds up to even as in the JAX loop."""
-    tree = shell
-    if fmt == "rgba":
-        tree = synthetic.make_synthetic_tree("shell", depth=5, basis_dim=1)
-        tree.data_format = DataFormat(BasisFormat.RGBA, -1)
+@pytest.mark.parametrize("layout", CLASSIC_LAYOUTS)
+def test_render_classic_matches_plain(layout, spp, cuda_device):
+    """Every instance of render_classic (SH at basis_dim 1, 4, 9, 16, 25,
+    raw rgb, SG and ASG through the unrolled one), which ignores SPP, at
+    37x23: full-depth LUT (skips) and a level-3 LUT (descents); stop_thresh
+    1e-2, 0.3 (an early stop on most hit rays) and 1e-6 (long rays through
+    many lookahead steps); the statistics equal to the plain march's; odd
+    max_steps rounds up to even as in the JAX loop."""
     transform, kw = _render_args(spp, 37, 23)
     tf = torch.from_numpy(transform).to(cuda_device)
+    tree = _classic_tree(layout)
     frames = []
-    for levels, stop in ((5, 1e-2), (3, 0.3)):
-        kw["opt"] = RenderOptions(spp=spp, denoise=False,
-                                  estimator="classic", stop_thresh=stop)
+    for levels in (5, 3):
         dt = tt.upload_tree(tree, lut_levels=levels, device=cuda_device)
-        got = tr.render_noisy(dt, tf, 12345, 7, **kw)
-        ref = tr.render_noisy_plain(dt, tf, 12345, 7, **kw)
-        for g, r, tol in zip(got, ref, (IMG_TOL, AUX_TOL, AUX_TOL)):
-            torch.testing.assert_close(g, r, atol=tol, rtol=0)
-        st = tr.render_stats(dt, tf, 12345, 7, **kw)
-        assert st.equals(tr.render_stats_plain(dt, tf, 12345, 7, **kw))
-        assert st.data_rows > 0
-        frames.append(got[0])
+        for stop in (1e-2, 0.3, 1e-6):
+            kw["opt"] = _classic_opt(spp=spp, stop_thresh=stop)
+            got, st = _hold_classic(dt, tf, kw)
+            assert st.data_rows > 0 and (levels == 5) == (
+                int(st.descents.sum()) == 0)
+            frames.append(got[0])
         for max_steps in (3, 4):
             st = tr.render_stats(dt, tf, 1, 1, max_steps=max_steps, **kw)
             assert int(st.steps.max()) == 4
             assert st.equals(tr.render_stats_plain(
                 dt, tf, 1, 1, max_steps=max_steps, **kw))
     assert not torch.equal(frames[0], frames[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["SH4", "SH9", "SH25", "RGBA"])
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_render_classic_rows_off_8_bytes(layout, offset, cuda_device):
+    """The same rows seen through a view ``offset`` halfs into a larger
+    buffer, so that no row starts on 8 bytes where it did (the words are
+    realigned in registers): within the tolerances of the plain version."""
+    transform, kw = _render_args(1, 37, 23)
+    kw["opt"] = _classic_opt()
+    tf = torch.from_numpy(transform).to(cuda_device)
+    dt = tt.upload_tree(_classic_tree(layout), lut_levels=5,
+                        device=cuda_device)
+    flat = torch.zeros(dt.data.numel() + 4, dtype=dt.data.dtype,
+                       device=cuda_device)
+    view = flat[offset:offset + dt.data.numel()].view(dt.data.shape)
+    view.copy_(dt.data)
+    assert view.data_ptr() % 8 != 0
+    _hold_classic(dataclasses.replace(dt, data=view), tf, kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [(1, 1), (37, 23), (33, 9)])
+@pytest.mark.parametrize("max_steps", [1, 2, 3, 4, 5, 8192])
+def test_render_classic_ragged_sizes_and_step_limits(size, max_steps,
+                                                     cuda_device):
+    """Ragged images (the 8x4 warp tiles' edge) and step limits around the
+    one-step lookahead, odd limits rounded up to even as in the JAX loop."""
+    transform, kw = _render_args(1, *size)
+    kw.update(opt=_classic_opt(), max_steps=max_steps)
+    tf = torch.from_numpy(transform).to(cuda_device)
+    dt = tt.upload_tree(_classic_tree("SH9"), lut_levels=5,
+                        device=cuda_device)
+    _, st = _hold_classic(dt, tf, kw)
+    assert int(st.steps.max()) <= max_steps + (max_steps & 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opts", [
+    dict(basis_minmax=(2, 5)), dict(basis_minmax=(0, 0)),
+    dict(rot_dirs=(0.3, -0.2, 0.5)), dict(rot_dirs=(1e5, 2e5, 0.0))],
+    ids=["minmax 2-5", "minmax 0-0", "rot", "rot huge"])
+@pytest.mark.parametrize("layout", ["SH9", "SG4"])
+def test_render_classic_masks_and_rotations(layout, opts, cuda_device):
+    """A basis_minmax mask and rotated view directions (the kernel takes
+    the rotation's cosine and sine from the wrapper) on an SH and an SG
+    instance."""
+    transform, kw = _render_args(1, 37, 23)
+    kw["opt"] = _classic_opt(**opts)
+    tf = torch.from_numpy(transform).to(cuda_device)
+    dt = tt.upload_tree(_classic_tree(layout), lut_levels=5,
+                        device=cuda_device)
+    _hold_classic(dt, tf, kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["SH9", "SH16", "RGBA", "ASG25"])
+def test_render_classic_mesh_pass_on_each_row_shape(layout, cuda_device):
+    """A random mesh pass matches the plain version, and null mesh
+    pointers equal a neutral pass bit for bit, on the instances whose
+    rows the other classic tests do not mesh."""
+    transform, kw = _render_args(1, 37, 23)
+    kw["opt"] = _classic_opt()
+    tf = torch.from_numpy(transform).to(cuda_device)
+    dt = tt.upload_tree(_classic_tree(layout), lut_levels=5,
+                        device=cuda_device)
+    mc, md = (torch.from_numpy(a).to(cuda_device)
+              for a in synthetic.random_mesh_pass(3, 37 * 23))
+    got = tr.render_noisy(dt, tf, 99, 5, mesh_color=mc, mesh_depth=md, **kw)
+    ref = tr.render_noisy_plain(dt, tf, 99, 5, mesh_color=mc, mesh_depth=md,
+                                **kw)
+    for g, r, tol in zip(got, ref, (IMG_TOL, AUX_TOL, AUX_TOL)):
+        torch.testing.assert_close(g, r, atol=tol, rtol=0)
+    mc0, md0 = (torch.from_numpy(a).to(cuda_device)
+                for a in synthetic.random_mesh_pass(
+                    0, 37 * 23, kw["opt"].background_brightness))
+    for g, r in zip(tr.render_noisy(dt, tf, 99, 5, **kw),
+                    tr.render_noisy(dt, tf, 99, 5, mesh_color=mc0,
+                                    mesh_depth=md0, **kw)):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.cuda
+def test_render_classic_ndc_matches_plain(cuda_device):
+    """NDC rays on a blobs tree at 41x29 (the llff camera)."""
+    tree = synthetic.make_synthetic_tree("blobs", depth=5, basis_dim=9)
+    tree.use_ndc = True
+    tree.ndc_width, tree.ndc_height, tree.ndc_focal = 1008.0, 756.0, 800.0
+    cam = Camera(width=41, height=29, fx=800.0 * 41 / 1008,
+                 fy=800.0 * 41 / 1008)
+    cam.center = np.array([0.02, 0.01, 0.3], np.float32)
+    cam.v_back = np.array([0.0, 0.0, 1.0], np.float32)
+    cam.v_world_up = np.array([0.0, 1.0, 0.0], np.float32)
+    cam.update()
+    dt = tt.upload_tree(tree, lut_levels=5, device=cuda_device)
+    tf = torch.from_numpy(cam.transform.astype(np.float32)).to(cuda_device)
+    kw = dict(width=41, height=29, fx=cam.fx, fy=cam.fy, opt=_classic_opt())
+    got, _ = _hold_classic(dt, tf, kw)
+    assert float(got[2][3].max()) > 0.5
+
+
+@pytest.mark.cuda
+def test_render_classic_refuses_layouts_it_has_no_instance_for(shell,
+                                                              cuda_device):
+    """An SH tree of basis_dim 2 has no instance: ValueError, no launch."""
+    transform, kw = _render_args(1, 8, 8)
+    kw["opt"] = _classic_opt()
+    dt = tt.upload_tree(shell, lut_levels=5, device=cuda_device)
+    odd = dataclasses.replace(dt, basis_dim=2)
+    native.reset_launches()
+    with pytest.raises(ValueError):
+        tr.render_noisy(odd, torch.from_numpy(transform).to(cuda_device),
+                        1, 1, **kw)
+    assert native.LAUNCHES["render_classic"] == 0
 
 
 @pytest.mark.cuda
@@ -492,6 +644,21 @@ def test_k1_on_a_partial_lut_matches_plain(refined, skip_cap, cuda_device):
         torch.testing.assert_close(g, r, atol=tol, rtol=0)
     st = tr.render_stats(dt, tf, 12345, 7, **kw)
     assert st.equals(tr.render_stats_plain(dt, tf, 12345, 7, **kw))
+    assert int(st.descents.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skip_cap", [12, 0])
+def test_render_classic_on_a_partial_lut_matches_plain(refined, skip_cap,
+                                                       cuda_device):
+    """render_classic on the refined shell's marked level-4 LUT (internal
+    cells descend), with and without its skip distances."""
+    transform, kw = _render_args(1, 37, 23)
+    kw["opt"] = _classic_opt()
+    tf = torch.from_numpy(transform).to(cuda_device)
+    dt = tt.upload_tree(refined, lut_levels=4, device=cuda_device,
+                        skip_cap=skip_cap, force_sparse_brick=True)
+    _, st = _hold_classic(dt, tf, kw)
     assert int(st.descents.sum()) > 0
 
 
