@@ -178,6 +178,22 @@ processes, this script on OTHER_ROOT's package and on its own in turns
 (OTHER_ROOT needs no copy of this script), and prints each side's times,
 their paired differences and whether the two sides' frames are bit-equal,
 as one JSON line {"classic_pairs": ...}.
+
+    python3 chip_smoke.py --filter-only [ROOT]
+    python3 chip_smoke.py --filter-pairs OTHER_ROOT [PAIRS]
+
+--filter-only times K5 and K6 of the package under ROOT (default: beside
+this file) alone by device_ms, on phase 9's real batch when
+build/chip_smoke/train_kit exists (a fresh Runner's net on the kit's first
+shuffled batch), else on seeded inputs at the training shape (32 slices of
+80x80, supports 1..4), beside their bounds and plain versions, with the
+share of tiles that took the guard (where the package counts it), an
+output digest and, on the real batch, the device operations of one
+training step (torch.profiler), as one JSON line {"filter_ms": ...};
+--filter-pairs runs it in PAIRS (default 6) pairs of processes, this
+script on OTHER_ROOT's package and on its own in turns, and prints each
+side's times, their paired differences and each side's digests as one
+JSON line {"filter_pairs": ...}.
 """
 
 from __future__ import annotations
@@ -191,11 +207,12 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-# --classic-only ROOT imports the package of another checkout (the timer of
-# --classic-pairs); every other mode imports the one beside this file
+# --classic-only ROOT and --filter-only ROOT import the package of another
+# checkout (the timers of --classic-pairs and --filter-pairs); every other
+# mode imports the one beside this file
 PKG_ROOT = (os.path.abspath(sys.argv[2])
-            if sys.argv[1:2] == ["--classic-only"] and len(sys.argv) == 3
-            else HERE)
+            if sys.argv[1:2] in (["--classic-only"], ["--filter-only"])
+            and len(sys.argv) == 3 else HERE)
 sys.path.insert(0, PKG_ROOT)
 
 from rt_octree_tpu_torch.utils.timer import cuda_ms, device_ms  # noqa: E402
@@ -267,9 +284,10 @@ K1_IMG_TOL, K1_AUX_TOL = 2e-5, 4e-5
 # K4 vs plain: the same f32 operations in the same order, on [0, 1] values.
 UPSAMPLE_TOL = 1e-6
 K2_TOL = 1e-5  # f32 sums of up to 49 softmax taps, in another order
-# K5 vs plain: the same sums as K2's (up to 81 taps at support 4); K6 vs
-# plain: the gather of up to 81 taps of exp * (u.x - v) with FMA
-# contraction, within 1e-4 of the plain gradient's largest magnitude; the
+# K5 vs plain: softmax sums of up to 81 taps at support 4, separable under
+# a tile stabiliser (per window on a guard tile); K6 vs plain: the same
+# factorised sums (or the gather) of exp * (u.x - v) with FMA contraction,
+# within 1e-4 of the plain gradient's largest magnitude; the
 # f32 train step with kernels vs the plain chain (torch autograd through
 # the plain filter): each parameter's gradient within rtol 1e-4 of its
 # largest magnitude (sums over 204,800 pixels round in f32 either way: on
@@ -1947,11 +1965,210 @@ def train_step_split(runner, batch, reps=20, warmup=5):
     return whole, split
 
 
+def k56_bounds(B, L, H, W, sup):
+    """K5's and K6's bounds (bound ms, "bytes" or "operations", library
+    ms None) at [B, L, H, W] with supports ``sup``.  K5: weight and
+    guidance (8 B a pixel and level) and rgba (16 B) in, out (16 B) and
+    fm, den (20 B a pixel and level) written; a tap is a subtraction, an
+    expf, an add and three multiply-adds (9 operations), a level's blend
+    6.  K6: G and rgba (32 B), weight, guidance, fm, den (28 B a pixel and
+    level) in, two gradients (8 B) out; a tap of the gather is a
+    subtraction, an expf, three multiply-adds for u.x, a subtraction and a
+    multiply-add (12 operations), a staged pixel 12.  The counts are
+    those of the per-tap form, kept for every version of the kernels so
+    that their shares of the bound read the same work."""
+    n, nl = B * H * W, B * L * H * W
+    taps = sum((2 * s + 1) ** 2 for s in sup if s > 0)
+    return {
+        "guided_filter_batch": bound(n * 32 + nl * 28,
+                                     n * (9 * taps + 6 * L)) + (None,),
+        "guided_filter_batch_bwd": bound(n * 32 + nl * 36,
+                                         n * (12 * taps + 12 * L)) + (None,)}
+
+
+def train_batch(kit):
+    """The train phase's real batch: the kit's training split, a fresh
+    Runner on configs/blender.txt (its net drawn with seed 0) and the
+    first shuffled batch (seed 1) on the card -> (runner, dataset, args,
+    (aux, img_in, img_gt))."""
+    import torch
+    from rt_octree_tpu_torch.train.config import parse_args
+    from rt_octree_tpu_torch.train.dataset import (BlenderDataset,
+                                                   DatasetConfig)
+    from rt_octree_tpu_torch.train.runner import Runner
+    ds = BlenderDataset(DatasetConfig(data_dir=kit, spp=6, nx=10, ny=10))
+    args = parse_args(train_argv(kit, TRAIN_EPOCHS)[1:])
+    runner = Runner(args, dataset=ds)
+    aux_all, in_all, gt_all = ds.device_split("train", "cuda")
+    idx = torch.from_numpy(next(ds.iter_batch_indices(
+        "train", args.batch_size, shuffle=True, seed=1))).cuda()
+    return runner, ds, args, (aux_all[idx], in_all[idx], gt_all[idx])
+
+
+def guard_share(fn, tiles):
+    """The share of a K5 or K6 call's ``tiles`` (tile, level) pairs that
+    took the guard: ``fn(guards)`` calls the wrapper with the counter."""
+    import torch
+    guards = torch.zeros(1, dtype=torch.int32, device="cuda")
+    fn(guards)
+    return int(guards) / tiles
+
+
+def step_ops(runner, batch, warmup=3):
+    """The device operations of one training step (Runner.train_step)
+    after ``warmup`` steps, by torch.profiler: {kernel: [launches, device
+    ms]}, their number and summed device ms.  Moves the runner's net."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    if runner.optimizer is None:
+        runner.optimizer = runner.make_optimizer()
+    for _ in range(warmup):
+        runner.train_step(*batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        runner.train_step(*batch)
+        torch.cuda.synchronize()
+    ops = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0))
+        if t > 0:
+            ops[e.key] = [e.count, t / 1e3]
+    return {"ops": ops, "launches": sum(c for c, _ in ops.values()),
+            "device_ms": sum(t for _, t in ops.values())}
+
+
+def filter_only(root):
+    """--filter-only [ROOT]: K5 and K6 of the package under ROOT alone, on
+    the real batch when the train kit exists (else seeded inputs at the
+    training shape), by device_ms; their plain versions' times and
+    errors, bounds, guard shares, an output digest, and on the real batch
+    one training step's device operations.  One JSON line
+    {"filter_ms": ...}."""
+    import inspect
+
+    import torch
+    from rt_octree_tpu_torch.native import build as native
+    from rt_octree_tpu_torch.ops import filtering as F
+    native.build()
+    res = {"root": root, "package": os.path.dirname(os.path.dirname(
+        os.path.abspath(F.__file__)))}
+    kit = os.path.join(WORK, "train_kit")
+    rs = np.random.default_rng(0)
+    runner = None
+    if os.path.isfile(os.path.join(kit, "transforms_test.json")):
+        runner, _, _, batch = train_batch(kit)
+        aux, img, _ = batch
+        with torch.no_grad():
+            w, g = runner.model(aux.permute(0, 2, 3, 1))
+        sup = runner.supports
+        res["inputs"] = "real batch"
+    else:
+        B, L, H, W = 32, 4, 80, 80
+        logits = rs.standard_normal((B, L, H, W)) * 2.0
+        w = torch.softmax(torch.from_numpy(logits).float().cuda(), 1)
+        g = torch.from_numpy(rs.standard_normal((B, L, H, W)) * 3.0) \
+            .float().cuda()
+        img = torch.from_numpy(rs.random((B, H, W, 4))).float().cuda()
+        sup = (1, 2, 3, 4)
+        res["inputs"] = "seeded"
+    w, g = w.contiguous(), g.contiguous()
+    G = torch.from_numpy(rs.standard_normal(tuple(img.shape))).float() \
+        .cuda()
+    B, L, H, W = w.shape
+    fwd, bwd = F.guided_filter_batch_fwd, F.guided_filter_batch_bwd
+    out, saved = fwd(w, g, img, sup)
+    gw, gg = bwd(G, w, g, img, saved, sup)
+    ref = F.guided_filter_batch_plain(w, g, img, sup)
+    rw, rg = F.guided_filter_backward_plain(G, w, g, img, sup)
+    res["err"] = {"k5": float((out - ref).abs().max()),
+                  "k6_rel": max(float((a - b).abs().max() / b.abs().max())
+                                for a, b in ((gw, rw), (gg, rg)))}
+    res["digest"] = frame_digest((out, gw, gg))
+    res["shape"], res["supports"] = [B, L, H, W], list(sup)
+    res["guidance_range"] = float(g.max() - g.min())
+    ms = {"k5": device_ms(lambda: fwd(w, g, img, sup), 50, 3),
+          "k6": device_ms(lambda: bwd(G, w, g, img, saved, sup), 50, 3)}
+    res["plain_ms"] = {
+        "k5": cuda_ms(lambda: F.guided_filter_batch_plain(w, g, img, sup), 3),
+        "k6": cuda_ms(lambda: F.guided_filter_backward_plain(
+            G, w, g, img, sup), 3)}
+    bounds = k56_bounds(B, L, H, W, sup)
+    res["ms"] = ms
+    res["bound_ms"] = {"k5": bounds["guided_filter_batch"][0],
+                       "k6": bounds["guided_filter_batch_bwd"][0]}
+    res["share_of_bound"] = {k: res["bound_ms"][k] / ms[k] for k in ms}
+    if "guards" in inspect.signature(fwd).parameters:
+        tiles = F.batch_tiles(B, H, W, sup)
+        res["guard_share"] = {
+            "k5": guard_share(lambda d: fwd(w, g, img, sup, guards=d), tiles),
+            "k6": guard_share(lambda d: bwd(G, w, g, img, saved, sup,
+                                            guards=d), tiles),
+            "tiles": tiles}
+    if runner is not None:
+        res["step_ops"] = step_ops(runner, batch)
+    log(json.dumps({"filter_ms": res}))
+    return 0
+
+
+def filter_pairs(other_root, pairs):
+    """--filter-pairs: ``pairs`` pairs of --filter-only processes, this
+    script on OTHER_ROOT's package and on its own in turns; each side's K5
+    and K6 times (least, quartiles, largest), this side's less the other's
+    within a pair, each side's digests (one a side: deterministic) and
+    its last process's line.  One JSON line {"filter_pairs": ...}."""
+    ms = {side: {"k5": [], "k6": []} for side in ("other", "this")}
+    digests = {side: set() for side in ms}
+    last = {}
+    for i, side, lines in alternate(other_root, pairs, ["--filter-only"],
+                                    "filter_pairs", own_script=True):
+        got = [ln["filter_ms"] for ln in lines if "filter_ms" in ln]
+        require(len(got) == 1, f"{side} filter process {i}: unexpected "
+                "output")
+        for k in ms[side]:
+            ms[side][k].append(got[0]["ms"][k])
+        digests[side].add(got[0]["digest"])
+        last[side] = got[0]
+    log(json.dumps({"filter_pairs": {
+        "pairs": pairs, "order": "other, this, this, other, ...",
+        "roots": {"other": os.path.abspath(other_root), "this": HERE},
+        "raw_ms": ms,
+        **{side: {k: spread(v) for k, v in ms[side].items()} for side in ms},
+        "this_less_other": {k: spread(np.subtract(ms["this"][k],
+                                                  ms["other"][k]))
+                            for k in ms["this"]},
+        "other_over_this": {k: float(np.median(ms["other"][k]) /
+                                     np.median(ms["this"][k]))
+                            for k in ms["this"]},
+        "digests": {side: sorted(d) for side, d in digests.items()},
+        "step_ops": step_ops_diff(last),
+        "last": last}}))
+    return 0
+
+
+def step_ops_diff(last):
+    """Each side's device operations a training step (launches, device
+    ms) and the kernels whose launch counts differ (this less other), from
+    the last --filter-only line of each side; None without the real
+    batch."""
+    if any("step_ops" not in last[side] for side in ("other", "this")):
+        return None
+    ops = {side: last[side]["step_ops"]["ops"] for side in ("other", "this")}
+    return {
+        **{side: {k: last[side]["step_ops"][k]
+                  for k in ("launches", "device_ms")} for side in ops},
+        "launches_this_less_other": {
+            k: ops["this"].get(k, [0])[0] - ops["other"].get(k, [0])[0]
+            for k in sorted(set(ops["this"]) | set(ops["other"]))
+            if ops["this"].get(k, [0])[0] != ops["other"].get(k, [0])[0]}}
+
+
 def phase_train(native, r, tree_path, err):
     """The training path: a kit rendered by the port from the headline
     tree; K5 and K6 held against their plain versions on a real batch of
-    32 80x80 slices (the net's weight and guidance, the loss's gradient)
-    with the identity supports and the ladder; the f32 train step with
+    32 80x80 slices (the net's weight and guidance as its strided views,
+    the loss's gradient) with the identity supports and the ladder, and
+    the share of tiles that took the guard; the f32 train step with
     the kernels against the plain chain; ``rtoctree train`` on the
     canonical config for TRAIN_EPOCHS epochs, a resume of one more, the
     test and compact tasks; the exported .gnet in the headline Renderer
@@ -1962,14 +2179,10 @@ def phase_train(native, r, tree_path, err):
     from rt_octree_tpu_torch.models.guidance_net import (GuidanceNet,
                                                          params_to_numpy)
     from rt_octree_tpu_torch.ops.filtering import (
-        guided_filter_backward_plain, guided_filter_batch,
+        batch_tiles, guided_filter_backward_plain, guided_filter_batch,
         guided_filter_batch_bwd, guided_filter_batch_fwd,
         guided_filter_batch_plain)
     from rt_octree_tpu_torch.tools import make_quality_dataset as mq
-    from rt_octree_tpu_torch.train.config import parse_args
-    from rt_octree_tpu_torch.train.dataset import (BlenderDataset,
-                                                   DatasetConfig)
-    from rt_octree_tpu_torch.train.runner import Runner
     out = {}
     kit = os.path.join(WORK, "train_kit")
     t0 = time.time()
@@ -1978,40 +2191,42 @@ def phase_train(native, r, tree_path, err):
                          "--device", "cuda"]) == 0, "kit build failed")
     out["kit_s"] = time.time() - t0
     t0 = time.time()
-    ds = BlenderDataset(DatasetConfig(data_dir=kit, spp=6, nx=10, ny=10))
+    runner, ds, args, batch = train_batch(kit)
     out["load_s"] = time.time() - t0
-    args = parse_args(train_argv(kit, TRAIN_EPOCHS)[1:])
     out["slices"] = len(ds.splits["train"].aux)
     out["steps_per_epoch"] = ds.num_batches("train", args.batch_size)
     log(f"[train] kit {out['kit_s']:.1f} s, loaded in {out['load_s']:.1f} s:"
         f" {out['slices']} train slices of 80x80 (of 3200), "
         f"{out['steps_per_epoch']} steps of {args.batch_size} an epoch")
 
-    # ---- K5 / K6 on a real batch ----
-    runner = Runner(args, dataset=ds)
-    aux_all, in_all, gt_all = ds.device_split("train", "cuda")
-    idx = torch.from_numpy(next(ds.iter_batch_indices(
-        "train", args.batch_size, shuffle=True, seed=1))).cuda()
-    batch = (aux_all[idx], in_all[idx], gt_all[idx])
+    # ---- K5 / K6 on a real batch: the net's own strided views ----
     aux, img, gt = batch
     with torch.no_grad():
         w, g = runner.model(aux.permute(0, 2, 3, 1))
-    w, g = w.contiguous(), g.contiguous()
     worst = {"guided_filter_batch": 0.0, "guided_filter_batch_bwd": 0.0}
+    out["guard_share"] = {}
     for label, sup in (("ladder", (1, 2, 3, 4)), ("identity", (0, 1, 2, 3))):
         ref = guided_filter_batch_plain(w, g, img, sup).requires_grad_()
         runner.loss_fn(ref[..., :3], gt[..., :3]).backward()
         G = ref.grad
         ref = ref.detach()
-        o, saved = guided_filter_batch_fwd(w, g, img, sup)
+        guards = torch.zeros(2, dtype=torch.int32, device="cuda")
+        o, saved = guided_filter_batch_fwd(w, g, img, sup, guards=guards[0])
         e5 = float((o - ref).abs().max())
-        gw, gg = guided_filter_batch_bwd(G, w, g, img, saved, sup)
+        gw, gg = guided_filter_batch_bwd(G, w, g, img, saved, sup,
+                                         guards=guards[1])
         rw, rg = guided_filter_backward_plain(G, w, g, img, sup)
         e_w, e_g = float((gw - rw).abs().max()), float((gg - rg).abs().max())
         m_w, m_g = float(rw.abs().max()), float(rg.abs().max())
-        log(f"[train] K5 {label} {tuple(w.shape)}: max|diff| {e5:.3g}; K6 "
-            f"dL/dw max|diff| {e_w:.3g} of {m_w:.3g}, dL/dg {e_g:.3g} of "
-            f"{m_g:.3g}; guidance range {float(g.max() - g.min()):.3g}")
+        tiles = batch_tiles(*w.shape[:1], *w.shape[2:], sup)
+        share = [int(n) / tiles for n in guards.tolist()]
+        out["guard_share"][label] = {"k5": share[0], "k6": share[1],
+                                     "tiles": tiles}
+        log(f"[train] K5 {label} {tuple(w.shape)} (guidance strides "
+            f"{g.stride()}): max|diff| {e5:.3g}; K6 dL/dw max|diff| "
+            f"{e_w:.3g} of {m_w:.3g}, dL/dg {e_g:.3g} of {m_g:.3g}; guidance "
+            f"range {float(g.max() - g.min()):.3g}; guard share K5 "
+            f"{share[0]:.4g}, K6 {share[1]:.4g} of {tiles} tile-levels")
         require(e5 <= K5_TOL and bool(torch.isfinite(o).all()),
                 f"K5 disagrees with its plain version ({label})")
         require(e_w <= K6_REL_TOL * m_w and e_g <= K6_REL_TOL * m_g
@@ -2108,7 +2323,6 @@ def phase_train(native, r, tree_path, err):
     sup = runner.supports
     with torch.no_grad():
         w, g = runner.model(aux.permute(0, 2, 3, 1))
-    w, g = w.contiguous(), g.contiguous()
     _, saved = guided_filter_batch_fwd(w, g, img, sup)
     G = torch.randn_like(img)
     # device_ms for the kernels: a call's host code may outlast its kernel
@@ -2121,21 +2335,7 @@ def phase_train(native, r, tree_path, err):
                                                         sup), 50, 3),
               cuda_ms(lambda: guided_filter_backward_plain(G, w, g, img,
                                                            sup), 3))}
-    B, L, H, W = w.shape
-    n, nl = B * H * W, B * L * H * W
-    taps = sum((2 * s + 1) ** 2 for s in sup if s > 0)
-    # K5: weight and guidance (8 B a pixel and level) and rgba (16 B) in,
-    # out (16 B) and fm, den (20 B a pixel and level) written; a tap is a
-    # subtraction, an expf, an add and three multiply-adds (9 operations),
-    # a level's blend 6.  K6: G and rgba (32 B), weight, guidance, fm, den
-    # (28 B a pixel and level) in, two gradients (8 B) out; a tap of the
-    # gather is a subtraction, an expf, three multiply-adds for u.x, a
-    # subtraction and a multiply-add (12 operations), a staged pixel 12
-    bounds = {
-        "guided_filter_batch": bound(n * 32 + nl * 28,
-                                     n * (9 * taps + 6 * L)) + (None,),
-        "guided_filter_batch_bwd": bound(n * 32 + nl * 36,
-                                         n * (12 * taps + 12 * L)) + (None,)}
+    bounds = k56_bounds(*w.shape, sup)
     for k, (kms, pms) in ms.items():
         log(f"[timing] {k} {tuple(w.shape)} supports {sup}: kernel "
             f"{kms:.4f} ms, plain {pms:.3f} ms, bound {bounds[k][0]:.4f} ms "
@@ -2570,6 +2770,10 @@ def main(argv) -> int:
         return classic_only(PKG_ROOT)
     if argv[:1] == ["--classic-pairs"] and len(argv) in (2, 3):
         return classic_pairs(argv[1], int(argv[2]) if len(argv) == 3 else 6)
+    if argv[:1] == ["--filter-only"] and len(argv) in (1, 2):
+        return filter_only(PKG_ROOT)
+    if argv[:1] == ["--filter-pairs"] and len(argv) in (2, 3):
+        return filter_pairs(argv[1], int(argv[2]) if len(argv) == 3 else 6)
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2

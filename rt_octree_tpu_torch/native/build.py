@@ -61,9 +61,10 @@ ENTRIES = {
     "rt_upsample": ("upsample", [_V, _I, _I, _F, _F, _V, _V, _V, _I, _I, _V]),
     "rt_guided_filter": ("filter", [_V, _L, _L, _L, _V, _V, _I, _V, _I, _I,
                                     _V]),
-    "rt_guided_filter_batch": ("filter", [_V] * 6 + [_I, _I, _V, _I, _I, _V]),
-    "rt_guided_filter_batch_bwd": ("filter",
-                                   [_V] * 8 + [_I, _I, _V, _I, _I, _V]),
+    "rt_guided_filter_batch": ("filter", [_V, _L, _L, _L] * 2 + [_V] * 5 +
+                               [_I, _I, _V, _I, _I, _V]),
+    "rt_guided_filter_batch_bwd": ("filter", [_V] + [_V, _L, _L, _L] * 2 +
+                                   [_V] * 6 + [_I, _I, _V, _I, _I, _V]),
     "rt_lut_build_scratch": ("lut", [_I, _I, _PL]),
     "rt_lut_build": ("lut", [_V, _V, _V, _I, _I, _I, _PI, _V]),
     "rt_skip_distances": ("lut", [_V, _V, _V, _I, _I, _PI, _V]),

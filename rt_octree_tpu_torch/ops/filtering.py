@@ -20,17 +20,22 @@ with the window max under ``stop_gradient``).  ``guided_filter_batch`` is a
 ``torch.autograd.Function`` over f32 weight and guidance [B, L, H, W] and
 the image [B, H, W, 4] (data: it gets no gradient).  On CUDA tensors its
 forward is kernel K5 (``guided_filter_batch_fwd``), which also saves each
-level's window max m, denominator D and filtered rgb f, and its backward
-is kernel K6 (``guided_filter_batch_bwd``); on CPU tensors they are
-``guided_filter_batch_plain`` and ``guided_filter_backward_plain``.  With
-the window max a constant, per level l of support s > 0,
+level's filtered rgb f, a stabiliser m and the denominator D taken against
+it, and its backward is kernel K6 (``guided_filter_batch_bwd``); on CPU
+tensors they are ``guided_filter_batch_plain`` and
+``guided_filter_backward_plain``.  With the stabiliser a constant, per
+level l of support s > 0,
 
     dL/dw_lp = G_p . f_lp,
     dL/dg_q  = sum_{p in N(q)} exp(g_q - m_p) (w_lp / D_p)
                                (G_p . x_q - G_p . f_lp),
 
 where G_p = dL/dout_p (rgb); a support-0 level (f = x) gets no guidance
-gradient.
+gradient.  The plain versions take m as the window max.  K5 and K6 work on
+BATCH_TILE_W x BATCH_TILE_H tiles with one stabiliser a tile and level and
+separable window sums, as the JAX package's fast path does with one a
+frame; a tile whose staged values span GUARD_RANGE nats takes the
+per-window form (csrc/filter.cu), and either way the function is the same.
 """
 
 from __future__ import annotations
@@ -44,6 +49,11 @@ from ..native import build as native
 
 MAX_LEVELS = 8  # csrc/filter.cu:kMaxLevels
 MAX_SUPPORT = 8  # csrc/filter.cu:kMaxSupport (the ladder 1..L at L = 8)
+# K5 / K6's output tile (csrc/filter.cu:kBatchTileW, kBatchTileH) and the
+# guard: a tile and level whose staged values span GUARD_RANGE nats or more
+# take the per-window form (the JAX package's FAST_SAFE_RANGE)
+BATCH_TILE_W, BATCH_TILE_H = 40, 16
+GUARD_RANGE = 60.0
 
 
 def resolve_supports(L: int, supports) -> tuple:
@@ -205,31 +215,67 @@ def guided_filter_backward_plain(grad_out: torch.Tensor,
     return gw, gg
 
 
+def batch_tiles(B: int, H: int, W: int, supports) -> int:
+    """The (tile, level) pairs of a K5 or K6 call: the count its guard
+    counter is a share of (support-0 levels have no guard)."""
+    tiles = -(-W // BATCH_TILE_W) * -(-H // BATCH_TILE_H) * B
+    return tiles * sum(1 for s in supports if s > 0)
+
+
+def _rows_strides(t: torch.Tensor):
+    """(batch, level, row) element strides of a [B, L, H, W] tensor whose
+    rows the kernels can read, else None: columns at stride 1 (or W = 1)."""
+    if t.shape[-1] != 1 and t.stride(-1) != 1:
+        return None
+    return t.stride()[:3]
+
+
 def _check_batch(name: str, weight, guidance, img, supports):
-    """The kernels' contract: contiguous f32 CUDA tensors on one device,
-    weight and guidance [B, L, H, W], img [B, H, W, 4], 1..8 levels of
-    support <= 8."""
+    """The kernels' contract: f32 CUDA tensors on one device, weight and
+    guidance [B, L, H, W] at any batch, level and row strides with
+    contiguous rows, img [B, H, W, 4] contiguous and 16-byte aligned, 1..8
+    levels of support <= 8, B x L <= 65535 (K6 runs a block a tile, image
+    and level)."""
     B, L, H, W = weight.shape
     for t, shape in ((weight, (B, L, H, W)), (guidance, (B, L, H, W)),
                      (img, (B, H, W, 4))):
         if (t.device.type != "cuda" or t.device != weight.device
                 or t.dtype != torch.float32 or tuple(t.shape) != shape
-                or not t.is_contiguous()):
+                or (_rows_strides(t) is None if t is not img else
+                    not t.is_contiguous() or t.data_ptr() % 16)):
             raise ValueError(
-                f"{name}: needs contiguous f32 CUDA tensors weight, guidance "
-                f"{(B, L, H, W)} and img {(B, H, W, 4)} on one device, got "
-                f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    if not 1 <= L <= MAX_LEVELS or max(supports) > MAX_SUPPORT:
+                f"{name}: needs f32 CUDA tensors weight, guidance "
+                f"{(B, L, H, W)} with contiguous rows and img {(B, H, W, 4)}"
+                f" contiguous on one device, got {t.dtype} "
+                f"{tuple(t.shape)} strides {t.stride()} on {t.device}")
+    if (not 1 <= L <= MAX_LEVELS or max(supports) > MAX_SUPPORT
+            or B * L > 65535):
         raise ValueError(f"{name}: the kernel takes 1..{MAX_LEVELS} levels "
-                         f"of support <= {MAX_SUPPORT}, got {supports}")
+                         f"of support <= {MAX_SUPPORT} and B x L <= 65535, "
+                         f"got {supports} at B = {B}")
+
+
+def _guard_ptr(guards) -> int:
+    """The guard counter's address (0: none): an int32 CUDA tensor the
+    kernel adds its guard tiles to."""
+    if guards is None:
+        return 0
+    if guards.dtype != torch.int32 or guards.device.type != "cuda":
+        raise ValueError("guards must be an int32 CUDA tensor")
+    return guards.data_ptr()
 
 
 def guided_filter_batch_fwd(weight: torch.Tensor, guidance: torch.Tensor,
-                            img: torch.Tensor, supports=None):
+                            img: torch.Tensor, supports=None, guards=None):
     """Kernel K5 wrapper -> (out [B, H, W, 4], saved): ``saved`` is
-    (fm [B, L, H, W, 4] holding each level's filtered rgb f and window max
-    m, den [B, L, H, W] its denominator D), what K6 reads (support-0
-    levels leave theirs unwritten)."""
+    (fm [B, L, H, W, 4] holding each level's filtered rgb f and the
+    stabiliser m of its tile (the window max where the tile took the
+    guard), den [B, L, H, W] the denominator D taken against m), what K6
+    reads: exp(g_q - m_p) / D_p is the same for any m (support-0 levels
+    leave theirs unwritten).  weight and guidance are read through their
+    strides (rows contiguous).  ``guards``: an int32 CUDA tensor to which
+    the kernel adds the (tile, level) pairs that took the guard (of
+    ``batch_tiles``)."""
     if weight.dim() != 4:
         raise ValueError(f"guided_filter_batch: weight must be [B, L, H, W],"
                          f" got {tuple(weight.shape)}")
@@ -243,8 +289,10 @@ def guided_filter_batch_fwd(weight: torch.Tensor, guidance: torch.Tensor,
     sup = (ctypes.c_int * L)(*supports)
     fn = native.entry("rt_guided_filter_batch")
     with torch.cuda.device(dev):
-        rc = fn(weight.data_ptr(), guidance.data_ptr(), img.data_ptr(),
-                out.data_ptr(), fm.data_ptr(), den.data_ptr(), B, L,
+        rc = fn(weight.data_ptr(), *_rows_strides(weight),
+                guidance.data_ptr(), *_rows_strides(guidance),
+                img.data_ptr(), out.data_ptr(), fm.data_ptr(),
+                den.data_ptr(), _guard_ptr(guards), B, L,
                 ctypes.cast(sup, ctypes.c_void_p), H, W,
                 native.stream_ptr(dev))
         native.count_launch("guided_filter_batch")
@@ -254,9 +302,10 @@ def guided_filter_batch_fwd(weight: torch.Tensor, guidance: torch.Tensor,
 
 def guided_filter_batch_bwd(grad_out: torch.Tensor, weight: torch.Tensor,
                             guidance: torch.Tensor, img: torch.Tensor,
-                            saved, supports=None):
+                            saved, supports=None, guards=None):
     """Kernel K6 wrapper: grad_out [B, H, W, 4] and what K5 saved ->
-    (dL/dweight, dL/dguidance), both [B, L, H, W]."""
+    (dL/dweight, dL/dguidance), both [B, L, H, W]; weight and guidance as
+    K5 takes them, ``guards`` as K5's."""
     B, L, H, W = weight.shape
     supports = resolve_supports(L, supports)
     _check_batch("guided_filter_batch_bwd", weight, guidance, img, supports)
@@ -264,7 +313,8 @@ def guided_filter_batch_bwd(grad_out: torch.Tensor, weight: torch.Tensor,
     for t, shape in ((grad_out, (B, H, W, 4)), (fm, (B, L, H, W, 4)),
                      (den, (B, L, H, W))):
         if (t.device != weight.device or t.dtype != torch.float32
-                or tuple(t.shape) != shape or not t.is_contiguous()):
+                or tuple(t.shape) != shape or not t.is_contiguous()
+                or t.data_ptr() % 16):
             raise ValueError(
                 f"guided_filter_batch_bwd: needs a contiguous f32 tensor "
                 f"{shape} on {weight.device}, got {t.dtype} "
@@ -275,10 +325,12 @@ def guided_filter_batch_bwd(grad_out: torch.Tensor, weight: torch.Tensor,
     sup = (ctypes.c_int * L)(*supports)
     fn = native.entry("rt_guided_filter_batch_bwd")
     with torch.cuda.device(dev):
-        rc = fn(grad_out.data_ptr(), weight.data_ptr(), guidance.data_ptr(),
-                img.data_ptr(), fm.data_ptr(), den.data_ptr(), gw.data_ptr(),
-                gg.data_ptr(), B, L, ctypes.cast(sup, ctypes.c_void_p), H, W,
-                native.stream_ptr(dev))
+        rc = fn(grad_out.data_ptr(), weight.data_ptr(),
+                *_rows_strides(weight), guidance.data_ptr(),
+                *_rows_strides(guidance), img.data_ptr(), fm.data_ptr(),
+                den.data_ptr(), gw.data_ptr(), gg.data_ptr(),
+                _guard_ptr(guards), B, L, ctypes.cast(sup, ctypes.c_void_p),
+                H, W, native.stream_ptr(dev))
         native.count_launch("guided_filter_batch_bwd")
     native.check(rc, "guided_filter_batch_bwd_kernel")
     return gw, gg
@@ -316,9 +368,12 @@ def guided_filter_batch(weight: torch.Tensor, guidance: torch.Tensor,
                         img: torch.Tensor, supports=None) -> torch.Tensor:
     """The differentiable batched filter: weight, guidance [B, L, H, W]
     (f32 on CUDA), img [B, H, W, 4] -> [B, H, W, 4] with alpha 1.  CUDA
-    tensors go through K5 / K6 (weight and guidance made contiguous here,
-    img must be), CPU tensors through the plain versions."""
+    tensors go through K5 / K6, which read weight and guidance in place
+    (the net's channel slices; a tensor whose rows are not contiguous is
+    copied first), img must be contiguous; CPU tensors go through the plain
+    versions."""
     supports = resolve_supports(weight.shape[1], supports)
     if img.device.type != "cpu":
-        weight, guidance = weight.contiguous(), guidance.contiguous()
+        weight, guidance = (t if _rows_strides(t) is not None
+                            else t.contiguous() for t in (weight, guidance))
     return _GuidedFilterBatch.apply(weight, guidance, img, supports)

@@ -27,9 +27,10 @@ from rt_octree_tpu_torch.models.guidance_net import GuidanceNetConfig, \
 from rt_octree_tpu_torch.native import build as native
 from rt_octree_tpu_torch.ops import probes as pr
 from rt_octree_tpu_torch.ops import traversal as tt
-from rt_octree_tpu_torch.ops.filtering import guided_filter, \
-    guided_filter_act_plain, guided_filter_backward_plain, \
-    guided_filter_batch, guided_filter_batch_bwd, guided_filter_batch_fwd, \
+from rt_octree_tpu_torch.ops.filtering import BATCH_TILE_H, BATCH_TILE_W, \
+    GUARD_RANGE, batch_tiles, guided_filter, guided_filter_act_plain, \
+    guided_filter_backward_plain, guided_filter_batch, \
+    guided_filter_batch_bwd, guided_filter_batch_fwd, \
     guided_filter_batch_plain, guided_filter_plain, split_activation
 from rt_octree_tpu_torch.ops.resize import fast_upsample, \
     fast_upsample_plain
@@ -45,9 +46,10 @@ IMG_TOL, AUX_TOL, FILTER_TOL = 2e-5, 4e-5, 1e-5
 # K4 vs plain: the same f32 operations in the same order (both sides built
 # without FMA contraction), on values in [0, 1].
 UPSAMPLE_TOL = 1e-6
-# K6 vs plain: the gather of up to 81 taps of exp * (u.x - v) in the plain
-# version's order, with FMA contraction: within 1e-4 of the plain
-# gradient's largest magnitude.
+# K6 vs plain: the factorised window sums (or, on a guard tile, the gather)
+# of up to 81 taps of exp * (u.x - v) in another order than the plain
+# version's, with FMA contraction: within 1e-4 of the plain gradient's
+# largest magnitude.
 GRAD_REL_TOL = 1e-4
 
 
@@ -93,7 +95,8 @@ def _batch_inputs(seed, B=2, L=4, H=37, W=53, gscale=3.0):
     w = np.exp(logits) / np.exp(logits).sum(1, keepdims=True)
     g = rs.standard_normal((B, L, H, W)) * gscale
     if gscale > 10:  # one window spans > 60 nats
-        g[0, 1, 3, 4], g[0, 1, 4, 5] = 70.0, -5.0
+        g[0, 1, min(3, H - 1), min(4, W - 1)] = 70.0
+        g[0, 1, min(4, H - 1), min(5, W - 1)] = -5.0
     return tuple(a.astype(np.float32) for a in (
         w, g, rs.random((B, H, W, 4)), rs.standard_normal((B, H, W, 4))))
 
@@ -522,32 +525,141 @@ def test_k2_refuses_what_the_kernel_does_not_take(cuda_device):
             bad()
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 37, 53), (32, 80, 80)],
-                         ids=["2x37x53", "32x80x80"])
-@pytest.mark.parametrize("supports,gscale", [
-    ((1, 2, 3, 4), 3.0), ((0, 1, 2, 3), 3.0), ((0, 1, 2, 3), 40.0)],
-    ids=["ladder", "identity", "range > 60 nats"])
-def test_k5_k6_match_plain(shape, supports, gscale, cuda_device):
-    """K5's output within FILTER_TOL of the plain batched filter; K6's
-    weight and guidance gradients within GRAD_REL_TOL of the largest
-    plain gradient, at a size that is no multiple of the 32x8 tile and at
-    the training batch (32 slices of 80x80), on the reference ladder, the
-    identity supports, and a window whose guidance spans > 60 nats."""
+# (B, H, W) for K5 / K6: a size that is no multiple of the 40x16 tile, the
+# training batch, and the tile's edges (one pixel, a one-pixel row and
+# column, one tile plus one, one 80x80 slice)
+K56_SHAPES = [(2, 37, 53), (32, 80, 80), (1, 1, 1), (1, 1, 83), (1, 35, 1),
+              (2, 17, 41), (1, 80, 80)]
+# (supports, guidance scale, a 70-nat spike in image 0, level 1): the
+# ladder, the identity supports, every window over 60 nats, eight levels
+# at supports 1..8, and a batch where the spike's tiles take the guard
+# and the others do not
+K56_CASES = [((1, 2, 3, 4), 3.0, False), ((0, 1, 2, 3), 3.0, False),
+             ((0, 1, 2, 3), 40.0, False), (tuple(range(1, 9)), 3.0, False),
+             ((1, 2, 3, 4), 3.0, True)]
+K56_IDS = ["ladder", "identity", "range > 60 nats", "L8 ladder", "spike"]
+
+
+def _k56_inputs(shape, supports, gscale, spike, seed=11):
     B, H, W = shape
-    w, g, x, G = (torch.from_numpy(a).to(cuda_device) for a in
-                  _batch_inputs(11, B, 4, H, W, gscale))
-    out, saved = guided_filter_batch_fwd(w, g, x, supports)
+    w, g, x, G = _batch_inputs(seed, B, len(supports), H, W, gscale)
+    if spike:
+        g[0, 1, min(3, H - 1), min(4, W - 1)] = 70.0
+    return w, g, x, G
+
+
+def _expected_guards(vals, supports):
+    """(tile, level) pairs of a K5 call (vals: the guidance) or a K6 call
+    (vals: the saved stabilisers) whose region, the 40x16 tile and a halo
+    of its level's support clipped to the image, spans GUARD_RANGE nats."""
+    B, L, H, W = vals.shape
+    tw, th = BATCH_TILE_W, BATCH_TILE_H
+    n = 0
+    for b in range(B):
+        for l, s in enumerate(supports):
+            for y0 in range(0, H, th) if s else ():
+                for x0 in range(0, W, tw):
+                    r = vals[b, l, max(y0 - s, 0):y0 + th + s,
+                             max(x0 - s, 0):x0 + tw + s]
+                    n += int(r.max() - r.min() >= GUARD_RANGE)
+    return n
+
+
+def _hold_k56(w, g, x, G, supports):
+    """K5 and K6 against the plain versions (FILTER_TOL; GRAD_REL_TOL of
+    the largest plain gradient) and their guard counts against the
+    regions' ranges; returns (out, fm, den, dL/dw, dL/dg, K5's guard
+    count, K6's)."""
+    d5 = torch.zeros(1, dtype=torch.int32, device=x.device)
+    d6 = torch.zeros_like(d5)
+    out, saved = guided_filter_batch_fwd(w, g, x, supports, guards=d5)
     ref = guided_filter_batch_plain(w, g, x, supports)
     torch.testing.assert_close(out, ref, atol=FILTER_TOL, rtol=0)
-    gw, gg = guided_filter_batch_bwd(G, w, g, x, saved, supports)
+    gw, gg = guided_filter_batch_bwd(G, w, g, x, saved, supports, guards=d6)
     rw, rg = guided_filter_backward_plain(G, w, g, x, supports)
-    for got, want in ((gw, rw), (gg, rg)):
+    # a one-pixel image's guidance gradient is exactly 0: both versions
+    # return the rounding of terms that cancel (a G.x - a G.f with f = x),
+    # so it is held to the scale of those terms, the weight gradient's
+    one_pixel = w.shape[2] * w.shape[3] == 1
+    for got, want, scale in ((gw, rw, rw), (gg, rg, rw if one_pixel else rg)):
         assert bool(torch.isfinite(got).all())
         assert float((got - want).abs().max()) <= \
-            GRAD_REL_TOL * float(want.abs().max())
+            GRAD_REL_TOL * float(scale.abs().max())
     if supports[0] == 0:
         assert not gg[:, 0].any()
+    assert int(d5) == _expected_guards(g.cpu().numpy(), supports)
+    assert int(d6) == _expected_guards(saved[0][..., 3].cpu().numpy(),
+                                       supports)
+    return out, *saved, gw, gg, int(d5), int(d6)
+
+
+def _written(held, supports):
+    """_hold_k56's result with fm and den cut to the levels K5 writes
+    (support > 0)."""
+    lv = [i for i, s in enumerate(supports) if s > 0]
+    return (held[0], held[1][:, lv], held[2][:, lv]) + held[3:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", K56_SHAPES,
+                         ids=["x".join(map(str, s)) for s in K56_SHAPES])
+@pytest.mark.parametrize("supports,gscale,spike", K56_CASES, ids=K56_IDS)
+def test_k5_k6_match_plain(shape, supports, gscale, spike, cuda_device):
+    """K5's output within FILTER_TOL of the plain batched filter; K6's
+    weight and guidance gradients within GRAD_REL_TOL of the largest
+    plain gradient, at sizes that are no multiple of the 40x16 tile and at
+    its edges, at the training batch (32 slices of 80x80), on the
+    reference ladder, the identity supports, windows whose guidance spans
+    > 60 nats, eight levels and a spike; each kernel's guard taken in
+    exactly the tiles whose staged values span 60 nats (the spike's
+    tiles, not their neighbours)."""
+    w, g, x, G = (torch.from_numpy(a).to(cuda_device) for a in
+                  _k56_inputs(shape, supports, gscale, spike))
+    n5, n6 = _hold_k56(w, g, x, G, supports)[5:]
+    tiles = batch_tiles(shape[0], shape[1], shape[2], supports)
+    if spike and shape[1] * shape[2] > 1:
+        assert 0 < n5 < tiles and n6 < tiles
+    if gscale > 10 and shape[1] * shape[2] > 1:
+        assert n5 > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("supports", [(1, 2, 3, 4), (0, 1, 2, 3)],
+                         ids=["ladder", "identity"])
+def test_k5_k6_read_the_nets_strided_views(supports, cuda_device):
+    """Weight and guidance as the net hands them over, the channel slices
+    [:, :L] and [:, L:] of one [B, 2L, H, W] tensor (not contiguous): the
+    same bits as from contiguous copies, and within the bars of the plain
+    versions."""
+    L = len(supports)
+    w, g, x, G = (torch.from_numpy(a).to(cuda_device) for a in
+                  _batch_inputs(14, 4, L, 80, 80))
+    net = torch.cat([w, g], 1)
+    wv, gv = net[:, :L], net[:, L:]
+    assert not wv.is_contiguous() and not gv.is_contiguous()
+    got = _written(_hold_k56(wv, gv, x, G, supports), supports)
+    want = _written(_hold_k56(w, g, x, G, supports), supports)
+    for a, b in zip(got[:5], want[:5]):
+        assert torch.equal(a, b)
+    net.requires_grad_()
+    guided_filter_batch(net[:, :L], net[:, L:], x, supports).backward(G)
+    assert torch.equal(net.grad[:, :L], want[3])
+    assert torch.equal(net.grad[:, L:], want[4])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("supports,gscale,spike",
+                         [K56_CASES[0], K56_CASES[4]], ids=["ladder", "spike"])
+def test_k5_k6_are_deterministic(supports, gscale, spike, cuda_device):
+    """Two calls give bit-equal outputs, saved state and gradients (the
+    gather has no atomics; only the guard counter is added to)."""
+    w, g, x, G = (torch.from_numpy(a).to(cuda_device) for a in
+                  _k56_inputs((32, 80, 80), supports, gscale, spike))
+    a = _written(_hold_k56(w, g, x, G, supports), supports)
+    b = _written(_hold_k56(w, g, x, G, supports), supports)
+    for t, u in zip(a[:5], b[:5]):
+        assert torch.equal(t, u)
+    assert a[5:] == b[5:]
 
 
 @pytest.mark.cuda
