@@ -11,8 +11,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   3. K3 (LUT build + skip distances) vs its plain version, integer-exact,
      on a depth-7 shell, a deep chain and a random 512^3 LUT (occupancy
      1e-3, cap 12);
-  4. K1 (fused frame) vs its plain version at 128x128, SPP 1/6/32, on a
-     depth-7 shell tree and an NDC blobs tree; then on both scenes K1 with a
+  4. K1 (fused frame) vs its plain version at 128x128 at every SPP of the
+     viewer's panel (1, 2, 4, 6, 8, 16, 32), on a depth-7 shell tree and an
+     NDC blobs tree; then on both scenes K1 with a
      random mesh pass, K1's classic variant (render_classic) with and
      without one, and K1 with the octree grid's mesh pass (show_grid),
      each vs its plain version; render_classic on each of its instances
@@ -118,6 +119,30 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      the tools' entry points (gpu_probe basic vgather vgather_loop dma,
      microbench_gather b and c) with the counts reset: every probe kernel's
      launch count in that run must be > 0.
+ 13. apps: ``rtoctree view`` (apps/viewer.py) on the depth-9 shell npz at
+     800x800, SPP 6, level-9 LUT, trained.gnet, denoise turned on by an
+     options event, behind ThreadingHTTPServer on 127.0.0.1:0: after 3
+     warm-up frames, 20 timed /frame.png with the counts reset (K1, K7 and
+     K2 once a frame; the first decoded frame bit-equal to a fresh
+     Renderer's at the same camera, options and PCG32 state); then the
+     panel, each step one frame that must launch its kernels and change:
+     an orbit drag, every SPP of the page, the classic estimator
+     (render_classic), the fast rungs 0.75 / 0.5 / 0.4 (K4), the grid, the
+     probe, a sphere primitive and a drawlist; the animation editor's
+     export of two keyframes at 10 fps (10 PNGs, /state polled to 101);
+     and a load_remote of the quant phase's depth-7 npz from a second
+     local http.server (K3 must launch).  ``rtoctree anim`` on
+     examples/orbit_keyframes.json at 800x800 with trained.gnet (90
+     frames; K1, K7, K2 90 times; frame 0 bit-equal to a fresh Renderer's
+     at keyframe 0) and with --render_scale 0.5 and fast.gnet (K4 90
+     times); ``rtoctree tools`` (both subcommands, no kernel) on a scene
+     folder of the quality kit's poses.  Printed as one JSON line
+     {"apps": ...}: the /frame.png round trip (least, quartiles, largest
+     in ms) and its parts, timed from the outside on the viewer's state
+     (the render's host time, the kernels' device time a render by
+     torch.profiler, the host copy with to_uint8, the PNG encode, and
+     HTTP as the median round trip less the parts' medians), the anim
+     runs' frames per second, and every run's launch counts.
 
 After phase 10 it prints K7's holds and times as one JSON line
 {"k7": ...}: per input, the largest difference from the plain version in
@@ -200,6 +225,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -328,6 +354,14 @@ BF16_TC_OPS_PER_S = 989e12
 # ~100 (clip 12, LUT cell 18, leaf cube ~10, DDA 22, skip box 36), a shaded
 # leaf 6 bd + 16 (three dot products, sigmoids, the weighted sum).
 K1_OPS_PER_STEP = 100
+# The apps phase: the viewer at the headline's width, driven over HTTP as a
+# browser drives it, the keyframe animator's CLI and the tools' CLI.
+APPS_SIZE, APPS_SPP, APPS_WARMUP, APPS_FRAMES = 800, 6, 3, 20
+APPS_PANEL_SPP = (1, 2, 4, 6, 8, 16, 32)  # the viewer page's SPP choices
+APPS_FAST = (0.75, 0.5, 0.4)  # the page's fast rungs below full
+APPS_DEADLINE_S = 300.0
+# the viewer's frame kernels with denoise on
+APPS_DENOISED = ("guidance_net", "guided_filter")
 
 FRAME_KERNELS = {
     "render": ("rt_octree_tpu_torch/csrc/render.cu",
@@ -495,7 +529,7 @@ def phase_k1(err):
         dt = upload_tree(tree, lut_levels=tree.max_depth, device="cuda")
         tf = torch.from_numpy(cam.transform.astype(np.float32)).cuda()
         rng = Pcg32(20230418)
-        for spp in (1, 6, 32):
+        for spp in APPS_PANEL_SPP:
             opt = RenderOptions(spp=spp, denoise=False)
             kw = dict(width=cam.width, height=cam.height, fx=cam.fx,
                       fy=cam.fy, opt=opt)
@@ -718,7 +752,8 @@ def phase_classic_layouts(err):
         hold_classic_stats(f"SH9 {label}", sh9, tf_s, kw)
 
 
-UPSAMPLE_CASES = [((400, 400), (800, 800)), ((320, 320), (800, 800)),
+UPSAMPLE_CASES = [((600, 600), (800, 800)), ((400, 400), (800, 800)),
+                  ((320, 320), (800, 800)),
                   ((24, 38), (47, 75)), ((19, 30), (47, 75)),
                   ((33, 52), (47, 75))]
 
@@ -731,9 +766,9 @@ def upsample_input(h, w, seed=5):
 
 
 def phase_k4(err):
-    """K4 vs its plain version at the fast frames' sizes (400->800 at s =
-    0.5, 320->800 at 0.4) and at 75x47 from s = 0.5, 0.4 and 0.7, with and
-    without aux_chw."""
+    """K4 vs its plain version at the fast frames' sizes (600->800 at s =
+    0.75, the viewer's first rung, 400->800 at 0.5, 320->800 at 0.4) and
+    at 75x47 from s = 0.5, 0.4 and 0.7, with and without aux_chw."""
     from rt_octree_tpu_torch.ops.resize import (fast_upsample,
                                                 fast_upsample_plain)
     worst = 0.0
@@ -2014,19 +2049,16 @@ def guard_share(fn, tiles):
     return int(guards) / tiles
 
 
-def step_ops(runner, batch, warmup=3):
-    """The device operations of one training step (Runner.train_step)
-    after ``warmup`` steps, by torch.profiler: {kernel: [launches, device
-    ms]}, their number and summed device ms.  Moves the runner's net."""
+def device_ops(fn, reps=1):
+    """The device operations of ``reps`` calls of ``fn``, by
+    torch.profiler: {kernel: [launches, device ms]}, their number and
+    summed device ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    if runner.optimizer is None:
-        runner.optimizer = runner.make_optimizer()
-    for _ in range(warmup):
-        runner.train_step(*batch)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        runner.train_step(*batch)
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
     ops = {}
     for e in prof.key_averages():
@@ -2036,6 +2068,16 @@ def step_ops(runner, batch, warmup=3):
             ops[e.key] = [e.count, t / 1e3]
     return {"ops": ops, "launches": sum(c for c, _ in ops.values()),
             "device_ms": sum(t for _, t in ops.values())}
+
+
+def step_ops(runner, batch, warmup=3):
+    """The device operations of one training step (Runner.train_step)
+    after ``warmup`` steps (device_ops).  Moves the runner's net."""
+    if runner.optimizer is None:
+        runner.optimizer = runner.make_optimizer()
+    for _ in range(warmup):
+        runner.train_step(*batch)
+    return device_ops(lambda: runner.train_step(*batch))
 
 
 def filter_only(root):
@@ -2752,6 +2794,368 @@ def phase_probes(native, err):
     return counts, ms, bounds
 
 
+def launched(native, required, label):
+    """The launch counts since the last reset: each kernel of ``required``
+    launched at least once; -> the non-zero counts."""
+    counts = {k: v for k, v in native.LAUNCHES.items() if v}
+    require(all(counts.get(k, 0) > 0 for k in required),
+            f"{label}: a kernel never launched ({counts})")
+    return counts
+
+
+class _HttpClient:
+    """GET and POST on one local server, as the viewer's page does."""
+
+    def __init__(self, base):
+        self.base = base
+
+    def get(self, path):
+        import urllib.request
+        with urllib.request.urlopen(self.base + path,
+                                    timeout=APPS_DEADLINE_S) as resp:
+            return resp.read()
+
+    def post(self, ev):
+        import urllib.request
+        req = urllib.request.Request(self.base + "/event",
+                                     data=json.dumps(ev).encode(),
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=APPS_DEADLINE_S) as resp:
+            require(resp.status == 200, f"event {ev}: HTTP {resp.status}")
+
+    def state(self):
+        return json.loads(self.get("/state"))
+
+    def wait(self, progress, label):
+        """Poll /state until ``progress(state)`` leaves 0..100."""
+        t0 = time.time()
+        while True:
+            st = self.state()
+            p = progress(st)
+            if not 0.0 <= p <= 100.0:
+                return st
+            require(time.time() - t0 < APPS_DEADLINE_S, f"{label} timed out")
+            time.sleep(0.05)
+
+
+def _serve(handler):
+    import threading
+    from http.server import ThreadingHTTPServer
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), handler)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return httpd, f"http://127.0.0.1:{httpd.server_address[1]}"
+
+
+def fetch_frames(client):
+    """APPS_FRAMES /frame.png round trips; -> (list of PNGs, the client's
+    wall time of each in ms)."""
+    pngs, trips = [], []
+    for _ in range(APPS_FRAMES):
+        t0 = time.perf_counter()
+        pngs.append(client.get("/frame.png"))
+        trips.append((time.perf_counter() - t0) * 1e3)
+    return pngs, trips
+
+
+def time_frame_parts(st, pngs, trips):
+    """The parts of the round trips ``trips`` that served ``pngs``, timed
+    from the outside with the viewer's lock held, on its state and through
+    the Renderer it holds: the render to the frame on the card (host wall
+    time), the kernels' own device time a render (torch.profiler over
+    APPS_FRAMES renders), the host copy with to_uint8 and encode_png of
+    each served frame.  The timing renders do not advance the PCG32
+    state, so the viewer's next frame is the one it would have served.
+    -> (dict of per-frame lists in ms, device ms a render)."""
+    import torch
+    from rt_octree_tpu_torch.io.png import decode_png, encode_png, to_uint8
+    parts = {k: [] for k in ("render", "copy", "encode")}
+    with st.lock:
+        r, pose = st.renderer, st.cam.transform
+        for png in pngs:
+            frame = decode_png(png)
+            t0 = time.perf_counter()
+            img, _ = r.render_with_probe(pose, want_aux=False)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            to_uint8(img.cpu().numpy())
+            t2 = time.perf_counter()
+            encode_png(frame)
+            t3 = time.perf_counter()
+            for k, a, b in (("render", t0, t1), ("copy", t1, t2),
+                            ("encode", t2, t3)):
+                parts[k].append((b - a) * 1e3)
+        device = device_ops(lambda: r.render_with_probe(pose,
+                                                        want_aux=False),
+                            APPS_FRAMES)["device_ms"] / APPS_FRAMES
+    parts["round_trip"] = trips
+    parts["png_kib"] = [len(p) / 1024 for p in pngs]
+    return parts, device
+
+
+def viewer_panel(native, client, frame0):
+    """Each control of the page that the main path's kernels serve, one
+    step at a time: the step's events, then one /frame.png with the counts
+    reset just before it; each must launch its kernels and change the
+    frame.  -> {step: launch counts}."""
+    from rt_octree_tpu_torch.io.mesh import load_drawlist
+    draw = os.path.join(WORK, "apps_marker.draw.npz")
+    np.savez_compressed(draw, marker="cube", marker__scale=0.3,
+                        marker__translation=np.array([0.0, 0.0, 1.0]),
+                        marker__color=np.array([0.1, 0.2, 0.9]))
+    require(len(load_drawlist(draw)) == 1, "the viewer's drawlist")
+    steps = [("orbit", [{"type": "begin_drag", "x": 400, "y": 400,
+                         "pan": False, "about_origin": True},
+                        {"type": "drag_update", "x": 470, "y": 380},
+                        {"type": "end_drag"}], ("render",))]
+    steps += [(f"spp {s}", [{"type": "options", "spp": s}], ("render",))
+              for s in APPS_PANEL_SPP]
+    steps += [("classic", [{"type": "options", "estimator": "classic"}],
+               ("render_classic",)),
+              ("rt", [{"type": "options", "estimator": "rt"}], ("render",))]
+    steps += [(f"render_scale {s}", [{"type": "options", "render_scale": s}],
+               ("render", "upsample")) for s in APPS_FAST]
+    steps += [("render_scale 1", [{"type": "options", "render_scale": 1.0}],
+               ("render",)),
+              ("grid", [{"type": "options", "show_grid": True}], ("render",)),
+              ("no grid, probe", [{"type": "options", "show_grid": False,
+                                   "enable_probe": True,
+                                   "probe": [0.6, 0.0, 0.0]}], ("render",)),
+              ("sphere", [{"type": "options", "enable_probe": False},
+                          {"type": "add_primitive", "kind": "sphere"}],
+               ("render",)),
+              ("drawlist", [{"type": "clear_meshes"},
+                            {"type": "load_mesh", "path": draw}],
+               ("render",))]
+    out, last = {}, frame0
+    for label, events, required in steps:
+        for ev in events:
+            client.post(ev)
+        native.reset_launches()
+        png = client.get("/frame.png")
+        out[label] = launched(native, required + APPS_DENOISED,
+                              f"viewer {label}")
+        require(png != last, f"viewer {label}: the frame did not change")
+        last = png
+    client.post({"type": "clear_meshes"})
+    st = client.state()
+    require(st["options"]["spp"] == 32 and st["render_scale"] == 1.0,
+            f"viewer state after the panel: {st['options']}")
+    return out
+
+
+def phase_viewer(native, tree_path, quant_src):
+    """rtoctree view at the headline's width (800x800, SPP 6, level-9 LUT,
+    trained.gnet, denoise on) behind ThreadingHTTPServer on 127.0.0.1:0:
+    APPS_FRAMES timed /frame.png (K1, K7, K2 once each a frame; the first
+    bit-equal to a fresh Renderer's), the panel, the animation editor's
+    export and a load_remote of the quant phase's npz from a second local
+    server (K3 must launch)."""
+    import dataclasses
+    import functools
+    from http.server import SimpleHTTPRequestHandler
+    from rt_octree_tpu_torch.apps import viewer as V
+    from rt_octree_tpu_torch.io.png import decode_png, to_uint8
+    from rt_octree_tpu_torch.render.renderer import Renderer
+    gnet = os.path.join(KIT, "trained.gnet")
+    t0 = time.time()
+    st = V.ViewerState(tree_path, APPS_SIZE, APPS_SIZE, gnet, lut_levels=9,
+                       spp=APPS_SPP, device="cuda")
+    load_s = time.time() - t0
+    httpd, base = _serve(V.make_handler(st))
+    fsrv, furl = _serve(functools.partial(SimpleHTTPRequestHandler,
+                                          directory=os.path.dirname(
+                                              quant_src)))
+    client = _HttpClient(base)
+    out = {"load_s": load_s}
+    try:
+        require(b"rt-octree-tpu" in client.get("/"), "the viewer's page")
+        client.post({"type": "options", "denoise": True})
+        for _ in range(APPS_WARMUP):
+            client.get("/frame.png")
+        native.reset_launches()
+        pngs, trips = fetch_frames(client)
+        counts = launched(native, ("render",) + APPS_DENOISED, "viewer")
+        require(all(counts.get(k) == APPS_FRAMES
+                    for k in ("render",) + APPS_DENOISED),
+                f"viewer: K1, K7, K2 not once a frame: {counts}")
+        parts, device = time_frame_parts(st, pngs, trips)
+        # a fresh Renderer at the viewer's camera and options, its PCG32
+        # advanced past the warm-up frames
+        r = Renderer(st.dt, APPS_SIZE, APPS_SIZE, st.cam.fx, st.cam.fy,
+                     options=dataclasses.replace(st.renderer.options))
+        r.set_denoiser(gnet)
+        for _ in range(APPS_WARMUP):
+            r.advance_rng()
+        img, _ = r.render(st.cam.transform, want_aux=False)
+        ref = to_uint8(img.cpu().numpy())
+        got = decode_png(pngs[0])
+        require(got.shape == (APPS_SIZE, APPS_SIZE, 4)
+                and np.array_equal(got, ref),
+                "viewer: the first frame is not the fresh Renderer's")
+        require(float(ref[..., 3].mean()) > 0, "viewer: an empty frame")
+        del r, img
+        out.update({"frames": APPS_FRAMES, "launches": counts,
+                    "bit_equal": True, "device_ms": device,
+                    **{k: spread(v) for k, v in parts.items()}})
+        # HTTP and the client: the median round trip less the medians of
+        # the parts (timed in a second pass, so not frame by frame)
+        out["http_ms"] = out["round_trip"]["median"] - sum(
+            out[k]["median"] for k in ("render", "copy", "encode"))
+        log(f"[apps] viewer: {APPS_FRAMES} frames, round trip "
+            f"{out['round_trip']}, kernels' device time {device:.4f} ms")
+        out["panel"] = viewer_panel(native, client, pngs[-1])
+        log(f"[apps] viewer panel: {out['panel']}")
+
+        # the animation editor: two keyframes an orbit apart, exported at
+        # 10 fps (1 s: 10 frames)
+        client.post({"type": "anim_add", "duration": 1.0})
+        for ev in ({"type": "begin_drag", "x": 400, "y": 400, "pan": False,
+                    "about_origin": True},
+                   {"type": "drag_update", "x": 300, "y": 420},
+                   {"type": "end_drag"}):
+            client.post(ev)
+        client.post({"type": "anim_add", "duration": 1.0})
+        client.post({"type": "anim_fps", "fps": 10})
+        anim_dir = os.path.join(WORK, "viewer_anim")
+        shutil.rmtree(anim_dir, ignore_errors=True)
+        native.reset_launches()
+        t0 = time.time()
+        client.post({"type": "anim_render", "out_dir": anim_dir})
+        s = client.wait(lambda s: s["anim"]["progress"], "viewer export")
+        export_s = time.time() - t0
+        require(s["anim"]["progress"] == 101.0,
+                f"viewer export: {s['anim']['error']}")
+        n_png = len([f for f in os.listdir(anim_dir) if f.endswith(".png")])
+        require(n_png == 10, f"viewer export wrote {n_png} PNGs, not 10")
+        out["anim_export"] = {"frames": n_png, "s": export_s,
+                              "launches": launched(
+                                  native, ("render",) + APPS_DENOISED,
+                                  "viewer export")}
+        require(out["anim_export"]["launches"]["render"] == 10,
+                "viewer export: K1 not once a frame")
+
+        # load_remote of the quant phase's depth-7 npz
+        native.reset_launches()
+        t0 = time.time()
+        client.post({"type": "load_remote",
+                     "url": f"{furl}/{os.path.basename(quant_src)}"})
+        s = client.wait(lambda s: s["load_progress"], "load_remote")
+        require(s["load_progress"] == 101.0,
+                f"load_remote: {s['load_error']}")
+        png = client.get("/frame.png")
+        out["load_remote"] = {"s": time.time() - t0, "launches": launched(
+            native, ("lut_build", "skip_distances", "render"),
+            "load_remote")}
+        require(decode_png(png).shape == (APPS_SIZE, APPS_SIZE, 4),
+                "load_remote: the frame")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        fsrv.shutdown()
+        fsrv.server_close()
+    return out
+
+
+def phase_anim_cli(native, tree_path, label, extra, required):
+    """``rtoctree anim TREE examples/orbit_keyframes.json`` at 800x800 with
+    the counts reset just before it and read just after: 90 frames (60 +
+    30 at 30 fps), each kernel of ``required`` once a frame.  -> its
+    figures and the output directory."""
+    from rt_octree_tpu_torch.apps import cli
+    out_dir = os.path.join(WORK, "anim_" + label)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    argv = ["anim", tree_path, os.path.join(HERE, "examples",
+                                            "orbit_keyframes.json"),
+            "-o", out_dir, "-w", str(APPS_SIZE), "--height", str(APPS_SIZE)]
+    argv += extra
+    native.reset_launches()
+    t0 = time.time()
+    rc = cli.main(argv)
+    wall = time.time() - t0
+    counts = launched(native, required, f"anim {label}")
+    require(rc == 0, f"anim {label} failed")
+    names = sorted(f for f in os.listdir(out_dir) if f.endswith(".png"))
+    require(len(names) == 90, f"anim {label} wrote {len(names)} frames")
+    require(all(counts[k] == 90 for k in required),
+            f"anim {label}: not once a frame: {counts}")
+    stamps = [os.stat(os.path.join(out_dir, f)).st_mtime_ns for f in names]
+    fps = 89 / ((stamps[-1] - stamps[0]) * 1e-9)
+    log(f"[apps] anim {label}: 90 frames in {wall:.1f} s "
+        f"({fps:.1f} fps between the first and last frame); {counts}")
+    return {"s": wall, "fps": fps, "fps_with_load": 90 / wall,
+            "launches": counts}, out_dir
+
+
+def phase_tools_cli(native):
+    """``rtoctree tools`` on a scene folder whose transforms_{test,train}
+    are the quality kit's test poses: no kernel launches, and the pose
+    txts, intrinsics.txt and a drawlist the port reads are written."""
+    from rt_octree_tpu_torch.apps import cli
+    from rt_octree_tpu_torch.io.mesh import load_drawlist
+    root = os.path.join(WORK, "tools_scenes")
+    shutil.rmtree(root, ignore_errors=True)
+    scene = os.path.join(root, "shell")
+    os.makedirs(scene)
+    for split in ("test", "train"):
+        shutil.copy(os.path.join(KIT, "transforms_test.json"),
+                    os.path.join(scene, f"transforms_{split}.json"))
+    out = {}
+    for cmd in ("extract-test-poses", "extract-cams-drawlist"):
+        native.reset_launches()
+        rc = cli.main(["tools", cmd, root])
+        out[cmd] = {k: v for k, v in native.LAUNCHES.items() if v}
+        require(rc == 0 and not out[cmd], f"tools {cmd}: rc {rc}, "
+                f"launches {out[cmd]}")
+    poses = sorted(os.listdir(os.path.join(scene, "pose")))
+    require(poses == [f"r_{i}.txt" for i in range(8)], f"poses {poses}")
+    require(os.path.isfile(os.path.join(scene, "intrinsics.txt")),
+            "intrinsics.txt")
+    meshes = load_drawlist(os.path.join(scene, "shell_cams.draw.npz"))
+    require(len(meshes) == 1 and meshes[0].face_size == 2,
+            "the camera drawlist")
+    return out
+
+
+def phase_apps(native, tree_path, quant_src, card):
+    """rtoctree view, anim and tools (see the module docstring's phase 13);
+    prints one {"apps": ...} line."""
+    from rt_octree_tpu_torch.apps.anim import interp_keyframes, \
+        load_keyframes
+    from rt_octree_tpu_torch.io import n3tree
+    from rt_octree_tpu_torch.io.png import read_png, to_uint8
+    from rt_octree_tpu_torch.ops.traversal import upload_tree
+    from rt_octree_tpu_torch.render.renderer import Renderer
+    t_phase = time.time()
+    out = {"card": card, "viewer": phase_viewer(native, tree_path,
+                                                 quant_src)}
+    trained = os.path.join(KIT, "trained.gnet")
+    out["anim"], anim_dir = phase_anim_cli(
+        native, tree_path, "headline", ["--gnet", trained],
+        ("render",) + APPS_DENOISED)
+    # frame 0 against a fresh Renderer at keyframe 0's camera, built as
+    # the CLI builds its own (the tree at upload_tree's default LUT)
+    kfs, _ = load_keyframes(os.path.join(HERE, "examples",
+                                         "orbit_keyframes.json"))
+    cam, options = interp_keyframes(kfs[0], kfs[1], 0.0)
+    r = Renderer(upload_tree(n3tree.load(tree_path), device="cuda"),
+                 APPS_SIZE, APPS_SIZE, cam.fx, cam.fy, options=options)
+    r.set_denoiser(trained)
+    img, _ = r.render(cam.transform)
+    require(np.array_equal(read_png(os.path.join(anim_dir, "000000.png")),
+                           to_uint8(img.cpu().numpy())),
+            "anim: frame 0 is not the fresh Renderer's")
+    out["anim"]["frame0_bit_equal"] = True
+    del r, img
+    out["anim_fast"], _ = phase_anim_cli(
+        native, tree_path, "fast_s0.5",
+        ["--render_scale", "0.5", "--gnet", os.path.join(KIT, "fast.gnet")],
+        ("render", "upsample") + APPS_DENOISED)
+    out["tools"] = phase_tools_cli(native)
+    out["phase_s"] = time.time() - t_phase
+    log(json.dumps({"apps": out}, separators=(",", ":")))
+    return out
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2839,6 +3243,7 @@ def main(argv) -> int:
     counts.update(probe_counts)
     ms.update(probe_ms)
     bounds.update(probe_bounds)
+    phase_apps(native, tree_path, quant_src, smi[0])
 
     table = []
     for name, (source, replaces) in KERNELS.items():

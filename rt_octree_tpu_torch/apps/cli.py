@@ -14,10 +14,6 @@ from __future__ import annotations
 
 import sys
 
-# the JAX package's commands that the port has not ported yet: they print a
-# line and run nothing (ROADMAP A.4)
-NOT_PORTED = ("view", "anim", "tools")
-
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
@@ -28,18 +24,24 @@ def main(argv=None) -> int:
     if cmd == "render":
         from .headless import run
         return run(rest)
-    if cmd == "compress":
-        from .compress import main as compress_main
-        return compress_main(rest)
+    if cmd == "view":
+        from .viewer import run as view_run
+        return view_run(rest)
+    if cmd == "anim":
+        from .anim import main as anim_main
+        return anim_main(rest) or 0
     if cmd == "train":
         from ..train.main import main as train_main
         return train_main(rest)
+    if cmd == "compress":
+        from .compress import main as compress_main
+        return compress_main(rest)
     if cmd == "lod":
         from ..io.lod import main as lod_main
         return lod_main(rest)
-    if cmd in NOT_PORTED:
-        print(f"not yet ported: {cmd}", file=sys.stderr)
-        return 2
+    if cmd == "tools":
+        from .tools import main as tools_main
+        return tools_main(rest)
     print(f"unknown command: {cmd}\n{__doc__}", file=sys.stderr)
     return 2
 

@@ -1,7 +1,7 @@
 """8-bit PNG reading and writing on zlib and numpy.
 
-Takes the place of imageio for the port: ``-o`` frame output and the GT
-PNGs of the quality kits.  The writer emits RGB or RGBA rows with filter 0
+Takes the place of imageio for the port: ``-o`` frame output, the viewer's
+``/frame.png``, the animator's frames and the GT PNGs of the quality kits.  The writer emits RGB or RGBA rows with filter 0
 at zlib level 1 (the reference writer disables compression for speed,
 imwrite.cpp:14-86); the reader takes non-interlaced 8-bit grey, grey+alpha,
 RGB and RGBA with any of the five row filters.
@@ -29,20 +29,26 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
             struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
 
 
-def write_png(path: str, img: np.ndarray) -> None:
-    """img: [H, W, 3 or 4] float in [0, 1] or uint8."""
+def encode_png(img: np.ndarray) -> bytes:
+    """img: [H, W, 3 or 4] float in [0, 1] or uint8 -> PNG file bytes."""
     if img.dtype != np.uint8:
         img = to_uint8(img)
     if img.ndim != 3 or img.shape[2] not in (3, 4):
-        raise ValueError(f"write_png: need [H, W, 3|4], got {img.shape}")
+        raise ValueError(f"encode_png: need [H, W, 3|4], got {img.shape}")
     h, w, c = img.shape
     rows = np.concatenate(
         [np.zeros((h, 1), np.uint8), img.reshape(h, w * c)], axis=1)
     ihdr = struct.pack(">IIBBBBB", w, h, 8, 2 if c == 3 else 6, 0, 0, 0)
+    return (_SIG + _chunk(b"IHDR", ihdr) +
+            _chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) +
+            _chunk(b"IEND", b""))
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """img: [H, W, 3 or 4] float in [0, 1] or uint8."""
+    data = encode_png(img)
     with open(path, "wb") as f:
-        f.write(_SIG + _chunk(b"IHDR", ihdr) +
-                _chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) +
-                _chunk(b"IEND", b""))
+        f.write(data)
 
 
 def _unfilter_row(ftype: int, row: bytearray, prior: bytearray,
@@ -78,7 +84,11 @@ def _unfilter_row(ftype: int, row: bytearray, prior: bytearray,
 def read_png(path: str) -> np.ndarray:
     """-> uint8 [H, W, C] (C = 1, 2, 3 or 4 as stored)."""
     with open(path, "rb") as f:
-        buf = f.read()
+        return decode_png(f.read(), path)
+
+
+def decode_png(buf: bytes, path: str = "PNG") -> np.ndarray:
+    """PNG file bytes -> uint8 [H, W, C]; ``path`` names them in errors."""
     if buf[:8] != _SIG:
         raise ValueError(f"{path}: not a PNG file")
     pos, idat, hdr = 8, [], None

@@ -44,6 +44,9 @@ MODULES = [
     "rt_octree_tpu_torch.io.lod",
     "rt_octree_tpu_torch.apps.compress",
     "rt_octree_tpu_torch.apps.cli",
+    "rt_octree_tpu_torch.apps.tools",
+    "rt_octree_tpu_torch.apps.anim",
+    "rt_octree_tpu_torch.apps.viewer",
     "rt_octree_tpu_torch.train.config",
     "rt_octree_tpu_torch.train.dataset",
     "rt_octree_tpu_torch.train.logger",
@@ -165,10 +168,76 @@ def test_dispatcher_lod_and_compress_import_neither_jax_nor_the_jax_package(
     assert (tmp_path / "lod.npz").exists()
     assert (tmp_path / "q" / "tree.npz").exists()
     out = subprocess.run([sys.executable, "-m", "rt_octree_tpu_torch.apps.cli",
-                          "tools"], cwd=REPO, env=_clean_env(),
+                          "tools", "extract-test-poses", str(tmp_path)],
+                         cwd=REPO, env=_clean_env(), capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "not yet ported" not in out.stderr
+
+
+def test_dispatcher_apps_import_neither_jax_nor_the_jax_package(tmp_path):
+    """``rtoctree tools`` (both subcommands) and ``rtoctree anim`` on the
+    CPU over a tiny tree, and a ViewerState on the CPU serving one frame:
+    no module of ``rt_octree_tpu`` and no jax gets imported.  The
+    dispatcher's help names all seven commands and none is refused."""
+    code = (
+        "import json, os, shutil, sys\n"
+        "from rt_octree_tpu_torch.io import synthetic\n"
+        "from rt_octree_tpu_torch.apps import cli, viewer\n"
+        f"d = {str(tmp_path)!r}\n"
+        "synthetic.save_npz(synthetic.make_synthetic_tree('shell', depth=3,"
+        " basis_dim=4), d + '/tree.npz')\n"
+        "os.makedirs(d + '/scenes/lego')\n"
+        "for split in ('test', 'train'):\n"
+        "    shutil.copy('benchmarks/quality/transforms_test.json',"
+        " d + f'/scenes/lego/transforms_{split}.json')\n"
+        "kf = json.load(open('examples/orbit_keyframes.json'))\n"
+        "kf['fps'] = 1\n"
+        "json.dump(kf, open(d + '/kf.json', 'w'))\n"
+        "rcs = [cli.main(['tools', 'extract-test-poses', d + '/scenes']),"
+        " cli.main(['tools', 'extract-cams-drawlist', d + '/scenes']),"
+        " cli.main(['anim', d + '/tree.npz', d + '/kf.json', '-o',"
+        " d + '/anim', '-w', '8', '--height', '8', '--device', 'cpu'])]\n"
+        "st = viewer.ViewerState(d + '/tree.npz', width=8, height=8,"
+        " lut_levels=0, spp=1, device='cpu')\n"
+        "png = st.render_png()\n"
+        "print(rcs, png[:4] == b'\\x89PNG', sorted(m for m in sys.modules"
+        f" if m.split('.')[0] in {FORBIDDEN + ('rt_octree_tpu',)!r}))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=_clean_env(), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[0, 0, 0] True []"
+    assert len(os.listdir(tmp_path / "anim")) == 3
+    assert (tmp_path / "scenes" / "lego" / "pose" / "r_0.txt").exists()
+    assert (tmp_path / "scenes" / "lego" / "lego_cams.draw.npz").exists()
+    out = subprocess.run([sys.executable, "-m", "rt_octree_tpu_torch.apps.cli",
+                          "--help"], cwd=REPO, env=_clean_env(),
                          capture_output=True, text=True, timeout=120)
-    assert out.returncode == 2
-    assert out.stderr.strip() == "not yet ported: tools"
+    assert out.returncode == 0
+    listed = [line.split()[0] for line in out.stdout.splitlines()
+              if line.startswith("  ")]
+    assert listed == ["render", "view", "anim", "train", "compress", "lod",
+                      "tools"]
+    code = (
+        "import contextlib, io\n"
+        "from rt_octree_tpu_torch.apps import cli\n"
+        f"for cmd in {listed!r}:\n"
+        "    out, err = io.StringIO(), io.StringIO()\n"
+        "    with contextlib.redirect_stdout(out), "
+        "contextlib.redirect_stderr(err):\n"
+        "        try:\n"
+        "            rc = cli.main([cmd, '--help'])\n"
+        "        except SystemExit as e:\n"
+        "            rc = e.code\n"
+        "    print(cmd, rc, 'usage' in out.getvalue(),"
+        " 'not yet ported' in err.getvalue())\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=_clean_env(), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines() == [
+        f"{cmd} 0 True False" for cmd in listed]
 
 
 def test_dispatcher_train_imports_neither_jax_nor_the_jax_package(
