@@ -106,6 +106,23 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      quantized depth-7 shell (K1 held on its
      decode, PSNR against the float frame and the npz bytes ratio against
      the JAX package's), printed as one JSON line {"scenes": ...};
+ 10b. kits: the port's kit tools (rt_octree_tpu_torch/tools), each run
+     with the launch counts reset just before it and read just after: the
+     ground-truth kits of solid, tt and blobs (--gt_only with 16 train
+     poses drawn first, the committed kits' poses) on phase 10's cached
+     trees, each test PNG against the committed one (PSNR >= KIT_GT_PSNR,
+     max |diff|, share of unequal pixels; render_classic 8 launches, K1
+     none, K3 3 + 3 an upload), and phase 9's shell kit the same way; the
+     shell fast kit at s = 0.5 (32 teacher frames with trained.gnet, 40
+     student buffers: K1 72, K4 40, K7 32, K2 32; its test PNGs byte-equal
+     to the committed ones) and the llff interactive rung's test split
+     (LOD d8 x s = 0.5: K1 8, K4 8), each scored by eval_gnet_kit with the
+     committed fast net (K7 8, K2 8) within KIT_EVAL_TOL dB of phase 8's
+     fast s = 0.5 gate and phase 10's llff interactive gate; ``rtoctree
+     train`` on the port's shell fast kit for KIT_TRAIN_EPOCHS epochs (K5
+     and K6 once a step) and compact, the net stamped by set_gnet_meta
+     fast_scale=0.5, read back and rendered at s = 0.5 on the 8 committed
+     poses (PSNR, no bar); printed as one JSON line {"kits": ...};
  11. the depth-11 shell (the headline tree refined 2 levels,
      tools/bench_deep.py) uploaded with the partial-LUT skip and with
      skip_cap=0: K3's marker lanes and distances vs its plain version on
@@ -354,6 +371,21 @@ BF16_TC_OPS_PER_S = 989e12
 # ~100 (clip 12, LUT cell 18, leaf cube ~10, DDA 22, skip box 36), a shaded
 # leaf 6 bd + 16 (three dot products, sigmoids, the weighted sum).
 K1_OPS_PER_STEP = 100
+# The kits phase: each scene's ground-truth kit with the committed kit's
+# poses (benchmarks/quality_<kit> drew 16 train poses before its 8 test
+# poses; benchmarks/quality 32), every pose's PNG held to the committed one
+# at KIT_GT_PSNR or more (the classic estimator is deterministic: the
+# shell's classic frame reads 62.368 dB against its committed GT at the
+# CLI's smaller max_steps, and 55 dB still allows one 8-bit level on
+# about a tenth of the pixels); the committed fast nets evaluated on the
+# port's fast kits within KIT_EVAL_TOL dB of the same run's gate of the
+# same frames; a fast net trained on the port's shell fast kit for
+# KIT_TRAIN_EPOCHS epochs.
+KIT_GT_SCENES = {"solid": "quality_solid", "tt": "quality_tt",
+                 "blobs": "quality_blobs"}
+KIT_GT_TRAIN, KIT_GT_PSNR = 16, 55.0
+KIT_EVAL_TOL = 0.01
+KIT_TRAIN_EPOCHS = 2
 # The apps phase: the viewer at the headline's width, driven over HTTP as a
 # browser drives it, the keyframe animator's CLI and the tools' CLI.
 APPS_SIZE, APPS_SPP, APPS_WARMUP, APPS_FRAMES = 800, 6, 3, 20
@@ -1777,15 +1809,16 @@ def frame_timing(r, pose, label):
     return frame_ms, timer.means_ms()
 
 
-def phase_fast_classic(r, ps, err, tree_host):
+def phase_fast_classic(r, ps, err, tree_host, gates):
     """The slice's new paths on the headline tree: render_classic vs its
     plain version at 800x800, without a mesh pass and with the fourth CLI
     run's drawlist pass, with its statistics, bound and time; K4 at
     400->800 (F.interpolate on its rgba planes timed as a note); the
     classic gate; each fast frame held
     at its own shapes (hold_fast), its gate, time and phase split; the
-    probe overlay and the host rasterizer as plain rows.  Returns (ms,
-    bounds) of the two new kernels."""
+    probe overlay and the host rasterizer as plain rows.  Records each fast
+    gate's (noisy, denoised) dB in ``gates`` and returns (ms, bounds) of
+    the two new kernels."""
     import torch
     import torch.nn.functional as F
     from rt_octree_tpu_torch.core.camera import Camera
@@ -1902,8 +1935,8 @@ def phase_fast_classic(r, ps, err, tree_host):
                         options=headline_options(), render_scale=scale)
         rf.set_denoiser(os.path.join(KIT, gnet))
         hold_fast(rf, pose, err)
-        phase_quality(rf, ps.poses, f"fast s={scale} ({gnet})",
-                      (g_noisy, g_den))
+        gates[f"fast s={scale}"] = phase_quality(
+            rf, ps.poses, f"fast s={scale} ({gnet})", (g_noisy, g_den))
         frame_timing(rf, pose, f"fast s={scale} ({rf.inner_width}x"
                      f"{rf.inner_height} march, 800x800 out, {gnet})")
 
@@ -1932,14 +1965,14 @@ def phase_fast_classic(r, ps, err, tree_host):
     return ms, bounds
 
 
-def train_argv(kit, epochs, task="train"):
+def train_argv(kit, epochs, task="train", exp_name="shell"):
     """``rtoctree train`` on the kit with configs/blender.txt: a checkpoint
     and a .gnet every epoch, no test inside the run."""
     return ["train", "--config", os.path.join(HERE, "configs", "blender.txt"),
             "--task", task, "--data_dir", kit,
             "--logs_root", os.path.join(WORK, "train_logs"),
-            "--exp_name", "shell", "--epochs", str(epochs), "--i_save", "1",
-            "--device", "cuda"]
+            "--exp_name", exp_name, "--epochs", str(epochs), "--i_save",
+            "1", "--device", "cuda"]
 
 
 def train_cli(native, label, argv, required=(), absent=()):
@@ -2562,6 +2595,215 @@ def phase_scenes(err, quant_src):
                     "bar": QUANT_PSNR, "bytes": list(sizes),
                     "bytes_ratio": ratio}
     log(json.dumps({"scenes": out}))
+    return out
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def png_psnr(path, ref_path):
+    """(PSNR in dB, the MSE floored at 1e-12 as eval_gnet_kit does; max
+    |diff| in 8-bit levels; share of unequal pixels) of a PNG's rgb
+    against another's."""
+    from rt_octree_tpu_torch.io.png import read_png
+    a = read_png(path)[..., :3].astype(np.float64)
+    b = read_png(ref_path)[..., :3].astype(np.float64)
+    require(a.shape == b.shape, f"{path}: shape {a.shape} != {b.shape}")
+    mse = float(np.mean(((a - b) / 255.0) ** 2))
+    return (float(-10.0 * np.log10(max(mse, 1e-12))),
+            int(np.abs(a - b).max()),
+            float((a != b).any(-1).mean()))
+
+
+def kit_tool(native, label, main, argv):
+    """One kit tool's ``main(argv)`` with the launch counts reset just
+    before it and read just after -> (counts, seconds, its result)."""
+    log(f"[kits] {label}: " + " ".join(
+        os.path.relpath(a, HERE) if os.sep in a else a for a in argv))
+    native.reset_launches()
+    t0 = time.time()
+    res = main(argv)
+    secs = time.time() - t0
+    counts = {k: v for k, v in native.LAUNCHES.items() if v}
+    log(f"[kits] {label}: {secs:.1f} s; launches {counts}")
+    return counts, secs, res
+
+
+def require_launches(label, counts, want):
+    got = {k: counts.get(k, 0) for k in want}
+    require(got == want, f"{label}: launches {got}, expected {want}")
+
+
+def hold_gt_kit(label, kit, ref_kit):
+    """A kit's test poses equal to the committed kit's (matrices exactly,
+    camera_angle_x within 1e-12), and each test PNG against the committed
+    one at KIT_GT_PSNR dB or more."""
+    with open(os.path.join(kit, "transforms_test.json")) as f:
+        got = json.load(f)
+    with open(os.path.join(ref_kit, "transforms_test.json")) as f:
+        ref = json.load(f)
+    require(len(got["frames"]) == len(ref["frames"]) and all(
+        np.array_equal(np.asarray(a["transform_matrix"]),
+                       np.asarray(b["transform_matrix"]))
+        for a, b in zip(got["frames"], ref["frames"])),
+        f"{label}: the test poses are not {ref_kit}'s")
+    require(abs(got["camera_angle_x"] - ref["camera_angle_x"]) <= 1e-12,
+            f"{label}: camera_angle_x {got['camera_angle_x']} != "
+            f"{ref['camera_angle_x']}")
+    rows = [png_psnr(os.path.join(kit, "test", f"{n}.png"),
+                     os.path.join(ref_kit, "test", f"{n}.png"))
+            for n in (os.path.basename(fr["file_path"])
+                      for fr in ref["frames"])]
+    held = {"psnr": [r[0] for r in rows], "max_diff": [r[1] for r in rows],
+            "unequal": [r[2] for r in rows]}
+    log(f"[kits] {label} vs {os.path.relpath(ref_kit, HERE)}: poses equal; "
+        f"per pose PSNR {[round(v, 3) for v in held['psnr']]} dB, max "
+        f"|diff| {held['max_diff']} levels, unequal pixels "
+        f"{[round(v, 5) for v in held['unequal']]}")
+    require(min(held["psnr"]) >= KIT_GT_PSNR,
+            f"{label}: a pose is under {KIT_GT_PSNR} dB against the "
+            "committed ground truth")
+    return held
+
+
+def hold_eval(label, means, net, gate):
+    """eval_gnet_kit's noisy and denoised means against the same run's gate
+    of the same frames, within KIT_EVAL_TOL dB."""
+    got = (means["noisy"]["psnr"], means[net]["psnr"])
+    log(f"[kits] {label}: eval_gnet_kit noisy {got[0]:.4f} / denoised "
+        f"{got[1]:.4f} dB ({means[net]['poses']} poses; psnr_obj "
+        f"{means[net]['psnr_obj']:.3f}, ssim {means[net]['ssim']:.5f}); "
+        f"the gate {gate[0]:.4f} / {gate[1]:.4f}")
+    require(means[net]["poses"] == 8
+            and all(abs(a - b) <= KIT_EVAL_TOL for a, b in zip(got, gate)),
+            f"{label}: the evaluation is not within {KIT_EVAL_TOL} dB of "
+            "the gate")
+    return {"noisy": got[0], "denoised": got[1], "gate": list(gate),
+            "psnr_obj": means[net]["psnr_obj"], "ssim": means[net]["ssim"]}
+
+
+def phase_kits(native, r, tree_path, gates):
+    """The kit tools on the card, each run with the launch counts reset
+    just before it and read just after: the solid, tt and blobs GT kits
+    (--gt_only, KIT_GT_TRAIN train poses drawn first) on the cached trees,
+    held to the committed kits (hold_gt_kit; render_classic 8 launches, K1
+    none, K3 3 + 3 an upload), and phase_train's shell kit held the same
+    way; the shell fast kit at s = 0.5 (32 train + 8 test, its test PNGs
+    byte-equal to the committed ones) and the llff interactive rung's test
+    split (LOD d8 x s = 0.5), each evaluated with the committed fast net by
+    eval_gnet_kit against the gate of ``gates``; a fast net trained on the
+    port's shell fast kit (K5 and K6 once a step), compacted, stamped with
+    set_gnet_meta fast_scale=0.5 and rendered at s = 0.5 on the 8
+    committed poses (PSNR, no bar).  Prints one {"kits": ...} line."""
+    import filecmp
+    import torch
+    from rt_octree_tpu_torch.io.poses import load_poses
+    from rt_octree_tpu_torch.models.guidance_net import load_compact
+    from rt_octree_tpu_torch.render import renderer as R
+    from rt_octree_tpu_torch.tools import eval_gnet_kit as ek
+    from rt_octree_tpu_torch.tools import make_fast_kit as fk
+    from rt_octree_tpu_torch.tools import make_quality_dataset as mq
+    from rt_octree_tpu_torch.tools import set_gnet_meta as sm
+    t_phase = time.time()
+    root = os.path.join(WORK, "kits")
+    if os.path.isdir(root):
+        shutil.rmtree(root)
+    out = {"gt": {}}
+
+    # ---- ground-truth kits of the three scenes ----
+    for scene, name in KIT_GT_SCENES.items():
+        kit = os.path.join(root, f"gt_{scene}")
+        counts, secs, _ = kit_tool(native, f"GT kit {scene}", mq.main, [
+            "--out", kit, "--scene", scene, "--gt_only", "--n_train",
+            str(KIT_GT_TRAIN), "--device", "cuda", "--tree",
+            os.path.join(WORK, f"{mq.tree_kind(scene)}_d9_sh9.npz")])
+        require_launches(f"GT kit {scene}", counts, {
+            "render_classic": 8, "render": 0, "lut_build": 3,
+            "skip_distances": 3})
+        out["gt"][scene] = dict(hold_gt_kit(
+            f"GT kit {scene}", kit, os.path.join(HERE, "benchmarks", name)),
+            s=secs, bytes=dir_bytes(kit), launches=counts)
+    out["gt"]["shell"] = hold_gt_kit(
+        "phase_train's shell kit", os.path.join(WORK, "train_kit"), KIT)
+
+    # ---- the fast kits, and the committed fast nets on them ----
+    def fast_kit(label, kit, argv, launches, gt_kit, net, gate):
+        counts, secs, _ = kit_tool(native, label, fk.main, [
+            "--out", kit, "--gt_kit", gt_kit, "--device", "cuda"] + argv)
+        require_launches(label, counts, launches)
+        with open(os.path.join(gt_kit, "transforms_test.json")) as f:
+            names = [os.path.basename(fr["file_path"])
+                     for fr in json.load(f)["frames"]]
+        require(all(filecmp.cmp(os.path.join(kit, "test", f"{n}.png"),
+                                os.path.join(gt_kit, "test", f"{n}.png"),
+                                shallow=False) for n in names),
+                f"{label}: a test PNG is not the committed one")
+        ev_counts, ev_s, means = kit_tool(
+            native, f"{label}: eval_gnet_kit", ek.main,
+            [kit, net, "--device", "cuda"])
+        require_launches(f"{label}: eval_gnet_kit", ev_counts, {
+            "guidance_net": 8, "guided_filter": 8, "render": 0})
+        return dict(s=secs, bytes=dir_bytes(kit), launches=counts,
+                    eval=dict(hold_eval(label, means, net, gate), s=ev_s,
+                              launches=ev_counts))
+
+    fast = os.path.join(root, "fast_shell")
+    out["fast_shell"] = fast_kit(
+        "shell fast kit s=0.5", fast, ["--tree", tree_path],
+        {"render": 72, "upsample": 40, "guidance_net": 32,
+         "guided_filter": 32, "render_classic": 0, "lut_build": 3,
+         "skip_distances": 3}, KIT,
+        os.path.join(KIT, "fast.gnet"), gates["fast s=0.5"])
+    blobs_kit = os.path.join(HERE, "benchmarks", "quality_blobs")
+    out["llff_interactive"] = fast_kit(
+        "llff interactive test split", os.path.join(root, "fast_blobs_lod8"),
+        ["--scene", "blobs", "--lod", "8", "--splits", "test", "--tree",
+         os.path.join(WORK, "blobs_d9_sh9.npz")],
+        {"render": 8, "upsample": 8, "guidance_net": 0, "guided_filter": 0,
+         "render_classic": 0, "lut_build": 6, "skip_distances": 6},
+        blobs_kit,
+        os.path.join(blobs_kit, "fast.gnet"), gates["llff interactive"])
+
+    # ---- a fast net trained on the port's own kit ----
+    work = os.path.join(WORK, "train_logs", "fast")
+    if os.path.isdir(work):
+        shutil.rmtree(work)
+    t0 = time.time()
+    counts = train_cli(native, "fast kit",
+                       train_argv(fast, KIT_TRAIN_EPOCHS, exp_name="fast"),
+                       required=TRAIN_KERNELS)
+    ckpt = torch.load(os.path.join(work, f"checkpoint_{KIT_TRAIN_EPOCHS:06d}"
+                                   ".pt"), map_location="cpu",
+                      weights_only=True)
+    steps = int(ckpt["optimizer"]["state"][0]["step"])
+    require(steps > 0 and all(counts[k] == steps for k in TRAIN_KERNELS),
+            f"K5 / K6 launches {[counts[k] for k in TRAIN_KERNELS]} != "
+            f"{steps} steps")
+    train_cli(native, "fast kit compact",
+              train_argv(fast, KIT_TRAIN_EPOCHS, "compact", "fast"),
+              absent=TRAIN_KERNELS)
+    gnet = os.path.join(work, "ts_latest.gnet")
+    require(sm.main([gnet, "fast_scale=0.5"]) == 0, "set_gnet_meta failed")
+    meta = load_compact(gnet, with_meta=True)[2]
+    require(meta.get("fast_scale") == 0.5, f"the stamped meta reads {meta}")
+    rf = R.Renderer(r.tree, r.width, r.height, r.fx, r.fy,
+                    options=headline_options(), render_scale=0.5)
+    rf.set_denoiser(gnet)
+    ps = load_poses("blender", os.path.join(KIT, "transforms_test.json"),
+                    r.width, r.height)
+    noisy, den, _ = quality_psnr(rf, ps.poses)
+    log(f"[kits] the port's fast net ({KIT_TRAIN_EPOCHS} epochs on its own "
+        f"kit) at s=0.5, 8 poses of benchmarks/quality: noisy {noisy:.3f} "
+        f"dB, denoised {den:.3f} dB (no bar; fast.gnet: "
+        f"{gates['fast s=0.5'][1]:.3f})")
+    out["train"] = {"epochs": KIT_TRAIN_EPOCHS, "steps": steps,
+                    "launches": {k: counts[k] for k in TRAIN_KERNELS},
+                    "s": time.time() - t0, "meta": meta,
+                    "noisy_db": noisy, "denoised_db": den}
+    out["phase_s"] = time.time() - t_phase
+    log(json.dumps({"kits": out}))
     return out
 
 
@@ -3227,15 +3469,19 @@ def main(argv) -> int:
     r, ps = make_headline_renderer(tree)
     phase_quality(r, ps.poses)
     ms, bounds = phase_headline(r, ps, err)
-    ms_new, bounds_new = phase_fast_classic(r, ps, err, tree)
+    gates = {}
+    ms_new, bounds_new = phase_fast_classic(r, ps, err, tree, gates)
     ms.update(ms_new)
     bounds.update(bounds_new)
     train_counts, ms_new, bounds_new = phase_train(native, r, tree_path, err)
     counts.update(train_counts)
     ms.update(ms_new)
     bounds.update(bounds_new)
+    scenes = phase_scenes(err, quant_src)
+    gates["llff interactive"] = (scenes["llff interactive"]["psnr_noisy"],
+                                 scenes["llff interactive"]["psnr_denoised"])
+    phase_kits(native, r, tree_path, gates)
     del r
-    phase_scenes(err, quant_src)
     log(json.dumps({"k7": err["k7"]}))
     phase_deep(err, tree)
     del tree

@@ -1,10 +1,23 @@
-"""Measurement tools of the port, run on one CUDA card:
+"""Tools of the port.
+
+The kit tools build and score denoiser quality kits (the blender layout
+that train/dataset.py reads); counterparts of the JAX package's tools of
+the same names.  They run on the card by default, and ``--device cpu``
+runs the plain versions:
+
+    python -m rt_octree_tpu_torch.tools.make_quality_dataset --out DIR \
+        [--scene shell|solid|tt|blobs] [--gt_only] [--n_train 16]
+    python -m rt_octree_tpu_torch.tools.make_fast_kit --out DIR \
+        [--scene blobs --lod 8] [--fast_scale 0.5] [--gt_kit KIT]
+    python -m rt_octree_tpu_torch.tools.eval_gnet_kit KIT NET.gnet [...]
+    python -m rt_octree_tpu_torch.tools.set_gnet_meta NET.gnet key=value
+
+The measurement tools, counterparts of tools/tpu_probe.py and
+tools/microbench_gather.py, have no CPU mode: without a card they exit
+non-zero before measuring.
 
     python -m rt_octree_tpu_torch.tools.gpu_probe [probe ...]
     python -m rt_octree_tpu_torch.tools.microbench_gather [a|b|c|d|all]
-
-Counterparts of tools/tpu_probe.py and tools/microbench_gather.py.  They
-have no CPU mode: without a card they exit non-zero before measuring.
 """
 
 from __future__ import annotations

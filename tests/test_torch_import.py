@@ -55,6 +55,9 @@ MODULES = [
     "rt_octree_tpu_torch.train.runner",
     "rt_octree_tpu_torch.train.main",
     "rt_octree_tpu_torch.tools.make_quality_dataset",
+    "rt_octree_tpu_torch.tools.make_fast_kit",
+    "rt_octree_tpu_torch.tools.eval_gnet_kit",
+    "rt_octree_tpu_torch.tools.set_gnet_meta",
 ]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "triton", "msgpack", "imageio")
 
@@ -273,6 +276,47 @@ def test_dispatcher_train_imports_neither_jax_nor_the_jax_package(
     assert out.stdout.strip().splitlines()[-1] == "[0, 0, 0, 0] []"
     for name in ("ts_000001.gnet", "checkpoint_000001.pt", "ts_latest.gnet"):
         assert (tmp_path / "logs" / "lego" / name).exists()
+
+
+def test_kit_tools_import_neither_jax_nor_the_jax_package(tmp_path):
+    """make_quality_dataset (a GT-only kit), set_gnet_meta, make_fast_kit
+    and eval_gnet_kit on the CPU over a tiny tree: no module of
+    ``rt_octree_tpu`` and no jax gets imported."""
+    code = (
+        "import sys, torch\n"
+        "from rt_octree_tpu_torch.io import synthetic\n"
+        "from rt_octree_tpu_torch.models.guidance_net import ("
+        "GuidanceNetConfig, compact_and_export, init_params)\n"
+        "from rt_octree_tpu_torch.tools import eval_gnet_kit, make_fast_kit,"
+        " make_quality_dataset, set_gnet_meta\n"
+        f"d = {str(tmp_path)!r}\n"
+        "synthetic.save_npz(synthetic.make_synthetic_tree('shell', depth=3,"
+        " basis_dim=4), d + '/tree.npz')\n"
+        "common = ['--tree', d + '/tree.npz', '--res', '12', '--device',"
+        " 'cpu']\n"
+        "rcs = [make_quality_dataset.main(['--out', d + '/gt', '--gt_only',"
+        " '--n_test', '2'] + common)]\n"
+        "cfg = GuidanceNetConfig(mid_channels=4)\n"
+        "compact_and_export(cfg, init_params(cfg, torch.Generator()"
+        ".manual_seed(0)), d + '/gt/trained.gnet')\n"
+        "rcs.append(set_gnet_meta.main([d + '/gt/trained.gnet',"
+        " 'fast_scale=0.5']))\n"
+        "rcs.append(make_fast_kit.main(['--out', d + '/fast', '--gt_kit',"
+        " d + '/gt', '--n_train', '1', '--lod', '2'] + common))\n"
+        "means = eval_gnet_kit.main([d + '/fast', d + '/gt/trained.gnet',"
+        " '--device', 'cpu'])\n"
+        "print(rcs, sorted(means), means['noisy']['poses'], sorted(m for m"
+        f" in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN + ('rt_octree_tpu',)!r}))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=_clean_env(), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    net = str(tmp_path / "gt" / "trained.gnet")
+    assert out.stdout.strip().splitlines()[-1] == \
+        f"[0, 0, 0] {sorted(['noisy', net])!r} 2 []"
+    assert sorted(os.listdir(tmp_path / "fast" / "spp_6")) == ["test",
+                                                               "train"]
 
 
 def test_tf32_disabled_on_import():
