@@ -92,6 +92,22 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      poses, no bar), the step's time and split (net forward, K5, loss,
      K6, net backward, Adam) and K5's and K6's times, printed as one JSON
      line {"train": ...};
+  9b. multi-device (rt_octree_tpu_torch/parallel, ranks launched by
+     parallel/launch.py on the one card): the headline frame sharded by
+     row bands at world 1 on nccl and, with fast mode at s = 0.5 and the
+     classic estimator, at world 2 on gloo (both ranks on the card), each
+     rank uploading the tree (K3), marching its band (K1 or
+     render_classic), K4 on the gathered inner frame in fast mode, K7 and
+     K2 on its halo crop: pose r_0's aux bit-equal and img within K2_TOL
+     of the single process's frame at the same PCG32 state, every rank's
+     frame the same, the 8-pose gates within MD_GATE_TOL of phase 8's,
+     each kernel of the frame launched once a frame in every rank; then
+     the train step on phase 9's real batch at world 2 (dp 2) and 4 (dp 2
+     x sp 2, halo crops) on gloo against the single process from the same
+     params (loss; f32 parameters after one Adam step; bf16 gradients),
+     K5 and K6 once a step in every rank; the frames' and the step's ms
+     (CUDA events, the largest rank) split by stage, each run's wall
+     seconds; one JSON line {"multidev": ...};
  10. the scenes of the JAX package's bench (SCENES: solid 800x800, tt
      1920x1080 and its fast rung, the llff blobs scene in NDC at 1008x756
      with its fast, LOD d8 and interactive rungs), each through the
@@ -171,8 +187,9 @@ clock64() cycles a tile summed over the blocks, and their shares).
 
 Prints the kernel table as one JSON line (per kernel: launches on the main
 path, max abs error, ms, plain ms, the bound in ms and whether bytes or
-operations set it, and the time of one PyTorch call that computes the same
-function where there is one), then as the last line
+operations set it, the time of one PyTorch call that computes the same
+function where there is one, and its launches in each multi-device run,
+summed over the ranks), then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 K3's rows are its two C entries, with their kernel launches per tree load:
 lut_build is ceil(levels / 3) launches of lut_step_kernel, skip_distances
@@ -1929,7 +1946,7 @@ def phase_fast_classic(r, ps, err, tree_host, gates):
     del aux, rgba
 
     # quality gates and frame times
-    phase_quality(rc, ps.poses, "classic", GATE_CLASSIC)
+    gates["classic"] = phase_quality(rc, ps.poses, "classic", GATE_CLASSIC)
     for scale, (gnet, g_noisy, g_den) in GATES_FAST.items():
         rf = R.Renderer(r.tree, 800, 800, r.fx, r.fy,
                         options=headline_options(), render_scale=scale)
@@ -2420,6 +2437,345 @@ def phase_train(native, r, tree_path, err):
     log(json.dumps({"train": out}))
     return ({k: counts[k] for k in TRAIN_KERNELS}, ms, bounds)
 
+
+# ---------------------------------------------------------------------------
+# the multi-device phase: rt_octree_tpu_torch/parallel on the one card
+# ---------------------------------------------------------------------------
+
+# The sharded frames: label -> (render_scale, net of benchmarks/quality,
+# estimator, the kernels each rank launches once a frame).
+MD_FRAMES = {
+    "headline": (1.0, "trained.gnet", "rt",
+                 ("render", "guidance_net", "guided_filter")),
+    "fast s=0.5": (0.5, "fast.gnet", "rt",
+                   ("render", "upsample", "guidance_net", "guided_filter")),
+    "classic": (1.0, "trained.gnet", "classic",
+                ("render_classic", "guidance_net", "guided_filter")),
+}
+# The runs: (world, backend, frames, whether the train step runs): one
+# rank on nccl; two ranks on the one card over gloo (NCCL refuses two ranks
+# on one device), frames and the step at dp 2 x sp 1; four over gloo, the
+# step at dp 2 x sp 2 (image rows over sp, halo crops).
+MD_RUNS = ((1, "nccl", ("headline",), False),
+           (2, "gloo", tuple(MD_FRAMES), True),
+           (4, "gloo", (), True))
+MD_SIZE = 800  # the headline frame's width and height
+MD_REPS, MD_WARMUP = 10, 3
+MD_GATE_TOL = 0.001  # dB from phase 8's gates: the same frames
+# The step against the single process: the loss within rtol 2e-5; in f32
+# the parameters after one Adam step within 1e-6 (1 % of a step at lr
+# 1e-4); in bf16, the training numerics, each rank's weight gradient is
+# rounded to bf16 before the average, so the averaged gradient within 2^-7
+# of each tensor's largest (Adam's first step, g / (|g| + eps), turns such
+# a difference into up to a whole step where the weight decay cancels the
+# gradient, so bf16 parameters are recorded, not held).
+MD_LOSS_RTOL, MD_PARAM_TOL, MD_GRAD_REL = 2e-5, 1e-6, 2.0 ** -7
+MD_TIMEOUT_S = 300.0
+
+
+def _nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def md_timed(fn):
+    """Medians over MD_REPS calls of ``fn(marks)`` (after MD_WARMUP untimed
+    calls) of the whole call and of each stage between its marks, in ms by
+    CUDA events on this rank."""
+    import torch
+    for _ in range(MD_WARMUP):
+        fn(None)
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(MD_REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        marks = [("start", start)]
+        fn(marks)
+        runs.append(marks)
+    torch.cuda.synchronize()
+    split = {}
+    for marks in runs:
+        for (_, a), (name, b) in zip(marks, marks[1:]):
+            split.setdefault(name, []).append(a.elapsed_time(b))
+        split.setdefault("whole", []).append(
+            marks[0][1].elapsed_time(marks[-1][1]))
+    return {k: float(np.median(v)) for k, v in split.items()}
+
+
+def md_rank(dev, frames, train):
+    """One rank of a multi-device run: the sharded frames (``frames``, the
+    arguments of md_frames, or None) and the train step (``train``, those
+    of md_train, or None) on one ("dp", "sp") mesh."""
+    from rt_octree_tpu_torch.parallel import mesh as pm
+    mesh = pm.make_mesh(device_type=dev.type)
+    return {"mesh": tuple(mesh.shape),
+            "frames": md_frames(dev, mesh, *frames) if frames else None,
+            "train": md_train(dev, mesh, *train) if train else None}
+
+
+def md_frames(dev, mesh, tree_path, labels, poses, fx, fy):
+    """A rank's sharded frames: the headline tree read and uploaded on this
+    rank's device (K3 here), then per frame of ``labels`` the launches of
+    pose r_0's frame, its digest (rank 0: the frame), the 8-pose gate
+    (rank 0) and the frame's time and split."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+    from rt_octree_tpu_torch.io import n3tree
+    from rt_octree_tpu_torch.io.png import read_png
+    from rt_octree_tpu_torch.models.guidance_net import load_model
+    from rt_octree_tpu_torch.native import build as native
+    from rt_octree_tpu_torch.ops.traversal import upload_tree
+    from rt_octree_tpu_torch.parallel import mesh as pm
+    from rt_octree_tpu_torch.utils.rng import Pcg32
+    t0 = time.perf_counter()
+    native.reset_launches()
+    dt = upload_tree(n3tree.load(tree_path), lut_levels=9, device=dev)
+    torch.cuda.synchronize()
+    rank = dist.get_rank()
+    out = {"rank": rank, "load_s": time.perf_counter() - t0,
+           "upload_launches": _nonzero(native.LAUNCHES), "frames": {}}
+    # bench.quality_report's protocol: rng.seed(20230418, 1) for every pose
+    state = Pcg32(20230418, 1).state
+    for label in labels:
+        scale, gnet, est, _ = MD_FRAMES[label]
+        opt = headline_options()
+        opt.estimator = est
+        net, _ = load_model(os.path.join(KIT, gnet), dev)
+        frame = pm.make_sharded_frame_renderer(
+            mesh, dt, MD_SIZE, MD_SIZE, fx, fy, opt, max_steps=8192, net=net,
+            render_scale=scale)
+        native.reset_launches()
+        img, aux = frame(poses[0], state)
+        torch.cuda.synchronize()
+        res = {"launches": _nonzero(native.LAUNCHES), "digest": hashlib.sha1(
+            img.cpu().numpy().tobytes() + aux.cpu().numpy().tobytes())
+            .hexdigest()}
+        if rank == 0:
+            res["frame0"] = (img.cpu(), aux.cpu())
+        acc = {"noisy": [], "denoised": []}
+        for i, pose in enumerate(poses[:8]):
+            img, aux = frame(pose, state)
+            if rank == 0:
+                gt = read_png(os.path.join(KIT, "test", f"r_{i}.png"))[..., :3]
+                acc["noisy"].append(psnr(
+                    aux[:3].permute(1, 2, 0).cpu().numpy(), gt))
+                acc["denoised"].append(psnr(img.cpu().numpy(), gt))
+        if rank == 0:
+            res["psnr"] = (float(np.mean(acc["noisy"])),
+                           float(np.mean(acc["denoised"])))
+        res["ms"] = md_timed(lambda marks: frame(poses[0], state, marks))
+        out["frames"][label] = res
+    return out
+
+
+def md_train(dev, mesh, cfg, params, batch):
+    """A rank's sharded train step: one step from ``params`` in bf16 and in
+    f32 (loss, the averaged gradients, the parameters after Adam, the
+    step's launches), then the bf16 step's time and split."""
+    import torch
+    import torch.distributed as dist
+    from rt_octree_tpu_torch.native import build as native
+    from rt_octree_tpu_torch.parallel import mesh as pm
+    batch = tuple(t.to(dev) for t in batch)
+    out = {"rank": dist.get_rank(), "steps": {}}
+    for dtype in (torch.bfloat16, torch.float32):
+        step, model, _ = pm.make_sharded_train_step(mesh, cfg, params=params,
+                                                    dtype=dtype)
+        native.reset_launches()
+        loss = step(*batch)
+        torch.cuda.synchronize()
+        out["steps"][str(dtype)] = (
+            float(loss), {k: p.grad.cpu() for k, p in model.named_parameters()},
+            {k: p.detach().cpu() for k, p in model.named_parameters()},
+            _nonzero(native.LAUNCHES))
+    step, _, _ = pm.make_sharded_train_step(mesh, cfg, params=params)
+    out["ms"] = md_timed(lambda marks: step(*batch, marks=marks))
+    return out
+
+
+def md_single_steps(cfg, params, batch):
+    """The single process's step from ``params`` on the card, bf16 and f32:
+    dtype -> (loss, gradients, parameters after Adam), and the bf16 step's
+    ms (CUDA events, MD_REPS steps after MD_WARMUP)."""
+    import torch
+    from rt_octree_tpu_torch.models.guidance_net import (GuidanceNet,
+                                                         params_from_numpy)
+    from rt_octree_tpu_torch.ops.filtering import guided_filter_batch
+    from rt_octree_tpu_torch.train.metrics import smape_loss
+    aux, img_in, img_gt = batch
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        model = GuidanceNet(cfg, dtype=dtype)
+        model.load_state_dict(params_from_numpy(cfg, params))
+        model = model.cuda()
+        opt = torch.optim.Adam(model.parameters(), lr=1e-4, betas=(0.9, 0.999),
+                               eps=1e-8, weight_decay=5e-4)
+
+        def step():
+            opt.zero_grad(set_to_none=True)
+            w, g = model(aux.permute(0, 2, 3, 1))
+            res = guided_filter_batch(w, g, img_in, cfg.supports())
+            loss = smape_loss(res[..., :3], img_gt[..., :3])
+            loss.backward()
+            opt.step()
+            return loss
+        loss = float(step().detach())
+        out[str(dtype)] = (
+            loss, {k: p.grad.cpu().clone()
+                   for k, p in model.named_parameters()},
+            {k: p.detach().cpu().clone()
+             for k, p in model.named_parameters()})
+        if dtype == torch.bfloat16:
+            out["ms"] = cuda_ms(step, MD_REPS, MD_WARMUP)
+    return out
+
+
+def phase_multidev(r, ps, tree_path, gates, card):
+    """The multi-device module on the one card (rt_octree_tpu_torch/
+    parallel): the runs of MD_RUNS, the ranks' counts set to 0 just before
+    each frame or step and read just after, held against the single
+    process of this call.  Prints {"multidev": ...} and returns each
+    kernel's launches in each run, summed over its ranks."""
+    from rt_octree_tpu_torch.parallel.launch import launch
+    from rt_octree_tpu_torch.render import renderer as R
+    out = {"card": card, "runs": {}}
+    sharded = {}
+
+    def count(run, launches):
+        for c in launches:
+            for k, n in c.items():
+                sharded.setdefault(k, {})
+                sharded[k][run] = sharded[k].get(run, 0) + n
+
+    # the single process: pose r_0 at the quality protocol's PCG32 state
+    single = {}
+    for label, (scale, gnet, est, _) in MD_FRAMES.items():
+        opt = headline_options()
+        opt.estimator = est
+        rs = R.Renderer(r.tree, MD_SIZE, MD_SIZE, r.fx, r.fy, options=opt,
+                        render_scale=scale)
+        rs.set_denoiser(os.path.join(KIT, gnet))
+        rs.rng.seed(20230418, 1)
+        img, aux = rs.render(ps.poses[0])
+        single[label] = (img.cpu(), aux.cpu(),
+                         cuda_ms(lambda: rs.render(ps.poses[0]), MD_REPS,
+                                 MD_WARMUP))
+    # the train step on phase 9's real batch, from a fresh Runner's net
+    runner, _, _, batch = train_batch(os.path.join(WORK, "train_kit"))
+    cfg, params = runner.net_cfg, runner.params()
+    del runner
+    single_step = md_single_steps(cfg, params, batch)
+    train_args = (cfg, params, tuple(t.cpu() for t in batch))
+    poses = list(ps.poses[:8])
+    for world, backend, labels, train in MD_RUNS:
+        run = f"world {world} {backend}"
+        t0 = time.time()
+        ranks = launch(md_rank, world, backend=backend,
+                       args=((tree_path, labels, poses, r.fx, r.fy)
+                             if labels else None,
+                             train_args if train else None),
+                       timeout_s=MD_TIMEOUT_S)
+        rec = {"mesh": ranks[0]["mesh"], "wall_s": time.time() - t0}
+        if labels:
+            rec["frames"] = md_hold_frames(
+                [o["frames"] for o in ranks], labels, single, gates, run,
+                count)
+        if train:
+            rec["train"] = md_hold_train([o["train"] for o in ranks],
+                                         single_step, run, count)
+        log(f"[multidev] {run} (mesh {rec['mesh']}): wall {rec['wall_s']:.1f}"
+            " s with the ranks' start")
+        out["runs"][run] = rec
+    out["launches"] = sharded
+    log(json.dumps({"multidev": out}))
+    return sharded
+
+
+def md_hold_frames(ranks, labels, single, gates, run, count):
+    """Hold one run's sharded frames (each rank's md_frames) against the
+    single process and phase 8's gates; their record."""
+    import torch
+    rec = {"load_s": [o["load_s"] for o in ranks],
+           "upload_launches": [o["upload_launches"] for o in ranks]}
+    count(run, rec["upload_launches"])
+    for label in labels:
+        kernels = MD_FRAMES[label][3]
+        img1, aux1, single_ms = single[label]
+        res = [o["frames"][label] for o in ranks]
+        img, aux = res[0]["frame0"]
+        img_err = float((img - img1).abs().max())
+        noisy, den = res[0]["psnr"]
+        g_noisy, g_den = gates[label]
+        ms = {k: max(o["ms"][k] for o in res) for k in res[0]["ms"]}
+        rec[label] = {
+            "launches": [o["launches"] for o in res],
+            "aux_bit_equal": bool(torch.equal(aux, aux1)),
+            "img_max_abs_err": img_err,
+            "ranks_equal": len({o["digest"] for o in res}) == 1,
+            "psnr": [noisy, den], "gate": [g_noisy, g_den],
+            "ms": ms, "single_ms": single_ms}
+        log(f"[multidev] {label} frame, {run}: aux bit-equal "
+            f"{rec[label]['aux_bit_equal']}, img max|diff| {img_err:.3g} (bar "
+            f"{K2_TOL}); 8 poses noisy {noisy:.4f} / denoised {den:.4f} dB "
+            f"(phase 8: {g_noisy:.4f} / {g_den:.4f}); launches a frame a rank"
+            f" {rec[label]['launches']}; ms a frame (largest rank) "
+            + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+            + f"; the single process {single_ms:.3f}")
+        require(rec[label]["aux_bit_equal"] and img_err <= K2_TOL
+                and rec[label]["ranks_equal"],
+                f"multidev {label} {run}: the sharded frame is not the "
+                "single process's")
+        require(abs(noisy - g_noisy) <= MD_GATE_TOL
+                and abs(den - g_den) <= MD_GATE_TOL,
+                f"multidev {label} {run}: gates moved")
+        for o in res:
+            require(all(o["launches"].get(k) == 1 for k in kernels),
+                    f"multidev {label} {run}: a rank launched "
+                    f"{o['launches']}, not {kernels} once each")
+        count(run, rec[label]["launches"])
+    return rec
+
+
+def md_hold_train(ranks, single, run, count):
+    """Hold one run's sharded train step (each rank's md_train) against
+    the single process's (md_single_steps); its record."""
+    rec = {"ms": {k: max(o["ms"][k] for o in ranks) for k in ranks[0]["ms"]},
+           "single_ms": single["ms"]}
+    for dtype in ("torch.bfloat16", "torch.float32"):
+        loss1, grads1, params1 = single[dtype]
+        steps = [o["steps"][dtype] for o in ranks]
+        loss_err = max(abs(s[0] - loss1) / abs(loss1) for s in steps)
+        grad_rel = max(float((s[1][k] - g).abs().max()) / float(g.abs().max())
+                       for s in steps for k, g in grads1.items())
+        param_err = max(float((s[2][k] - p).abs().max())
+                        for s in steps for k, p in params1.items())
+        launches = [s[3] for s in steps]
+        rec[dtype.split(".")[1]] = {
+            "loss": [s[0] for s in steps], "single_loss": loss1,
+            "loss_rel_err": loss_err, "grad_rel_err": grad_rel,
+            "param_max_abs_err": param_err, "launches": launches}
+        log(f"[multidev] train step, {run}, {dtype}: loss {steps[0][0]:.7g} "
+            f"vs {loss1:.7g} (rel {loss_err:.3g}); gradients within "
+            f"{grad_rel:.3g} of each tensor's largest; parameters after one "
+            f"step within {param_err:.3g}; launches {launches}")
+        require(loss_err <= MD_LOSS_RTOL, f"multidev train {run} {dtype}: "
+                "loss")
+        require(all(c == {"guided_filter_batch": 1,
+                          "guided_filter_batch_bwd": 1} for c in launches),
+                f"multidev train {run}: K5 / K6 launches {launches}")
+        if dtype == "torch.float32":
+            require(param_err <= MD_PARAM_TOL,
+                    f"multidev train {run}: f32 parameters")
+        else:
+            require(grad_rel <= MD_GRAD_REL,
+                    f"multidev train {run}: bf16 gradients")
+        count(run, launches)
+    log(f"[multidev] train step, {run}: ms a step (largest rank) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in rec["ms"].items())
+        + f"; the single process {single['ms']:.3f}")
+    return rec
 
 def cached_tree(name, make):
     """The tree ``make()`` builds, saved as WORK/<name>.npz on the first
@@ -3467,9 +3823,8 @@ def main(argv) -> int:
         "render_classic"]
     measure_load(tree_path, gen)
     r, ps = make_headline_renderer(tree)
-    phase_quality(r, ps.poses)
+    gates = {"headline": phase_quality(r, ps.poses)}
     ms, bounds = phase_headline(r, ps, err)
-    gates = {}
     ms_new, bounds_new = phase_fast_classic(r, ps, err, tree, gates)
     ms.update(ms_new)
     bounds.update(bounds_new)
@@ -3477,6 +3832,7 @@ def main(argv) -> int:
     counts.update(train_counts)
     ms.update(ms_new)
     bounds.update(bounds_new)
+    sharded = phase_multidev(r, ps, tree_path, gates, smi[0])
     scenes = phase_scenes(err, quant_src)
     gates["llff interactive"] = (scenes["llff interactive"]["psnr_noisy"],
                                  scenes["llff interactive"]["psnr_denoised"])
@@ -3499,7 +3855,8 @@ def main(argv) -> int:
                       "replaces": replaces, "launches": counts[name],
                       "max_abs_err": err[name], "ms": kms, "plain_ms": pms,
                       "bound_ms": b_ms, "bound_by": b_by,
-                      "library_ms": lib_ms})
+                      "library_ms": lib_ms,
+                      "sharded_launches": sharded.get(name, {})})
     log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -376,22 +376,46 @@ def aux_from_composite(outc, width: int, height: int, layout: str = "chw"):
     return aux.T.reshape(8, height, width).contiguous()
 
 
+def row_band(row0: int, rows: Optional[int], height: int, *,
+             mesh=None, stats=None) -> int:
+    """The rows of K1's band [row0, row0 + rows) of an ``height``-row
+    frame (``rows`` None: to the last row).  Raises ValueError for a band
+    outside the frame, and for a band that is not the whole frame
+    together with a mesh pass or statistics."""
+    rows = height - row0 if rows is None else int(rows)
+    if row0 < 0 or rows < 1 or row0 + rows > height:
+        raise ValueError(f"render_noisy: band of rows [{row0}, "
+                         f"{row0 + rows}) outside a frame of {height}")
+    if rows != height and (mesh is not None or stats is not None):
+        raise ValueError("render_noisy: a row band takes no mesh pass and "
+                         "no statistics")
+    return rows
+
+
 def render_noisy_plain(tree: DeviceTree, transform: torch.Tensor,
                        rng_state: int, rng_inc: int, *, width: int,
                        height: int, fx: float, fy: float,
                        opt: RenderOptions, max_steps: int = 8192,
                        want_aux: bool = True, stats: Optional[dict] = None,
-                       mesh_color=None, mesh_depth=None):
+                       mesh_color=None, mesh_depth=None, row0: int = 0,
+                       rows: Optional[int] = None):
     """Plain version of kernel K1 (either estimator).  Returns (img
     [H, W, 4], aux_nhwc [H, W, 8], aux_chw [8, H, W] or None).
     ``mesh_color`` [R, 3] and ``mesh_depth`` [R] (both or neither): a mesh
     pass.  ``stats`` (render_stats' plain path) receives the march's
     ``"steps"`` [R] and, in its masks, what the frame reads
     (tree_query_full's ``touched`` plus ``"data"`` [M], the rows
-    shaded)."""
-    R = width * height
+    shaded).  ``row0``, ``rows``: the band of frame rows [row0, row0 +
+    rows) alone (``row_band``), as [rows, W, ...] outputs: the frame's
+    camera rays of those rows and its PCG32 stream from position row0 * W
+    * spp."""
+    rows = row_band(row0, rows, height, mesh=mesh_color, stats=stats)
+    R = width * rows
     spp = int(opt.spp)
     dirs, cens = device_camera_rays(transform, width, height, fx, fy)
+    if rows != height:
+        band = slice(row0 * width, (row0 + rows) * width)
+        dirs, cens = dirs[band], cens[band]
     vdirs = rodrigues(opt.rot_dirs, dirs)
     wdirs, wcens = maybe_world2ndc(tree, dirs, cens)
     tmax_bg = (None if mesh_depth is None
@@ -400,8 +424,11 @@ def render_noisy_plain(tree: DeviceTree, transform: torch.Tensor,
         out, steps = march_classic_plain(tree, wdirs, vdirs, wcens, opt,
                                          max_steps, stats, tmax_bg)
     else:
+        rng = Pcg32()
+        rng.state, rng.inc = rng_state, rng_inc
+        rng.advance(row0 * width * spp)
         uniforms = pcg32_uniforms_range(
-            rng_state, n=R * spp, inc=rng_inc,
+            rng.state, n=R * spp, inc=rng_inc,
             device=transform.device).reshape(R, spp)
         dst = make_sorted_dst(uniforms)
         rec_ptr, rec_cnt, steps = march_plain(tree, wdirs, wcens, dst, opt,
@@ -411,10 +438,10 @@ def render_noisy_plain(tree: DeviceTree, transform: torch.Tensor,
         out = shade_plain(tree, vdirs, rec_ptr, rec_cnt, opt)
     if stats is not None:
         stats["steps"] = steps
-    img, outc = composite(out, width, height,
+    img, outc = composite(out, width, rows,
                           float(opt.background_brightness), mesh_color)
-    aux_chw = aux_from_composite(outc, width, height) if want_aux else None
-    return img, aux_from_composite(outc, width, height, "nhwc"), aux_chw
+    aux_chw = aux_from_composite(outc, width, rows) if want_aux else None
+    return img, aux_from_composite(outc, width, rows, "nhwc"), aux_chw
 
 
 # ---------------------------------------------------------------------------
@@ -442,6 +469,7 @@ class _RenderParams(ctypes.Structure):
         ("N", _I), ("lut_levels", _I), ("max_depth", _I), ("skip_cap", _I),
         ("basis_dim", _I), ("data_dim", _I), ("fmt", _I), ("basis_lo", _I),
         ("basis_hi", _I), ("use_ndc", _I), ("classic", _I),
+        ("row0", _I), ("rows", _I),
     ]
 
 
@@ -508,12 +536,13 @@ def _launch_k1(tree: DeviceTree, transform: torch.Tensor, rng_state: int,
                opt: RenderOptions, max_steps: int, want_aux: bool,
                uniforms_out: Optional[torch.Tensor],
                stats: Optional[tuple] = None, mesh_color=None,
-               mesh_depth=None):
+               mesh_depth=None, row0: int = 0, rows: Optional[int] = None):
     """Check the inputs, launch K1 (``render_classic``, on the instance of
     the tree's row layout, for the classic estimator) on the tree's CUDA
     device and return (img, aux_nhwc, aux_chw or None).  ``stats``: the
     statistics variant's buffers (steps, descents, lut_bits, chs_bits,
-    data_bits, and for the classic estimator shaded)."""
+    data_bits, and for the classic estimator shaded).  ``row0``, ``rows``:
+    the band of frame rows marched (``row_band``)."""
     dev = tree.device
     spp = int(opt.spp)
     classic = opt.estimator == "classic"
@@ -532,15 +561,16 @@ def _launch_k1(tree: DeviceTree, transform: torch.Tensor, rng_state: int,
         tree.fmt, tree.basis_dim, tree.data_dim)) + 1 if classic else 0)
     if width < 1 or height < 1:
         raise ValueError(f"render_noisy: image {width}x{height}")
-    R = width * height
+    rows = row_band(row0, rows, height, mesh=mesh_color, stats=stats)
     if (mesh_color is None) != (mesh_depth is None):
         raise ValueError("render_noisy: mesh_color and mesh_depth go "
                          "together")
     if mesh_color is not None:
-        _check_mesh(mesh_color, mesh_depth, R, dev)
-    img = torch.empty((height, width, 4), dtype=F32, device=dev)
-    aux_nhwc = torch.empty((height, width, 8), dtype=F32, device=dev)
-    aux_chw = (torch.empty((8, height, width), dtype=F32, device=dev)
+        _check_mesh(mesh_color, mesh_depth, width * height, dev)
+    R = width * rows
+    img = torch.empty((rows, width, 4), dtype=F32, device=dev)
+    aux_nhwc = torch.empty((rows, width, 8), dtype=F32, device=dev)
+    aux_chw = (torch.empty((8, rows, width), dtype=F32, device=dev)
                if want_aux else None)
     if uniforms_out is not None and (
             uniforms_out.device != dev or uniforms_out.dtype != F32
@@ -595,6 +625,7 @@ def _launch_k1(tree: DeviceTree, transform: torch.Tensor, rng_state: int,
     p.basis_dim, p.data_dim, p.fmt = tree.basis_dim, tree.data_dim, tree.fmt
     p.basis_lo, p.basis_hi = (int(v) for v in opt.basis_minmax)
     p.classic = layout
+    p.row0, p.rows = row0, rows
     fn = _render_entry()
     with torch.cuda.device(dev):
         rc = fn(ctypes.addressof(p), native.stream_ptr(dev))
@@ -609,21 +640,26 @@ def render_noisy(tree: DeviceTree, transform: torch.Tensor, rng_state: int,
                  want_aux: bool = True,
                  uniforms_out: Optional[torch.Tensor] = None,
                  mesh_color: Optional[torch.Tensor] = None,
-                 mesh_depth: Optional[torch.Tensor] = None):
+                 mesh_depth: Optional[torch.Tensor] = None, row0: int = 0,
+                 rows: Optional[int] = None):
     """Kernel K1 wrapper: one frame's (img [H, W, 4], aux_nhwc [H, W, 8],
     aux_chw [8, H, W] or None), by the estimator ``opt.estimator``.  CPU
     tensors take render_noisy_plain; on a CUDA device the kernel runs.
-    ``uniforms_out`` ([H*W, spp] f32) also receives the kernel's raw PCG32
-    uniforms; ``mesh_color`` [H*W, 3] and ``mesh_depth`` [H*W] (f32, on
-    the tree's device) composite a mesh pass."""
+    ``uniforms_out`` ([rows*W, spp] f32) also receives the kernel's raw
+    PCG32 uniforms; ``mesh_color`` [H*W, 3] and ``mesh_depth`` [H*W] (f32,
+    on the tree's device) composite a mesh pass.  ``row0``, ``rows``: march
+    the band of frame rows [row0, row0 + rows) alone (``row_band``); its
+    outputs are [rows, W, ...] and equal those rows of the whole frame."""
     if tree.device.type == "cpu":
         return render_noisy_plain(
             tree, transform, rng_state, rng_inc, width=width, height=height,
             fx=fx, fy=fy, opt=opt, max_steps=max_steps, want_aux=want_aux,
-            mesh_color=mesh_color, mesh_depth=mesh_depth)
+            mesh_color=mesh_color, mesh_depth=mesh_depth, row0=row0,
+            rows=rows)
     return _launch_k1(tree, transform, rng_state, rng_inc, width, height, fx,
                       fy, opt, max_steps, want_aux, uniforms_out,
-                      mesh_color=mesh_color, mesh_depth=mesh_depth)
+                      mesh_color=mesh_color, mesh_depth=mesh_depth, row0=row0,
+                      rows=rows)
 
 
 @dataclasses.dataclass

@@ -58,8 +58,20 @@ MODULES = [
     "rt_octree_tpu_torch.tools.make_fast_kit",
     "rt_octree_tpu_torch.tools.eval_gnet_kit",
     "rt_octree_tpu_torch.tools.set_gnet_meta",
+    "rt_octree_tpu_torch.parallel",
+    "rt_octree_tpu_torch.parallel.launch",
+    "rt_octree_tpu_torch.parallel.mesh",
 ]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "triton", "msgpack", "imageio")
+
+
+def _rank_modules(dev):
+    """A rank's own check: after importing the multi-device module, the
+    modules of JAX, of the other libraries the port leaves out and of the
+    JAX package in this rank's process."""
+    from rt_octree_tpu_torch.parallel import mesh  # noqa: F401
+    return sorted(m for m in sys.modules
+                  if m.split(".")[0] in FORBIDDEN + ("rt_octree_tpu",))
 
 
 def _clean_env():
@@ -317,6 +329,23 @@ def test_kit_tools_import_neither_jax_nor_the_jax_package(tmp_path):
         f"[0, 0, 0] {sorted(['noisy', net])!r} 2 []"
     assert sorted(os.listdir(tmp_path / "fast" / "spp_6")) == ["test",
                                                                "train"]
+
+
+def test_parallel_ranks_import_neither_jax_nor_the_jax_package():
+    """A process that imports rt_octree_tpu_torch.parallel and launches two
+    CPU ranks, and each rank: no jax and no module of rt_octree_tpu."""
+    code = ("import sys\n"
+            "from rt_octree_tpu_torch.parallel.launch import launch\n"
+            "from tests.test_torch_import import _rank_modules\n"
+            "print(launch(_rank_modules, 2, backend='gloo', device='cpu',"
+            " timeout_s=100))\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN + ('rt_octree_tpu',)!r}))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=_clean_env(), capture_output=True, text=True,
+                         timeout=150)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines() == ["[[], []]", "[]"]
 
 
 def test_tf32_disabled_on_import():

@@ -484,6 +484,86 @@ def test_k1_uniforms_equal_the_twin(shell, cuda_device):
     assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
 
 
+# K1's row bands of a 37x23 frame: three bands that tile it, one row inside,
+# the last row, the whole frame
+BANDS = ((0, 8), (8, 8), (16, 7), (11, 1), (22, 1), (0, 23))
+
+
+def _band_frames(dt, tf, estimator, fn):
+    """fn's whole 37x23 frame (the default band) and each band of BANDS."""
+    transform, kw = _render_args(3, 37, 23)
+    kw["opt"] = RenderOptions(spp=3, denoise=False, estimator=estimator)
+    full = fn(dt, tf, 12345, 7, **kw)
+    return full, [fn(dt, tf, 12345, 7, row0=r0, rows=n, **kw)
+                  for r0, n in BANDS]
+
+
+def _assert_band_rows(full, bands):
+    for (r0, n), (img, aux, chw) in zip(BANDS, bands):
+        assert img.shape == (n, 37, 4) and chw.shape == (8, n, 37)
+        assert torch.equal(img, full[0][r0:r0 + n])
+        assert torch.equal(aux, full[1][r0:r0 + n])
+        assert torch.equal(chw, full[2][:, r0:r0 + n])
+
+
+@pytest.mark.parametrize("estimator", ["rt", "classic"])
+def test_plain_band_is_the_frames_rows(shell, estimator):
+    """The plain band (the frame's camera rays of its rows, the PCG32
+    stream advanced by row0 * W * spp) equals those rows of the whole
+    plain frame bit for bit, and row0 = 0, rows = H is the frame."""
+    dt = tt.upload_tree(shell, lut_levels=5, device="cpu")
+    tf = torch.from_numpy(_render_args(3)[0])
+    full, bands = _band_frames(dt, tf, estimator, tr.render_noisy_plain)
+    assert float(full[0][..., :3].std()) > 0.05  # the shell is in view
+    _assert_band_rows(full, bands)
+
+
+def test_band_refusals(shell):
+    """A band outside the frame, and a band with a mesh pass or
+    statistics, raise ValueError."""
+    dt = tt.upload_tree(shell, lut_levels=3, device="cpu")
+    transform, kw = _render_args(2, 16, 8)
+    tf = torch.from_numpy(transform)
+    for r0, n in ((-1, 2), (0, 0), (6, 3), (8, 1)):
+        with pytest.raises(ValueError, match="band"):
+            tr.render_noisy(dt, tf, 1, 3, row0=r0, rows=n, **kw)
+    mc, md = torch.zeros(128, 3), torch.full((128,), 1e9)
+    with pytest.raises(ValueError, match="mesh pass"):
+        tr.render_noisy(dt, tf, 1, 3, mesh_color=mc, mesh_depth=md, row0=2,
+                        rows=2, **kw)
+    with pytest.raises(ValueError, match="statistics"):
+        tr.render_noisy_plain(dt, tf, 1, 3, stats={}, row0=2, rows=2, **kw)
+    tr.render_noisy(dt, tf, 1, 3, mesh_color=mc, mesh_depth=md, row0=0,
+                    rows=8, **kw)  # the whole frame takes both
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("estimator", ["rt", "classic"])
+def test_k1_band_is_the_frames_rows(shell, estimator, cuda_device):
+    """K1's (render_classic's) band equals those rows of its whole frame
+    bit for bit, row0 = 0, rows = H is the frame, and each band is within
+    IMG_TOL / AUX_TOL of the plain band; a band's PCG32 uniforms are the
+    frame's rows'."""
+    dt = tt.upload_tree(shell, lut_levels=5, device=cuda_device)
+    tf = torch.from_numpy(_render_args(3)[0]).to(cuda_device)
+    full, bands = _band_frames(dt, tf, estimator, tr.render_noisy)
+    _assert_band_rows(full, bands)
+    dt_cpu = tt.upload_tree(shell, lut_levels=5, device="cpu")
+    _, plain = _band_frames(dt_cpu, tf.cpu(), estimator,
+                            tr.render_noisy_plain)
+    for got, ref in zip(bands, plain):
+        torch.testing.assert_close(got[0].cpu(), ref[0], atol=IMG_TOL, rtol=0)
+        torch.testing.assert_close(got[1].cpu(), ref[1], atol=AUX_TOL, rtol=0)
+    if estimator == "rt":
+        _, kw = _render_args(3, 37, 23)
+        u_full = torch.empty((37 * 23, 3), device=cuda_device)
+        tr.render_noisy(dt, tf, 12345, 7, uniforms_out=u_full, **kw)
+        u_band = torch.empty((37 * 7, 3), device=cuda_device)
+        tr.render_noisy(dt, tf, 12345, 7, uniforms_out=u_band, row0=16,
+                        rows=7, **kw)
+        assert torch.equal(u_band, u_full[37 * 16:])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", ["contiguous", "channels_last"])
 @pytest.mark.parametrize("supports,gscale,hw", [
