@@ -6,8 +6,10 @@ Run from the repository root:  python3 chip_smoke.py
 Phases (each prints its own lines; any failure raises and exits non-zero):
   1. the card: ``nvidia-smi --query-gpu=name,power.limit``;
   2. build every kernel from csrc/ with nvcc (sm_90a); ptxas's report of
-     every render_classic instance (registers; no stack frame, no spills),
-     printed as one JSON line {"ptxas_render_classic": ...};
+     every render_classic instance (the frame's, its statistics' and the
+     ray mode's; registers; no stack frame, no spills) and of every
+     render_kernel instance, printed as JSON lines
+     {"ptxas_render_classic": ...} and {"ptxas_render": ...};
   3. K3 (LUT build + skip distances) vs its plain version, integer-exact,
      on a depth-7 shell, a deep chain and a random 512^3 LUT (occupancy
      1e-3, cap 12);
@@ -25,7 +27,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      its plain version and with its statistics equal to the plain
      march's; and K4 (fast mode's joint upsample) vs its
      plain version at 400->800, 320->800 and odd sizes (75x47 from
-     s = 0.5, 0.4, 0.7), with and without aux_chw;
+     s = 0.5, 0.4, 0.7), with and without aux_chw; the ray mode
+     (trace_rays, trace_rays_classic: K1's render_rays and
+     render_classic_rays) vs its plain version on the NDC blobs tree's
+     camera rays and on every classic instance's tree (RAY_LAYOUT_RAYS
+     aimed rays with world depths, unroll 1, 2, 3 at an odd max_steps);
   5. PCG32: the kernel's per-pixel uniforms equal the tensor twin, bit-exact;
   6. K2 (guided filter from the net's bf16 activation) vs its plain version
      at 800x800, L=4, both support ladders, channels-last strides and a
@@ -78,7 +84,19 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      aux with the rung's net, and the Renderer's noisy frame vs the plain
      chain, then its time with the
      phase split; the probe overlay and the host rasterizer, timed as
-     plain rows ({"plain_rows": ...}); then the training path: a kit
+     plain rows ({"plain_rows": ...}); the ray mode on the headline tree:
+     RAY_AIMED aimed rays at every SPP of the kernel with and without
+     world depths vs its plain version, then the ray path: the headline
+     frame's own 640,000 rays (plain camera rays, rodrigues,
+     maybe_world2ndc) and K1's own thresholds through trace_rays and
+     trace_rays_classic with the counts set to 0 just before and read just
+     after (each ray kernel once), composited against K1's and
+     render_classic's frames (max |diff|, share of pixels unequal), a
+     seeded permutation of the rays (its results the row order's,
+     permuted), the medians of RAY_REPS calls in turns of the ray mode in
+     row order, permuted, K1's frame, the classic ray mode and
+     render_classic's frame, the plain times and the bounds, as one JSON
+     line {"rays": ...}; then the training path: a kit
      rendered by the port's tools/make_quality_dataset.py from the
      headline tree (32 train and 8 test poses at 800x800, SPP 6 aux and
      classic-estimator GT, under build/chip_smoke/train_kit), K5 (the
@@ -105,7 +123,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      the train step on phase 9's real batch at world 2 (dp 2) and 4 (dp 2
      x sp 2, halo crops) on gloo against the single process from the same
      params (loss; f32 parameters after one Adam step; bf16 gradients),
-     K5 and K6 once a step in every rank; the frames' and the step's ms
+     K5 and K6 once a step in every rank; at worlds 1 and 2,
+     render_rays_sharded on the headline frame's rays and K1's own
+     uniforms, bit-equal to the single process's trace_rays and
+     render_rays once a rank; the frames' and the step's ms
      (CUDA events, the largest rank) split by stage, each run's wall
      seconds; one JSON line {"multidev": ...};
  10. the scenes of the JAX package's bench (SCENES: solid 800x800, tt
@@ -276,6 +297,7 @@ PKG_ROOT = (os.path.abspath(sys.argv[2])
 sys.path.insert(0, PKG_ROOT)
 
 from rt_octree_tpu_torch.utils.timer import cuda_ms, device_ms  # noqa: E402
+from rt_octree_tpu_torch.utils.timer import device_medians  # noqa: E402
 
 KIT = os.path.join(HERE, "benchmarks", "quality")
 WORK = os.path.join(HERE, "build", "chip_smoke")
@@ -428,6 +450,28 @@ FRAME_KERNELS = {
     "skip_distances": ("rt_octree_tpu_torch/csrc/lut.cu",
                        "rt_octree_tpu/ops/traversal.py:173"),
 }
+# the ray mode of K1 and render_classic (trace_rays, trace_rays_classic)
+RAY_KERNELS = {
+    "render_rays": ("rt_octree_tpu_torch/csrc/render.cu",
+                    "rt_octree_tpu/render/renderer.py:540"),
+    "render_classic_rays": ("rt_octree_tpu_torch/csrc/render.cu",
+                            "rt_octree_tpu/render/renderer.py:1060"),
+}
+# The ray phases: RAY_AIMED rays aimed at the headline tree and
+# RAY_LAYOUT_RAYS at each classic instance's tree (from a sphere of radius 3
+# towards points of [-0.5, 0.5]^3; dirs and the view dirs, rotated from
+# them, scaled by 0.5-2), each held within K1_IMG_TOL of its plain version
+# with most rays hitting; the classic instances at max_steps
+# RAY_ODD_STEPS with each unroll of RAY_UNROLLS and at 8192 with unroll 2.
+# The headline's own rays are timed RAY_REPS times each after RAY_WARMUP,
+# in turns: row order, the permutation seeded by RAY_PERM_SEED, K1's frame
+# (and the classic ray mode beside render_classic's frame).  The sharded
+# ray tracer of phase 9b takes the API's step limit.
+RAY_AIMED, RAY_LAYOUT_RAYS = 65536, 16384
+RAY_UNROLLS, RAY_ODD_STEPS = (1, 2, 3), 7
+RAY_REPS, RAY_WARMUP, RAY_PERM_SEED = 20, 3, 15
+RAY_MIN_HIT = 0.5
+RAY_SHARDED_MAX_STEPS = 512
 # the training step's kernels (the batched filter and its backward)
 TRAIN_KERNELS = {
     "guided_filter_batch": ("rt_octree_tpu_torch/csrc/filter.cu",
@@ -444,7 +488,7 @@ PROBE_KERNELS = {
     "row_ring_rounds": "tools/microbench_gather.py:132",
     "flat_gather_chain": "tools/microbench_gather.py:183",
 }
-KERNELS = {**FRAME_KERNELS, **TRAIN_KERNELS,
+KERNELS = {**FRAME_KERNELS, **RAY_KERNELS, **TRAIN_KERNELS,
            **{k: ("rt_octree_tpu_torch/csrc/probes.cu", v)
               for k, v in PROBE_KERNELS.items()}}
 
@@ -499,22 +543,34 @@ def ptxas_kernels(report, kernel):
 
 
 def phase_ptxas(native):
-    """Every render_classic_kernel instance (7 row layouts, each with and
-    without statistics) as ptxas compiled it: no stack frame, no spills.
-    Prints one {"ptxas_render_classic": ...} line."""
+    """Every render_classic_kernel instance (7 row layouts, each for the
+    frame, its statistics and the ray mode) as ptxas compiled it: no stack
+    frame, no spills; and every render_kernel instance (8 SPP, each for
+    the frame, its statistics and the ray mode), recorded.  Prints one
+    {"ptxas_render_classic": ...} and one {"ptxas_render": ...} line."""
     import re
-    found = ptxas_kernels(native.PTXAS.get("render", ""),
-                          "render_classic_kernel")
+    report = native.PTXAS.get("render", "")
+
+    def mode(stats, rays):
+        return " stats" if stats == "1" else " rays" if rays == "1" else ""
     table = {}
-    for name, v in found.items():
-        m = re.search(r"render_classic_kernelIL(i|in)(\d+)ELb([01])EE", name)
+    for name, v in ptxas_kernels(report, "render_classic_kernel").items():
+        m = re.search(r"render_classic_kernelIL(i|in)(\d+)ELb([01])ELb([01])"
+                      "EE", name)
         bd = (-1 if m.group(1) == "in" else 1) * int(m.group(2))
         layout = {-1: "rgba", 0: "any"}.get(bd, f"sh{bd}")
-        table[layout + (" stats" if m.group(3) == "1" else "")] = v
+        table[layout + mode(m.group(3), m.group(4))] = v
     log(json.dumps({"ptxas_render_classic": table}))
-    require(len(table) == 14 and all(len(v) == 4 for v in table.values()),
-            f"ptxas reported {sorted(table)}, not the 14 render_classic "
+    rt = {}
+    for name, v in ptxas_kernels(report, "render_kernel").items():
+        m = re.search(r"render_kernelILi(\d+)ELb([01])ELb([01])EE", name)
+        rt[f"spp{m.group(1)}" + mode(m.group(2), m.group(3))] = v
+    log(json.dumps({"ptxas_render": rt}))
+    require(len(table) == 21 and all(len(v) == 4 for v in table.values()),
+            f"ptxas reported {sorted(table)}, not the 21 render_classic "
             "instances")
+    require(len(rt) == 24, f"ptxas reported {sorted(rt)}, not the 24 "
+            "render_kernel instances")
     require(all(v["stack_bytes"] == v["spill_store_bytes"]
                 == v["spill_load_bytes"] == 0 for v in table.values()),
             "a render_classic instance has a stack frame or spills")
@@ -799,6 +855,85 @@ def phase_classic_layouts(err):
         kw = dict(kw, opt=o, **extra)
         hold_k1(f"SH9 {label} classic", sh9, tf_s, kw, "render_classic", err)
         hold_classic_stats(f"SH9 {label}", sh9, tf_s, kw)
+
+
+def aimed_rays(dt, n, spp, seed):
+    """n rays of synthetic.aimed_rays on the tree's device, not unit
+    length (see RAY_AIMED): (dirs, vdirs, cens, dst), dst the sorted
+    thresholds of seeded uniforms."""
+    import torch
+    from rt_octree_tpu_torch.io import synthetic
+    from rt_octree_tpu_torch.utils.rng import make_sorted_dst
+    rs = np.random.default_rng(seed)
+    rays = synthetic.aimed_rays(rs, n, unit=False)
+    u = rs.random((n, spp), np.float32)
+    return (*(torch.from_numpy(a).to(dt.device) for a in rays),
+            make_sorted_dst(torch.from_numpy(u).to(dt.device)))
+
+
+def ray_tmax(dt, n, seed):
+    """synthetic.ray_world_depths of n rays on the tree's device."""
+    import torch
+    from rt_octree_tpu_torch.io import synthetic
+    return torch.from_numpy(synthetic.ray_world_depths(
+        np.random.default_rng(seed), n)).to(dt.device)
+
+
+def hold_rays(label, dt, rays, opt, err, **kw):
+    """K1's ray mode (rays = (dirs, vdirs, cens, dst)) or render_classic's
+    (rays = (dirs, vdirs, cens)) vs its plain version on the same card,
+    within K1_IMG_TOL, most rays hitting."""
+    import torch
+    from rt_octree_tpu_torch.render import renderer as R
+    if len(rays) == 4:
+        key, got = "render_rays", R.trace_rays(dt, *rays, opt, **kw)
+        ref = R.trace_rays_plain(dt, *rays, opt, **kw)
+    else:
+        key = "render_classic_rays"
+        got = R.trace_rays_classic(dt, *rays, opt, **kw)
+        ref = R.trace_rays_classic_plain(dt, *rays, opt, **kw)
+    e = float((got - ref).abs().max())
+    hit = float((got[:, 3] > 0).float().mean())
+    log(f"[rays] {label} {key}: max|diff| {e:.3g}, share hit {hit:.3f}")
+    require(bool(torch.isfinite(got).all()), f"{label}: not finite")
+    require(e <= K1_IMG_TOL, f"{label}: {key} disagrees with its plain "
+            "version")
+    require(hit > RAY_MIN_HIT, f"{label}: most rays miss the tree")
+    err[key] = max(err.get(key, 0.0), e)
+
+
+def phase_rays(err):
+    """The ray mode (trace_rays, trace_rays_classic) vs its plain versions
+    on phase 4's NDC blobs tree (its camera's rays, NDC-warped) and on
+    every classic instance's tree of classic_layout_trees (RAY_LAYOUT_RAYS
+    aimed rays with world depths, unroll 1, 2, 3 at RAY_ODD_STEPS steps
+    and unroll 2 at 8192)."""
+    import torch
+    from rt_octree_tpu_torch.core.options import RenderOptions
+    from rt_octree_tpu_torch.ops.traversal import upload_tree
+    from rt_octree_tpu_torch.render import renderer as R
+    from rt_octree_tpu_torch.utils.rng import make_sorted_dst
+    label, tree, cam = k1_scenes()[1]
+    dt = upload_tree(tree, lut_levels=tree.max_depth, device="cuda")
+    tf = torch.from_numpy(cam.transform.astype(np.float32)).cuda()
+    dirs, cens = R.device_camera_rays(tf, cam.width, cam.height, cam.fx,
+                                      cam.fy)
+    wd, wc = (t.contiguous() for t in R.maybe_world2ndc(dt, dirs, cens))
+    u = torch.from_numpy(np.random.default_rng(21).random(
+        (cam.width * cam.height, 6)).astype(np.float32)).cuda()
+    hold_rays(f"{label} camera rays in NDC", dt,
+              (wd, dirs, wc, make_sorted_dst(u)), RenderOptions(spp=6), err)
+    hold_rays(f"{label} camera rays in NDC", dt, (wd, dirs, wc),
+              RenderOptions(estimator="classic"), err)
+    for i, (label, tree, _) in enumerate(classic_layout_trees()):
+        dt = upload_tree(tree, lut_levels=6, device="cuda")
+        rays = aimed_rays(dt, RAY_LAYOUT_RAYS, 1, 30 + i)[:3]
+        tm = ray_tmax(dt, RAY_LAYOUT_RAYS, 30 + i)
+        opt = RenderOptions(estimator="classic")
+        for unroll, steps in ([(u, RAY_ODD_STEPS) for u in RAY_UNROLLS]
+                              + [(2, 8192)]):
+            hold_rays(f"{label} unroll {unroll} max_steps {steps}", dt, rays,
+                      opt, err, tmax_bg=tm, max_steps=steps, unroll=unroll)
 
 
 UPSAMPLE_CASES = [((600, 600), (800, 800)), ((400, 400), (800, 800)),
@@ -1982,6 +2117,136 @@ def phase_fast_classic(r, ps, err, tree_host, gates):
     return ms, bounds
 
 
+def headline_ray_batch(dt, pose, fx, fy):
+    """The headline frame's rays at ``pose`` as a ray batch on the tree's
+    device: the plain device_camera_rays, rodrigues and maybe_world2ndc,
+    and K1's own PCG32 uniforms of that frame at the quality protocol's
+    state (20230418, 1).  Returns (dirs, vdirs, cens, uniforms, K1's
+    frame (img, aux_nhwc, aux_chw), transform, (state, inc))."""
+    import torch
+    from rt_octree_tpu_torch.render import renderer as R
+    from rt_octree_tpu_torch.utils.rng import Pcg32
+    rng = Pcg32(20230418, 1)
+    opt = headline_options()
+    tf = torch.from_numpy(np.ascontiguousarray(
+        np.asarray(pose, np.float32)[:3, :4])).to(dt.device)
+    u = torch.empty((MD_SIZE * MD_SIZE, opt.spp), device=dt.device)
+    frame = R.render_noisy(dt, tf, rng.state, rng.inc, width=MD_SIZE,
+                           height=MD_SIZE, fx=fx, fy=fy, opt=opt,
+                           uniforms_out=u)
+    dirs, cens = R.device_camera_rays(tf, MD_SIZE, MD_SIZE, fx, fy)
+    vdirs = R.rodrigues(opt.rot_dirs, dirs)
+    wd, wc = R.maybe_world2ndc(dt, dirs, cens)
+    return (wd.contiguous(), vdirs.contiguous(), wc.contiguous(), u, frame,
+            tf, (rng.state, rng.inc))
+
+
+def phase_rays_headline(r, ps, err, card):
+    """The ray mode on the headline tree (see the module docstring's phase
+    9): RAY_AIMED aimed rays at every SPP of the kernel with and without
+    world depths vs the plain version; the headline frame's own rays and
+    thresholds with the counts set to 0 just before and read just after
+    (render_rays and render_classic_rays once each), composited against
+    K1's and render_classic's frames; a seeded permutation of the same
+    rays; the times, plain times and bounds.  Prints {"rays": ...} and
+    returns (ms, bounds, launches) of the two ray kernels."""
+    import torch
+    from rt_octree_tpu_torch.native import build as native
+    from rt_octree_tpu_torch.render import renderer as R
+    from rt_octree_tpu_torch.utils.rng import make_sorted_dst
+    dt = r.tree
+    tm = ray_tmax(dt, RAY_AIMED, 40)
+    for spp in R.SPP_KERNEL:
+        rays = aimed_rays(dt, RAY_AIMED, spp, 40 + spp)
+        opt = headline_options()
+        opt.spp = spp
+        for kw in ({}, {"tmax_bg": tm}):
+            hold_rays(f"headline tree, {RAY_AIMED} aimed rays, spp {spp}"
+                      + (", world depths" if kw else ""), dt, rays, opt,
+                      err, **kw)
+    n = MD_SIZE * MD_SIZE
+    d, v, c, u, frame, tf, rng = headline_ray_batch(dt, ps.poses[0], r.fx,
+                                                    r.fy)
+    dst = make_sorted_dst(u)
+    opt, copt = headline_options(), classic_options("cli")
+    kw = dict(width=MD_SIZE, height=MD_SIZE, fx=r.fx, fy=r.fy)
+    native.reset_launches()
+    out = R.trace_rays(dt, d, v, c, dst, opt)
+    out_c = R.trace_rays_classic(dt, d, v, c, copt)
+    torch.cuda.synchronize()
+    launches = {k: native.LAUNCHES[k] for k in RAY_KERNELS}
+    log(f"[rays] the headline frame's {n} rays: launches {launches}")
+    require(launches == {k: 1 for k in RAY_KERNELS},
+            f"the ray path launched {launches}")
+    res = {"card": card, "rays": n, "launches": launches, "vs_frame": {}}
+    frame_c = R.render_noisy(dt, tf, 0, 0, opt=copt, **kw)[0]
+    for key, o, img in (("render_rays", out, frame[0]),
+                        ("render_classic_rays", out_c, frame_c)):
+        comp = R.composite(o, MD_SIZE, MD_SIZE,
+                           float(opt.background_brightness))[0]
+        diff = (comp - img).abs()
+        e = float(diff.max())
+        share = float((diff > 0).any(-1).float().mean())
+        res["vs_frame"][key] = {"max_abs_err": e, "share_unequal": share}
+        log(f"[rays] {key} on the headline's rays, composited, vs the "
+            f"frame's img: max|diff| {e:.3g}, share of pixels unequal "
+            f"{share:.4f}")
+        require(e <= K1_IMG_TOL, f"{key}: the ray mode is not the frame")
+        err[key] = max(err.get(key, 0.0), e)
+    gen = torch.Generator().manual_seed(RAY_PERM_SEED)
+    perm = torch.randperm(n, generator=gen).cuda()
+    pd, pv, pc, pdst = (t[perm].contiguous() for t in (d, v, c, dst))
+    same = bool(torch.equal(R.trace_rays(dt, pd, pv, pc, pdst, opt),
+                            out[perm]))
+    log(f"[rays] the permuted rays' results are the row order's, "
+        f"permuted: {same}")
+    require(same, "a ray's result depends on its place in the batch")
+    st, inc = rng
+    ms = device_medians({
+        "rays_row": lambda: R.trace_rays(dt, d, v, c, dst, opt),
+        "rays_perm": lambda: R.trace_rays(dt, pd, pv, pc, pdst, opt),
+        "frame": lambda: R.render_noisy(dt, tf, st, inc, opt=opt, **kw),
+        "classic_rays_row": lambda: R.trace_rays_classic(dt, d, v, c, copt),
+        "classic_frame": lambda: R.render_noisy(dt, tf, 0, 0, opt=copt,
+                                                **kw)}, RAY_REPS, RAY_WARMUP)
+    plain = {"render_rays": cuda_ms(
+        lambda: R.trace_rays_plain(dt, d, v, c, dst, opt), 1, 0),
+        "render_classic_rays": cuda_ms(
+        lambda: R.trace_rays_classic_plain(dt, d, v, c, copt), 1, 0)}
+    # the frame's reads (each LUT cell and chs row once at 8 B, each shaded
+    # f16 row once) and operations, from the statistics of the same rays;
+    # the ray mode reads dirs and cens (24 B) and writes [R, 4] (16 B) for
+    # every ray, and the vdir (12 B) and the thresholds (4 B each; the
+    # classic mode none) only for a ray that takes a step: a ray that
+    # misses the tree's box is 0 from its dir and cen alone
+    bounds, sbytes = {}, {}
+    for key, o, extra in (("render_rays", opt, 4 * opt.spp),
+                          ("render_classic_rays", copt, 0)):
+        sta = R.render_stats(dt, tf, st, inc, opt=o, **kw)
+        shaded = (float(sta.shaded.sum()) if sta.shaded is not None
+                  else sta.data_rows)
+        stepping = int((sta.steps > 0).sum())
+        nbytes = (40 * n + (12 + extra) * stepping
+                  + 8 * (sta.lut_cells + sta.chs_rows)
+                  + 2 * dt.data_dim * sta.data_rows)
+        ops = (K1_OPS_PER_STEP * float(sta.steps.sum())
+               + (6 * max(dt.basis_dim, 0) + 16) * shaded)
+        bounds[key] = bound(nbytes, ops) + (None,)
+        sbytes[key] = nbytes
+    res.update({"ms": ms, "plain_ms": plain,
+                "bound_ms": {k: b[0] for k, b in bounds.items()},
+                "bound_by": {k: b[1] for k, b in bounds.items()},
+                "bound_bytes": sbytes, "perm_seed": RAY_PERM_SEED,
+                "timing": f"median of {RAY_REPS} calls each after "
+                          f"{RAY_WARMUP} rounds, in turns, CUDA events, "
+                          "host queuing hidden behind a sleep kernel"})
+    log(json.dumps({"rays": res}))
+    return ({"render_rays": (ms["rays_row"], plain["render_rays"]),
+             "render_classic_rays": (ms["classic_rays_row"],
+                                     plain["render_classic_rays"])},
+            bounds, launches)
+
+
 def train_argv(kit, epochs, task="train", exp_name="shell"):
     """``rtoctree train`` on the kit with configs/blender.txt: a checkpoint
     and a .gnet every epoch, no test inside the run."""
@@ -2517,7 +2782,9 @@ def md_frames(dev, mesh, tree_path, labels, poses, fx, fy):
     """A rank's sharded frames: the headline tree read and uploaded on this
     rank's device (K3 here), then per frame of ``labels`` the launches of
     pose r_0's frame, its digest (rank 0: the frame), the 8-pose gate
-    (rank 0) and the frame's time and split."""
+    (rank 0) and the frame's time and split; then render_rays_sharded on
+    the headline frame's rays (headline_ray_batch): its launches and the
+    digest of its [R, 4]."""
     import hashlib
 
     import torch
@@ -2567,6 +2834,16 @@ def md_frames(dev, mesh, tree_path, labels, poses, fx, fy):
                            float(np.mean(acc["denoised"])))
         res["ms"] = md_timed(lambda marks: frame(poses[0], state, marks))
         out["frames"][label] = res
+    # the sharded ray tracer on the headline frame's rays and K1's own
+    # thresholds, the counts set to 0 just before it and read just after
+    d, v, c, u = headline_ray_batch(dt, poses[0], fx, fy)[:4]
+    native.reset_launches()
+    got = pm.render_rays_sharded(mesh, dt, d, v, c, u, headline_options(),
+                                 max_steps=RAY_SHARDED_MAX_STEPS)
+    torch.cuda.synchronize()
+    out["rays"] = {"launches": _nonzero(native.LAUNCHES),
+                   "digest": hashlib.sha1(got.cpu().numpy().tobytes())
+                   .hexdigest()}
     return out
 
 
@@ -2638,8 +2915,11 @@ def phase_multidev(r, ps, tree_path, gates, card):
     each frame or step and read just after, held against the single
     process of this call.  Prints {"multidev": ...} and returns each
     kernel's launches in each run, summed over its ranks."""
+    import hashlib
+
     from rt_octree_tpu_torch.parallel.launch import launch
     from rt_octree_tpu_torch.render import renderer as R
+    from rt_octree_tpu_torch.utils.rng import make_sorted_dst
     out = {"card": card, "runs": {}}
     sharded = {}
 
@@ -2662,6 +2942,12 @@ def phase_multidev(r, ps, tree_path, gates, card):
         single[label] = (img.cpu(), aux.cpu(),
                          cuda_ms(lambda: rs.render(ps.poses[0]), MD_REPS,
                                  MD_WARMUP))
+    # the sharded ray tracer's single process: trace_rays on the same rays
+    d, v, c, u = headline_ray_batch(r.tree, ps.poses[0], r.fx, r.fy)[:4]
+    single["rays"] = hashlib.sha1(R.trace_rays(
+        r.tree, d, v, c, make_sorted_dst(u), headline_options(),
+        max_steps=RAY_SHARDED_MAX_STEPS).cpu().numpy().tobytes()).hexdigest()
+    del d, v, c, u
     # the train step on phase 9's real batch, from a fresh Runner's net
     runner, _, _, batch = train_batch(os.path.join(WORK, "train_kit"))
     cfg, params = runner.net_cfg, runner.params()
@@ -2735,6 +3021,19 @@ def md_hold_frames(ranks, labels, single, gates, run, count):
                     f"multidev {label} {run}: a rank launched "
                     f"{o['launches']}, not {kernels} once each")
         count(run, rec[label]["launches"])
+    rays = [o["rays"] for o in ranks]
+    rec["rays"] = {"launches": [o["launches"] for o in rays],
+                   "bit_equal": all(o["digest"] == single["rays"]
+                                    for o in rays)}
+    log(f"[multidev] render_rays_sharded on the headline's {MD_SIZE ** 2} "
+        f"rays, {run}: bit-equal to the single process "
+        f"{rec['rays']['bit_equal']}; launches a rank "
+        f"{rec['rays']['launches']}")
+    require(rec["rays"]["bit_equal"], f"multidev rays {run}: not the single "
+            "process's")
+    require(all(c == {"render_rays": 1} for c in rec["rays"]["launches"]),
+            f"multidev rays {run}: launches {rec['rays']['launches']}")
+    count(run, rec["rays"]["launches"])
     return rec
 
 
@@ -3800,6 +4099,7 @@ def main(argv) -> int:
     phase_k1(err)
     phase_k1_mesh_classic(err)
     phase_classic_layouts(err)
+    phase_rays(err)
     phase_k4(err)
     phase_pcg()
     phase_k2(err)
@@ -3828,6 +4128,10 @@ def main(argv) -> int:
     ms_new, bounds_new = phase_fast_classic(r, ps, err, tree, gates)
     ms.update(ms_new)
     bounds.update(bounds_new)
+    ms_new, bounds_new, ray_counts = phase_rays_headline(r, ps, err, smi[0])
+    ms.update(ms_new)
+    bounds.update(bounds_new)
+    counts.update(ray_counts)
     train_counts, ms_new, bounds_new = phase_train(native, r, tree_path, err)
     counts.update(train_counts)
     ms.update(ms_new)

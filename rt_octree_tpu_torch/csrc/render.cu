@@ -85,8 +85,22 @@
 // step's weight, light, stop test and next t need only its sigma, so the
 // row of step i is loaded while step i + 1's LUT read is in flight and
 // summed after it, in step order (render_classic_kernel).
+//
+// Ray mode (kRays; C entry rt_render_rays, launch names "render_rays" and
+// "render_classic_rays"): the counterparts of trace_rays (:540-588) and
+// trace_rays_classic over a caller's ray batch.  One thread a ray, a warp
+// for 32 consecutive rays of the caller's order, 64-bit indices.  A ray's
+// dir, cen and vdir are read as given (already NDC-warped and rotated; not
+// normalised: delta_scale = 1 / |dir * scale| and the basis takes vdir as
+// it is), its world depth ray_tmax as given (no 1e9 clamp; 1e9 without
+// one), its sorted thresholds from ray_dst (no PCG32).  The march set-up
+// (init_march), the leaf step and the shade are the frame's; the output is
+// [rgb, alpha] before the background into ray_out, with no composite and no
+// aux.  The classic ray mode takes its step limit as the wrapper rounds it
+// (ceil(max_steps / unroll) * unroll).  No statistics variant.
 #include <cuda_fp16.h>
 
+#include <climits>
 #include <cstring>
 
 #include "common.cuh"
@@ -120,8 +134,15 @@ struct RenderParams {
   int* stat_shaded;        // [H * W] shaded leaf steps (classic stats run)
   const float* mesh_color; // [H * W, 3] or null (no mesh pass)
   const float* mesh_depth; // [H * W] ray distance, +inf where no mesh
+  const float* ray_dirs;   // ray mode: [n_rays, 3] world dirs (NDC-warped)
+  const float* ray_vdirs;  // [n_rays, 3] view dirs of the basis
+  const float* ray_cens;   // [n_rays, 3] world origins (NDC-warped)
+  const float* ray_dst;    // [n_rays, spp] sorted thresholds (rt only)
+  const float* ray_tmax;   // [n_rays] world depth, or null (1e9)
+  float* ray_out;          // [n_rays, 4] premultiplied rgb, alpha
   unsigned long long rng_state;
   unsigned long long rng_inc;
+  long long n_rays;        // ray mode's batch; 0 for a frame
   float fx, fy;
   float step_size, sigma_thresh, background, stop_thresh;
   float bbox[6];
@@ -343,6 +364,44 @@ struct Ray : RayGeom {
   int rec_ptr[SPP], rec_cnt[SPP];
 };
 
+// March setup of the world ray (dir, cen) (_init_march, _dda_world):
+// tree-space origin and unit direction, delta_scale = 1 / |dir * scale|,
+// the bbox interval, and the world depth bg_depth() (the mesh pass's or a
+// caller's; 1e9 without one) as a ray parameter (rt_core.cuh:208).  Shared
+// by the frame and the ray mode.
+template <typename Depth>
+__device__ __forceinline__ void init_march(const RenderParams& p,
+                                           const float dir[3],
+                                           const float cen[3],
+                                           Depth bg_depth, RayGeom& r) {
+  for (int i = 0; i < 3; ++i) {
+    r.cen_t[i] = p.offset[i] + p.scale[i] * cen[i];
+    r.d_t[i] = dir[i] * p.scale[i];
+  }
+  r.delta_scale = 1.0f / sqrtf(r.d_t[0] * r.d_t[0] + r.d_t[1] * r.d_t[1] +
+                               r.d_t[2] * r.d_t[2]);
+  for (int i = 0; i < 3; ++i) {
+    r.d_t[i] = r.d_t[i] * r.delta_scale;
+    r.invdir[i] = 1.0f / (r.d_t[i] + 1e-9f);
+  }
+  float tmin = 0.0f, tmax = 1e4f;
+  {
+    float mn = -INFINITY, mx = INFINITY;
+    for (int i = 0; i < 3; ++i) {
+      const float t1 = (p.bbox[i] + 1e-6f - r.cen_t[i]) * r.invdir[i];
+      const float t2 = (p.bbox[i + 3] - 1e-6f - r.cen_t[i]) * r.invdir[i];
+      mn = fmaxf(mn, fminf(t1, t2));
+      mx = fminf(mx, fmaxf(t1, t2));
+    }
+    tmin = fmaxf(0.0f, mn);
+    tmax = fminf(1e4f, mx);
+  }
+  r.tmax = fminf(tmax, bg_depth() / r.delta_scale);
+  r.active = (r.tmax >= 0.0f) && (tmin <= r.tmax);
+  r.t = tmin;
+  r.steps = r.descents = 0;
+}
+
 // Camera ray, view direction, NDC warp and march setup of pixel (px, py).
 // kHostTrig takes the rotation's cosine and sine from the wrapper instead
 // of cosf / sinf, whose reduction of a huge angle needs a stack frame.
@@ -404,36 +463,27 @@ __device__ __forceinline__ void setup_geom(const RenderParams& p, int px,
     }
   }
 
-  // ---- march setup (_init_march, _dda_world) ----
-  for (int i = 0; i < 3; ++i) {
-    r.cen_t[i] = p.offset[i] + p.scale[i] * cen[i];
-    r.d_t[i] = dir[i] * p.scale[i];
+  // world depth of the mesh, clamped to 1e9 as _render_noisy does
+  init_march(p, dir, cen, [&] {
+    return p.mesh_depth ? fminf(p.mesh_depth[idx], 1e9f) : 1e9f;
+  }, r);
+}
+
+// Ray mode: the caller's ray i as given (trace_rays takes NDC-warped rays
+// and rotated view dirs): no rotation, no warp, neither vector normalised;
+// its world depth ray_tmax[i] unclamped (trace_rays has no clamp), 1e9
+// without one.
+__device__ __forceinline__ void setup_geom_ray(const RenderParams& p,
+                                               long long i, RayGeom& r) {
+  float dir[3], cen[3];
+  for (int k = 0; k < 3; ++k) {
+    dir[k] = p.ray_dirs[3 * i + k];
+    cen[k] = p.ray_cens[3 * i + k];
+    r.vdir[k] = p.ray_vdirs[3 * i + k];
   }
-  r.delta_scale = 1.0f / sqrtf(r.d_t[0] * r.d_t[0] + r.d_t[1] * r.d_t[1] +
-                               r.d_t[2] * r.d_t[2]);
-  for (int i = 0; i < 3; ++i) {
-    r.d_t[i] = r.d_t[i] * r.delta_scale;
-    r.invdir[i] = 1.0f / (r.d_t[i] + 1e-9f);
-  }
-  float tmin = 0.0f, tmax = 1e4f;
-  {
-    float mn = -INFINITY, mx = INFINITY;
-    for (int i = 0; i < 3; ++i) {
-      const float t1 = (p.bbox[i] + 1e-6f - r.cen_t[i]) * r.invdir[i];
-      const float t2 = (p.bbox[i + 3] - 1e-6f - r.cen_t[i]) * r.invdir[i];
-      mn = fmaxf(mn, fminf(t1, t2));
-      mx = fminf(mx, fmaxf(t1, t2));
-    }
-    tmin = fmaxf(0.0f, mn);
-    tmax = fminf(1e4f, mx);
-  }
-  // world depth of the mesh (or 1e9) -> ray parameter (rt_core.cuh:208)
-  const float bg_depth =
-      p.mesh_depth ? fminf(p.mesh_depth[idx], 1e9f) : 1e9f;
-  r.tmax = fminf(tmax, bg_depth / r.delta_scale);
-  r.active = (r.tmax >= 0.0f) && (tmin <= r.tmax);
-  r.t = tmin;
-  r.steps = r.descents = 0;
+  r.idx = 0;
+  init_march(p, dir, cen, [&] { return p.ray_tmax ? p.ray_tmax[i] : 1e9f; },
+             r);
 }
 
 template <int SPP>
@@ -464,6 +514,20 @@ __device__ __forceinline__ void setup_ray(const RenderParams& p, int px,
       }
     }
   }
+  r.src = 0.0f;
+  r.sppc = r.shn = 0;
+#pragma unroll
+  for (int k = 0; k < SPP; ++k) r.rec_ptr[k] = r.rec_cnt[k] = 0;
+}
+
+// Ray mode: the caller's ray i with its sorted thresholds ray_dst[i] as
+// given (trace_rays; SPP is dst.shape[1]).
+template <int SPP>
+__device__ __forceinline__ void setup_ray_of(const RenderParams& p,
+                                             long long i, Ray<SPP>& r) {
+  setup_geom_ray(p, i, r);
+#pragma unroll
+  for (int j = 0; j < SPP; ++j) r.dst[j] = p.ray_dst[i * SPP + j];
   r.src = 0.0f;
   r.sppc = r.shn = 0;
 #pragma unroll
@@ -637,10 +701,11 @@ __device__ __forceinline__ void write_pixel(const RenderParams& p,
   }
 }
 
-// Shade the distinct hit leaves (_shade_rows), composite, write the pixel.
-template <int SPP, bool kStats>
+// Shade the distinct hit leaves (_shade_rows) and hand the premultiplied
+// rgb and alpha to write (the frame: composite and write the pixel).
+template <int SPP, bool kStats, typename Write>
 __device__ __forceinline__ void finish_ray(const RenderParams& p,
-                                           const Ray<SPP>& r) {
+                                           const Ray<SPP>& r, Write write) {
   float rgb[3] = {0.f, 0.f, 0.f};
   float wsum = 0.f;
   if (r.shn > 0) {
@@ -661,7 +726,14 @@ __device__ __forceinline__ void finish_ray(const RenderParams& p,
   }
   const float fspp = (float)SPP;
   const float prem[3] = {rgb[0] / fspp, rgb[1] / fspp, rgb[2] / fspp};
-  write_pixel<kStats>(p, r, prem, wsum / fspp);
+  write(prem, wsum / fspp);
+}
+
+// Ray mode's output: premultiplied rgb and alpha before the background.
+__device__ __forceinline__ void write_ray(const RenderParams& p, long long i,
+                                          const float prem[3], float alpha) {
+  reinterpret_cast<float4*>(p.ray_out)[i] =
+      make_float4(prem[0], prem[1], prem[2], alpha);
 }
 
 // ---- the classic estimator (trace_rays_classic) ----
@@ -817,8 +889,10 @@ struct ClassicRow<kBdAny> {
 // step i's row into rgb: rgb += weight_i * sigmoid(row_i . basis) in step
 // order, then rgb /= 1 - light after the stop step's own addition, light =
 // 0 after a stop; the same f32 operations in the same order as a shade in
-// place.
-template <int kBd, bool kStats>
+// place.  kRays: the ray mode, a thread per caller's ray.  One body serves
+// both modes on purpose: with the march factored into a function, ptxas
+// allocates the frame's SH9 instance another register count.
+template <int kBd, bool kStats, bool kRays>
 __global__ void __launch_bounds__(kThreads) render_classic_kernel(
     const RenderParams p) {
   const int tiles_x = (p.width + kTileW - 1) / kTileW;
@@ -826,16 +900,24 @@ __global__ void __launch_bounds__(kThreads) render_classic_kernel(
   const int lane = threadIdx.x & 31;
   const int px = (tile % tiles_x) * kTileW + lane % kTileW;
   const int py = p.row0 + (tile / tiles_x) * kTileH + lane / kTileW;
-  if (px >= p.width || py >= p.row0 + p.rows) return;  // the ragged edge
+  const long long ray = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (kRays ? ray >= p.n_rays
+            : px >= p.width || py >= p.row0 + p.rows)  // the ragged edge
+    return;
   const int res = rt::ipow(p.N, p.lut_levels);
   RayGeom r;
-  setup_geom<true>(p, px, py, r);
+  if constexpr (kRays) {
+    setup_geom_ray(p, ray, r);
+  } else {
+    setup_geom<true>(p, px, py, r);
+  }
   float basis[kMaxBasis];
   if (kBd != kBdRgba && r.active) classic_basis<kBd>(p, r.vdir, basis);
   float light = 1.0f;
   float rgb[3] = {0.f, 0.f, 0.f};
-  // the JAX loop tests max_steps every 2 steps
-  const int max_steps = p.max_steps + (p.max_steps & 1);
+  // the JAX loop tests max_steps every 2 steps (the frame); the ray
+  // mode's wrapper rounds its limit up to its own unroll
+  const int max_steps = kRays ? p.max_steps : p.max_steps + (p.max_steps & 1);
   ClassicRow<kBd> row;  // the previous step's row while pend
   bool pend = false, pend_stop = false;
   float pend_w = 0.f, pend_norm = 1.f;
@@ -890,94 +972,118 @@ __global__ void __launch_bounds__(kThreads) render_classic_kernel(
       pend_norm = norm;
     }
   }
-  write_pixel<kStats>(p, r, rgb, 1.0f - light);
-  if (kStats) p.stat_shaded[r.idx - p.row0 * p.width] = shaded;
+  if constexpr (kRays) {
+    write_ray(p, ray, rgb, 1.0f - light);
+  } else {
+    write_pixel<kStats>(p, r, rgb, 1.0f - light);
+    if (kStats) p.stat_shaded[r.idx - p.row0 * p.width] = shaded;
+  }
 }
 
-// ---- the frame: one thread per pixel, one 8x4 tile per warp ----
+// ---- the frame: one thread per pixel, one 8x4 tile per warp; the ray
+// mode (kRays): one thread per ray, a warp per 32 rays of the caller's
+// order ----
 
-template <int SPP, bool kStats>
+template <int SPP, bool kStats, bool kRays>
 __global__ void __launch_bounds__(kThreads) render_kernel(
     const RenderParams p) {
-  const int tiles_x = (p.width + kTileW - 1) / kTileW;
-  const int tile = blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x & 31;
-  const int px = (tile % tiles_x) * kTileW + lane % kTileW;
-  const int py = p.row0 + (tile / tiles_x) * kTileH + lane / kTileW;
-  if (px >= p.width || py >= p.row0 + p.rows) return;  // the ragged edge
-  const int res = rt::ipow(p.N, p.lut_levels);
-  Ray<SPP> r;
-  setup_ray<SPP>(p, px, py, r);
-  while (r.active && r.steps < p.max_steps) march_step<SPP, kStats>(p, res, r);
-  finish_ray<SPP, kStats>(p, r);
+  if constexpr (kRays) {
+    const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+    if (i >= p.n_rays) return;
+    const int res = rt::ipow(p.N, p.lut_levels);
+    Ray<SPP> r;
+    setup_ray_of<SPP>(p, i, r);
+    while (r.active && r.steps < p.max_steps) march_step<SPP, false>(p, res, r);
+    finish_ray<SPP, false>(p, r, [&](const float* prem, float alpha) {
+      write_ray(p, i, prem, alpha);
+    });
+  } else {
+    const int tiles_x = (p.width + kTileW - 1) / kTileW;
+    const int tile = blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
+    const int lane = threadIdx.x & 31;
+    const int px = (tile % tiles_x) * kTileW + lane % kTileW;
+    const int py = p.row0 + (tile / tiles_x) * kTileH + lane / kTileW;
+    if (px >= p.width || py >= p.row0 + p.rows) return;  // the ragged edge
+    const int res = rt::ipow(p.N, p.lut_levels);
+    Ray<SPP> r;
+    setup_ray<SPP>(p, px, py, r);
+    while (r.active && r.steps < p.max_steps)
+      march_step<SPP, kStats>(p, res, r);
+    finish_ray<SPP, kStats>(p, r, [&](const float* prem, float alpha) {
+      write_pixel<kStats>(p, r, prem, alpha);
+    });
+  }
 }
 
-template <int SPP, bool kStats>
-int launch(const RenderParams& p, cudaStream_t stream) {
+// Blocks of a launch: a warp per 8x4 tile of the band's rows, or in ray
+// mode a thread per ray.
+template <bool kRays>
+int blocks_of(const RenderParams& p) {
+  if (kRays) return (int)((p.n_rays + kThreads - 1) / kThreads);
   const long long tiles = (long long)((p.width + kTileW - 1) / kTileW) *
                           ((p.rows + kTileH - 1) / kTileH);
   const int warps_per_block = kThreads / 32;
-  render_kernel<SPP, kStats>
-      <<<(int)((tiles + warps_per_block - 1) / warps_per_block), kThreads, 0,
-         stream>>>(p);
+  return (int)((tiles + warps_per_block - 1) / warps_per_block);
+}
+
+template <int SPP, bool kStats, bool kRays>
+int launch(const RenderParams& p, cudaStream_t stream) {
+  render_kernel<SPP, kStats, kRays><<<blocks_of<kRays>(p), kThreads, 0,
+                                      stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <int kBd, bool kStats>
+template <int kBd, bool kStats, bool kRays>
 int launch_classic(const RenderParams& p, cudaStream_t stream) {
-  const long long tiles = (long long)((p.width + kTileW - 1) / kTileW) *
-                          ((p.rows + kTileH - 1) / kTileH);
-  const int warps_per_block = kThreads / 32;
-  render_classic_kernel<kBd, kStats>
-      <<<(int)((tiles + warps_per_block - 1) / warps_per_block), kThreads, 0,
-         stream>>>(p);
+  render_classic_kernel<kBd, kStats, kRays>
+      <<<blocks_of<kRays>(p), kThreads, 0, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
 // The instance of p.classic, if the tree's format and basis_dim fit it.
-template <bool kStats>
+template <bool kStats, bool kRays>
 int launch_layout(const RenderParams& p, cudaStream_t s) {
   const int bd = p.basis_dim;
   const bool sh = p.fmt == 1;
   switch (p.classic) {
     case kClassicSh1:
-      if (sh && bd == 1) return launch_classic<1, kStats>(p, s);
+      if (sh && bd == 1) return launch_classic<1, kStats, kRays>(p, s);
       break;
     case kClassicSh4:
-      if (sh && bd == 4) return launch_classic<4, kStats>(p, s);
+      if (sh && bd == 4) return launch_classic<4, kStats, kRays>(p, s);
       break;
     case kClassicSh9:
-      if (sh && bd == 9) return launch_classic<9, kStats>(p, s);
+      if (sh && bd == 9) return launch_classic<9, kStats, kRays>(p, s);
       break;
     case kClassicSh16:
-      if (sh && bd == 16) return launch_classic<16, kStats>(p, s);
+      if (sh && bd == 16) return launch_classic<16, kStats, kRays>(p, s);
       break;
     case kClassicSh25:
-      if (sh && bd == 25) return launch_classic<25, kStats>(p, s);
+      if (sh && bd == 25) return launch_classic<25, kStats, kRays>(p, s);
       break;
     case kClassicRgba:
-      if (bd < 0) return launch_classic<kBdRgba, kStats>(p, s);
+      if (bd < 0) return launch_classic<kBdRgba, kStats, kRays>(p, s);
       break;
     case kClassicAny:
       if (!sh && bd >= 0 && bd <= kMaxBasis)
-        return launch_classic<kBdAny, kStats>(p, s);
+        return launch_classic<kBdAny, kStats, kRays>(p, s);
       break;
   }
   return (int)cudaErrorInvalidValue;
 }
 
-template <bool kStats>
+template <bool kStats, bool kRays>
 int launch_spp(const RenderParams& p, cudaStream_t s) {
-  if (p.classic) return launch_layout<kStats>(p, s);  // spp not used
+  if (p.classic) return launch_layout<kStats, kRays>(p, s);  // spp not used
   switch (p.spp) {
-    case 1: return launch<1, kStats>(p, s);
-    case 2: return launch<2, kStats>(p, s);
-    case 3: return launch<3, kStats>(p, s);
-    case 4: return launch<4, kStats>(p, s);
-    case 6: return launch<6, kStats>(p, s);
-    case 8: return launch<8, kStats>(p, s);
-    case 16: return launch<16, kStats>(p, s);
-    case 32: return launch<32, kStats>(p, s);
+    case 1: return launch<1, kStats, kRays>(p, s);
+    case 2: return launch<2, kStats, kRays>(p, s);
+    case 3: return launch<3, kStats, kRays>(p, s);
+    case 4: return launch<4, kStats, kRays>(p, s);
+    case 6: return launch<6, kStats, kRays>(p, s);
+    case 8: return launch<8, kStats, kRays>(p, s);
+    case 16: return launch<16, kStats, kRays>(p, s);
+    case 32: return launch<32, kStats, kRays>(p, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -991,10 +1097,26 @@ int launch_spp(const RenderParams& p, cudaStream_t s) {
 RT_API int rt_render(const RenderParams* params, void* stream) {
   const RenderParams p = *params;
   if (p.width <= 0 || p.height <= 0 || p.row0 < 0 || p.rows <= 0 ||
-      p.row0 + p.rows > p.height)
+      p.row0 + p.rows > p.height || p.n_rays != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  return p.stat_steps ? launch_spp<true>(p, s) : launch_spp<false>(p, s);
+  return p.stat_steps ? launch_spp<true, false>(p, s)
+                      : launch_spp<false, false>(p, s);
+}
+
+// Ray mode (trace_rays, trace_rays_classic): the n_rays rays of ray_dirs,
+// ray_vdirs, ray_cens (and for the regular tracker the sorted thresholds
+// ray_dst, spp of them a ray) into ray_out; ray_tmax may be null.  Takes
+// no statistics, no mesh pass and no frame outputs; max_steps is the step
+// limit as given.
+RT_API int rt_render_rays(const RenderParams* params, void* stream) {
+  const RenderParams p = *params;
+  if (p.n_rays < 1 || p.n_rays > (long long)INT_MAX * kThreads ||
+      !p.ray_dirs || !p.ray_vdirs || !p.ray_cens || !p.ray_out ||
+      (!p.classic && !p.ray_dst) || p.stat_steps || p.mesh_color ||
+      p.mesh_depth || p.img || p.aux_nhwc || p.aux_chw || p.uniforms)
+    return (int)cudaErrorInvalidValue;
+  return launch_spp<false, true>(p, (cudaStream_t)stream);
 }
 
 // sizeof(RenderParams), checked by the Python binding against its mirror.

@@ -2,7 +2,8 @@
 
 The port's own copy of rt_octree_tpu/io/synthetic.py (NumPy), plus
 ``random_lut``, the random jump LUTs that kernel K3's skip distances are
-tested on, and ``random_mesh_pass``.
+tested on, ``random_mesh_pass``, and ``aimed_rays`` with
+``ray_world_depths``, ray batches for the ray-batch API.
 
 No scene data ships with this environment, so benchmarks and end-to-end
 tests build octrees with the same on-disk format, topology statistics
@@ -389,3 +390,31 @@ def random_mesh_pass(seed: int, n: int, background=None):
     depth = rs.uniform(2.0, 6.0, n).astype(np.float32)
     depth[rs.random(n) < 0.5] = np.inf
     return rs.random((n, 3), np.float32), depth
+
+
+def aimed_rays(rs: np.random.Generator, n: int, spread: float = 0.5,
+               unit: bool = True):
+    """n rays drawn from ``rs``, from a sphere of radius 3 towards uniform
+    points of [-spread, spread]^3 (through the synthetic shells' walls):
+    (dirs, vdirs, cens), float32 [n, 3].  The view dirs are the dirs
+    rotated (each mixed with its [1, 2, 0] permutation); ``unit=False``
+    scales the dirs, then the view dirs, by factors in [0.5, 2)."""
+    o = rs.standard_normal((n, 3))
+    o *= 3.0 / np.linalg.norm(o, axis=1, keepdims=True)
+    d = rs.uniform(-spread, spread, (n, 3)) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    v = d[:, [1, 2, 0]] * 0.6 + d * 0.8
+    if not unit:
+        d = d * rs.uniform(0.5, 2.0, (n, 1))
+        v = v * rs.uniform(0.5, 2.0, (n, 1))
+    return tuple(np.ascontiguousarray(a, np.float32) for a in (d, v, o))
+
+
+def ray_world_depths(rs: np.random.Generator, n: int) -> np.ndarray:
+    """World depths [n] float32 for ``aimed_rays``: finite ones that cut
+    through the shells' walls, inf on a quarter of the rays and 3e9 (past
+    the frame's 1e9 clamp of a mesh depth) on an eighth."""
+    tm = rs.uniform(2.0, 3.5, n)
+    tm[::4] = np.inf
+    tm[1::8] = 3e9
+    return tm.astype(np.float32)

@@ -57,6 +57,7 @@ _PI, _PL = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong)
 # several kernels and write how many through their int pointer.
 ENTRIES = {
     "rt_render": ("render", [_V, _V]),
+    "rt_render_rays": ("render", [_V, _V]),
     "rt_render_params_size": ("render", []),
     "rt_upsample": ("upsample", [_V, _I, _I, _F, _F, _V, _V, _V, _I, _I, _V]),
     "rt_guided_filter": ("filter", [_V, _L, _L, _L, _V, _V, _I, _V, _I, _I,
@@ -82,7 +83,10 @@ ENTRIES = {
 # kernel (or K3 entry) name -> kernel launches since the last
 # reset_launches()
 LAUNCHES: Dict[str, int] = {
-    "render": 0, "render_classic": 0, "upsample": 0, "guided_filter": 0,
+    "render": 0, "render_classic": 0,
+    # K1's and render_classic's ray mode (trace_rays, trace_rays_classic)
+    "render_rays": 0, "render_classic_rays": 0,
+    "upsample": 0, "guided_filter": 0,
     "lut_build": 0, "skip_distances": 0,
     # the training step's batched filter (K5) and its backward (K6)
     "guided_filter_batch": 0, "guided_filter_batch_bwd": 0,

@@ -20,6 +20,14 @@ its rows plus ``halo(cfg) = num_layers + max(supports)`` rows each side
 (clamped to the image) and K2 on that crop gets its own rows as the whole
 frame's; a second ``all_gather`` assembles img.
 
+The sharded ray tracer (``make_sharded_ray_tracer``,
+``render_rays_sharded``): every rank holds the tree and gets the whole ray
+batch; rank r traces the rays ``[r R / n, (r + 1) R / n)`` with
+``trace_rays`` (K1's ray mode on the card), and one ``all_gather``
+assembles the [R, 4] result on every rank.  A ray's result depends on that
+ray alone, so it is the single process's bit for bit.  R must divide by n,
+as the JAX package's sharding requires.
+
 The training step (``make_sharded_train_step``) is the same function on
 crops: the dp index picks B / dp images of the global batch, the sp index
 H / sp image rows plus the halo; GuidanceNet and the batched filter (K5,
@@ -48,7 +56,8 @@ from ..models.guidance_net import (GuidanceNet, GuidanceNetCompact,
 from ..ops.filtering import guided_filter, guided_filter_batch
 from ..ops.resize import fast_upsample
 from ..ops.traversal import DeviceTree
-from ..render.renderer import render_noisy
+from ..render.renderer import render_noisy, trace_rays
+from ..utils.rng import make_sorted_dst
 from ..train.metrics import smape_loss
 
 
@@ -133,6 +142,55 @@ def _mark(marks, name: str) -> None:
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
         marks.append((name, ev))
+
+
+# ---------------------------------------------------------------------------
+# the sharded ray tracer
+# ---------------------------------------------------------------------------
+
+def make_sharded_ray_tracer(mesh: DeviceMesh, tree: DeviceTree,
+                            opt: RenderOptions, max_steps: int = 512):
+    """A tracer of a ray batch split over the mesh's ranks (the JAX
+    package's make_sharded_ray_tracer).  ``tree`` is this rank's upload on
+    its own device.  Returns ``trace(dirs, vdirs, cens, dst) -> [R, 4]``:
+    the whole batch on every rank (tensors or arrays, f32 on any device),
+    this rank's rays traced by ``trace_rays``, the result gathered on every
+    rank's device.  Raises ValueError in every rank, before any traces,
+    when the four inputs' rows differ or R does not divide by the ranks'
+    count."""
+    n = mesh.size()
+    r = flat_rank(mesh)
+    dev = tree.device
+
+    def trace(dirs, vdirs, cens, dst):
+        R = len(dirs)
+        rows = [len(a) for a in (dirs, vdirs, cens, dst)]
+        if rows != [R] * 4:
+            raise ValueError("make_sharded_ray_tracer: dirs, vdirs, cens and "
+                             f"dst have {rows} rays; they must all have R")
+        if R % n:
+            raise ValueError(f"make_sharded_ray_tracer: a batch of {R} rays "
+                             f"should be divisible by {n}, the ranks of the "
+                             "mesh")
+        r0, r1 = band(r, n, R)
+        part = trace_rays(tree, *(
+            torch.as_tensor(a[r0:r1], dtype=torch.float32).to(dev)
+            .contiguous() for a in (dirs, vdirs, cens, dst)), opt,
+            max_steps=max_steps)
+        return _all_gather_rows(part, n)
+
+    return trace
+
+
+def render_rays_sharded(mesh: DeviceMesh, tree: DeviceTree, dirs, vdirs,
+                        cens, uniforms, opt: RenderOptions,
+                        max_steps: int = 512):
+    """The rays' [R, 4] from raw PCG32 uniforms [R, SPP] (the JAX
+    package's render_rays_sharded): ``make_sorted_dst`` turns them into
+    thresholds, then the sharded tracer."""
+    dst = make_sorted_dst(torch.as_tensor(uniforms, dtype=torch.float32))
+    return make_sharded_ray_tracer(mesh, tree, opt, max_steps)(
+        dirs, vdirs, cens, dst)
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,11 @@ early at ``stop_thresh``, on the instance of the tree's row layout that
 ``mesh_depth`` [R]) clips the rays and replaces the background.
 ``render_stats`` runs K1's statistics variant: per-ray step counts and
 the distinct LUT cells, chs rows and data rows the frame reads.
+``trace_rays`` and ``trace_rays_classic`` march a caller's ray batch (rays,
+view dirs, origins, and for the regular tracker its sorted thresholds)
+with the ray mode of the same two kernels (``render_rays``,
+``render_classic_rays``): a thread a ray, [R, 4] out before the
+background.
 
 ``render_noisy_plain`` is its plain PyTorch version, the JAX package's
 "thin" march: a ``while active.any()`` loop of one leaf step over every ray
@@ -262,15 +267,17 @@ def _leaf_rgb(tree: DeviceTree, ptr, basis):
 
 def march_classic_plain(tree: DeviceTree, dirs, vdirs, cens,
                         opt: RenderOptions, max_steps: int = 8192,
-                        touched: Optional[dict] = None, tmax_bg=None):
+                        touched: Optional[dict] = None, tmax_bg=None,
+                        unroll: int = 2):
     """The classic exponential-transmittance march (trace_rays_classic):
     per leaf step with sigma > sigma_thresh the leaf's rgb is weighted by
     light * (1 - att), att = min(exp(-delta_t * delta_scale * sigma), 1);
     once light < stop_thresh the rgb is renormalized by 1 / (1 - light)
     and the ray stops.  Returns (out [R, 4] = [rgb, 1 - light], steps [R]
-    i32).  Like the JAX loop (unroll=2) it tests ``max_steps`` every two
-    steps.  ``touched`` also receives ``"data"`` [M], the rows shaded, and
-    ``"shaded"`` [R] i32, the shaded steps per ray."""
+    i32).  Like the JAX loop it tests ``max_steps`` every ``unroll``
+    steps (the frame's 2), so a ray takes up to ceil(max_steps / unroll)
+    * unroll steps.  ``touched`` also receives ``"data"`` [M], the rows
+    shaded, and ``"shaded"`` [R] i32, the shaded steps per ray."""
     R = dirs.shape[0]
     dev = dirs.device
     cen_t, d_t, invdir, delta_scale, t, tmax, active = _init_march(
@@ -283,10 +290,10 @@ def march_classic_plain(tree: DeviceTree, dirs, vdirs, cens,
     rgb = torch.zeros((R, 3), dtype=F32, device=dev)
     steps = torch.zeros(R, dtype=torch.int32, device=dev)
     shaded = torch.zeros(R, dtype=torch.int32, device=dev)
-    for _ in range(0, max_steps, 2):
+    for _ in range(0, max_steps, unroll):
         if not bool(active.any()):
             break
-        for _ in range(2):
+        for _ in range(unroll):
             steps = steps + active.to(torch.int32)
             pos = cen_t + t[:, None] * d_t
             sub_ptr, sigma, t_sub = _query_step(tree, pos, invdir, active,
@@ -460,7 +467,10 @@ class _RenderParams(ctypes.Structure):
         ("stat_steps", _V), ("stat_descents", _V),
         ("lut_bits", _V), ("chs_bits", _V), ("data_bits", _V),
         ("stat_shaded", _V), ("mesh_color", _V), ("mesh_depth", _V),
+        ("ray_dirs", _V), ("ray_vdirs", _V), ("ray_cens", _V),
+        ("ray_dst", _V), ("ray_tmax", _V), ("ray_out", _V),
         ("rng_state", ctypes.c_uint64), ("rng_inc", ctypes.c_uint64),
+        ("n_rays", ctypes.c_int64),
         ("fx", _F), ("fy", _F), ("step_size", _F), ("sigma_thresh", _F),
         ("background", _F), ("stop_thresh", _F), ("bbox", _F * 6),
         ("rot", _F * 3), ("rot_cos", _F), ("rot_sin", _F),
@@ -505,20 +515,51 @@ def classic_layout(fmt: int, basis_dim: int, data_dim: int) -> str:
                          f"{CLASSIC_MAX_BASIS}")
     return "any"
 
-_render_fn = None
+_params_checked = False
 
 
-def _render_entry():
-    """The bound ``rt_render`` entry; the first call also checks that the
-    loaded library's RenderParams has the ctypes mirror's size."""
-    global _render_fn
-    if _render_fn is None:
+def _render_entry(name: str = "rt_render"):
+    """The bound C entry ``name`` of csrc/render.cu; the first call also
+    checks that the loaded library's RenderParams has the ctypes mirror's
+    size."""
+    global _params_checked
+    if not _params_checked:
         if native.entry("rt_render_params_size")() != \
                 ctypes.sizeof(_RenderParams):
             raise RuntimeError("RenderParams layout differs between "
                                "csrc/render.cu and its ctypes mirror")
-        _render_fn = native.entry("rt_render")
-    return _render_fn
+        _params_checked = True
+    return native.entry(name)
+
+
+def _check_tree(name: str, tree: DeviceTree) -> None:
+    """The tree's layout that K1's kernels take."""
+    if tree.basis_dim > 25 or tree.chs.dtype != torch.int32 \
+            or tree.data.dtype != torch.float16:
+        raise ValueError(f"{name}: unsupported basis_dim {tree.basis_dim} / "
+                         "tree dtypes")
+
+
+def _tree_params(tree: DeviceTree, opt: RenderOptions) -> "_RenderParams":
+    """RenderParams with the tree's buffers and layout and the options'
+    march and shade settings filled in."""
+    p = _RenderParams()
+    p.chs = tree.chs.data_ptr()
+    p.data = tree.data.data_ptr()
+    p.lut = tree.lut.data_ptr() if tree.lut.numel() else None
+    p.offset = tree.offset.data_ptr()
+    p.scale = tree.scale.data_ptr()
+    p.extra = tree.extra.data_ptr() if tree.extra.numel() else None
+    p.step_size = opt.step_size
+    p.sigma_thresh = opt.sigma_thresh
+    p.background = opt.background_brightness
+    p.stop_thresh = opt.stop_thresh
+    p.bbox[:] = [float(v) for v in opt.render_bbox]
+    p.N, p.lut_levels, p.max_depth = tree.N, tree.lut_levels, tree.max_depth
+    p.skip_cap = tree.skip_cap
+    p.basis_dim, p.data_dim, p.fmt = tree.basis_dim, tree.data_dim, tree.fmt
+    p.basis_lo, p.basis_hi = (int(v) for v in opt.basis_minmax)
+    return p
 
 
 def _check_mesh(mesh_color, mesh_depth, R: int, dev) -> None:
@@ -553,10 +594,9 @@ def _launch_k1(tree: DeviceTree, transform: torch.Tensor, rng_state: int,
             or not transform.is_contiguous()):
         raise ValueError("render_noisy: transform must be a contiguous f32 "
                          "[3, 4] tensor")
-    if (not classic and spp not in SPP_KERNEL) or tree.basis_dim > 25 \
-            or tree.chs.dtype != torch.int32 or tree.data.dtype != torch.float16:
-        raise ValueError(f"render_noisy: unsupported spp {spp} / basis_dim "
-                         f"{tree.basis_dim} / tree dtypes")
+    if not classic and spp not in SPP_KERNEL:
+        raise ValueError(f"render_noisy: unsupported spp {spp}")
+    _check_tree("render_noisy", tree)
     layout = (CLASSIC_LAYOUTS.index(classic_layout(
         tree.fmt, tree.basis_dim, tree.data_dim)) + 1 if classic else 0)
     if width < 1 or height < 1:
@@ -578,14 +618,8 @@ def _launch_k1(tree: DeviceTree, transform: torch.Tensor, rng_state: int,
             or not uniforms_out.is_contiguous()):
         raise ValueError("render_noisy: uniforms_out must be a contiguous "
                          f"f32 [{R}, {spp}] tensor on {dev}")
-    p = _RenderParams()
+    p = _tree_params(tree, opt)
     p.transform = transform.data_ptr()
-    p.chs = tree.chs.data_ptr()
-    p.data = tree.data.data_ptr()
-    p.lut = tree.lut.data_ptr() if tree.lut.numel() else None
-    p.offset = tree.offset.data_ptr()
-    p.scale = tree.scale.data_ptr()
-    p.extra = tree.extra.data_ptr() if tree.extra.numel() else None
     p.img = img.data_ptr()
     p.aux_nhwc = aux_nhwc.data_ptr()
     p.aux_chw = aux_chw.data_ptr() if aux_chw is not None else None
@@ -602,11 +636,6 @@ def _launch_k1(tree: DeviceTree, transform: torch.Tensor, rng_state: int,
     p.rng_state = rng_state
     p.rng_inc = rng_inc
     p.fx, p.fy = fx, fy
-    p.step_size = opt.step_size
-    p.sigma_thresh = opt.sigma_thresh
-    p.background = opt.background_brightness
-    p.stop_thresh = opt.stop_thresh
-    p.bbox[:] = [float(v) for v in opt.render_bbox]
     p.rot[:] = [float(v) for v in opt.rot_dirs]
     if classic:
         # the classic kernel's rotation: cos and sin of |rot| in f32 as the
@@ -620,10 +649,6 @@ def _launch_k1(tree: DeviceTree, transform: torch.Tensor, rng_state: int,
         p.ndc_ax, p.ndc_ay = -((2 * focal) / w), -((2 * focal) / h)
         p.use_ndc = 1
     p.width, p.height, p.spp, p.max_steps = width, height, spp, max_steps
-    p.N, p.lut_levels, p.max_depth = tree.N, tree.lut_levels, tree.max_depth
-    p.skip_cap = tree.skip_cap
-    p.basis_dim, p.data_dim, p.fmt = tree.basis_dim, tree.data_dim, tree.fmt
-    p.basis_lo, p.basis_hi = (int(v) for v in opt.basis_minmax)
     p.classic = layout
     p.row0, p.rows = row0, rows
     fn = _render_entry()
@@ -660,6 +685,147 @@ def render_noisy(tree: DeviceTree, transform: torch.Tensor, rng_state: int,
                       fy, opt, max_steps, want_aux, uniforms_out,
                       mesh_color=mesh_color, mesh_depth=mesh_depth, row0=row0,
                       rows=rows)
+
+
+# ---------------------------------------------------------------------------
+# the ray-batch API: K1's and render_classic's ray mode
+# ---------------------------------------------------------------------------
+
+def trace_rays_plain(tree: DeviceTree, dirs, vdirs, cens, dst,
+                     opt: RenderOptions, tmax_bg=None,
+                     max_steps: int = 8192):
+    """Plain version of K1's ray mode: ``march_plain`` then
+    ``shade_plain`` -> [R, 4] premultiplied rgb and alpha, before the
+    background."""
+    rec_ptr, rec_cnt, _ = march_plain(tree, dirs, cens, dst, opt, max_steps,
+                                      tmax_bg=tmax_bg)
+    return shade_plain(tree, vdirs, rec_ptr, rec_cnt, opt)
+
+
+def trace_rays_classic_plain(tree: DeviceTree, dirs, vdirs, cens,
+                             opt: RenderOptions, tmax_bg=None,
+                             max_steps: int = 8192, unroll: int = 2):
+    """Plain version of render_classic's ray mode: ``march_classic_plain``
+    -> [R, 4] rgb and alpha = 1 - light, before the background."""
+    return march_classic_plain(tree, dirs, vdirs, cens, opt, max_steps,
+                               tmax_bg=tmax_bg, unroll=unroll)[0]
+
+
+def _check_ray_tensor(name: str, what: str, t, shape: tuple, dev) -> None:
+    if (not isinstance(t, torch.Tensor) or t.device != dev
+            or t.dtype != F32 or tuple(t.shape) != shape
+            or not t.is_contiguous()):
+        got = (f"{t.dtype} {tuple(t.shape)} on {t.device}"
+               if isinstance(t, torch.Tensor) else type(t).__name__)
+        raise ValueError(f"{name}: {what} must be a contiguous f32 "
+                         f"{list(shape)} tensor on {dev}, got {got}")
+
+
+def _check_rays(name: str, tree: DeviceTree, dirs, vdirs, cens, tmax_bg,
+                dst=None) -> None:
+    """ValueError unless dirs, vdirs and cens are contiguous f32 [R, 3]
+    tensors on the tree's device with R >= 1, dst (when given) [R, SPP]
+    with SPP >= 1 and tmax_bg None or [R]."""
+    dev = tree.device
+    R = (dirs.shape[0] if isinstance(dirs, torch.Tensor) and dirs.dim() == 2
+         else 0)
+    if R < 1:
+        raise ValueError(f"{name}: dirs must be an [R, 3] tensor with R >= 1")
+    for what, t in (("dirs", dirs), ("vdirs", vdirs), ("cens", cens)):
+        _check_ray_tensor(name, what, t, (R, 3), dev)
+    if dst is not None:
+        spp = (dst.shape[1] if isinstance(dst, torch.Tensor)
+               and dst.dim() == 2 else 0)
+        if spp < 1:
+            raise ValueError(f"{name}: dst must be an [R, SPP] tensor with "
+                             "SPP >= 1")
+        _check_ray_tensor(name, "dst", dst, (R, spp), dev)
+    if tmax_bg is not None:
+        _check_ray_tensor(name, "tmax_bg", tmax_bg, (R,), dev)
+
+
+def _launch_rays(tree: DeviceTree, dirs, vdirs, cens, dst,
+                 opt: RenderOptions, tmax_bg, limit: int) -> torch.Tensor:
+    """Launch the ray mode on checked inputs (``_check_rays``): K1's
+    (``render_rays``) with the thresholds ``dst``, or ``render_classic``'s
+    (``render_classic_rays``) on the instance of the tree's row layout when
+    dst is None; ``limit`` is the step limit as the kernel takes it.
+    Returns [R, 4]."""
+    name = "trace_rays" if dst is not None else "trace_rays_classic"
+    dev = tree.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: a tree on {dev}")
+    _check_tree(name, tree)
+    if dst is not None and dst.shape[1] not in SPP_KERNEL:
+        raise ValueError(f"{name}: SPP {dst.shape[1]} is none of the "
+                         f"kernel's {SPP_KERNEL}")
+    if not 0 <= limit < 2 ** 31:
+        raise ValueError(f"{name}: step limit {limit}")
+    R = dirs.shape[0]
+    out = torch.empty((R, 4), dtype=F32, device=dev)
+    p = _tree_params(tree, opt)
+    p.ray_dirs, p.ray_vdirs, p.ray_cens = (t.data_ptr()
+                                           for t in (dirs, vdirs, cens))
+    p.ray_tmax = tmax_bg.data_ptr() if tmax_bg is not None else None
+    p.ray_out = out.data_ptr()
+    p.n_rays = R
+    p.max_steps = limit
+    if dst is None:
+        p.classic = CLASSIC_LAYOUTS.index(classic_layout(
+            tree.fmt, tree.basis_dim, tree.data_dim)) + 1
+    else:
+        p.ray_dst = dst.data_ptr()
+        p.spp = dst.shape[1]
+    fn = _render_entry("rt_render_rays")
+    with torch.cuda.device(dev):
+        rc = fn(ctypes.addressof(p), native.stream_ptr(dev))
+        native.count_launch("render_rays" if dst is not None
+                            else "render_classic_rays")
+    native.check(rc, "render_kernel (rays)" if dst is not None
+                 else "render_classic_kernel (rays)")
+    return out
+
+
+def trace_rays(tree: DeviceTree, dirs, vdirs, cens, dst, opt: RenderOptions,
+               tmax_bg=None, max_steps: int = 8192, schedule=None,
+               phase1_steps=None, compact_frac=None, shade_cap_div: int = 4):
+    """The regular tracker over a caller's ray batch (the JAX package's
+    trace_rays, renderer.py:540-588).  dirs / cens: [R, 3] world rays,
+    already NDC-warped; vdirs: [R, 3] view dirs of the basis, already
+    rotated; dst: [R, SPP] sorted thresholds (``make_sorted_dst``);
+    tmax_bg: None or [R] world depth of a mesh, not clamped.  Every input
+    is a contiguous f32 tensor on the tree's device.  Returns [R, 4]
+    premultiplied rgb and alpha, before the background.  On the CPU it
+    runs ``trace_rays_plain``; on a CUDA device K1's ray mode, for SPP in
+    ``SPP_KERNEL``.  Bad inputs raise ValueError.  ``schedule``,
+    ``phase1_steps``, ``compact_frac`` and ``shade_cap_div`` tune the JAX
+    package's compaction and are accepted and ignored (see Renderer)."""
+    _check_rays("trace_rays", tree, dirs, vdirs, cens, tmax_bg, dst)
+    if tree.device.type == "cpu":
+        return trace_rays_plain(tree, dirs, vdirs, cens, dst, opt, tmax_bg,
+                                max_steps)
+    return _launch_rays(tree, dirs, vdirs, cens, dst, opt, tmax_bg,
+                        max(0, max_steps))
+
+
+def trace_rays_classic(tree: DeviceTree, dirs, vdirs, cens,
+                       opt: RenderOptions, tmax_bg=None,
+                       max_steps: int = 8192, unroll: int = 2):
+    """The classic estimator over a caller's ray batch (the JAX package's
+    trace_rays_classic, renderer.py:1060-1131): the inputs as
+    ``trace_rays``' without dst; the step limit tested every ``unroll``
+    steps, so a ray takes up to ceil(max_steps / unroll) * unroll steps.
+    Returns [R, 4] rgb and alpha = 1 - light, before the background.  On
+    the CPU ``trace_rays_classic_plain``; on a CUDA device
+    render_classic's ray mode on the instance of the tree's row layout."""
+    if unroll < 1:
+        raise ValueError(f"trace_rays_classic: unroll {unroll} < 1")
+    _check_rays("trace_rays_classic", tree, dirs, vdirs, cens, tmax_bg)
+    if tree.device.type == "cpu":
+        return trace_rays_classic_plain(tree, dirs, vdirs, cens, opt,
+                                        tmax_bg, max_steps, unroll)
+    limit = max(0, -(-max_steps // unroll) * unroll)
+    return _launch_rays(tree, dirs, vdirs, cens, None, opt, tmax_bg, limit)
 
 
 @dataclasses.dataclass

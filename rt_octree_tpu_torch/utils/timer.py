@@ -1,5 +1,6 @@
 """Three-phase frame timer (render / net / filter) on CUDA events, and
-CUDA-event timing of single calls (``cuda_ms``, ``device_ms``).
+CUDA-event timing of single calls (``cuda_ms``, ``device_ms``,
+``device_medians``).
 
 Reference: RenderContext::Timer (render_context.hpp:122-213): event pairs
 around the render kernel, the network forward and the filter kernel,
@@ -14,6 +15,7 @@ CPU the phases are timed with the host clock.
 
 from __future__ import annotations
 
+import statistics
 import time
 
 import torch
@@ -141,6 +143,38 @@ def device_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_medians(fns: dict, reps: int, warmup: int = 1) -> dict:
+    """name -> median device ms of ``fns[name]()`` over ``reps`` calls,
+    the functions called in turns, each call between its own pair of CUDA
+    events.  As in ``device_ms``, the host's queuing is not timed: each
+    call is queued behind a sleep kernel that lasts longer than one
+    untimed call of that function took to queue and run."""
+    for _ in range(warmup):
+        for fn in fns.values():
+            fn()
+    sleep = {}
+    for k, fn in fns.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        queue_s = time.perf_counter() - t0  # queuing and running: a bound
+        sleep[k] = int((1.5 * queue_s + 1e-4) * _SLEEP_CYCLES_PER_S)
+    times = {k: [] for k in fns}
+    for _ in range(reps):
+        for k, fn in fns.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(sleep[k])
+            start.record()
+            fn()
+            end.record()
+            times[k].append((start, end))
+    torch.cuda.synchronize()
+    return {k: statistics.median(s.elapsed_time(e) for s, e in v)
+            for k, v in times.items()}
 
 
 def l2_flusher(device, nbytes: int = 256 << 20):

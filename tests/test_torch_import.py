@@ -81,8 +81,20 @@ def _clean_env():
 
 
 def test_import_leaves_out_jax_flax_triton():
+    """Every module of the port, and a call of ``trace_rays`` on one ray on
+    the CPU: no JAX, Flax, Triton, msgpack or imageio is imported and no
+    kernel library is built or loaded."""
     code = ("import importlib, sys\n"
             f"for m in {MODULES!r}: importlib.import_module(m)\n"
+            "import torch; from rt_octree_tpu_torch.io import synthetic; "
+            "from rt_octree_tpu_torch.ops.traversal import upload_tree; "
+            "from rt_octree_tpu_torch.render.renderer import trace_rays; "
+            "from rt_octree_tpu_torch.core.options import RenderOptions; "
+            "x = torch.tensor([[0.7071, 0.0, -0.7071]]); assert float("
+            "trace_rays(upload_tree(synthetic.make_synthetic_tree('shell', "
+            "depth=3, basis_dim=4), 3, device='cpu'), x, x, torch.tensor("
+            "[[-2.0, 0.0, 2.0]]), torch.tensor([[0.5]]), RenderOptions("
+            "spp=1))[0, 3]) > 0\n"
             f"print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}))\n"
             "from rt_octree_tpu_torch.native import build\n"

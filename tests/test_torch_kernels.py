@@ -1,4 +1,5 @@
-"""The port's CUDA kernels (K1 render and its classic variant, K2 guided
+"""The port's CUDA kernels (K1 render and its classic variant, each also
+in ray mode (trace_rays, trace_rays_classic), K2 guided
 filter, K3 LUT + skip distances, K4 fast mode's upsample, K5 / K6 the
 training step's batched guided filter and its backward, G1-G4 the
 measurement tools' probes) against their plain PyTorch versions, and the
@@ -121,6 +122,18 @@ def _flat_inputs(seed, size, n=500):
             rs.integers(1, 1000, (size,), dtype=np.int32))
 
 
+def _aimed_rays(dt, n, spp, seed=0, unit=True):
+    """``synthetic.aimed_rays`` on the tree's device and sorted thresholds
+    [n, spp] from the same generator."""
+    rs = np.random.default_rng(seed)
+    rays = synthetic.aimed_rays(rs, n, unit=unit)
+    u = rs.random((n, spp))
+    t = lambda a: torch.from_numpy(
+        np.ascontiguousarray(a, np.float32)).to(dt.device)
+    dst = torch.sort(-torch.log1p(-t(u)), dim=-1).values
+    return (*(t(a) for a in rays), dst)
+
+
 def _launch_each_wrapper(shell, device):
     """One call of every kernel wrapper on ``device``."""
     dt = tt.upload_tree(shell, lut_levels=0, device=device)
@@ -131,6 +144,9 @@ def _launch_each_wrapper(shell, device):
     _, aux, _ = tr.render_noisy(dt, tf, 1, 1, **kw)
     kw["opt"] = RenderOptions(estimator="classic", denoise=False)
     tr.render_noisy(dt, tf, 1, 1, **kw)
+    d, v, c, dst = _aimed_rays(dt, 8, 1)
+    tr.trace_rays(dt, d, v, c, dst, RenderOptions(spp=1))
+    tr.trace_rays_classic(dt, d, v, c, RenderOptions())
     fast_upsample(aux, 16, 13)
     t = lambda a: torch.from_numpy(a).to(device)
     act, img = _filter_inputs(0, L=2, H=8, W=8)
@@ -562,6 +578,101 @@ def test_k1_band_is_the_frames_rows(shell, estimator, cuda_device):
         tr.render_noisy(dt, tf, 12345, 7, uniforms_out=u_band, row0=16,
                         rows=7, **kw)
         assert torch.equal(u_band, u_full[37 * 16:])
+
+
+def _tmax(dt, n, seed):
+    """``synthetic.ray_world_depths`` on the tree's device."""
+    return torch.from_numpy(synthetic.ray_world_depths(
+        np.random.default_rng(seed), n)).to(dt.device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tmax", [False, True])
+@pytest.mark.parametrize("spp", tr.SPP_KERNEL)
+def test_k1_ray_mode_matches_plain(shell, spp, tmax, cuda_device):
+    """K1's ray mode (render_rays) on 1000 aimed rays, not unit length,
+    with rotated view dirs, at every SPP of the kernel, with and without
+    world depths, on the full-depth LUT and a level-3 LUT: within IMG_TOL
+    of trace_rays_plain on the same card; most rays hit."""
+    for levels in (5, 3):
+        dt = tt.upload_tree(shell, lut_levels=levels, device=cuda_device)
+        d, v, c, dst = _aimed_rays(dt, 1000, spp, spp, unit=False)
+        tm = _tmax(dt, 1000, spp) if tmax else None
+        native.reset_launches()
+        got = tr.trace_rays(dt, d, v, c, dst, RenderOptions(spp=spp),
+                            tmax_bg=tm)
+        assert native.LAUNCHES["render_rays"] == 1
+        ref = tr.trace_rays_plain(dt, d, v, c, dst, RenderOptions(spp=spp),
+                                  tmax_bg=tm)
+        torch.testing.assert_close(got, ref, atol=IMG_TOL, rtol=0)
+        assert float((got[:, 3] > 0).float().mean()) > 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("unroll,max_steps", [(1, 7), (2, 7), (3, 7),
+                                              (3, 8192)])
+@pytest.mark.parametrize("layout", CLASSIC_LAYOUTS)
+def test_render_classic_ray_mode_matches_plain(layout, unroll, max_steps,
+                                               cuda_device):
+    """render_classic's ray mode on every instance, aimed rays with world
+    depths, the step limit rounded up to ``unroll`` by the wrapper: within
+    IMG_TOL of trace_rays_classic_plain."""
+    dt = tt.upload_tree(_classic_tree(layout), lut_levels=5,
+                        device=cuda_device)
+    d, v, c, _ = _aimed_rays(dt, 1000, 1, 3, unit=False)
+    kw = dict(tmax_bg=_tmax(dt, 1000, 4), max_steps=max_steps, unroll=unroll)
+    native.reset_launches()
+    got = tr.trace_rays_classic(dt, d, v, c, _classic_opt(), **kw)
+    assert native.LAUNCHES["render_classic_rays"] == 1
+    ref = tr.trace_rays_classic_plain(dt, d, v, c, _classic_opt(), **kw)
+    torch.testing.assert_close(got, ref, atol=IMG_TOL, rtol=0)
+    assert float((got[:, 3] > 0).float().mean()) > 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("estimator", ["rt", "classic"])
+def test_ray_mode_on_a_frames_rays_is_the_frame(shell, estimator,
+                                                cuda_device):
+    """The rays, view dirs and thresholds of a 37x23 frame (the plain
+    camera rays, rodrigues, K1's own uniforms sorted), through the ray mode
+    and composited over the background: the kernel's frame within
+    IMG_TOL."""
+    transform, kw = _render_args(6, 37, 23)
+    kw["opt"] = RenderOptions(spp=6, denoise=False, estimator=estimator,
+                              rot_dirs=(0.1, 0.2, -0.3))
+    dt = tt.upload_tree(shell, lut_levels=5, device=cuda_device)
+    tf = torch.from_numpy(transform).to(cuda_device)
+    u = torch.empty((37 * 23, 6), device=cuda_device)
+    img = tr.render_noisy(dt, tf, 12345, 7, uniforms_out=u, **kw)[0]
+    dirs, cens = tr.device_camera_rays(tf, 37, 23, kw["fx"], kw["fy"])
+    vdirs = tr.rodrigues(kw["opt"].rot_dirs, dirs)
+    cens = cens.contiguous()
+    if estimator == "rt":
+        out = tr.trace_rays(dt, dirs, vdirs, cens,
+                            torch.sort(-torch.log1p(-u), dim=-1).values,
+                            kw["opt"])
+    else:
+        out = tr.trace_rays_classic(dt, dirs, vdirs, cens, kw["opt"])
+    comp = tr.composite(out, 37, 23, kw["opt"].background_brightness)[0]
+    torch.testing.assert_close(comp, img, atol=IMG_TOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_ray_mode_refuses_what_the_kernel_does_not_take(shell, cuda_device):
+    """On the card: an SPP the kernel has no instance for, inputs on
+    another device, a layout render_classic has no instance for."""
+    dt = tt.upload_tree(shell, lut_levels=5, device=cuda_device)
+    d, v, c, dst = _aimed_rays(dt, 16, 5)
+    with pytest.raises(ValueError, match="SPP"):
+        tr.trace_rays(dt, d, v, c, dst, RenderOptions(spp=5))
+    with pytest.raises(ValueError):
+        tr.trace_rays(dt, d.cpu(), v, c, dst[:, :4].contiguous(),
+                      RenderOptions(spp=4))
+    with pytest.raises(ValueError, match="basis_dim"):
+        tr.trace_rays_classic(tt.upload_tree(_classic_tree("SG26", 4),
+                                             lut_levels=4,
+                                             device=cuda_device),
+                              d, v, c, RenderOptions())
 
 
 @pytest.mark.cuda

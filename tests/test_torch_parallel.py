@@ -20,7 +20,17 @@ average, so the averaged gradient is held within 2^-7 of the tensor's
 largest gradient, and the loss within rtol 2e-5.
 
 JAX's renderers take ``schedule=((0, 1),)`` (no compaction: the same
-frame, compiled faster)."""
+frame, compiled faster).
+
+The sharded ray tracer (``render_rays_sharded``) runs the dry run's batch
+(__graft_entry__.dryrun_multichip: 64 random unit rays from (-2, 0, 2)
+through the depth-3 shell without a LUT, SPP 2, max_steps 64; it hits the
+tree twice) and a batch of 64 aimed at the shell, in every world: bit for
+bit the single process's ``trace_rays`` (a ray's result is its own), and
+within the img bar 2e-5 of JAX's render_rays_sharded on 4 virtual devices
+(its default compacting schedule).  A batch of 65, which JAX refuses on 4
+devices, is refused by every rank of the worlds of 2 and 4, and a batch
+whose vdirs are short by every rank of every world."""
 
 import os
 import sys
@@ -55,6 +65,9 @@ FRAMES = {
 BAD_SIZES = ((16, 18, 1.0), (32, 30, 0.5), (16, 18, 0.9), (17, 16, 1.0))
 TRAIN_B, TRAIN_HW = 4, 16
 MAX_STEPS = 256
+# the sharded ray tracer's batches and their settings (the dry run's)
+RAY_LABELS = ("dry run", "aimed")
+RAY_R, RAY_SPP, RAY_MAX_STEPS = 64, 2, 64
 
 
 def _port_tree(name):
@@ -82,6 +95,23 @@ def _train_inputs():
     return (rng.random((B, 8, S, S), np.float32),
             rng.random((B, S, S, 4), np.float32),
             rng.random((B, S, S, 4), np.float32))
+
+
+def _ray_batches():
+    """label -> (dirs, vdirs, cens, uniforms) of RAY_R rays, and "65": the
+    aimed batch and one more ray (a size JAX refuses on 4 devices)."""
+    from rt_octree_tpu_torch.io import synthetic
+    rng = np.random.default_rng(0)
+    dirs = rng.standard_normal((RAY_R, 3)).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    cens = np.tile(np.array([[-2.0, 0.0, 2.0]], np.float32), (RAY_R, 1))
+    uniforms = rng.random((RAY_R, RAY_SPP)).astype(np.float32) * \
+        np.float32(0.99)
+    rs = np.random.default_rng(1)
+    d, _, o = synthetic.aimed_rays(rs, RAY_R + 1, spread=0.4)
+    aimed = (d, d, o, rs.random((RAY_R + 1, RAY_SPP)).astype(np.float32))
+    return {"dry run": (dirs, dirs, cens, uniforms),
+            "aimed": tuple(a[:RAY_R] for a in aimed), "65": aimed}
 
 
 def _world_cases(dev, net_params, compact):
@@ -118,6 +148,25 @@ def _world_cases(dev, net_params, compact):
                 _options(2, "rt", False), render_scale=scale)
         except ValueError as e:
             out["errors"][(W, H, scale)] = str(e)
+    rays = _ray_batches()
+    dry = tt.upload_tree(_port_tree("shell3"), lut_levels=0, device=dev)
+    opt = _options(RAY_SPP, "rt", False)
+    out["rays"] = {label: pm.render_rays_sharded(
+        mesh, dry, *rays[label], opt, max_steps=RAY_MAX_STEPS).cpu()
+        for label in RAY_LABELS}
+    try:
+        pm.render_rays_sharded(mesh, dry, *rays["65"], opt,
+                               max_steps=RAY_MAX_STEPS)
+        out["rays 65"] = None
+    except ValueError as e:
+        out["rays 65"] = str(e)
+    d, v, c, u = rays["aimed"]
+    try:
+        pm.render_rays_sharded(mesh, dry, d, v[:-4], c, u, opt,
+                               max_steps=RAY_MAX_STEPS)
+        out["rays short vdirs"] = None
+    except ValueError as e:
+        out["rays short vdirs"] = str(e)
     aux, img_in, img_gt = (torch.from_numpy(a) for a in _train_inputs())
     cfg = GuidanceNetConfig(**NET)
     for dtype in (torch.bfloat16, torch.float32):
@@ -225,6 +274,59 @@ def _jax_frames(jax_params):
     return out
 
 
+def _single_rays():
+    """Each ray batch by the port's single-process trace_rays."""
+    from rt_octree_tpu_torch.ops import traversal as tt
+    from rt_octree_tpu_torch.render.renderer import trace_rays
+    from rt_octree_tpu_torch.utils.rng import make_sorted_dst
+    dt = tt.upload_tree(_port_tree("shell3"), lut_levels=0, device="cpu")
+    rays = _ray_batches()
+    out = {}
+    for label in RAY_LABELS:
+        d, v, c, u = (torch.from_numpy(a) for a in rays[label])
+        out[label] = trace_rays(dt, d, v, c, make_sorted_dst(u),
+                                _options(RAY_SPP, "rt", False),
+                                max_steps=RAY_MAX_STEPS)
+    return out
+
+
+def _jax_rays():
+    """Each ray batch by the JAX package's sharded ray tracer on 4 of the
+    virtual devices (render_rays_sharded is make_sorted_dst then this
+    tracer; one tracer compiles once for both batches), and the error of
+    its render_rays_sharded on the batch of 65."""
+    import jax.numpy as jnp
+    from rt_octree_tpu.core.options import RenderOptions
+    from rt_octree_tpu.io import synthetic
+    from rt_octree_tpu.ops.traversal import upload_tree
+    from rt_octree_tpu.parallel.mesh import (make_mesh,
+                                             make_sharded_ray_tracer,
+                                             render_rays_sharded)
+    from rt_octree_tpu.render.renderer import FrozenOptions, make_sorted_dst
+    dt = upload_tree(synthetic.make_synthetic_tree("shell", depth=3,
+                                                   basis_dim=4),
+                     lut_levels=0)
+    mesh = make_mesh(4)
+    opt = FrozenOptions.from_options(RenderOptions(spp=RAY_SPP,
+                                                   denoise=False))
+    tracer = make_sharded_ray_tracer(mesh, dt, opt, RAY_MAX_STEPS)
+    rays = _ray_batches()
+    out = {}
+    for label in RAY_LABELS:
+        d, v, c, u = rays[label]
+        out[label] = np.asarray(tracer(jnp.asarray(d), jnp.asarray(v),
+                                       jnp.asarray(c),
+                                       make_sorted_dst(jnp.asarray(u))))
+    try:
+        render_rays_sharded(mesh, dt, *rays["65"][:3],
+                            jnp.asarray(rays["65"][3]), opt,
+                            max_steps=RAY_MAX_STEPS)
+        out["65"] = None
+    except ValueError as e:
+        out["65"] = str(e)
+    return out
+
+
 def _jax_loss(jax_params):
     """The JAX package's sharded train step's loss on 4 virtual devices."""
     import jax.numpy as jnp
@@ -280,8 +382,10 @@ def runs(jax_params):
                    for w in WORLDS}
         out = {"jax_frames": _jax_frames(jax_params),
                "jax_loss": _jax_loss(jax_params),
+               "jax_rays": _jax_rays(),
                "single_frames": _single_frames(jax_params),
-               "single_steps": _single_steps(jax_params)}
+               "single_steps": _single_steps(jax_params),
+               "single_rays": _single_rays()}
         out["worlds"] = {w: f.result() for w, f in futures.items()}
     return out
 
@@ -309,6 +413,16 @@ def jax_loss(runs):
 @pytest.fixture(scope="module")
 def single_steps(runs):
     return runs["single_steps"]
+
+
+@pytest.fixture(scope="module")
+def jax_rays(runs):
+    return runs["jax_rays"]
+
+
+@pytest.fixture(scope="module")
+def single_rays(runs):
+    return runs["single_rays"]
 
 
 # ---------------------------------------------------------------------------
@@ -479,6 +593,55 @@ def test_frames_see_the_tree_and_the_denoiser(worlds):
         assert float(aux[3].max()) > 0.5  # rays hit the shell
     noisy = frames["rt"][0]
     assert float((frames["rt denoise"][0] - noisy).abs().max()) > 1e-3
+
+
+# ---------------------------------------------------------------------------
+# the sharded ray tracer
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("label", RAY_LABELS)
+@pytest.mark.parametrize("world", WORLDS)
+def test_sharded_rays_match_single(worlds, single_rays, world, label):
+    """Every rank holds the single process's trace_rays bit for bit."""
+    for o in worlds[world]:
+        assert torch.equal(o["rays"][label], single_rays[label])
+
+
+@pytest.mark.parametrize("label", RAY_LABELS)
+@pytest.mark.parametrize("world", WORLDS)
+def test_sharded_rays_match_jax(worlds, jax_rays, world, label):
+    got = worlds[world][0]["rays"][label].numpy()
+    assert got.shape == (RAY_R, 4) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, jax_rays[label], atol=IMG_TOL, rtol=0)
+
+
+def test_aimed_rays_hit_and_the_dry_run_mostly_misses(single_rays):
+    """The aimed batch hits the shell on most rays; the dry run's batch,
+    on a few only (why it does not stand alone)."""
+    assert float((single_rays["aimed"][:, 3] > 0).float().mean()) > 0.5
+    assert float((single_rays["dry run"][:, 3] > 0).float().mean()) < 0.2
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_sharded_rays_refuse_what_jax_refuses(worlds, jax_rays, world):
+    """65 rays: JAX's sharding on 4 devices refuses them; every rank of a
+    world they do not divide raises ValueError (world 1 takes them)."""
+    assert "divisible by 4" in jax_rays["65"]
+    for o in worlds[world]:
+        if world == 1:
+            assert o["rays 65"] is None
+        else:
+            assert f"divisible by {world}" in o["rays 65"]
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_sharded_rays_refuse_unequal_rows(worlds, world):
+    """vdirs 4 rays short of dirs: every rank raises ValueError before it
+    traces (a short input on one rank alone would leave the others
+    waiting in the gather)."""
+    for o in worlds[world]:
+        assert "they must all have R" in o["rays short vdirs"]
+        assert "[64, 60, 64, 64]" in o["rays short vdirs"]
 
 
 # ---------------------------------------------------------------------------
