@@ -44,6 +44,18 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      frames with fewer tiles than the persistent grid's blocks, a batch of
      three images), and the chain on the nets and aux of K7_CHAIN_SEEDS
      at 799x801;
+  6b. the wide instances (phase_wide), each vs its plain version and
+     timed: K7's wide plan on 8 -> 96 -> 24, 8 -> 128 -> 128 -> 8 and
+     8 -> 256 -> 64 nets at 800x800 and at K7's tile edges, launch by
+     launch on the input the chain gives it and the whole chain at both
+     bars (K7_SHARE_TIES: the share reported beside each side's distance
+     from an f64 sum), K2's at 12, 16 and 32
+     levels, K5's and K6's on the L = 12 train batch and past 65,535
+     slices, K1's and render_classic's (frame and ray mode) on SG / ASG
+     trees of basis_dim 32 and 48 at every SPP, and on the path's
+     depth-8 SG32 / ASG32 frames at 800x800 and the SG32 frame's 640,000
+     rays (phase 4 holds render_classic's on classic_layout_trees' SG32 /
+     ASG48 too);
   7. the main paths, each a headless CLI run on the depth-9 SH9 shell tree
      with the level-9 LUT, SPP 6, denoise on, its launch counts reset just
      before it and read just after: the headline frame (trained.gnet; K1,
@@ -110,6 +122,13 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      poses, no bar), the step's time and split (net forward, K5, loss,
      K6, net backward, Adam) and K5's and K6's times, printed as one JSON
      line {"train": ...};
+  9a. the wide path (phase_wide_path), each run with its launch counts
+     reset just before and read just after: rtoctree train of two
+     8 -> 96 -> 24 nets of 12 levels (the ladder, --identity_level) for
+     WIDE_TRAIN_EPOCHS on the train kit, their compact task, rtoctree
+     render on the headline tree with each .gnet (PSNR, no bar), rtoctree
+     render of SG32 / ASG32 depth-8 trees with both estimators and
+     trace_rays / trace_rays_classic on aimed rays: {"wide_path": ...};
   9b. multi-device (rt_octree_tpu_torch/parallel, ranks launched by
      parallel/launch.py on the one card): the headline frame sharded by
      row bands at world 1 on nccl and, with fast mode at s = 0.5 and the
@@ -488,7 +507,26 @@ PROBE_KERNELS = {
     "row_ring_rounds": "tools/microbench_gather.py:132",
     "flat_gather_chain": "tools/microbench_gather.py:183",
 }
-KERNELS = {**FRAME_KERNELS, **RAY_KERNELS, **TRAIN_KERNELS,
+# the wide kernels (launch name -> source, what they stand in for)
+WIDE_KERNELS = {
+    "guidance_net_wide": ("rt_octree_tpu_torch/csrc/net.cu",
+                          "rt_octree_tpu/models/guidance_net.py:124"),
+    "guided_filter_wide": ("rt_octree_tpu_torch/csrc/filter.cu",
+                           "rt_octree_tpu/ops/filtering.py:153"),
+    "guided_filter_batch_wide": ("rt_octree_tpu_torch/csrc/filter.cu",
+                                 "rt_octree_tpu/ops/filtering.py:188"),
+    "guided_filter_batch_bwd_wide": ("rt_octree_tpu_torch/csrc/filter.cu",
+                                     "rt_octree_tpu/ops/filtering.py:188"),
+    "render_wide": ("rt_octree_tpu_torch/csrc/render.cu",
+                    "rt_octree_tpu/render/renderer.py:1145"),
+    "render_classic_wide": ("rt_octree_tpu_torch/csrc/render.cu",
+                            "rt_octree_tpu/render/renderer.py:1060"),
+    "render_rays_wide": ("rt_octree_tpu_torch/csrc/render.cu",
+                         "rt_octree_tpu/render/renderer.py:540"),
+    "render_classic_rays_wide": ("rt_octree_tpu_torch/csrc/render.cu",
+                                 "rt_octree_tpu/render/renderer.py:1060"),
+}
+KERNELS = {**FRAME_KERNELS, **RAY_KERNELS, **TRAIN_KERNELS, **WIDE_KERNELS,
            **{k: ("rt_octree_tpu_torch/csrc/probes.cu", v)
               for k, v in PROBE_KERNELS.items()}}
 
@@ -544,10 +582,12 @@ def ptxas_kernels(report, kernel):
 
 def phase_ptxas(native):
     """Every render_classic_kernel instance (7 row layouts, each for the
-    frame, its statistics and the ray mode) as ptxas compiled it: no stack
-    frame, no spills; and every render_kernel instance (8 SPP, each for
-    the frame, its statistics and the ray mode), recorded.  Prints one
-    {"ptxas_render_classic": ...} and one {"ptxas_render": ...} line."""
+    frame, its statistics and the ray mode, and the wide rows' frame and
+    ray mode) as ptxas compiled it: no stack frame, no spills; and every render_kernel instance (8 SPP, each for
+    the frame, its statistics and the ray mode, and the wide rows' frame
+    and ray mode), recorded; and the wide instances of K7, K2, K5 and K6.
+    Prints one {"ptxas_render_classic": ...}, one {"ptxas_render": ...}
+    and one {"ptxas_wide": ...} line."""
     import re
     report = native.PTXAS.get("render", "")
 
@@ -558,19 +598,31 @@ def phase_ptxas(native):
         m = re.search(r"render_classic_kernelIL(i|in)(\d+)ELb([01])ELb([01])"
                       "EE", name)
         bd = (-1 if m.group(1) == "in" else 1) * int(m.group(2))
-        layout = {-1: "rgba", 0: "any"}.get(bd, f"sh{bd}")
+        layout = {-1: "rgba", 0: "any", -2: "wide"}.get(bd, f"sh{bd}")
         table[layout + mode(m.group(3), m.group(4))] = v
     log(json.dumps({"ptxas_render_classic": table}))
     rt = {}
     for name, v in ptxas_kernels(report, "render_kernel").items():
-        m = re.search(r"render_kernelILi(\d+)ELb([01])ELb([01])EE", name)
-        rt[f"spp{m.group(1)}" + mode(m.group(2), m.group(3))] = v
+        m = re.search(r"render_kernelILi(\d+)ELb([01])ELb([01])ELb([01])EE",
+                      name)
+        rt[f"spp{m.group(1)}" + mode(m.group(2), m.group(3))
+           + (" wide" if m.group(4) == "1" else "")] = v
     log(json.dumps({"ptxas_render": rt}))
-    require(len(table) == 21 and all(len(v) == 4 for v in table.values()),
-            f"ptxas reported {sorted(table)}, not the 21 render_classic "
+    wide = {}
+    for src, kernel in (("net", "guidance_wide_kernel"),
+                        ("filter", "guided_filter_wide_kernel"),
+                        ("filter", "guided_filter_batch_wide_kernel"),
+                        ("filter", "guided_filter_batch_bwd_wide_kernel")):
+        for v in ptxas_kernels(native.PTXAS.get(src, ""), kernel).values():
+            wide[kernel] = v
+    log(json.dumps({"ptxas_wide": wide}))
+    require(len(table) == 23 and all(len(v) == 4 for v in table.values()),
+            f"ptxas reported {sorted(table)}, not the 23 render_classic "
             "instances")
-    require(len(rt) == 24, f"ptxas reported {sorted(rt)}, not the 24 "
+    require(len(rt) == 40, f"ptxas reported {sorted(rt)}, not the 40 "
             "render_kernel instances")
+    require(len(wide) == 4, f"ptxas reported {sorted(wide)}, not the 4 "
+            "wide instances of K7, K2, K5 and K6")
     require(all(v["stack_bytes"] == v["spill_store_bytes"]
                 == v["spill_load_bytes"] == 0 for v in table.values()),
             "a render_classic instance has a stack frame or spills")
@@ -751,8 +803,9 @@ def phase_k1_mesh_classic(err):
 def classic_layout_trees():
     """A depth-6 shell in each row layout render_classic is instantiated
     on: SH at basis_dim 1, 4, 9, 16, 25, raw rgb, SG and ASG at basis_dim
-    4 and 25 (random lobes), and an RGBA-format tree with a basis_dim (a
-    zero basis, the "any" instance); as (label, tree, layout)."""
+    4 and 25 (random lobes), an RGBA-format tree with a basis_dim (a
+    zero basis, the "any" instance), and SG32 and ASG48 (the wide
+    instance); as (label, tree, layout)."""
     from rt_octree_tpu_torch.io import synthetic
     from rt_octree_tpu_torch.io.n3tree import BasisFormat, DataFormat
     out = []
@@ -777,6 +830,8 @@ def classic_layout_trees():
     zero = synthetic.make_synthetic_tree("shell", depth=6, basis_dim=4)
     zero.data_format = DataFormat(BasisFormat.RGBA, 4)
     out.append(("RGBA-format basis_dim 4", zero, "any"))
+    for label, fmt, bd in (("SG32", "SG", 32), ("ASG48", "ASG", 48)):
+        out.append((label, wide_tree(label, fmt, bd), "wide"))
     return out
 
 
@@ -795,7 +850,8 @@ def hold_classic_stats(label, dt, tf, kw):
 
 def phase_classic_layouts(err):
     """render_classic on every instance vs its plain version and its
-    statistics vs the plain march's: each layout of classic_layout_trees
+    statistics (the wide instance has none) vs the plain march's: each
+    layout of classic_layout_trees
     at 128x128 with the full-depth LUT (skips) and a level-3 LUT
     (descents); on SH9 and SH25 rows that start off 8 bytes (the data seen
     through a view 1 and 3 halfs in), a basis_minmax mask, stop_thresh
@@ -828,8 +884,10 @@ def phase_classic_layouts(err):
                     == layout, f"{label}: not the {layout} instance")
             kw = dict(base, opt=opt())
             name = f"{label} LUT {levels} 128x128"
-            hold_k1(f"{name} classic", dt, tf, kw, "render_classic", err)
-            hold_classic_stats(name, dt, tf, kw)
+            hold_k1(f"{name} classic", dt, tf, kw, "render_classic" + (
+                "_wide" if layout == "wide" else ""), err)
+            if layout != "wide":  # the wide instance has no statistics
+                hold_classic_stats(name, dt, tf, kw)
             seen.add(layout)
         if label in ("SH9", "SH25"):
             for off in (1, 3):
@@ -879,11 +937,10 @@ def ray_tmax(dt, n, seed):
         np.random.default_rng(seed), n)).to(dt.device)
 
 
-def hold_rays(label, dt, rays, opt, err, **kw):
+def hold_rays(label, dt, rays, opt, err, min_hit=RAY_MIN_HIT, **kw):
     """K1's ray mode (rays = (dirs, vdirs, cens, dst)) or render_classic's
-    (rays = (dirs, vdirs, cens)) vs its plain version on the same card,
-    within K1_IMG_TOL, most rays hitting."""
-    import torch
+    (rays = (dirs, vdirs, cens)) vs its plain version on the same card
+    (hold_ray_result)."""
     from rt_octree_tpu_torch.render import renderer as R
     if len(rays) == 4:
         key, got = "render_rays", R.trace_rays(dt, *rays, opt, **kw)
@@ -892,13 +949,23 @@ def hold_rays(label, dt, rays, opt, err, **kw):
         key = "render_classic_rays"
         got = R.trace_rays_classic(dt, *rays, opt, **kw)
         ref = R.trace_rays_classic_plain(dt, *rays, opt, **kw)
+    key += "_wide" if R.is_wide(dt) else ""
+    hold_ray_result(label, key, got, ref, err, min_hit)
+
+
+def hold_ray_result(label, key, got, ref, err, min_hit=RAY_MIN_HIT):
+    """A ray mode's output ``got`` (kernel ``key``) vs its plain version's
+    ``ref`` within K1_IMG_TOL, finite, more than ``min_hit`` of the rays
+    hitting."""
+    import torch
     e = float((got - ref).abs().max())
     hit = float((got[:, 3] > 0).float().mean())
-    log(f"[rays] {label} {key}: max|diff| {e:.3g}, share hit {hit:.3f}")
+    log(f"[rays] {label} {key} ({got.shape[0]} rays): max|diff| {e:.3g}, "
+        f"share hit {hit:.3f}")
     require(bool(torch.isfinite(got).all()), f"{label}: not finite")
     require(e <= K1_IMG_TOL, f"{label}: {key} disagrees with its plain "
             "version")
-    require(hit > RAY_MIN_HIT, f"{label}: most rays miss the tree")
+    require(hit > min_hit, f"{label}: too many rays miss the tree")
     err[key] = max(err.get(key, 0.0), e)
 
 
@@ -1223,6 +1290,409 @@ def phase_k7(err):
                 build_compact(chain_cfg, random_params(
                     chain_cfg, np.random.default_rng(seed)), "cuda"),
                 k7_aux(801, 799, seed=seed), err)
+
+
+# ---------------------------------------------------------------------------
+# the wide instances: nets and trees past the unrolled instances' shapes
+# ---------------------------------------------------------------------------
+
+# K7's wide nets (GuidanceNetConfig keywords): the path's 8 -> 96 -> 24
+# (--mid_channels 96 --kernel_levels 12), a 3-block 128-wide chain and a
+# 256-wide block; each held at 800x800 and at WIDE_K7_EDGES
+WIDE_K7_NETS = (dict(mid_channels=96, kernel_levels=12),
+                dict(mid_channels=128, num_layers=3, kernel_levels=4),
+                dict(mid_channels=256, kernel_levels=32))
+WIDE_K7_EDGES = ((1, 17, 57), (3, 17, 57), (1, 801, 799))
+# The one wide hold whose whole chain passes K7_UNEQUAL_SHARE: a rounding
+# tie carried through three 128-wide blocks on a small batch (1.89e-3 of
+# its elements unequal; block by block, K7 and the plain chain lie equally
+# far from the f64 sum).  Its share is reported; each of its launches is
+# held at both bars
+K7_SHARE_TIES = ("random aux 3x57x17, random net 8 -> 128 -> 128 -> 8",)
+# K2's wide cases: (label, supports, height, width); the plain version of
+# a support-32 window is 4,225 shifted adds a level, so L = 32 runs small
+WIDE_K2_CASES = (("ladder 1..12", tuple(range(1, 13)), 800, 800),
+                 ("ladder 1..12", tuple(range(1, 13)), 801, 799),
+                 ("identity 0..15", tuple(range(16)), 800, 800),
+                 ("ladder 1..32", tuple(range(1, 33)), 80, 96))
+# K5 / K6's wide cases: (label, B, supports, H, W); the training batch at
+# L = 12 with either ladder, and batches past 65,535 slices
+WIDE_K56_CASES = (("train batch ladder 1..12", 32, tuple(range(1, 13)), 80,
+                   80),
+                  ("train batch identity 0..11", 32, tuple(range(12)), 80,
+                   80),
+                  ("B x L = 65,600", 16400, (1, 2, 3, 4), 8, 8),
+                  ("B = 66,000", 66000, (0, 1), 8, 8))
+# K1's and render_classic's wide trees: depth-6 shells with SG / ASG rows
+# of basis_dim 32 and 48 (synthetic.with_lobes), held at every SPP of K1
+WIDE_BASIS_TREES = (("SG32", "SG", 32), ("ASG32", "ASG", 32),
+                    ("SG48", "SG", 48), ("ASG48", "ASG", 48))
+
+
+def wide_net_params(cfg, rs):
+    """Seeded Flax-layout params of ``cfg`` at weights of std
+    1.5 / sqrt(9 cin), so that a wide block's sums stay inside relu6's
+    range."""
+    return {f"block_{i}": {
+        "kernel": (rs.standard_normal((3, 3, cin, cout))
+                   * (1.5 / np.sqrt(9 * cin))).astype(np.float32),
+        "bias": (rs.standard_normal(cout) * 0.1).astype(np.float32)}
+        for i, (cin, cout) in enumerate(cfg.layer_channels())}
+
+
+def wide_tree(label, fmt, bd, depth=6):
+    """A shell of ``depth`` with SG or ASG rows of basis_dim ``bd``
+    (synthetic.with_lobes, seeded by bd)."""
+    from rt_octree_tpu_torch.io import synthetic
+    from rt_octree_tpu_torch.io.n3tree import BasisFormat
+    tree = synthetic.make_synthetic_tree("shell", depth=depth, basis_dim=bd)
+    return synthetic.with_lobes(tree, BasisFormat[fmt], bd)
+
+
+def filter_batch_inputs(rs, B, L, H, W):
+    """Seeded K5 / K6 inputs on the card: softmaxed weight, guidance at 3
+    nats, rgba in [0, 1] and dL/dout."""
+    import torch
+    w = torch.softmax(torch.from_numpy(rs.standard_normal(
+        (B, L, H, W)).astype(np.float32)), 1)
+    g = torch.from_numpy((rs.standard_normal((B, L, H, W)) * 3.0).astype(
+        np.float32))
+    x = torch.from_numpy(rs.random((B, H, W, 4), np.float32))
+    G = torch.from_numpy(rs.standard_normal((B, H, W, 4)).astype(np.float32))
+    return tuple(t.cuda() for t in (w, g, x, G))
+
+
+def hold_k56(label, w, g, x, G, sup, err):
+    """K5 and K6 (their wrappers' choice of instance) vs the plain forward
+    and backward on the same inputs; returns the saved tensors."""
+    import torch
+    from rt_octree_tpu_torch.ops.filtering import (
+        guided_filter_backward_plain, guided_filter_batch_bwd,
+        guided_filter_batch_fwd, guided_filter_batch_plain, wide_plan)
+    B, L = w.shape[:2]
+    o, saved = guided_filter_batch_fwd(w, g, x, sup)
+    ref = guided_filter_batch_plain(w, g, x, sup)
+    e5 = float((o - ref).abs().max())
+    gw, gg = guided_filter_batch_bwd(G, w, g, x, saved, sup)
+    rw, rg = guided_filter_backward_plain(G, w, g, x, sup)
+    e_w, e_g = float((gw - rw).abs().max()), float((gg - rg).abs().max())
+    m_w, m_g = float(rw.abs().max()), float(rg.abs().max())
+    kinds = ("wide" if wide_plan(B, L, sup) else "unrolled",
+             "wide" if wide_plan(B * L, L, sup) else "unrolled")
+    log(f"[wide] K5 ({kinds[0]}) {label} {tuple(w.shape)}: max|diff| "
+        f"{e5:.3g}; K6 ({kinds[1]}) dL/dw {e_w:.3g} of {m_w:.3g}, dL/dg "
+        f"{e_g:.3g} of {m_g:.3g}")
+    require(e5 <= K5_TOL and bool(torch.isfinite(o).all()),
+            f"K5 disagrees with its plain version ({label})")
+    require(e_w <= K6_REL_TOL * m_w and e_g <= K6_REL_TOL * m_g
+            and bool(torch.isfinite(gg).all()),
+            f"K6 disagrees with its plain version ({label})")
+    for key, kind, e in (("guided_filter_batch", kinds[0], e5),
+                         ("guided_filter_batch_bwd", kinds[1],
+                          max(e_w, e_g))):
+        key += "_wide" if kind == "wide" else ""
+        err[key] = max(err.get(key, 0.0), e)
+    return saved
+
+
+def hold_k7_wide(label, net, aux_nhwc, err):
+    """A net with a block past 64 channels, which K7 runs as a chain of
+    one-block launches (ops.guidance.chain_block; the wide plan for the
+    wide blocks).  Each launch is held at K7's bars against the plain
+    block on the input the chain gives it: block 0 the f32 aux, each later
+    block the plain chain's bf16 output, its channels padded with 0 as the
+    chain pads them (no rounding carried over, as tests/test_torch_net.py
+    holds K7 block by block), and its padded output channels must be 0.
+    Then the whole chain against the plain chain at both bars, but for
+    the K7_SHARE_TIES, whose share is reported beside how far K7 and the
+    plain chain (cuDNN) each lie, block by block, from the block summed in
+    f64 and rounded as the net rounds (a rounding tie carried through the
+    chain moves elements in either; a bug moves K7 alone)."""
+    import torch
+    import torch.nn.functional as F
+    from rt_octree_tpu_torch.models.guidance_net import \
+        compact_activation_plain
+    from rt_octree_tpu_torch.ops.guidance import chain_block, is_wide
+    ws = [c.weight for c in net.convs]
+    bs = [c.bias for c in net.convs]
+    xk = xp = aux_nhwc  # the kernel's input to a block, the plain block's
+    f64 = {"k7_unequal_share": [], "plain_unequal_share": []}
+    with torch.no_grad():
+        for i, layer in enumerate(net.packed):
+            last = i == len(net.packed) - 1
+            out = chain_block(xk, layer, layer.cout if last
+                              else layer.nt * 8)
+            got = out[..., :layer.cout].permute(0, 3, 1, 2)
+            ref = compact_activation_plain(xp, ws[i:i + 1], bs[i:i + 1])
+            t_ulps, e_ulps, share, e = bf16_ulps(got, ref)
+            pad_zero = not bool(out[..., layer.cout:].any())
+            kind = "wide plan" if is_wide(layer) else "fused instance"
+            log(f"[k7] {label}, block {i} ({layer.cin} -> {layer.cout}, "
+                f"{kind}) on the plain chain's {xk.dtype} input of "
+                f"{xk.shape[-1]} channels: max|diff| {e:.3g} = {t_ulps:g} "
+                f"ulps of the largest |value|, {share:.3g} of the elements "
+                f"not bit-equal; padded channels 0: {pad_zero}")
+            require(t_ulps <= K7_ULPS and share <= K7_UNEQUAL_SHARE
+                    and pad_zero, f"K7 disagrees with its plain version on "
+                    f"{label}, block {i}")
+            key = "guidance_net_wide" if is_wide(layer) else "guidance_net"
+            err[key] = max(err.get(key, 0.0), e)
+            # the block summed in f64, rounded to bf16, the bf16 bias
+            # added and rounded, relu6
+            xin = xp.permute(0, 3, 1, 2).to(torch.bfloat16).double()
+            y = F.conv2d(xin, ws[i].to(torch.bfloat16).double(), padding=1)
+            y = y.to(torch.bfloat16) + bs[i].to(torch.bfloat16)[
+                None, :, None, None]
+            r64 = F.relu6(y)
+            f64["k7_unequal_share"].append(float((got != r64).float()
+                                                 .mean()))
+            f64["plain_unequal_share"].append(float((ref != r64).float()
+                                                    .mean()))
+            xp = ref.permute(0, 2, 3, 1)
+            xk = F.pad(xp, (0, layer.nt * 8 - layer.cout)).contiguous()
+        act = net.activation(aux_nhwc)
+        ref = compact_activation_plain(aux_nhwc, ws, bs)
+    t_ulps, e_ulps, share, e = bf16_ulps(act, ref)
+    tie = label in K7_SHARE_TIES
+    log(f"[k7] {label}, the whole chain: max|diff| {e:.3g} = {t_ulps:g} "
+        f"ulps of the largest |value|, {share:.3g} of the elements not "
+        f"bit-equal{' (a named tie: the share reported)' if tie else ''}; "
+        f"block by block against the f64 sum, K7 "
+        f"{f64['k7_unequal_share']} and the plain chain "
+        f"{f64['plain_unequal_share']} of the elements unequal")
+    require(act.shape == ref.shape and bool(torch.isfinite(
+        act.float()).all()) and t_ulps <= K7_ULPS and (
+            tie or share <= K7_UNEQUAL_SHARE),
+            f"K7 disagrees with its plain version on {label}")
+    k7 = err.setdefault("k7", {"holds": {}, "ms": {}})
+    k7["holds"][label] = {"ulps_of_max": t_ulps, "ulps_of_element": e_ulps,
+                          "unequal_share": share, "max_abs": e,
+                          "elements": act.numel(), "vs_f64_by_block": f64,
+                          "share_bar": not tie}
+
+
+def k2_bound(L, sup, n):
+    """K2's bound as phase 9 counts it: the activation (2L bf16), rgb and
+    the output once; 9 operations a window tap, 10 a level a pixel."""
+    taps = sum((2 * s + 1) ** 2 for s in sup if s > 0)
+    return bound(n * (4 * L + 12 + 16), n * (9 * taps + 10 * L))
+
+
+def phase_wide(err):
+    """The wide instances against their plain versions on the card, and
+    their times: K7's wide plan on WIDE_K7_NETS (800x800 and
+    WIDE_K7_EDGES, K7's bars), K2's wide instance on WIDE_K2_CASES, K5's
+    and K6's on WIDE_K56_CASES, and K1's and render_classic's wide
+    instances (frame and ray mode; render_classic's statistics) on
+    WIDE_BASIS_TREES: K1 at every SPP of the kernel at 128x128, a
+    basis_minmax mask, the ray mode on RAY_LAYOUT_RAYS aimed rays; the
+    classic frames and rays ride in phases 4 (classic_layout_trees).
+    Then the path's shapes: the depth-8 SG32 and ASG32 trees' 800x800
+    frames (SPP 6, classic) held, and the SG32 frame's own 640,000 rays
+    held in both ray modes.  Returns (ms, bounds) of the eight wide
+    kernels, each timed at the path's shapes: the 8 -> 96 -> 24 net and
+    K2 at L = 12 at 800x800, K5 and K6 on the L = 12 train batch (their
+    bounds from the run's guard shares), K1, render_classic and their ray
+    modes on the SG32 tree at 800x800 (SPP 6)."""
+    import torch
+    from rt_octree_tpu_torch.core.camera import Camera
+    from rt_octree_tpu_torch.core.options import RenderOptions
+    from rt_octree_tpu_torch.models.guidance_net import (
+        GuidanceNetConfig, build_compact, compact_activation_plain)
+    from rt_octree_tpu_torch.ops import filtering as Fm
+    from rt_octree_tpu_torch.ops.traversal import upload_tree
+    from rt_octree_tpu_torch.render import renderer as R
+    ms, bounds = {}, {}
+    # ---- K7's wide plan ----
+    rs = np.random.default_rng(41)
+    nets = {}
+    for kw in WIDE_K7_NETS:
+        cfg = GuidanceNetConfig(**kw)
+        chans = " -> ".join(str(c) for c in [cfg.in_channels] + [
+            cout for _, cout in cfg.layer_channels()])
+        net = build_compact(cfg, wide_net_params(cfg, rs), "cuda")
+        nets[chans] = net
+        hold_k7_wide(f"random aux 800x800, random net {chans}", net,
+                     k7_aux(800, 800), err)
+        for B, H, W in WIDE_K7_EDGES:
+            aux = torch.cat([k7_aux(H, W, seed=51 + b) for b in range(B)])
+            hold_k7_wide(f"random aux {B}x{W}x{H}, random net {chans}", net,
+                         aux, err)
+    net = nets["8 -> 96 -> 24"]
+    aux = k7_aux(800, 800)
+    ws = [c.weight for c in net.convs]
+    bs = [c.bias for c in net.convs]
+    wb = [w_.to(torch.bfloat16) for w_ in ws]
+    bb = [b_.to(torch.bfloat16)[None, :, None, None] for b_ in bs]
+
+    def cudnn_chain():
+        x = aux.permute(0, 3, 1, 2).to(torch.bfloat16)
+        for w_, b_ in zip(wb, bb):
+            x = torch.nn.functional.relu6(
+                torch.nn.functional.conv2d(x, w_, padding=1) + b_)
+        return x
+    with torch.no_grad():
+        ms["guidance_net_wide"] = (
+            device_ms(lambda: net.activation(aux), 50, 5),
+            cuda_ms(lambda: compact_activation_plain(aux, ws, bs), 10, 2))
+        lib = device_ms(cudnn_chain, 50, 5)
+    bounds["guidance_net_wide"] = k7_bound(net, 800 * 800) + (lib,)
+    # ---- K2's wide instance ----
+    for label, sup, H, W in WIDE_K2_CASES:
+        L = len(sup)
+        act = filter_activation(rs, L, H, W, 3.0)
+        img = torch.from_numpy(rs.random((H, W, 4), np.float32)).cuda()
+        got = Fm.guided_filter(act, img, sup)
+        ref = Fm.guided_filter_act_plain(act, img, sup)
+        e = float((got - ref).abs().max())
+        log(f"[wide] K2 {label} {W}x{H}: max|diff| {e:.3g}")
+        require(e <= K2_TOL and bool(torch.isfinite(got).all()),
+                f"K2's wide instance disagrees with its plain version "
+                f"({label})")
+        err["guided_filter_wide"] = max(err.get("guided_filter_wide", 0.0),
+                                        e)
+        if (label, H) == ("ladder 1..12", 800):
+            ms["guided_filter_wide"] = (
+                device_ms(lambda: Fm.guided_filter(act, img, sup), 20, 2),
+                cuda_ms(lambda: Fm.guided_filter_act_plain(act, img, sup),
+                        1, 0))
+            bounds["guided_filter_wide"] = k2_bound(L, sup, H * W) + (None,)
+    # ---- K5 / K6's wide instances ----
+    for label, B, sup, H, W in WIDE_K56_CASES:
+        w, g, x, G = filter_batch_inputs(rs, B, len(sup), H, W)
+        saved = hold_k56(label, w, g, x, G, sup, err)
+        if label == "train batch ladder 1..12":
+            ms["guided_filter_batch_wide"] = (
+                device_ms(lambda: Fm.guided_filter_batch_fwd(w, g, x, sup),
+                          20, 2),
+                cuda_ms(lambda: Fm.guided_filter_batch_plain(w, g, x, sup),
+                        1, 0))
+            ms["guided_filter_batch_bwd_wide"] = (
+                device_ms(lambda: Fm.guided_filter_batch_bwd(
+                    G, w, g, x, saved, sup), 20, 2),
+                cuda_ms(lambda: Fm.guided_filter_backward_plain(
+                    G, w, g, x, sup), 1, 0))
+            tiles = Fm.batch_tiles(B, H, W, sup)
+            guard = (guard_share(lambda d: Fm.guided_filter_batch_fwd(
+                         w, g, x, sup, guards=d), tiles),
+                     guard_share(lambda d: Fm.guided_filter_batch_bwd(
+                         G, w, g, x, saved, sup, guards=d), tiles))
+            log(f"[wide] K5 / K6 {label}: guard share {guard[0]:.4g} / "
+                f"{guard[1]:.4g} of {tiles} tile-levels")
+            b56 = k56_bounds(B, len(sup), H, W, sup, guard)
+            bounds["guided_filter_batch_wide"] = b56["guided_filter_batch"]
+            bounds["guided_filter_batch_bwd_wide"] = b56[
+                "guided_filter_batch_bwd"]
+    # ---- K1's and render_classic's wide instances ----
+    cam = Camera(width=128, height=128, fx=175.0, fy=175.0)
+    tf = torch.from_numpy(cam.transform.astype(np.float32)).cuda()
+    base = dict(width=128, height=128, fx=cam.fx, fy=cam.fy)
+    for i, (label, fmt, bd) in enumerate(WIDE_BASIS_TREES):
+        dt = upload_tree(wide_tree(label, fmt, bd), lut_levels=6,
+                         device="cuda")
+        require(R.is_wide(dt), f"{label}: not a wide tree")
+        for spp in R.SPP_KERNEL:
+            hold_k1(f"{label} 128x128 spp {spp}", dt, tf,
+                    dict(base, opt=RenderOptions(spp=spp, denoise=False)),
+                    "render_wide", err, rng=(20230418 + spp, 1))
+        hold_k1(f"{label} 128x128 spp 6 basis_minmax (3, 20)", dt, tf,
+                dict(base, opt=RenderOptions(spp=6, denoise=False,
+                                             basis_minmax=(3, 20))),
+                "render_wide", err)
+        for spp in (1, 6, 32):
+            rays = aimed_rays(dt, RAY_LAYOUT_RAYS, spp, 60 + i)
+            hold_rays(f"{label} spp {spp}", dt, rays,
+                      RenderOptions(spp=spp), err,
+                      tmax_bg=ray_tmax(dt, RAY_LAYOUT_RAYS, 60 + i))
+    # the times at the path's shapes: the SG32 tree at 800x800, SPP 6
+    dt = upload_tree(wide_tree("SG32", "SG", 32, depth=8), lut_levels=8,
+                     device="cuda")
+    cam = Camera(width=800, height=800, fx=1111.0, fy=1111.0)
+    tf = torch.from_numpy(cam.transform.astype(np.float32)).cuda()
+    kw = dict(width=800, height=800, fx=cam.fx, fy=cam.fy)
+    opt = RenderOptions(spp=6, denoise=False)
+    copt = RenderOptions(spp=1, denoise=False, estimator="classic")
+    asg = upload_tree(wide_tree("ASG32", "ASG", 32, depth=8), lut_levels=8,
+                      device="cuda")
+    for label, tree in (("SG32", dt), ("ASG32", asg)):
+        hold_k1(f"{label} depth-8 800x800 spp 6", tree, tf,
+                dict(kw, opt=opt), "render_wide", err)
+        hold_k1(f"{label} depth-8 800x800 classic", tree, tf,
+                dict(kw, opt=copt), "render_classic_wide", err)
+    del asg, tree
+    # the frame's own rays and PCG32 thresholds (the ray mode's bound
+    # reads the frame's statistics)
+    dirs, cens = R.device_camera_rays(tf, 800, 800, cam.fx, cam.fy)
+    vdirs = R.rodrigues(opt.rot_dirs, dirs)
+    d, c = (t.contiguous() for t in R.maybe_world2ndc(dt, dirs, cens))
+    u = torch.empty((800 * 800, 6), dtype=torch.float32, device="cuda")
+    R.render_noisy(dt, tf, 7, 1, opt=opt, uniforms_out=u, **kw)
+    dst = R.make_sorted_dst(u)
+    # the timed rays held against the plain versions (most miss the shell)
+    hold_rays("SG32 depth-8, the 800x800 frame's rays, spp 6", dt,
+              (d, vdirs, c, dst), opt, err, min_hit=0.0)
+    hold_rays("SG32 depth-8, the 800x800 frame's rays, classic", dt,
+              (d, vdirs, c), copt, err, min_hit=0.0)
+    ms["render_wide"] = (
+        cuda_ms(lambda: R.render_noisy(dt, tf, 7, 1, opt=opt, **kw), 20, 3),
+        cuda_ms(lambda: R.render_noisy_plain(dt, tf, 7, 1, opt=opt, **kw),
+                1, 0))
+    ms["render_classic_wide"] = (
+        cuda_ms(lambda: R.render_noisy(dt, tf, 0, 0, opt=copt, **kw), 20, 3),
+        cuda_ms(lambda: R.render_noisy_plain(dt, tf, 0, 0, opt=copt, **kw),
+                1, 0))
+    ms["render_rays_wide"] = (
+        cuda_ms(lambda: R.trace_rays(dt, d, vdirs, c, dst, opt), 20, 3),
+        cuda_ms(lambda: R.trace_rays_plain(dt, d, vdirs, c, dst, opt), 1, 0))
+    ms["render_classic_rays_wide"] = (
+        cuda_ms(lambda: R.trace_rays_classic(dt, d, vdirs, c, copt), 20, 3),
+        cuda_ms(lambda: R.trace_rays_classic_plain(dt, d, vdirs, c, copt),
+                1, 0))
+    n = 800 * 800
+    # as K1's and the ray mode's bounds (phase 9), from the plain march's
+    # statistics of the same frame: a shaded row costs 6 bd + 16 operations
+    for key, o, rng, ray_extra in (
+            ("render_wide", opt, (7, 1), None),
+            ("render_classic_wide", copt, (0, 0), None),
+            ("render_rays_wide", opt, (7, 1), 4 * opt.spp),
+            ("render_classic_rays_wide", copt, (0, 0), 0)):
+        st = R.render_stats_plain(dt, tf, *rng, opt=o, **kw)
+        shaded = (float(st.shaded.sum()) if st.shaded is not None
+                  else st.data_rows)
+        io = (80 * n + 48 if ray_extra is None else
+              40 * n + (12 + ray_extra) * int((st.steps > 0).sum()))
+        nbytes = (io + 8 * (st.lut_cells + st.chs_rows)
+                  + 2 * dt.data_dim * st.data_rows)
+        ops = (K1_OPS_PER_STEP * float(st.steps.sum())
+               + (6 * dt.basis_dim + 16) * shaded)
+        bounds[key] = bound(nbytes, ops) + (None,)
+    for k in WIDE_KERNELS:
+        log(f"[timing] {k}: kernel {ms[k][0]:.4f} ms, plain {ms[k][1]:.3f} "
+            f"ms, bound {bounds[k][0]:.4f} ms ({bounds[k][1]}), library "
+            f"{bounds[k][2]}")
+    return ms, bounds
+
+
+def wide_only():
+    """--wide-only: build, phase 2's ptxas lines, the wide instances' holds
+    and times (phase_wide); one {"wide_ms": ...} line."""
+    from rt_octree_tpu_torch.native import build as native
+    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, check=True).stdout.strip())
+    t0 = time.time()
+    native.build(verbose=True, force=True)
+    log(f"[build] {time.time() - t0:.1f} s")
+    phase_ptxas(native)
+    err = {}
+    ms, bounds = phase_wide(err)
+    log(json.dumps({"wide_ms": {k: {"ms": ms[k][0], "plain_ms": ms[k][1],
+                                    "bound_ms": bounds[k][0],
+                                    "bound_by": bounds[k][1],
+                                    "library_ms": bounds[k][2],
+                                    "max_abs_err": err.get(k)}
+                                for k in WIDE_KERNELS}}))
+    return 0
 
 
 def headline_tree_path():
@@ -2315,25 +2785,36 @@ def train_step_split(runner, batch, reps=20, warmup=5):
     return whole, split
 
 
-def k56_bounds(B, L, H, W, sup):
+def k56_bounds(B, L, H, W, sup, guard=(0.0, 0.0)):
     """K5's and K6's bounds (bound ms, "bytes" or "operations", library
-    ms None) at [B, L, H, W] with supports ``sup``.  K5: weight and
-    guidance (8 B a pixel and level) and rgba (16 B) in, out (16 B) and
-    fm, den (20 B a pixel and level) written; a tap is a subtraction, an
-    expf, an add and three multiply-adds (9 operations), a level's blend
-    6.  K6: G and rgba (32 B), weight, guidance, fm, den (28 B a pixel and
-    level) in, two gradients (8 B) out; a tap of the gather is a
-    subtraction, an expf, three multiply-adds for u.x, a subtraction and a
-    multiply-add (12 operations), a staged pixel 12.  The counts are
-    those of the per-tap form, kept for every version of the kernels so
-    that their shares of the bound read the same work."""
+    ms None) at [B, L, H, W] with supports ``sup``; ``guard``: the shares
+    of K5's and K6's (tile, level) pairs that took the guard on this
+    run's data.  Bytes: K5 reads weight and guidance (8 B a pixel and
+    level) and rgba (16 B), writes out (16 B) and fm, den (20 B a pixel
+    and level); K6 reads G and rgba (32 B) and weight, guidance, fm, den
+    (28 B a pixel and level), writes two gradients (8 B).  Operations, a
+    pixel and level of support s > 0, in the separable form the kernels
+    take: K5 an expf and its subtraction, e rgb (3), the row and column
+    sums of (e rgb, e) (16 s adds) and the division by the denominator
+    (3), 16 s + 8; K6 E_p = exp(c' - m_p) (2), u_p = (w_p / D_p) G_p (4),
+    v_p = u_p . f_p (3), E u and E v (4), their row and column sums
+    (16 s) and dL/dg_q = exp(g_q - c') (x_q . U_q - V_q) (7), 16 s + 20.
+    A guarded pair takes the per-window form, a window tap 9 operations
+    in K5 (a subtraction, an expf, an add, three multiply-adds) and 12 in
+    K6 (a subtraction, an expf, three multiply-adds for u.x, a subtraction
+    and a multiply-add); the guard's share is spread evenly over the
+    levels.  Every level adds its blend, 6 (K5), and its staged pixel, 12
+    (K6)."""
     n, nl = B * H * W, B * L * H * W
-    taps = sum((2 * s + 1) ** 2 for s in sup if s > 0)
+    pos = [s for s in sup if s > 0]
+    taps = sum((2 * s + 1) ** 2 for s in pos)
+    sep5, sep6 = sum(16 * s + 8 for s in pos), sum(16 * s + 20 for s in pos)
+    ops5 = (1 - guard[0]) * sep5 + guard[0] * 9 * taps + 6 * L
+    ops6 = (1 - guard[1]) * sep6 + guard[1] * 12 * taps + 12 * L
     return {
-        "guided_filter_batch": bound(n * 32 + nl * 28,
-                                     n * (9 * taps + 6 * L)) + (None,),
-        "guided_filter_batch_bwd": bound(n * 32 + nl * 36,
-                                         n * (12 * taps + 12 * L)) + (None,)}
+        "guided_filter_batch": bound(n * 32 + nl * 28, n * ops5) + (None,),
+        "guided_filter_batch_bwd": bound(n * 32 + nl * 36, n * ops6)
+        + (None,)}
 
 
 def train_batch(kit):
@@ -2701,6 +3182,126 @@ def phase_train(native, r, tree_path, err):
                                   ms["guided_filter_batch_bwd"][0])
     log(json.dumps({"train": out}))
     return ({k: counts[k] for k in TRAIN_KERNELS}, ms, bounds)
+
+
+# The wide path: two 96-wide nets of 12 levels trained by the CLI on the
+# train phase's kit (the ladder 1..12, and --identity_level's 0..11) for
+# WIDE_TRAIN_EPOCHS, each rendered by the CLI on the headline tree; and SG
+# and ASG trees of basis_dim 32 (depth WIDE_TREE_DEPTH) rendered by the CLI
+# with both estimators and traced by the ray API.
+WIDE_TRAIN_FLAGS = ["--mid_channels", "96", "--kernel_levels", "12"]
+WIDE_TRAIN_EPOCHS = 1
+WIDE_TREE_DEPTH = 8
+WIDE_PATH_RAYS = 65536
+
+
+def phase_wide_path(native, tree_path, err):
+    """The wide path through the entry points a user calls, each run with
+    the launch counts set to 0 just before it and read just after:
+    ``rtoctree train`` of the two wide nets (K5 and K6's wide instances
+    once a step; the test split after the last epoch through K7's wide
+    plan and K2's wide instance) and its compact task, ``rtoctree
+    render`` with each exported .gnet (K7's wide
+    plan and K2's wide instance a frame; PSNR on benchmarks/quality's 8
+    poses, no bar), ``rtoctree render`` on the SG32 and ASG32 trees with
+    the headline flags and with --estimator classic (K1's and
+    render_classic's wide instances), and trace_rays / trace_rays_classic
+    on aimed rays at those trees (their ray modes), their outputs held
+    against the plain versions after the counts are read.  Prints
+    {"wide_path": ...}; returns each wide kernel's launches on its path."""
+    import torch
+    from rt_octree_tpu_torch.core.options import RenderOptions
+    from rt_octree_tpu_torch.io import synthetic
+    from rt_octree_tpu_torch.io.png import read_png
+    from rt_octree_tpu_torch.models.guidance_net import load_compact
+    from rt_octree_tpu_torch.ops.traversal import upload_tree
+    from rt_octree_tpu_torch.render import renderer as R
+    kit = os.path.join(WORK, "train_kit")
+    out, counts = {}, dict.fromkeys(WIDE_KERNELS, 0)
+    common = ["--spp", "6", "--warmup", "1", "--device", "cuda"]
+    gt = [read_png(os.path.join(KIT, "test", f"r_{i}.png"))[..., :3]
+          for i in range(8)]
+    for label, extra in (("ladder", []), ("identity", ["--identity_level"])):
+        name = f"wide96_{label}"
+        work = os.path.join(WORK, "train_logs", name)
+        if os.path.isdir(work):
+            shutil.rmtree(work)
+        argv = (train_argv(kit, WIDE_TRAIN_EPOCHS, exp_name=name)
+                + WIDE_TRAIN_FLAGS + extra)
+        c = train_cli(native, f"wide {label}", argv, required=(
+            "guided_filter_batch_wide", "guided_filter_batch_bwd_wide"),
+            absent=TRAIN_KERNELS)
+        for k in ("guided_filter_batch_wide", "guided_filter_batch_bwd_wide"):
+            counts[k] = max(counts[k], c[k])
+        train_cli(native, f"wide {label} compact",
+                  train_argv(kit, WIDE_TRAIN_EPOCHS, "compact", name)
+                  + WIDE_TRAIN_FLAGS + extra, absent=TRAIN_KERNELS)
+        gnet = os.path.join(work, "ts_latest.gnet")
+        cfg, _ = load_compact(gnet)
+        require(cfg.mid_channels == 96 and cfg.kernel_levels == 12 and
+                cfg.identity_level == bool(extra),
+                f"the exported .gnet's header: {cfg}")
+        c = phase_main(native, tree_path, f"wide net {label}",
+                       ["--gnet", gnet, "--lut_levels", "9"] + common,
+                       ("render", "guidance_net_wide", "guided_filter_wide"))
+        require(not c["guidance_net"] and not c["guided_filter"],
+                "a wide net ran an unrolled instance")
+        for k in ("guidance_net_wide", "guided_filter_wide"):
+            counts[k] = max(counts[k], c[k])
+        frames_dir = os.path.join(WORK, f"frames_wide_net_{label}")
+        den = [psnr(read_png(os.path.join(frames_dir, f"r_{i}.png"))
+                    .astype(np.float32) / 255.0, g)
+               for i, g in enumerate(gt)]
+        out[f"net {label}"] = {"denoised_db": float(np.mean(den)),
+                               "supports": list(cfg.supports())}
+        log(f"[wide] net {label} ({WIDE_TRAIN_EPOCHS} epoch): denoised "
+            f"{np.mean(den):.3f} dB on benchmarks/quality's 8 poses (no "
+            f"bar; supports {cfg.supports()})")
+    for label, fmt in (("SG32", "SG"), ("ASG32", "ASG")):
+        t0 = time.time()
+        tree = wide_tree(label, fmt, 32, depth=WIDE_TREE_DEPTH)
+        path = os.path.join(WORK, f"shell_d{WIDE_TREE_DEPTH}_{label}.npz")
+        synthetic.save_npz(tree, path)
+        log(f"[wide] {label} depth-{WIDE_TREE_DEPTH} shell: "
+            f"{tree.data.shape[0]} rows of {tree.data_dim} halfs, built "
+            f"and saved in {time.time() - t0:.1f} s")
+        flags = ["--gnet", os.path.join(KIT, "trained.gnet"), "--lut_levels",
+                 str(WIDE_TREE_DEPTH)] + common
+        c = phase_main(native, path, f"{label} tree", flags,
+                       ("render_wide", "guidance_net", "guided_filter"))
+        counts["render_wide"] = max(counts["render_wide"], c["render_wide"])
+        c = phase_main(native, path, f"{label} tree classic",
+                       flags + ["--estimator", "classic"],
+                       ("render_classic_wide",))
+        counts["render_classic_wide"] = max(counts["render_classic_wide"],
+                                            c["render_classic_wide"])
+        require(not c["render"] and not c["render_classic"],
+                "a wide tree ran an unrolled instance")
+        dt = upload_tree(tree, lut_levels=WIDE_TREE_DEPTH, device="cuda")
+        d, v, cen, dst = aimed_rays(dt, WIDE_PATH_RAYS, 6, 70)
+        native.reset_launches()
+        rt = R.trace_rays(dt, d, v, cen, dst, RenderOptions(spp=6))
+        cl = R.trace_rays_classic(dt, d, v, cen,
+                                  RenderOptions(estimator="classic"))
+        torch.cuda.synchronize()
+        c = dict(native.LAUNCHES)
+        log(f"[wide] {label} ray API, {WIDE_PATH_RAYS} aimed rays: launches "
+            f"{ {k: n for k, n in c.items() if n} }")
+        require(c["render_rays_wide"] == 1 and c["render_classic_rays_wide"]
+                == 1, "the ray API did not run the wide instances")
+        hold_ray_result(f"{label} ray API", "render_rays_wide", rt,
+                        R.trace_rays_plain(dt, d, v, cen, dst,
+                                           RenderOptions(spp=6)), err)
+        hold_ray_result(f"{label} ray API classic",
+                        "render_classic_rays_wide", cl,
+                        R.trace_rays_classic_plain(
+                            dt, d, v, cen, RenderOptions(estimator="classic")),
+                        err)
+        for k in ("render_rays_wide", "render_classic_rays_wide"):
+            counts[k] = max(counts[k], c[k])
+    out["launches"] = counts
+    log(json.dumps({"wide_path": out}))
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -4075,6 +4676,8 @@ def main(argv) -> int:
         return filter_only(PKG_ROOT)
     if argv[:1] == ["--filter-pairs"] and len(argv) in (2, 3):
         return filter_pairs(argv[1], int(argv[2]) if len(argv) == 3 else 6)
+    if argv == ["--wide-only"]:
+        return wide_only()
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -4104,6 +4707,7 @@ def main(argv) -> int:
     phase_pcg()
     phase_k2(err)
     phase_k7(err)
+    wide_ms, wide_bounds = phase_wide(err)
     tree, tree_path, gen = headline_tree_path()
     paths = main_paths(make_drawlist())
     runs = {label: phase_main(native, tree_path, label, flags, required)
@@ -4136,6 +4740,9 @@ def main(argv) -> int:
     counts.update(train_counts)
     ms.update(ms_new)
     bounds.update(bounds_new)
+    counts.update(phase_wide_path(native, tree_path, err))
+    ms.update(wide_ms)
+    bounds.update(wide_bounds)
     sharded = phase_multidev(r, ps, tree_path, gates, smi[0])
     scenes = phase_scenes(err, quant_src)
     gates["llff interactive"] = (scenes["llff interactive"]["psnr_noisy"],

@@ -216,6 +216,185 @@ RT_API int rt_guided_filter(const void* act, long long sc, long long sh,
 }
 
 // ---------------------------------------------------------------------------
+// The wide instances: K2 (guided_filter_wide_kernel, launch name
+// "guided_filter_wide"), K5 and K6 (below theirs) for the nets the unrolled
+// instances do not take: more than 8 levels (up to kWideMaxLevels), a
+// support above 8 (up to kWideMaxSupport), and for K5 / K6 batches whose
+// B or B x L passes 65535.  The same function in the same order: K2's
+// per-window max and its dy-outer, dx-inner sums; K5 / K6's tile stabiliser,
+// separable shifted adds and 60-nat guard.  The window loops run at the
+// support the level has (a runtime count, not a template a support), the
+// level weights' softmax runs over the levels without holding them, and
+// the supports ride in a kWideMaxLevels array.  Shared memory grows with
+// the halo R (the largest support): above 48 KB the kernel is allowed more
+// first; kWideMaxSupport is what 227 KB holds at K5's 40x16 tile.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+constexpr int kWideMaxLevels = 64;
+constexpr int kWideMaxSupport = 32;
+constexpr int kSmemOptin = 232448;  // 227 KB a block
+
+struct WideSupports {
+  int s[kWideMaxLevels];
+};
+
+// K2's level of a runtime support s: filter_level<S>'s passes and order.
+__device__ __forceinline__ void filter_level_rt(int S, const float4* tile,
+                                                float* rmax, int R, int TW,
+                                                int tx, int ty, bool inside,
+                                                float& f0, float& f1,
+                                                float& f2) {
+  for (int i = ty * kTileW + tx; i < (kTileH + 2 * S) * kTileW;
+       i += kTileW * kTileH) {
+    const int r = R - S + i / kTileW, c = i % kTileW;
+    const float4* row = tile + r * TW + R + c;
+    float m = -INFINITY;
+    for (int dx = -S; dx <= S; ++dx) m = fmaxf(m, row[dx].w);
+    rmax[r * kTileW + c] = m;
+  }
+  __syncthreads();
+  if (!inside) return;
+  float gmax = -INFINITY;
+  for (int dy = -S; dy <= S; ++dy)
+    gmax = fmaxf(gmax, rmax[(ty + R + dy) * kTileW + tx]);
+  float n0 = 0.f, n1 = 0.f, n2 = 0.f, den = 0.f;
+  const float4* centre = tile + (ty + R) * TW + tx + R;
+  for (int dy = -S; dy <= S; ++dy) {
+    const float4* row = centre + dy * TW;
+#pragma unroll 4
+    for (int dx = -S; dx <= S; ++dx) {
+      const float4 q = row[dx];
+      const float k = expf(q.w - gmax);
+      den = den + k;
+      n0 = n0 + q.x * k;
+      n1 = n1 + q.y * k;
+      n2 = n2 + q.z * k;
+    }
+  }
+  f0 = n0 / den;
+  f1 = n1 / den;
+  f2 = n2 / den;
+}
+
+__global__ void __launch_bounds__(kTileW* kTileH) guided_filter_wide_kernel(
+    const __nv_bfloat16* __restrict__ act, long long sc, long long sh,
+    long long sw, const float4* __restrict__ img, float4* __restrict__ out,
+    int levels, WideSupports sup, int R, int H, int W) {
+  extern __shared__ float4 tile[];  // [TH][TW]: rgb, the level's guidance in .w
+  const int TW = kTileW + 2 * R, TH = kTileH + 2 * R;
+  float* rmax = reinterpret_cast<float*>(tile + TH * TW);  // [TH][kTileW]
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int x0 = blockIdx.x * kTileW, y0 = blockIdx.y * kTileH;
+  const int x = x0 + tx, y = y0 + ty;
+  const bool inside = x < W && y < H;
+
+  for (int r = ty; r < TH; r += kTileH) {
+    const int gy = y0 - R + r;
+    for (int c = tx; c < TW; c += kTileW) {
+      const int gx = x0 - R + c;
+      tile[r * TW + c] = (gy >= 0 && gy < H && gx >= 0 && gx < W)
+                             ? img[(long long)gy * W + gx]
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  // the softmax over the L weight channels (max, then sum), read twice
+  const __nv_bfloat16* px = act + (long long)y * sh + (long long)x * sw;
+  float wmax = -INFINITY, wsum = 0.f;
+  if (inside) {
+    for (int l = 0; l < levels; ++l)
+      wmax = fmaxf(wmax, __bfloat162float(px[l * sc]));
+    for (int l = 0; l < levels; ++l)
+      wsum = wsum + expf(__bfloat162float(px[l * sc]) - wmax);
+  }
+
+  float o0 = 0.f, o1 = 0.f, o2 = 0.f;
+  for (int l = 0; l < levels; ++l) {
+    const int s = sup.s[l];
+    __syncthreads();  // rgb staged; the previous level's reads are done
+    float f0 = 0.f, f1 = 0.f, f2 = 0.f;
+    if (s == 0) {
+      const float4 q = tile[(ty + R) * TW + tx + R];
+      f0 = q.x;
+      f1 = q.y;
+      f2 = q.z;
+    } else {
+      const __nv_bfloat16* g = act + (levels + l) * sc;
+      // the level's region only (halo s): the window never reads past it
+      for (int r = ty + R - s; r < TH - (R - s); r += kTileH) {
+        const int gy = y0 - R + r;
+        for (int c = tx + R - s; c < TW - (R - s); c += kTileW) {
+          const int gx = x0 - R + c;
+          tile[r * TW + c].w = (gy >= 0 && gy < H && gx >= 0 && gx < W)
+                                   ? __bfloat162float(g[gy * sh + gx * sw])
+                                   : -INFINITY;
+        }
+      }
+      __syncthreads();
+      filter_level_rt(s, tile, rmax, R, TW, tx, ty, inside, f0, f1, f2);
+    }
+    if (!inside) continue;
+    const float wl = expf(__bfloat162float(px[l * sc]) - wmax) / wsum;
+    o0 = o0 + wl * f0;
+    o1 = o1 + wl * f1;
+    o2 = o2 + wl * f2;
+  }
+  if (inside) out[(long long)y * W + x] = make_float4(o0, o1, o2, 1.f);
+}
+
+// The supports into `sup` and their largest as the halo R; false if a
+// count or a support is out of the wide instances' range.
+bool wide_supports(int levels, const int* supports, WideSupports& sup,
+                   int& R) {
+  if (levels < 1 || levels > kWideMaxLevels) return false;
+  sup = WideSupports{};
+  R = 0;
+  for (int l = 0; l < levels; ++l) {
+    if (supports[l] < 0 || supports[l] > kWideMaxSupport) return false;
+    sup.s[l] = supports[l];
+    R = supports[l] > R ? supports[l] : R;
+  }
+  return true;
+}
+
+// Allow `bytes` of dynamic shared memory where they pass the 48 KB default.
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes) {
+  if (bytes > kSmemOptin) return cudaErrorInvalidValue;
+  return bytes > 48 * 1024
+             ? cudaFuncSetAttribute(
+                   kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes)
+             : cudaSuccess;
+}
+
+}  // namespace
+
+// K2's wide instance: rt_guided_filter's arguments, 1..64 levels of support
+// 0..32.
+RT_API int rt_guided_filter_wide(const void* act, long long sc, long long sh,
+                                 long long sw, const void* img, void* out,
+                                 int levels, const int* supports, int height,
+                                 int width, void* stream) {
+  WideSupports sup;
+  int R;
+  if (!wide_supports(levels, supports, sup, R) || height < 1 || width < 1)
+    return (int)cudaErrorInvalidValue;
+  // (8 + 64) x (32 + 64) x 16 + 72 x 32 x 4 = 119,808 bytes at R = 32
+  const int bytes = (kTileH + 2 * R) * (kTileW + 2 * R) * 16 +
+                    (kTileH + 2 * R) * kTileW * 4;
+  const cudaError_t err = allow_smem(guided_filter_wide_kernel, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 block(kTileW, kTileH);
+  const dim3 grid((width + kTileW - 1) / kTileW,
+                  (height + kTileH - 1) / kTileH);
+  guided_filter_wide_kernel<<<grid, block, bytes, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)act, sc, sh, sw, (const float4*)img,
+      (float4*)out, levels, sup, R, height, width);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // K5 and K6: the batched filter of the training step and its backward.
 //
 // They replace rt_octree_tpu/ops/filtering.py:guided_filter_batch (:188,
@@ -855,6 +1034,456 @@ RT_API int rt_guided_filter_batch_bwd(
   if (err != cudaSuccess) return (int)err;
   kernel<<<batch_grid(batch * levels, height, width), kBThreads, bytes,
            (cudaStream_t)stream>>>(
+      (const float4*)grad, (const float*)weight, Strides{wsb, wsl, wsh},
+      (const float*)guidance, Strides{gsb, gsl, gsh}, (const float4*)img,
+      (const float4*)fm, (const float*)den, (float*)gw, (float*)gg,
+      (int*)guards, levels, sup, R, height, width);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// K5's and K6's wide instances (launch names "guided_filter_batch_wide" and
+// "guided_filter_batch_bwd_wide"): the unrolled instances' tile algorithm
+// at a runtime support (up to kWideMaxSupport) and 1..kWideMaxLevels
+// levels.  The row pass loops over the region's rows (at support 32 they are
+// 80 x 5 runs for 160 threads); each run's sums keep run_sums' order.  K5
+// stages a level's weight and guidance behind the previous level's sums no
+// more: one buffer each (two do not fit 227 KB at support 32).  The grid is
+// one dimension over (slice, tile row, tile column), so B and B x L have no
+// 65535 cap.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+// run_sums at a runtime support S: acc[o] = x[o] + ... + x[o + 2S], in that
+// order.
+template <int N, class Load>
+__device__ __forceinline__ void run_sums_rt(float4 (&acc)[N], int S,
+                                            Load load) {
+  for (int i = 0; i < N + 2 * S; ++i) {
+    const float4 x = load(i);
+#pragma unroll
+    for (int o = 0; o < N; ++o) {
+      if (o == i)
+        acc[o] = x;
+      else if (o < i && i <= o + 2 * S)
+        acc[o] = add4(acc[o], x);
+    }
+  }
+}
+
+// window_sums at a runtime support S: the row pass in as many rounds as
+// the region's runs take, then this thread's column run.
+template <class Load>
+__device__ __forceinline__ void window_sums_rt(int S, float4* hs, int org,
+                                               int P, float4 (&acc)[kColRun],
+                                               Load load) {
+  const int RW = kBatchTileH + 2 * S;
+  for (int task = threadIdx.x; task < RW * (kBatchTileW / kRowRun);
+       task += kBThreads) {
+    const int r = task % RW, c0 = task / RW * kRowRun;
+    const int base = org + r * P + c0;
+    float4 h[kRowRun];
+    run_sums_rt<kRowRun>(h, S, [&](int i) { return load(base + i); });
+#pragma unroll
+    for (int o = 0; o < kRowRun; ++o) hs[r * kHP + c0 + o] = h[o];
+  }
+  __syncthreads();
+  const int col = threadIdx.x % kBatchTileW, run = threadIdx.x / kBatchTileW;
+  run_sums_rt<kColRun>(
+      acc, S, [&](int i) { return hs[(run * kColRun + i) * kHP + col]; });
+}
+
+// k5_level at a runtime support S.
+__device__ __forceinline__ bool k5_level_rt(int S, const float4* rgbs,
+                                            const float* gs, float4* hs,
+                                            float* red, int R, int P,
+                                            float3 (&f)[kColRun],
+                                            float (&m)[kColRun],
+                                            float (&d)[kColRun]) {
+  const int RW = kBatchTileH + 2 * S, CW = kBatchTileW + 2 * S;
+  const int tid = threadIdx.x, org = (R - S) * P + (R - S);
+  float mx = -INFINITY, mn = INFINITY;
+  for (int i = tid; i < RW * CW; i += kBThreads) {
+    const float v = gs[org + i / CW * P + i % CW];
+    mx = fmaxf(mx, v);
+    if (v > -INFINITY) mn = fminf(mn, v);
+  }
+  block_max_min(mx, mn, red);
+  const int col = tid % kBatchTileW, run = tid / kBatchTileW;
+  if (mx - mn < kGuardRange) {
+    float4 acc[kColRun];
+    window_sums_rt(S, hs, org, P, acc, [&](int j) {
+      const float e = expf(gs[j] - mx);
+      const float4 q = rgbs[j];
+      return make_float4(e * q.x, e * q.y, e * q.z, e);
+    });
+#pragma unroll
+    for (int o = 0; o < kColRun; ++o) {
+      f[o] = make_float3(acc[o].x / acc[o].w, acc[o].y / acc[o].w,
+                         acc[o].z / acc[o].w);
+      m[o] = mx;
+      d[o] = acc[o].w;
+    }
+    return false;
+  }
+  float* hm = reinterpret_cast<float*>(hs);
+  for (int i = tid; i < RW * kBatchTileW; i += kBThreads) {
+    const float* row = gs + org + i / kBatchTileW * P + i % kBatchTileW;
+    float v = row[0];
+    for (int dx = 1; dx <= 2 * S; ++dx) v = fmaxf(v, row[dx]);
+    hm[i] = v;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int o = 0; o < kColRun; ++o) {
+    const int row = run * kColRun + o;
+    float mm = hm[row * kBatchTileW + col];
+    for (int dy = 1; dy <= 2 * S; ++dy)
+      mm = fmaxf(mm, hm[(row + dy) * kBatchTileW + col]);
+    float n0 = 0.f, n1 = 0.f, n2 = 0.f, den = 0.f;
+    for (int dy = 0; dy <= 2 * S; ++dy) {
+      const int base = org + (row + dy) * P + col;
+#pragma unroll 4
+      for (int dx = 0; dx <= 2 * S; ++dx) {
+        const float k = expf(gs[base + dx] - mm);
+        const float4 q = rgbs[base + dx];
+        den = den + k;
+        n0 = n0 + q.x * k;
+        n1 = n1 + q.y * k;
+        n2 = n2 + q.z * k;
+      }
+    }
+    f[o] = make_float3(n0 / den, n1 / den, n2 / den);
+    m[o] = mm;
+    d[o] = den;
+  }
+  return true;
+}
+
+// block b of a one-dimensional grid over (slice, tile row, tile column) ->
+// the slice and the tile's origin
+__device__ __forceinline__ void wide_tile(int H, int W, long long& slice,
+                                          int& x0, int& y0) {
+  const int tiles_x = (W + kBatchTileW - 1) / kBatchTileW;
+  const int tiles_y = (H + kBatchTileH - 1) / kBatchTileH;
+  const long long per = (long long)tiles_x * tiles_y;
+  slice = blockIdx.x / per;
+  const int r = (int)(blockIdx.x - slice * per);
+  x0 = (r % tiles_x) * kBatchTileW;
+  y0 = (r / tiles_x) * kBatchTileH;
+}
+
+__global__ void __launch_bounds__(kBThreads)
+    guided_filter_batch_wide_kernel(
+        const float* __restrict__ weight, Strides ws,
+        const float* __restrict__ guidance, Strides gst,
+        const float4* __restrict__ img, float4* __restrict__ out,
+        float4* __restrict__ fm, float* __restrict__ den,
+        int* __restrict__ guards, int levels, WideSupports sup, int R, int H,
+        int W) {
+  extern __shared__ float4 smem[];
+  constexpr int kTile = kBatchTileW * kBatchTileH;
+  const int P = kBatchTileW + 2 * R + 1, RH = kBatchTileH + 2 * R;
+  float4* rgbs = smem;         // [RH][P]: rgb of the tile and halo R
+  float4* hs = rgbs + RH * P;  // [RH][kHP]: row sums
+  float* wbuf = reinterpret_cast<float*>(hs + RH * kHP);  // [tile]
+  float* gs = wbuf + kTile;    // [RH][P]: guidance
+  __shared__ float red[2 * kBWarps];
+  const int tid = threadIdx.x;
+  long long b;
+  int x0, y0;
+  wide_tile(H, W, b, x0, y0);
+  const long long HW = (long long)H * W;
+  img += b * HW;
+  out += b * HW;
+  fm += b * levels * HW;
+  den += b * levels * HW;
+  weight += b * ws.b;
+  guidance += b * gst.b;
+
+  const int warp = tid >> 5, lane = tid & 31;
+  for (int r = warp; r < RH; r += kBWarps) {
+    const int gy = y0 - R + r;
+    for (int c = lane; c < kBatchTileW + 2 * R; c += 32) {
+      const int gx = x0 - R + c;
+      const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W;
+      cp_async16(smem_addr(rgbs + r * P + c),
+                 ok ? img + (long long)gy * W + gx : img, ok ? 16 : 0);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+  const int col = tid % kBatchTileW, run = tid / kBatchTileW;
+  const int x = x0 + col, yr = y0 + run * kColRun;
+  float3 o[kColRun];
+#pragma unroll
+  for (int k = 0; k < kColRun; ++k) o[k] = make_float3(0.f, 0.f, 0.f);
+  for (int l = 0; l < levels; ++l) {
+    const int s = sup.s[l];
+    // level l's weight over the tile and guidance over its region (-inf
+    // outside the image)
+    const float* wsrc = weight + l * ws.l;
+    for (int r = warp; r < kBatchTileH; r += kBWarps)
+      for (int c = lane; c < kBatchTileW; c += 32)
+        if (y0 + r < H && x0 + c < W)
+          cp_async4(smem_addr(wbuf + r * kBatchTileW + c),
+                    wsrc + (y0 + r) * ws.h + x0 + c);
+    if (s > 0) {
+      const int rw = kBatchTileH + 2 * s, cw = kBatchTileW + 2 * s;
+      float* dst = gs + (R - s) * P + (R - s);
+      const float* src = guidance + l * gst.l;
+      for (int r = warp; r < rw; r += kBWarps) {
+        const int gy = y0 - s + r;
+        for (int c = lane; c < cw; c += 32) {
+          const int gx = x0 - s + c;
+          if (gy >= 0 && gy < H && gx >= 0 && gx < W)
+            cp_async4(smem_addr(dst + r * P + c), src + gy * gst.h + gx);
+          else
+            dst[r * P + c] = -INFINITY;
+        }
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();  // level l's weight and guidance (and the rgb) staged
+    float3 f[kColRun];
+    float m[kColRun], d[kColRun];
+    if (s == 0) {
+#pragma unroll
+      for (int k = 0; k < kColRun; ++k) {
+        const float4 q = rgbs[(R + run * kColRun + k) * P + R + col];
+        f[k] = make_float3(q.x, q.y, q.z);
+      }
+    } else {
+      const bool guard = k5_level_rt(s, rgbs, gs, hs, red, R, P, f, m, d);
+      if (guard && tid == 0 && guards != nullptr) atomicAdd(guards, 1);
+    }
+    const float* wl = wbuf + run * kColRun * kBatchTileW;
+    if (x < W) {
+#pragma unroll
+      for (int k = 0; k < kColRun; ++k) {
+        const int y = yr + k;
+        if (y >= H) break;
+        const long long pix = (long long)y * W + x;
+        if (s > 0) {
+          fm[l * HW + pix] = make_float4(f[k].x, f[k].y, f[k].z, m[k]);
+          den[l * HW + pix] = d[k];
+        }
+        const float w = wl[k * kBatchTileW + col];
+        o[k].x = o[k].x + w * f[k].x;
+        o[k].y = o[k].y + w * f[k].y;
+        o[k].z = o[k].z + w * f[k].z;
+      }
+    }
+    __syncthreads();  // this level's reads of its buffers and hs are done
+  }
+  if (x < W) {
+#pragma unroll
+    for (int k = 0; k < kColRun; ++k) {
+      const int y = yr + k;
+      if (y >= H) break;
+      out[(long long)y * W + x] = make_float4(o[k].x, o[k].y, o[k].z, 1.f);
+    }
+  }
+}
+
+// k6_level at a runtime support S.
+__device__ __forceinline__ bool k6_level_rt(
+    int S, const float4* __restrict__ grad, const float4* __restrict__ fm,
+    const float* __restrict__ den, const float* __restrict__ weight,
+    long long wh, float* __restrict__ gw, float4* uvs, float* ms, float4* hs,
+    float* red, int R, int P, int x0, int y0, int H, int W,
+    const float3 (&xq)[kColRun], const float (&gq)[kColRun],
+    float (&dg)[kColRun]) {
+  const int RW = kBatchTileH + 2 * S, CW = kBatchTileW + 2 * S;
+  const int tid = threadIdx.x, org = (R - S) * P + (R - S);
+  float mx = -INFINITY, mn = INFINITY;
+  for (int i = tid; i < RW * CW; i += kBThreads) {
+    const int r = i / CW, c = i % CW, gy = y0 - S + r, gx = x0 - S + c;
+    float4 uv = make_float4(0.f, 0.f, 0.f, 0.f);
+    float m = INFINITY;
+    if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
+      const long long p = (long long)gy * W + gx;
+      const float4 G = grad[p], f = fm[p];
+      const float a = weight[gy * wh + gx] / den[p];
+      const float gf = G.x * f.x + G.y * f.y + G.z * f.z;
+      uv = make_float4(G.x * a, G.y * a, G.z * a, a * gf);
+      m = f.w;
+      mx = fmaxf(mx, m);
+      mn = fminf(mn, m);
+      if (r >= S && r < S + kBatchTileH && c >= S && c < S + kBatchTileW)
+        gw[p] = gf;
+    }
+    uvs[org + r * P + c] = uv;
+    ms[org + r * P + c] = m;
+  }
+  block_max_min(mx, mn, red);  // its __syncthreads publishes the staging
+  const int col = tid % kBatchTileW, run = tid / kBatchTileW;
+  if (mx - mn < kGuardRange) {
+    float4 acc[kColRun];
+    window_sums_rt(S, hs, org, P, acc, [&](int j) {
+      const float e = expf(mn - ms[j]);
+      const float4 q = uvs[j];
+      return make_float4(q.x * e, q.y * e, q.z * e, q.w * e);
+    });
+#pragma unroll
+    for (int k = 0; k < kColRun; ++k)
+      dg[k] = expf(gq[k] - mn) * (xq[k].x * acc[k].x + xq[k].y * acc[k].y +
+                                  xq[k].z * acc[k].z - acc[k].w);
+    return false;
+  }
+#pragma unroll
+  for (int k = 0; k < kColRun; ++k) {
+    float acc = 0.f;
+    for (int dy = 0; dy <= 2 * S; ++dy) {
+      const int base = org + (run * kColRun + k + dy) * P + col;
+#pragma unroll 4
+      for (int dx = 0; dx <= 2 * S; ++dx) {
+        const float4 q = uvs[base + dx];
+        const float e = expf(gq[k] - ms[base + dx]);
+        const float ux = q.x * xq[k].x + q.y * xq[k].y + q.z * xq[k].z;
+        acc = acc + e * (ux - q.w);
+      }
+    }
+    dg[k] = acc;
+  }
+  return true;
+}
+
+// K6's wide instance: a block a tile, image and level, the slice b * L + l
+// from the one-dimensional grid.
+__global__ void __launch_bounds__(kBThreads)
+    guided_filter_batch_bwd_wide_kernel(
+        const float4* __restrict__ grad, const float* __restrict__ weight,
+        Strides ws, const float* __restrict__ guidance, Strides gst,
+        const float4* __restrict__ img, const float4* __restrict__ fm,
+        const float* __restrict__ den, float* __restrict__ gw,
+        float* __restrict__ gg, int* __restrict__ guards, int levels,
+        WideSupports sup, int R, int H, int W) {
+  extern __shared__ float4 smem[];
+  const int P = kBatchTileW + 2 * R + 1, RH = kBatchTileH + 2 * R;
+  float4* uvs = smem;         // [RH][P]: (u_p rgb, v_p)
+  float4* hs = uvs + RH * P;  // [RH][kHP]: row sums
+  float* ms = reinterpret_cast<float*>(hs + RH * kHP);  // [RH][P]: m_p
+  __shared__ float red[2 * kBWarps];
+  long long slice;
+  int x0, y0;
+  wide_tile(H, W, slice, x0, y0);
+  const int tid = threadIdx.x, l = (int)(slice % levels), s = sup.s[l];
+  const long long HW = (long long)H * W, b = slice / levels;
+  const long long lo = slice * HW;
+  grad += b * HW;
+  img += b * HW;
+  fm += lo;
+  den += lo;
+  gw += lo;
+  gg += lo;
+  weight += b * ws.b + l * ws.l;
+  guidance += b * gst.b + l * gst.l;
+
+  const int col = tid % kBatchTileW, run = tid / kBatchTileW;
+  const int x = x0 + col, yr = y0 + run * kColRun;
+  float3 xq[kColRun];
+  float gq[kColRun];
+#pragma unroll
+  for (int k = 0; k < kColRun; ++k) {
+    const bool in = x < W && yr + k < H;
+    const float4 q = in ? img[(long long)(yr + k) * W + x]
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+    xq[k] = make_float3(q.x, q.y, q.z);
+    gq[k] = in && s > 0 ? guidance[(yr + k) * gst.h + x] : 0.f;
+  }
+  if (s == 0) {  // f = x: dL/dw = G . x, no guidance gradient
+    if (x < W) {
+#pragma unroll
+      for (int k = 0; k < kColRun; ++k) {
+        const int y = yr + k;
+        if (y >= H) break;
+        const long long pix = (long long)y * W + x;
+        const float4 G = grad[pix];
+        gw[pix] = G.x * xq[k].x + G.y * xq[k].y + G.z * xq[k].z;
+        gg[pix] = 0.f;
+      }
+    }
+    return;
+  }
+  float dg[kColRun];
+  const bool guard = k6_level_rt(s, grad, fm, den, weight, ws.h, gw, uvs, ms,
+                                 hs, red, R, P, x0, y0, H, W, xq, gq, dg);
+  if (guard && tid == 0 && guards != nullptr) atomicAdd(guards, 1);
+  if (x < W) {
+#pragma unroll
+    for (int k = 0; k < kColRun; ++k) {
+      const int y = yr + k;
+      if (y >= H) break;
+      gg[(long long)y * W + x] = dg[k];
+    }
+  }
+}
+
+// The one-dimensional grid of a wide launch over `slices` images (K5) or
+// image levels (K6); 0 if it passes the grid's 2^31 - 1 blocks.
+unsigned wide_blocks(long long slices, int height, int width) {
+  const long long n = slices * ((width + kBatchTileW - 1) / kBatchTileW) *
+                      ((height + kBatchTileH - 1) / kBatchTileH);
+  return n > 0x7fffffffLL ? 0u : (unsigned)n;
+}
+
+}  // namespace
+
+// K5's wide instance: rt_guided_filter_batch's arguments at 1..64 levels of
+// support 0..32 and any batch.  Dynamic shared memory: rgb, row sums and
+// one guidance region at halo R and one weight tile (223,040 bytes at
+// R = 32).
+RT_API int rt_guided_filter_batch_wide(
+    const void* weight, long long wsb, long long wsl, long long wsh,
+    const void* guidance, long long gsb, long long gsl, long long gsh,
+    const void* img, void* out, void* fm, void* den, void* guards, int batch,
+    int levels, const int* supports, int height, int width, void* stream) {
+  WideSupports sup;
+  int R;
+  if (!wide_supports(levels, supports, sup, R) || batch < 1 || height < 1 ||
+      width < 1)
+    return (int)cudaErrorInvalidValue;
+  const unsigned blocks = wide_blocks(batch, height, width);
+  if (!blocks) return (int)cudaErrorInvalidValue;
+  const int P = kBatchTileW + 2 * R + 1, RH = kBatchTileH + 2 * R;
+  const int bytes =
+      RH * P * 20 + RH * kHP * 16 + kBatchTileW * kBatchTileH * 4;
+  const cudaError_t err = allow_smem(guided_filter_batch_wide_kernel, bytes);
+  if (err != cudaSuccess) return (int)err;
+  guided_filter_batch_wide_kernel<<<blocks, kBThreads, bytes,
+                                    (cudaStream_t)stream>>>(
+      (const float*)weight, Strides{wsb, wsl, wsh}, (const float*)guidance,
+      Strides{gsb, gsl, gsh}, (const float4*)img, (float4*)out, (float4*)fm,
+      (float*)den, (int*)guards, levels, sup, R, height, width);
+  return (int)cudaGetLastError();
+}
+
+// K6's wide instance: rt_guided_filter_batch_bwd's arguments at 1..64
+// levels of support 0..32 and any B x L.
+RT_API int rt_guided_filter_batch_bwd_wide(
+    const void* grad, const void* weight, long long wsb, long long wsl,
+    long long wsh, const void* guidance, long long gsb, long long gsl,
+    long long gsh, const void* img, const void* fm, const void* den,
+    void* gw, void* gg, void* guards, int batch, int levels,
+    const int* supports, int height, int width, void* stream) {
+  WideSupports sup;
+  int R;
+  if (!wide_supports(levels, supports, sup, R) || batch < 1 || height < 1 ||
+      width < 1)
+    return (int)cudaErrorInvalidValue;
+  const unsigned blocks =
+      wide_blocks((long long)batch * levels, height, width);
+  if (!blocks) return (int)cudaErrorInvalidValue;
+  const int P = kBatchTileW + 2 * R + 1, RH = kBatchTileH + 2 * R;
+  const int bytes = RH * P * 20 + RH * kHP * 16;
+  const cudaError_t err =
+      allow_smem(guided_filter_batch_bwd_wide_kernel, bytes);
+  if (err != cudaSuccess) return (int)err;
+  guided_filter_batch_bwd_wide_kernel<<<blocks, kBThreads, bytes,
+                                        (cudaStream_t)stream>>>(
       (const float4*)grad, (const float*)weight, Strides{wsb, wsl, wsh},
       (const float*)guidance, Strides{gsb, gsl, gsh}, (const float4*)img,
       (const float4*)fm, (const float*)den, (float*)gw, (float*)gg,

@@ -80,7 +80,9 @@
 // blocks in one launch, input channels 1-64 (padded to 8, 16, 32 or 64),
 // 2-64 output channels; a deeper net runs as a chain of one-block launches
 // whose bf16 intermediates keep their padded channels (0).  Wider blocks
-// get fewer tile rows (16, 8 or 4) to fit 227 KB of shared memory.
+// get fewer tile rows (16, 8 or 4) to fit 227 KB of shared memory.  A
+// block with more than 64 input or output channels takes the wide plan
+// (guidance_wide_kernel, after rt_guidance_net), one launch a block.
 //
 // Statistics instance (kStats, compiled out of the frame's instances; the
 // 8 -> 32 -> 8 shape): per block the clock64() cycles of staging (the wait
@@ -737,6 +739,133 @@ bool layer_ok(int cpl, int nt) {
   return cpl >= 3 && cpl <= 6 && (nt == 1 || nt == 2 || nt == 4 || nt == 8);
 }
 
+// ---------------------------------------------------------------------------
+// The wide plan (guidance_wide_kernel, launch name "guidance_net_wide"): one
+// block of a net whose input or output has more than 64 channels (a
+// --mid_channels above 64, or more than 32 kernel levels), one launch a
+// block, the blocks of such a net chained through bf16 intermediates that
+// keep their padded channels (0), as the fused instances' chain does.  The
+// numerics are the header's: each output is one f32 sum over the nine taps
+// and every input channel, rounded to bf16 once, then the bf16 bias added
+// with a second rounding and relu6; zero padding at the block's input.
+//
+// Design: a block of 8 warps owns an output tile of 16 x 8 pixels (a warp a
+// row of 16, the mma's M) and a group of up to kWGroup n-tiles (grid.y walks
+// the groups, so the output channels have no limit).  The K loop walks the
+// input channels in chunks of kWIn: the chunk's 18 x 10 pixels (tile and
+// 1-pixel halo) are staged in shared memory as bf16, 0 outside the image and
+// past the input's channels; then each of its k-steps of 16 channels and each
+// tap adds one mma.m16n8k16 per n-tile into the tile's f32 accumulators, whose
+// sum is never split.  A fragments are read from shared memory as 32-bit
+// words (a staged pixel takes kWPitch words, 4 more than its channels, so the
+// eight pixels of a fragment fall in distinct banks); B fragments are the
+// tap-major pack (pack_layer's ``wt``), read through the cache.  Nothing is
+// kept across tiles: the plan is simple and general; the fused instances
+// above are the fast path of the committed nets.
+constexpr int kWTileW = 16, kWTileH = kWarps;  // a warp an output row
+constexpr int kWHaloW = kWTileW + 2, kWHaloH = kWTileH + 2;
+constexpr int kWIn = 64;             // input channels staged a pass
+constexpr int kWPitch = kWIn / 2 + 4;  // 32-bit words a staged pixel
+constexpr int kWGroup = 8;           // n-tiles (64 output channels) a block
+
+struct WideParams {
+  const void* in;  // f32 [B, H, W, cin] through strides, or bf16 [B, H, W, cin]
+  long long sb, sh, sw, sc;  // element strides of the f32 input
+  int f32_in, cin;           // cin: the input's channels (bf16: a pixel's)
+  const uint2* wt;  // [nt][ks][9 taps][32] x 4 bf16 (pack_layer's ``wt``)
+  const __nv_bfloat16* b;
+  int ks, nt;          // k-steps of 16 input channels, n-tiles of 8 outputs
+  __nv_bfloat16* out;  // [B, H, W, ostride]
+  int ostride, cout;
+  int batch, height, width;
+};
+
+__global__ void __launch_bounds__(kThreads) guidance_wide_kernel(
+    const WideParams p) {
+  __shared__ uint32_t xs[kWHaloH * kWHaloW * kWPitch];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int H = p.height, W = p.width;
+  const int tiles_x = (W + kWTileW - 1) / kWTileW;
+  const int tiles_y = (H + kWTileH - 1) / kWTileH;
+  const int bz = blockIdx.x / (tiles_x * tiles_y);
+  const int rt = blockIdx.x - bz * tiles_x * tiles_y;
+  const int ty = (rt / tiles_x) * kWTileH, tx = (rt % tiles_x) * kWTileW;
+  const int nt0 = blockIdx.y * kWGroup;
+  float acc[kWGroup][4];
+#pragma unroll
+  for (int j = 0; j < kWGroup; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  const float* inf = static_cast<const float*>(p.in) + bz * p.sb;
+  const __nv_bfloat16* inb = static_cast<const __nv_bfloat16*>(p.in) +
+                             static_cast<long long>(bz) * H * W * p.cin;
+  for (int c0 = 0; c0 < p.ks * 16; c0 += kWIn) {
+    __syncthreads();  // the previous chunk's reads are done
+    // word wd of staged pixel q: channels c0 + 2 wd and c0 + 2 wd + 1
+    for (int i = threadIdx.x; i < kWHaloH * kWHaloW * (kWIn / 2);
+         i += kThreads) {
+      const int wd = i % (kWIn / 2), q = i / (kWIn / 2);
+      const int y = ty - 1 + q / kWHaloW, x = tx - 1 + q % kWHaloW;
+      const int c = c0 + 2 * wd;
+      uint32_t v = 0u;
+      if (y >= 0 && y < H && x >= 0 && x < W && c < p.cin) {
+        if (p.f32_in) {
+          const float* px = inf + y * p.sh + x * p.sw;
+          v = bf16x2_bits(px[c * p.sc],
+                          c + 1 < p.cin ? px[(c + 1) * p.sc] : 0.f);
+        } else {  // cin is even: the pair is whole
+          v = *reinterpret_cast<const uint32_t*>(
+              inb + (static_cast<long long>(y) * W + x) * p.cin + c);
+        }
+      }
+      xs[q * kWPitch + wd] = v;
+    }
+    __syncthreads();
+    const int kss = min(kWIn / 16, p.ks - c0 / 16);
+    for (int kk = 0; kk < kss; ++kk) {
+      const int ks = c0 / 16 + kk;
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        const int ky = tap / 3, kx = tap - 3 * ky;
+        // A: rows = the warp's 16 output pixels shifted by the tap, k = the
+        // k-step's 16 channels (8 words of the staged pixel)
+        const uint32_t* row = xs + ((warp + ky) * kWHaloW + kx) * kWPitch +
+                              kk * 8 + t;
+        uint32_t a[4];
+        a[0] = row[g * kWPitch];
+        a[1] = row[(g + 8) * kWPitch];
+        a[2] = row[g * kWPitch + 4];
+        a[3] = row[(g + 8) * kWPitch + 4];
+#pragma unroll
+        for (int j = 0; j < kWGroup; ++j)
+          if (nt0 + j < p.nt)
+            mma_bf16(acc[j], a,
+                     __ldg(p.wt + (((nt0 + j) * p.ks + ks) * 9 + tap) * 32 +
+                           lane));
+      }
+    }
+  }
+  // C: rows g and g + 8 are output columns tx + g and tx + g + 8, columns
+  // 2t and 2t + 1 of n-tile nt0 + j its channels
+  const int y = ty + warp;
+  if (y >= H) return;
+  __nv_bfloat16* orow =
+      p.out + (static_cast<long long>(bz) * H + y) * W * p.ostride;
+#pragma unroll
+  for (int j = 0; j < kWGroup; ++j) {
+    const int n = (nt0 + j) * 8 + 2 * t;
+    if (nt0 + j >= p.nt || n >= p.cout) continue;  // cout even: n + 1 too
+    const __nv_bfloat162 bias = load_bias(p.b, n);
+    const int x_lo = tx + g, x_hi = tx + g + 8;
+    if (x_lo < W)
+      *reinterpret_cast<uint32_t*>(orow + x_lo * p.ostride + n) =
+          bias_relu6(acc[j][0], acc[j][1], bias);
+    if (x_hi < W)
+      *reinterpret_cast<uint32_t*>(orow + x_hi * p.ostride + n) =
+          bias_relu6(acc[j][2], acc[j][3], bias);
+  }
+}
+
 }  // namespace
 
 // One launch of K7: ``layers`` (1 or 2) blocks from ``in`` to ``out``.
@@ -792,4 +921,50 @@ RT_API int rt_guidance_net(const void* in, long long sb, long long sh,
   p.stats = static_cast<long long*>(stats);
   return dispatch(p, f32_in != 0, layers, cpl0, nt0,
                   static_cast<cudaStream_t>(stream));
+}
+
+// One launch of the wide plan: one block from ``in`` to ``out``.  in: f32
+// [B, H, W, cin] through the element strides (sb, sh, sw, sc) when f32_in,
+// else bf16 [B, H, W, cin] contiguous with cin even (a previous launch's
+// out, its padded channels 0).  wt, b: the block's tap-major packed weights
+// (pack_layer's ``wt``: ks k-steps of 16 input channels, at least cin of
+// them) and bias (nt * 8 values).  out: bf16 [B, H, W, ostride], channels
+// 0..cout-1 written (cout and ostride even, cout at most nt * 8).
+RT_API int rt_guidance_wide(const void* in, long long sb, long long sh,
+                            long long sw, long long sc, int f32_in, int cin,
+                            const void* wt, const void* b, int ks, int nt,
+                            void* out, int ostride, int cout, int batch,
+                            int height, int width, void* stream) {
+  if (ks < 1 || nt < 1 || cin < 1 || cin > ks * 16 ||
+      (!f32_in && cin % 2) || cout < 2 || cout % 2 || cout > nt * 8 ||
+      ostride < cout || ostride % 2 || batch < 1 || height < 1 || width < 1)
+    return (int)cudaErrorInvalidValue;
+  const long long tiles = static_cast<long long>(batch) *
+                          ((height + kWTileH - 1) / kWTileH) *
+                          ((width + kWTileW - 1) / kWTileW);
+  const int groups = (nt + kWGroup - 1) / kWGroup;
+  if (tiles > 0x7fffffffLL || groups > 65535)
+    return (int)cudaErrorInvalidValue;
+  WideParams p;
+  p.in = in;
+  p.sb = sb;
+  p.sh = sh;
+  p.sw = sw;
+  p.sc = sc;
+  p.f32_in = f32_in;
+  p.cin = cin;
+  p.wt = static_cast<const uint2*>(wt);
+  p.b = static_cast<const __nv_bfloat16*>(b);
+  p.ks = ks;
+  p.nt = nt;
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.ostride = ostride;
+  p.cout = cout;
+  p.batch = batch;
+  p.height = height;
+  p.width = width;
+  guidance_wide_kernel<<<dim3(static_cast<unsigned>(tiles), groups),
+                         kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      p);
+  return (int)cudaGetLastError();
 }

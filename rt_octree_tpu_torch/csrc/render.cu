@@ -86,6 +86,13 @@
 // row of step i is loaded while step i + 1's LUT read is in flight and
 // summed after it, in step order (render_classic_kernel).
 //
+// Wide rows (kWide, kBdWide; launch names with "_wide"): SG and ASG trees
+// of a basis_dim above kMaxBasis, which the JAX package renders too.  Their
+// instances of K1 (frame and ray mode at every SPP) and of render_classic
+// (frame and ray mode), none with a statistics variant, evaluate the basis
+// kBasisChunk values at a time for each shaded row (wide_channels) instead
+// of holding it in registers; every other instance is as it was.
+//
 // Ray mode (kRays; C entry rt_render_rays, launch names "render_rays" and
 // "render_classic_rays"): the counterparts of trace_rays (:540-588) and
 // trace_rays_classic over a caller's ray batch.  One thread a ray, a warp
@@ -665,6 +672,61 @@ __device__ __forceinline__ void leaf_rgb(const RenderParams& p, int ptr,
     for (int ch = 0; ch < 3; ++ch) out[ch] = 1.0f / (1.0f + expf(-out[ch]));
 }
 
+// ---- rows of a basis_dim above kMaxBasis (SG / ASG; the wide instances) ----
+
+constexpr int kBasisChunk = 8;  // basis values a wide row holds at a time
+
+// Basis value b of the view direction v, masked by basis_minmax: the
+// expression of eval_basis (and classic_basis) for that b alone.
+__device__ __forceinline__ float basis_at(const RenderParams& p,
+                                          const float v[3], int b) {
+  if (b < p.basis_lo || b > p.basis_hi) return 0.f;
+  const float fbd = (float)p.basis_dim;
+  if (p.fmt == 2) {
+    const float* q = p.extra + 4 * b;
+    const float dot = v[0] * q[1] + v[1] * q[2] + v[2] * q[3];
+    return expf(q[0] * (dot - 1.0f)) / fbd;
+  }
+  if (p.fmt == 3) {
+    const float* q = p.extra + 11 * b;
+    const float S = v[0] * q[8] + v[1] * q[9] + v[2] * q[10];
+    const float dx = v[0] * q[2] + v[1] * q[3] + v[2] * q[4];
+    const float dy = v[0] * q[5] + v[1] * q[6] + v[2] * q[7];
+    return S * expf(-q[0] * dx * dx - q[1] * dy * dy) / fbd;
+  }
+  return 0.f;  // a format without a basis (RGBA rows with a basis_dim)
+}
+
+// The 3 logits of leaf ptr's row at any basis_dim: the basis evaluated
+// kBasisChunk values at a time into registers, each chunk's coefficients
+// read as halfs and added to the three channels, so each channel's dot
+// runs in the order of b as leaf_channels' does, with no basis_dim-sized
+// array.  The basis is evaluated again for every row: the price of no
+// limit on basis_dim.
+__device__ __forceinline__ void wide_channels(const RenderParams& p, int ptr,
+                                              const float v[3],
+                                              float out[3]) {
+  const int bd = p.basis_dim;
+  const unsigned short* row =
+      reinterpret_cast<const unsigned short*>(p.data) +
+      (long long)ptr * p.data_dim;
+  out[0] = out[1] = out[2] = 0.f;
+  for (int b0 = 0; b0 < bd; b0 += kBasisChunk) {
+    float basis[kBasisChunk];
+#pragma unroll
+    for (int j = 0; j < kBasisChunk; ++j)
+      basis[j] = b0 + j < bd ? basis_at(p, v, b0 + j) : 0.f;
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch)
+#pragma unroll
+      for (int j = 0; j < kBasisChunk; ++j)
+        if (b0 + j < bd)
+          out[ch] = out[ch] + __half2float(__ushort_as_half(
+                                  __ldg(row + ch * bd + b0 + j))) *
+                                  basis[j];
+  }
+}
+
 // Composite (prem: premultiplied rgb) over the background or the pixel's
 // mesh colour and write img, aux_nhwc and aux_chw (composite,
 // aux_from_composite).
@@ -703,7 +765,8 @@ __device__ __forceinline__ void write_pixel(const RenderParams& p,
 
 // Shade the distinct hit leaves (_shade_rows) and hand the premultiplied
 // rgb and alpha to write (the frame: composite and write the pixel).
-template <int SPP, bool kStats, typename Write>
+// kWide: rows of a basis_dim above kMaxBasis (wide_channels).
+template <int SPP, bool kStats, bool kWide, typename Write>
 __device__ __forceinline__ void finish_ray(const RenderParams& p,
                                            const Ray<SPP>& r, Write write) {
   float rgb[3] = {0.f, 0.f, 0.f};
@@ -711,13 +774,20 @@ __device__ __forceinline__ void finish_ray(const RenderParams& p,
   if (r.shn > 0) {
     float basis[kMaxBasis];
     const int bd = p.basis_dim;
-    if (bd >= 0) eval_basis(p, r.vdir[0], r.vdir[1], r.vdir[2], basis);
+    if constexpr (!kWide) {
+      if (bd >= 0) eval_basis(p, r.vdir[0], r.vdir[1], r.vdir[2], basis);
+    }
 #pragma unroll
     for (int k = 0; k < SPP; ++k) {
       if (k < r.shn) {
         if (kStats) mark(p.data_bits, r.rec_ptr[k]);
         float v[3];
-        leaf_rgb(p, r.rec_ptr[k], basis, v);
+        if constexpr (kWide) {
+          wide_channels(p, r.rec_ptr[k], r.vdir, v);
+          for (int ch = 0; ch < 3; ++ch) v[ch] = 1.0f / (1.0f + expf(-v[ch]));
+        } else {
+          leaf_rgb(p, r.rec_ptr[k], basis, v);
+        }
         const float w = (float)r.rec_cnt[k];
         for (int ch = 0; ch < 3; ++ch) rgb[ch] = rgb[ch] + v[ch] * w;
         wsum = wsum + w;
@@ -740,22 +810,30 @@ __device__ __forceinline__ void write_ray(const RenderParams& p, long long i,
 
 // The row layouts the classic kernel is instantiated on (p.classic, chosen
 // by render/renderer.py:classic_layout): SH rows of a fixed basis_dim, raw
-// rgb rows, and one instance for SG / ASG rows (or a format without a
-// basis) of any basis_dim <= kMaxBasis.
+// rgb rows, one instance for SG / ASG rows (or a format without a basis)
+// of any basis_dim <= kMaxBasis, and one for those above it (wide).
 enum ClassicLayout : int {
   kClassicSh1 = 1, kClassicSh4, kClassicSh9, kClassicSh16, kClassicSh25,
-  kClassicRgba, kClassicAny
+  kClassicRgba, kClassicAny, kClassicWide
 };
-// the kBd of the two layouts that are not SH
-constexpr int kBdRgba = -1, kBdAny = 0;
+// the kBd of the three layouts that are not SH
+constexpr int kBdRgba = -1, kBdAny = 0, kBdWide = -2;
 
 // The masked basis of the view direction v, in registers: eval_sh at a
 // compile-time bd for SH; for kBdAny, eval_basis's expressions for every
 // b < kMaxBasis, unrolled, with the guard b < basis_dim.
+// kBdWide: the basis array carries the view direction (basis[0..2]), and
+// each row evaluates its basis chunk by chunk (ClassicRow<kBdWide>).
 template <int kBd>
 __device__ __forceinline__ void classic_basis(const RenderParams& p,
                                               const float v[3],
                                               float basis[kMaxBasis]) {
+  if constexpr (kBd == kBdWide) {
+    basis[0] = v[0];
+    basis[1] = v[1];
+    basis[2] = v[2];
+    return;
+  }
   if constexpr (kBd > 0) {
     eval_sh(kBd, v[0], v[1], v[2], basis);
   } else {
@@ -882,6 +960,25 @@ struct ClassicRow<kBdAny> {
   }
 };
 
+// SG / ASG rows of a basis_dim above kMaxBasis: issue() keeps the row,
+// channels() reads it and evaluates the basis of the view direction that
+// classic_basis<kBdWide> left in basis[0..2] chunk by chunk
+// (wide_channels): no basis_dim-sized array in registers or on a stack.
+template <>
+struct ClassicRow<kBdWide> {
+  int ptr;
+
+  __device__ __forceinline__ void issue(const RenderParams&, int row) {
+    ptr = row;
+  }
+
+  __device__ __forceinline__ void channels(const RenderParams& p,
+                                           const float* basis,
+                                           float out[3]) const {
+    wide_channels(p, ptr, basis, out);
+  }
+};
+
 // The march runs one step ahead of the shade.  A leaf step needs only the
 // leaf's sigma for its weight light * (1 - att), the new light, the stop
 // test and the next t, so the loop issues the row loads of step i, queries
@@ -984,7 +1081,7 @@ __global__ void __launch_bounds__(kThreads) render_classic_kernel(
 // mode (kRays): one thread per ray, a warp per 32 rays of the caller's
 // order ----
 
-template <int SPP, bool kStats, bool kRays>
+template <int SPP, bool kStats, bool kRays, bool kWide>
 __global__ void __launch_bounds__(kThreads) render_kernel(
     const RenderParams p) {
   if constexpr (kRays) {
@@ -994,7 +1091,7 @@ __global__ void __launch_bounds__(kThreads) render_kernel(
     Ray<SPP> r;
     setup_ray_of<SPP>(p, i, r);
     while (r.active && r.steps < p.max_steps) march_step<SPP, false>(p, res, r);
-    finish_ray<SPP, false>(p, r, [&](const float* prem, float alpha) {
+    finish_ray<SPP, false, kWide>(p, r, [&](const float* prem, float alpha) {
       write_ray(p, i, prem, alpha);
     });
   } else {
@@ -1009,9 +1106,10 @@ __global__ void __launch_bounds__(kThreads) render_kernel(
     setup_ray<SPP>(p, px, py, r);
     while (r.active && r.steps < p.max_steps)
       march_step<SPP, kStats>(p, res, r);
-    finish_ray<SPP, kStats>(p, r, [&](const float* prem, float alpha) {
-      write_pixel<kStats>(p, r, prem, alpha);
-    });
+    finish_ray<SPP, kStats, kWide>(p, r,
+                                   [&](const float* prem, float alpha) {
+                                     write_pixel<kStats>(p, r, prem, alpha);
+                                   });
   }
 }
 
@@ -1026,10 +1124,10 @@ int blocks_of(const RenderParams& p) {
   return (int)((tiles + warps_per_block - 1) / warps_per_block);
 }
 
-template <int SPP, bool kStats, bool kRays>
+template <int SPP, bool kStats, bool kRays, bool kWide = false>
 int launch(const RenderParams& p, cudaStream_t stream) {
-  render_kernel<SPP, kStats, kRays><<<blocks_of<kRays>(p), kThreads, 0,
-                                      stream>>>(p);
+  render_kernel<SPP, kStats, kRays, kWide>
+      <<<blocks_of<kRays>(p), kThreads, 0, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -1068,13 +1166,44 @@ int launch_layout(const RenderParams& p, cudaStream_t s) {
       if (!sh && bd >= 0 && bd <= kMaxBasis)
         return launch_classic<kBdAny, kStats, kRays>(p, s);
       break;
+    case kClassicWide:  // no statistics instance
+      if constexpr (!kStats) {
+        if (!sh && bd > kMaxBasis)
+          return launch_classic<kBdWide, false, kRays>(p, s);
+      }
+      break;
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// The wide instances of K1 (SG / ASG rows of a basis_dim above kMaxBasis):
+// no statistics instance.
+template <bool kRays>
+int launch_wide(const RenderParams& p, cudaStream_t s) {
+  if (p.fmt == 1) return (int)cudaErrorInvalidValue;  // SH stops at 25
+  switch (p.spp) {
+    case 1: return launch<1, false, kRays, true>(p, s);
+    case 2: return launch<2, false, kRays, true>(p, s);
+    case 3: return launch<3, false, kRays, true>(p, s);
+    case 4: return launch<4, false, kRays, true>(p, s);
+    case 6: return launch<6, false, kRays, true>(p, s);
+    case 8: return launch<8, false, kRays, true>(p, s);
+    case 16: return launch<16, false, kRays, true>(p, s);
+    case 32: return launch<32, false, kRays, true>(p, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <bool kStats, bool kRays>
 int launch_spp(const RenderParams& p, cudaStream_t s) {
   if (p.classic) return launch_layout<kStats, kRays>(p, s);  // spp not used
+  if (p.basis_dim > kMaxBasis) {
+    if constexpr (kStats) {
+      return (int)cudaErrorInvalidValue;
+    } else {
+      return launch_wide<kRays>(p, s);
+    }
+  }
   switch (p.spp) {
     case 1: return launch<1, kStats, kRays>(p, s);
     case 2: return launch<2, kStats, kRays>(p, s);

@@ -1,6 +1,7 @@
 """Procedural PlenOctree generation for tests and benchmarks.
 
 The port's own copy of rt_octree_tpu/io/synthetic.py (NumPy), plus
+``with_lobes`` (SG and ASG rows of any basis_dim on a synthetic tree),
 ``random_lut``, the random jump LUTs that kernel K3's skip distances are
 tested on, ``random_mesh_pass``, and ``aimed_rays`` with
 ``ray_world_depths``, ray batches for the ray-batch API.
@@ -239,6 +240,27 @@ def make_synthetic_tree(kind: str = "shell", depth: int = 7,
     raise ValueError(kind)
 
 
+def with_lobes(tree: N3Tree, fmt: BasisFormat, seed: int,
+               coef_scale: float = 0.5) -> N3Tree:
+    """``tree`` (any basis_dim) turned into SG or ASG rows, in place: its
+    data format set to ``fmt`` at its basis_dim, a seeded ``extra`` of the
+    format's layout (SG [bd, 4]: sharpness in [0.5, 4], a lobe axis; ASG
+    [bd, 11]: two sharpnesses in [0.5, 4], three axes; normal draws
+    elsewhere), and seeded normal coefficients of scale ``coef_scale``
+    added to every row's 3 x bd values, so that every lobe shades."""
+    bd = tree.data_format.basis_dim
+    rs = np.random.default_rng(seed)
+    width, sharp = (4, 1) if fmt == BasisFormat.SG else (11, 2)
+    extra = rs.standard_normal((bd, width))
+    extra[:, :sharp] = rs.uniform(0.5, 4.0, (bd, sharp))
+    coef = tree.data[:, :3 * bd].astype(np.float32)
+    coef += coef_scale * rs.standard_normal(coef.shape).astype(np.float32)
+    tree.data[:, :3 * bd] = coef.astype(tree.data.dtype)
+    tree.data_format = DataFormat(fmt, bd)
+    tree.extra = extra.astype(np.float32)
+    return tree
+
+
 def refine_tree(tree: N3Tree, sigma_fn: Callable, color_fn: Callable,
                 levels: int = 2, max_refine: int = 150_000,
                 sigma_eps: float = 1e-2) -> N3Tree:
@@ -349,10 +371,11 @@ def make_deep_chain_tree(depth: int, basis_dim: int = 1) -> N3Tree:
 
 
 def tree_to_npz_dict(tree: N3Tree) -> dict:
-    """Round-trip a tree into the on-disk npz key set."""
+    """Round-trip a tree into the on-disk npz key set (with SG / ASG
+    lobes, their ``extra_data``)."""
     N3 = tree.N3
     cap = tree.child.shape[0] // N3
-    return {
+    out = {
         "data_dim": np.int64(tree.data_dim),
         "data_format": np.str_(tree.data_format.to_string()),
         "invradius3": tree.scale.astype(np.float32),
@@ -360,6 +383,9 @@ def tree_to_npz_dict(tree: N3Tree) -> dict:
         "child": tree.child.reshape(cap, tree.N, tree.N, tree.N),
         "data": tree.data.reshape(cap, tree.N, tree.N, tree.N, tree.data_dim),
     }
+    if tree.extra is not None:
+        out["extra_data"] = tree.extra.astype(np.float32)
+    return out
 
 
 def save_npz(tree: N3Tree, path: str) -> None:

@@ -66,12 +66,21 @@ ENTRIES = {
                                [_I, _I, _V, _I, _I, _V]),
     "rt_guided_filter_batch_bwd": ("filter", [_V] + [_V, _L, _L, _L] * 2 +
                                    [_V] * 6 + [_I, _I, _V, _I, _I, _V]),
+    "rt_guided_filter_wide": ("filter", [_V, _L, _L, _L, _V, _V, _I, _V, _I,
+                                         _I, _V]),
+    "rt_guided_filter_batch_wide": ("filter", [_V, _L, _L, _L] * 2 +
+                                    [_V] * 5 + [_I, _I, _V, _I, _I, _V]),
+    "rt_guided_filter_batch_bwd_wide": ("filter", [_V] + [_V, _L, _L, _L] * 2
+                                        + [_V] * 6 +
+                                        [_I, _I, _V, _I, _I, _V]),
     "rt_lut_build_scratch": ("lut", [_I, _I, _PL]),
     "rt_lut_build": ("lut", [_V, _V, _V, _I, _I, _I, _PI, _V]),
     "rt_skip_distances": ("lut", [_V, _V, _V, _I, _I, _PI, _V]),
     "rt_guidance_net": ("net", [_V, _L, _L, _L, _L, _I, _I, _I, _V, _V, _I,
                                 _I, _V, _V, _I, _I, _V, _I, _I, _I, _I, _I,
                                 _V, _V]),
+    "rt_guidance_wide": ("net", [_V, _L, _L, _L, _L, _I, _I, _V, _V, _I, _I,
+                                 _V, _I, _I, _I, _I, _I, _V]),
     "rt_probe_affine": ("probes", [_V, _V, _I, _V]),
     "rt_lane_gather": ("probes", [_V, _V, _V, _I, _I, _I, _V]),
     "rt_lane_gather_chain": ("probes", [_V, _V, _V, _I, _I, _I, _I, _V]),
@@ -86,12 +95,21 @@ LAUNCHES: Dict[str, int] = {
     "render": 0, "render_classic": 0,
     # K1's and render_classic's ray mode (trace_rays, trace_rays_classic)
     "render_rays": 0, "render_classic_rays": 0,
+    # their wide instances: SG / ASG rows of a basis_dim above 25
+    "render_wide": 0, "render_classic_wide": 0,
+    "render_rays_wide": 0, "render_classic_rays_wide": 0,
     "upsample": 0, "guided_filter": 0,
+    # K2's wide instance (more than 8 levels or a support above 8)
+    "guided_filter_wide": 0,
     "lut_build": 0, "skip_distances": 0,
     # the training step's batched filter (K5) and its backward (K6)
     "guided_filter_batch": 0, "guided_filter_batch_bwd": 0,
+    # their wide instances (more levels, larger supports, B x L > 65535)
+    "guided_filter_batch_wide": 0, "guided_filter_batch_bwd_wide": 0,
     # the compact GuidanceNet (K7): one launch for a net of 1 or 2 blocks
     "guidance_net": 0,
+    # K7's wide plan: one launch a block of more than 64 channels
+    "guidance_net_wide": 0,
     # the probe kernels of the measurement tools (csrc/probes.cu)
     "probe_affine": 0, "lane_gather": 0, "lane_gather_chain": 0,
     "row_sum_ring": 0, "row_ring_rounds": 0, "flat_gather_chain": 0}

@@ -36,6 +36,13 @@ BATCH_TILE_W x BATCH_TILE_H tiles with one stabiliser a tile and level and
 separable window sums, as the JAX package's fast path does with one a
 frame; a tile whose staged values span GUARD_RANGE nats takes the
 per-window form (csrc/filter.cu), and either way the function is the same.
+
+Each kernel has a wide instance for what its unrolled ones do not take:
+more than MAX_LEVELS levels or a support above MAX_SUPPORT (up to
+WIDE_MAX_LEVELS and WIDE_MAX_SUPPORT: ``--kernel_levels`` up to 32 with
+either ladder), and for K5 / K6 a B or B x L above MAX_GRID_Z.  The
+wrappers choose on the host (``wide_plan``); the launch names gain
+``_wide``.  A shape past the wide instances raises.
 """
 
 from __future__ import annotations
@@ -49,6 +56,11 @@ from ..native import build as native
 
 MAX_LEVELS = 8  # csrc/filter.cu:kMaxLevels
 MAX_SUPPORT = 8  # csrc/filter.cu:kMaxSupport (the ladder 1..L at L = 8)
+# the wide instances (csrc/filter.cu:kWideMaxLevels, kWideMaxSupport): K2,
+# K5 and K6 for more levels, larger supports and, for K5 / K6, batches
+# whose B or B x L passes MAX_GRID_Z
+WIDE_MAX_LEVELS, WIDE_MAX_SUPPORT = 64, 32
+MAX_GRID_Z = 65535
 # K5 / K6's output tile (csrc/filter.cu:kBatchTileW, kBatchTileH) and the
 # guard: a tile and level whose staged values span GUARD_RANGE nats or more
 # take the per-window form (the JAX package's FAST_SAFE_RANGE)
@@ -125,6 +137,21 @@ def guided_filter_act_plain(act: torch.Tensor, img_in: torch.Tensor,
     return guided_filter_plain(weight, guidance, img_in, supports)
 
 
+def wide_plan(slices: int, L: int, supports) -> bool:
+    """Whether K2, K5 or K6 take their wide instance: more than MAX_LEVELS
+    levels, a support above MAX_SUPPORT, or more than MAX_GRID_Z
+    ``slices`` (K5: the batch, K6: batch x levels; K2: 1)."""
+    return L > MAX_LEVELS or max(supports) > MAX_SUPPORT or \
+        slices > MAX_GRID_Z
+
+
+def _check_levels(name: str, L: int, supports) -> None:
+    if not 1 <= L <= WIDE_MAX_LEVELS or max(supports) > WIDE_MAX_SUPPORT:
+        raise ValueError(f"{name}: the kernels take 1..{WIDE_MAX_LEVELS} "
+                         f"levels of support <= {WIDE_MAX_SUPPORT}, got "
+                         f"{supports}")
+
+
 def guided_filter(act: torch.Tensor, img_in: torch.Tensor,
                   supports=None) -> torch.Tensor:
     """Kernel K2 wrapper: the net's last activation ``act`` [1, 2L, H, W]
@@ -149,20 +176,18 @@ def guided_filter(act: torch.Tensor, img_in: torch.Tensor,
                          f"CUDA tensor of shape {(H, W, 4)}, got "
                          f"{img_in.dtype} {tuple(img_in.shape)} on "
                          f"{img_in.device}")
-    if not 1 <= L <= MAX_LEVELS or max(supports) > MAX_SUPPORT:
-        raise ValueError(f"guided_filter: the kernel takes 1..{MAX_LEVELS} "
-                         f"levels of support <= {MAX_SUPPORT}, got "
-                         f"{supports}")
+    _check_levels("guided_filter", L, supports)
+    suffix = "_wide" if wide_plan(1, L, supports) else ""
     out = torch.empty((H, W, 4), dtype=torch.float32, device=img_in.device)
     sup = (ctypes.c_int * L)(*supports)
     _, sc, sh, sw = act.stride()
-    fn = native.entry("rt_guided_filter")
+    fn = native.entry("rt_guided_filter" + suffix)
     with torch.cuda.device(img_in.device):
         rc = fn(act.data_ptr(), sc, sh, sw, img_in.data_ptr(),
                 out.data_ptr(), L, ctypes.cast(sup, ctypes.c_void_p), H, W,
                 native.stream_ptr(img_in.device))
-        native.count_launch("guided_filter")
-    native.check(rc, "guided_filter_kernel")
+        native.count_launch("guided_filter" + suffix)
+    native.check(rc, f"guided_filter{suffix}_kernel")
     return out
 
 
@@ -172,10 +197,20 @@ def guided_filter(act: torch.Tensor, img_in: torch.Tensor,
 
 def guided_filter_batch_plain(weight: torch.Tensor, guidance: torch.Tensor,
                               img: torch.Tensor, supports=None) -> torch.Tensor:
-    """Plain version of kernel K5: ``guided_filter_plain`` on each image.
-    weight, guidance [B, L, H, W]; img [B, H, W, >=3] -> [B, H, W, 4]."""
-    return torch.stack([guided_filter_plain(w, g, x, supports)
-                        for w, g, x in zip(weight, guidance, img)])
+    """Plain version of kernel K5: ``guided_filter_plain`` on each image,
+    the batch in one pass (each image's operations are
+    ``guided_filter_plain``'s, in its order).  weight, guidance
+    [B, L, H, W]; img [B, H, W, >=3] -> [B, H, W, 4]."""
+    L = weight.shape[1]
+    supports = resolve_supports(L, supports)
+    rgb = img[..., :3]
+    out = torch.zeros_like(rgb)
+    for l, s in enumerate(supports):
+        f = rgb if s == 0 else _level_sums(rgb, guidance[:, l], s)[0]
+        out = out + weight[:, l][..., None] * f
+    alpha = torch.ones(out.shape[:-1] + (1,), dtype=out.dtype,
+                       device=out.device)
+    return torch.cat([out, alpha], dim=-1)
 
 
 def guided_filter_backward_plain(grad_out: torch.Tensor,
@@ -233,9 +268,8 @@ def _rows_strides(t: torch.Tensor):
 def _check_batch(name: str, weight, guidance, img, supports):
     """The kernels' contract: f32 CUDA tensors on one device, weight and
     guidance [B, L, H, W] at any batch, level and row strides with
-    contiguous rows, img [B, H, W, 4] contiguous and 16-byte aligned, 1..8
-    levels of support <= 8, B x L <= 65535 (K6 runs a block a tile, image
-    and level)."""
+    contiguous rows, img [B, H, W, 4] contiguous and 16-byte aligned,
+    1..WIDE_MAX_LEVELS levels of support <= WIDE_MAX_SUPPORT."""
     B, L, H, W = weight.shape
     for t, shape in ((weight, (B, L, H, W)), (guidance, (B, L, H, W)),
                      (img, (B, H, W, 4))):
@@ -248,11 +282,7 @@ def _check_batch(name: str, weight, guidance, img, supports):
                 f"{(B, L, H, W)} with contiguous rows and img {(B, H, W, 4)}"
                 f" contiguous on one device, got {t.dtype} "
                 f"{tuple(t.shape)} strides {t.stride()} on {t.device}")
-    if (not 1 <= L <= MAX_LEVELS or max(supports) > MAX_SUPPORT
-            or B * L > 65535):
-        raise ValueError(f"{name}: the kernel takes 1..{MAX_LEVELS} levels "
-                         f"of support <= {MAX_SUPPORT} and B x L <= 65535, "
-                         f"got {supports} at B = {B}")
+    _check_levels(name, L, supports)
 
 
 def _guard_ptr(guards) -> int:
@@ -287,7 +317,8 @@ def guided_filter_batch_fwd(weight: torch.Tensor, guidance: torch.Tensor,
     fm = torch.empty((B, L, H, W, 4), dtype=torch.float32, device=dev)
     den = torch.empty((B, L, H, W), dtype=torch.float32, device=dev)
     sup = (ctypes.c_int * L)(*supports)
-    fn = native.entry("rt_guided_filter_batch")
+    suffix = "_wide" if wide_plan(B, L, supports) else ""
+    fn = native.entry("rt_guided_filter_batch" + suffix)
     with torch.cuda.device(dev):
         rc = fn(weight.data_ptr(), *_rows_strides(weight),
                 guidance.data_ptr(), *_rows_strides(guidance),
@@ -295,8 +326,8 @@ def guided_filter_batch_fwd(weight: torch.Tensor, guidance: torch.Tensor,
                 den.data_ptr(), _guard_ptr(guards), B, L,
                 ctypes.cast(sup, ctypes.c_void_p), H, W,
                 native.stream_ptr(dev))
-        native.count_launch("guided_filter_batch")
-    native.check(rc, "guided_filter_batch_kernel")
+        native.count_launch("guided_filter_batch" + suffix)
+    native.check(rc, f"guided_filter_batch{suffix}_kernel")
     return out, (fm, den)
 
 
@@ -323,7 +354,8 @@ def guided_filter_batch_bwd(grad_out: torch.Tensor, weight: torch.Tensor,
     gw = torch.empty((B, L, H, W), dtype=torch.float32, device=dev)
     gg = torch.empty((B, L, H, W), dtype=torch.float32, device=dev)
     sup = (ctypes.c_int * L)(*supports)
-    fn = native.entry("rt_guided_filter_batch_bwd")
+    suffix = "_wide" if wide_plan(B * L, L, supports) else ""
+    fn = native.entry("rt_guided_filter_batch_bwd" + suffix)
     with torch.cuda.device(dev):
         rc = fn(grad_out.data_ptr(), weight.data_ptr(),
                 *_rows_strides(weight), guidance.data_ptr(),
@@ -331,8 +363,8 @@ def guided_filter_batch_bwd(grad_out: torch.Tensor, weight: torch.Tensor,
                 den.data_ptr(), gw.data_ptr(), gg.data_ptr(),
                 _guard_ptr(guards), B, L, ctypes.cast(sup, ctypes.c_void_p),
                 H, W, native.stream_ptr(dev))
-        native.count_launch("guided_filter_batch_bwd")
-    native.check(rc, "guided_filter_batch_bwd_kernel")
+        native.count_launch("guided_filter_batch_bwd" + suffix)
+    native.check(rc, f"guided_filter_batch_bwd{suffix}_kernel")
     return gw, gg
 
 

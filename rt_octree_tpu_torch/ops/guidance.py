@@ -26,6 +26,13 @@ k-step of 16, ``lane // 4`` its column in an n-tile of 8):
 The output channels are padded to 8, 16, 32 or 64 (n-tiles of 8).  Padded
 weights and biases are 0, so padded output channels are relu6(0) = 0.
 
+A block with more than 64 input or output channels (a wide net: a
+``--mid_channels`` above 64, or more than 32 levels) takes K7's wide plan
+(``guidance_wide_kernel``, launch name ``guidance_net_wide``): one launch
+a block from the tap-major pack ``wt``, its channels padded to a multiple
+of 16 (``padded_channels``); a net with such a block runs as a chain of
+one-block launches (``chain_block``), each block on its own plan.
+
 ``guidance_net`` is K7's wrapper, for CUDA tensors only; its plain
 version is ``models.guidance_net.compact_activation_plain``, and
 ``GuidanceNetCompact.activation`` picks one by the input's device.
@@ -39,18 +46,26 @@ import torch
 
 from ..native import build as native
 
-MAX_CHANNELS = 64  # csrc/net.cu: CP and the padded output channels <= 64
+MAX_CHANNELS = 64  # csrc/net.cu: the fused instances' channels a block
 
 
 def padded_channels(c: int) -> int:
-    """The smallest of 8, 16, 32, 64 that holds ``c`` channels."""
-    if not 1 <= c <= MAX_CHANNELS:
-        raise ValueError(f"guidance_net: K7 takes 1..{MAX_CHANNELS} channels "
-                         f"a block, got {c}")
+    """The channels K7 pads ``c`` to: the smallest of 8, 16, 32, 64 that
+    holds them, and above 64 (the wide plan) a multiple of 16."""
+    if c < 1:
+        raise ValueError(f"guidance_net: a block of {c} channels")
+    if c > MAX_CHANNELS:
+        return -(-c // 16) * 16
     p = 8
     while p < c:
         p *= 2
     return p
+
+
+def is_wide(layer: "PackedLayer") -> bool:
+    """A block that the fused instances do not take (more than 64 input or
+    output channels): it runs the wide plan, one launch of its own."""
+    return layer.cin > MAX_CHANNELS or layer.cout > MAX_CHANNELS
 
 
 @dataclasses.dataclass
@@ -134,11 +149,24 @@ def _launch(x, f32_in, cin, blocks, out, stream, stats=None):
     native.check(rc, "guidance_net_kernel")
 
 
+def _launch_wide(x, f32_in, cin, layer, out, stream):
+    """One launch of K7's wide plan: ``layer`` from x to out."""
+    B, H, W = x.shape[:3]
+    sb, sh, sw, sc = x.stride() if f32_in else (0, 0, 0, 0)
+    rc = native.entry("rt_guidance_wide")(
+        x.data_ptr(), sb, sh, sw, sc, int(f32_in), cin, layer.wt.data_ptr(),
+        layer.b.data_ptr(), layer.wt.shape[1], layer.nt, out.data_ptr(),
+        out.shape[-1], out.shape[-1], B, H, W, stream)
+    native.count_launch("guidance_net_wide")
+    native.check(rc, "guidance_wide_kernel")
+
+
 def guidance_net(aux_nhwc: torch.Tensor, layers) -> torch.Tensor:
     """Kernel K7 wrapper: the f32 aux [B, H, W, cin] on a CUDA device (any
     strides) through the packed blocks ``layers`` -> the last block's
     activation [B, H, W, cout] bf16, contiguous.  One launch for one or two
-    blocks, one a block beyond."""
+    blocks of at most 64 channels, else one a block (the wide plan for a
+    block of more)."""
     layers = list(layers)
     if aux_nhwc.device.type != "cuda" or aux_nhwc.dtype != torch.float32 \
             or aux_nhwc.dim() != 4:
@@ -151,6 +179,9 @@ def guidance_net(aux_nhwc: torch.Tensor, layers) -> torch.Tensor:
         chans = [(layer.cin, layer.cout) for layer in layers]
         raise ValueError(f"guidance_net: blocks {chans} do not chain from "
                          f"{C} input channels")
+    if layers[-1].cout % 2:
+        raise ValueError(f"guidance_net: K7 stores channel pairs, the last "
+                         f"block has {layers[-1].cout} channels")
     if not 1 <= B <= 65535 or H < 1 or W < 1:
         raise ValueError(f"guidance_net: K7 takes a batch of 1..65535 "
                          f"non-empty images, got {tuple(aux_nhwc.shape)}")
@@ -161,20 +192,46 @@ def guidance_net(aux_nhwc: torch.Tensor, layers) -> torch.Tensor:
     dev = aux_nhwc.device
     with torch.cuda.device(dev):
         stream = native.stream_ptr(dev)
-        if len(layers) <= 2:
+        if len(layers) <= 2 and not any(map(is_wide, layers)):
             out = torch.empty((B, H, W, layers[-1].cout),
                               dtype=torch.bfloat16, device=dev)
             _launch(aux_nhwc, True, C, layers, out, stream)
             return out
-        # the chain: each intermediate keeps its padded channels (0)
-        x, f32_in, cin = aux_nhwc, True, C
-        for i, layer in enumerate(layers):
-            width = layer.cout if i == len(layers) - 1 else layer.nt * 8
-            out = torch.empty((B, H, W, width), dtype=torch.bfloat16,
-                              device=dev)
-            _launch(x, f32_in, cin, [layer], out, stream)
-            x, f32_in, cin = out, False, width
-        return out
+    # the chain: each intermediate keeps its padded channels (0)
+    x = aux_nhwc
+    for i, layer in enumerate(layers):
+        x = chain_block(x, layer, layer.cout if i == len(layers) - 1
+                        else layer.nt * 8)
+    return x
+
+
+def chain_block(x: torch.Tensor, layer: PackedLayer,
+                width: int) -> torch.Tensor:
+    """One launch of K7's chain: ``layer`` from x, the f32 aux [B, H, W,
+    cin] (any strides) or the chain's bf16 intermediate [B, H, W, C]
+    (contiguous, C the block before's padded channels, the padding 0), to
+    a bf16 [B, H, W, width], ``width`` even, from ``layer.cout`` to
+    ``layer.nt * 8`` (the padding 0); the wide plan for a wide block."""
+    B, H, W, C = x.shape
+    f32_in = x.dtype == torch.float32
+    if x.device.type != "cuda" or not (f32_in or (
+            x.dtype == torch.bfloat16 and x.is_contiguous())):
+        raise ValueError(f"chain_block: x must be an f32 or a contiguous "
+                         f"bf16 CUDA tensor, got {x.dtype} on {x.device}")
+    if not layer.cin <= C <= layer.cp or width % 2 or not (
+            layer.cout <= width <= layer.nt * 8):
+        raise ValueError(f"chain_block: a block {layer.cin} -> "
+                         f"{layer.cout} from {C} channels to {width}; K7 "
+                         "stores channel pairs")
+    out = torch.empty((B, H, W, width), dtype=torch.bfloat16,
+                      device=x.device)
+    with torch.cuda.device(x.device):
+        stream = native.stream_ptr(x.device)
+        if is_wide(layer):
+            _launch_wide(x, f32_in, C, layer, out, stream)
+        else:
+            _launch(x, f32_in, C, [layer], out, stream)
+    return out
 
 
 def guidance_net_stats(aux_nhwc: torch.Tensor, layers) -> dict:

@@ -486,8 +486,12 @@ class _RenderParams(ctypes.Structure):
 SPP_KERNEL = (1, 2, 3, 4, 6, 8, 16, 32)  # csrc/render.cu:rt_render
 # The classic kernel's instances, one a row layout, in the order of
 # csrc/render.cu:ClassicLayout (its code is the index + 1).
-CLASSIC_LAYOUTS = ("sh1", "sh4", "sh9", "sh16", "sh25", "rgba", "any")
-CLASSIC_MAX_BASIS = 25  # csrc/render.cu:kMaxBasis
+CLASSIC_LAYOUTS = ("sh1", "sh4", "sh9", "sh16", "sh25", "rgba", "any",
+                   "wide")
+# csrc/render.cu:kMaxBasis: the largest basis_dim the unrolled instances
+# hold in registers; SG / ASG rows above it take the wide instances of K1
+# and render_classic (launch names with "_wide"), SH has no basis above it
+CLASSIC_MAX_BASIS = 25
 
 
 def classic_layout(fmt: int, basis_dim: int, data_dim: int) -> str:
@@ -495,8 +499,9 @@ def classic_layout(fmt: int, basis_dim: int, data_dim: int) -> str:
     BasisFormat value): "sh<bd>" for SH rows at basis_dim 1, 4, 9, 16 and
     25; "rgba" for raw rgb rows (basis_dim < 0, any format); "any" for SG
     and ASG rows, and RGBA-format rows that carry a basis_dim (their basis
-    is 0), at 0 <= basis_dim <= 25.  Raises ValueError for any other
-    layout, and for rows shorter than the channels they are read for."""
+    is 0), at 0 <= basis_dim <= 25, and "wide" for those above 25.  Raises
+    ValueError for any other layout, and for rows shorter than the
+    channels they are read for."""
     if fmt not in tuple(f.value for f in BasisFormat):
         raise ValueError(f"render_classic: unknown basis format {fmt}")
     n = 3 * basis_dim if basis_dim >= 0 else 3
@@ -510,10 +515,7 @@ def classic_layout(fmt: int, basis_dim: int, data_dim: int) -> str:
             raise ValueError(f"render_classic: no SH basis of dimension "
                              f"{basis_dim} (1, 4, 9, 16 or 25)")
         return f"sh{basis_dim}"
-    if basis_dim > CLASSIC_MAX_BASIS:
-        raise ValueError(f"render_classic: basis_dim {basis_dim} > "
-                         f"{CLASSIC_MAX_BASIS}")
-    return "any"
+    return "wide" if basis_dim > CLASSIC_MAX_BASIS else "any"
 
 _params_checked = False
 
@@ -532,9 +534,17 @@ def _render_entry(name: str = "rt_render"):
     return native.entry(name)
 
 
+def is_wide(tree: DeviceTree) -> bool:
+    """Rows of a basis_dim above CLASSIC_MAX_BASIS: K1's and
+    render_classic's wide instances."""
+    return tree.basis_dim > CLASSIC_MAX_BASIS
+
+
 def _check_tree(name: str, tree: DeviceTree) -> None:
-    """The tree's layout that K1's kernels take."""
-    if tree.basis_dim > 25 or tree.chs.dtype != torch.int32 \
+    """The tree's layout that K1's kernels take: any basis_dim but SH above
+    25 (no such SH basis, in the JAX package either)."""
+    if (tree.fmt == BasisFormat.SH.value and is_wide(tree)) \
+            or tree.chs.dtype != torch.int32 \
             or tree.data.dtype != torch.float16:
         raise ValueError(f"{name}: unsupported basis_dim {tree.basis_dim} / "
                          "tree dtypes")
@@ -651,10 +661,15 @@ def _launch_k1(tree: DeviceTree, transform: torch.Tensor, rng_state: int,
     p.width, p.height, p.spp, p.max_steps = width, height, spp, max_steps
     p.classic = layout
     p.row0, p.rows = row0, rows
+    wide = "_wide" if is_wide(tree) else ""
+    if wide and stats is not None:
+        raise ValueError("render_noisy: the statistics instances take "
+                         f"basis_dim <= {CLASSIC_MAX_BASIS}")
     fn = _render_entry()
     with torch.cuda.device(dev):
         rc = fn(ctypes.addressof(p), native.stream_ptr(dev))
-        native.count_launch("render_classic" if classic else "render")
+        native.count_launch(("render_classic" if classic else "render")
+                            + wide)
     native.check(rc, "render_classic_kernel" if classic else "render_kernel")
     return img, aux_nhwc, aux_chw
 
@@ -779,8 +794,9 @@ def _launch_rays(tree: DeviceTree, dirs, vdirs, cens, dst,
     fn = _render_entry("rt_render_rays")
     with torch.cuda.device(dev):
         rc = fn(ctypes.addressof(p), native.stream_ptr(dev))
-        native.count_launch("render_rays" if dst is not None
-                            else "render_classic_rays")
+        native.count_launch(("render_rays" if dst is not None
+                             else "render_classic_rays")
+                            + ("_wide" if is_wide(tree) else ""))
     native.check(rc, "render_kernel (rays)" if dst is not None
                  else "render_classic_kernel (rays)")
     return out

@@ -7,6 +7,7 @@ instance is held to on the card (tests/test_torch_kernels.py)."""
 import ctypes
 import os
 import re
+import types
 
 import numpy as np
 import pytest
@@ -16,6 +17,7 @@ from rt_octree_tpu_torch.core.camera import Camera
 from rt_octree_tpu_torch.core.options import RenderOptions
 from rt_octree_tpu_torch.io import synthetic
 from rt_octree_tpu_torch.io.n3tree import BasisFormat, DataFormat
+from rt_octree_tpu_torch.native import build as native
 from rt_octree_tpu_torch.ops import traversal as tt
 from rt_octree_tpu_torch.render import renderer as tr
 
@@ -32,16 +34,17 @@ def _expected(fmt, bd):
         return "rgba"
     if fmt == BasisFormat.SH.value:
         return f"sh{bd}" if bd in SH_DIMS else None
-    return "any" if bd <= 25 else None
+    return "any" if bd <= 25 else "wide"
 
 
-@pytest.mark.parametrize("bd", [-3, -1, 0, 1, 2, 4, 5, 9, 16, 24, 25, 26])
+@pytest.mark.parametrize("bd", [-3, -1, 0, 1, 2, 4, 5, 9, 16, 24, 25, 26,
+                                32, 48, 100])
 @pytest.mark.parametrize("fmt", [f.value for f in BasisFormat])
 def test_classic_layout_for_every_format_and_basis_dim(fmt, bd):
     """SH rows take the instance of their basis_dim (1, 4, 9, 16, 25),
     raw rgb rows (basis_dim < 0) "rgba" whatever the format, SG, ASG and
-    RGBA-format rows with a basis_dim the unrolled "any" instance up to 25;
-    the rest is refused."""
+    RGBA-format rows with a basis_dim the unrolled "any" instance up to 25
+    and the "wide" instance above it; other SH basis_dims are refused."""
     data_dim = 3 * max(bd, 1) + 1
     want = _expected(fmt, bd)
     if want is None:
@@ -74,6 +77,8 @@ def _layout_trees():
         t = synthetic.make_synthetic_tree("shell", depth=4, basis_dim=4)
         t.data_format = DataFormat(fmt, 4)
         out.append((t, "any"))
+        out.append((synthetic.with_lobes(synthetic.make_synthetic_tree(
+            "shell", depth=3, basis_dim=32), fmt, 1), "wide"))
     return out
 
 
@@ -90,13 +95,28 @@ def test_uploaded_trees_take_their_layouts_instance():
 
 def test_instance_codes_follow_the_cuda_enum():
     """CLASSIC_LAYOUTS[i] is csrc/render.cu's ClassicLayout value i + 1
-    (the code the wrapper passes in RenderParams.classic)."""
+    (the code the wrapper passes in RenderParams.classic); the unrolled
+    "any" instance holds basis_dim <= kMaxBasis = CLASSIC_MAX_BASIS in
+    registers and the wide one takes the rest: classic_layout and is_wide
+    at the boundary, and the "_wide" launch names of K1, render_classic
+    and their ray modes."""
     src = open(RENDER_CU).read()
     body = re.search(r"enum ClassicLayout : int \{(.*?)\};", src, re.S)
     names = re.findall(r"kClassic(\w+)", body.group(1))
     assert re.search(r"kClassicSh1 = 1\b", body.group(1))
     assert [n.lower() for n in names] == list(tr.CLASSIC_LAYOUTS)
-    assert f"kMaxBasis = {tr.CLASSIC_MAX_BASIS};" in src
+    assert re.search(r"kMaxBasis\s*=\s*(\d+)\s*;", src).group(1) == str(
+        tr.CLASSIC_MAX_BASIS)
+    # the host's choice at the boundary, for both lobe formats
+    bd = tr.CLASSIC_MAX_BASIS
+    for fmt in (BasisFormat.SG, BasisFormat.ASG):
+        assert tr.classic_layout(fmt.value, bd, 4 * bd) == "any"
+        assert tr.classic_layout(fmt.value, bd + 1, 4 * bd + 4) == "wide"
+    assert not tr.is_wide(types.SimpleNamespace(basis_dim=bd))
+    assert tr.is_wide(types.SimpleNamespace(basis_dim=bd + 1))
+    for name in ("render", "render_classic", "render_rays",
+                 "render_classic_rays"):
+        assert {name, name + "_wide"} <= set(native.LAUNCHES)
 
 
 def test_render_params_mirror_follows_the_cuda_struct():

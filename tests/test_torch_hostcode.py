@@ -1,7 +1,7 @@
 """The port's own copies of the JAX package's NumPy host code (core.options,
-core.camera, io.n3tree, io.poses, io.synthetic with refine_tree, io.lod,
-apps.compress) against the originals on the same inputs: equal arrays,
-equal metadata, equal npz files key by key."""
+core.camera, core.sh_np, io.n3tree, io.poses, io.synthetic with
+refine_tree, io.lod, apps.compress) against the originals on the same
+inputs: equal arrays, equal metadata, equal npz files key by key."""
 
 import dataclasses
 import json
@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 
 from rt_octree_tpu.apps import compress as jcomp
+from rt_octree_tpu.core import sh_np as jsh
 from rt_octree_tpu.apps.compress import main as compress_main
 from rt_octree_tpu.core import camera as jcam
 from rt_octree_tpu.core import options as jopt
@@ -21,6 +22,7 @@ from rt_octree_tpu.io import synthetic as jsyn
 from rt_octree_tpu_torch.apps import compress as tcomp
 from rt_octree_tpu_torch.core import camera as tcam
 from rt_octree_tpu_torch.core import options as topt
+from rt_octree_tpu_torch.core import sh_np as tsh
 from rt_octree_tpu_torch.io import lod as tlod
 from rt_octree_tpu_torch.io import n3tree as tn3
 from rt_octree_tpu_torch.io import poses as tposes
@@ -252,3 +254,18 @@ def test_compress_cli_writes_the_originals_npz(tmp_path):
     assert "quant_colors" in ref and "quant_map" in ref
     _assert_dicts_equal(got, ref)
     assert_trees_equal(tn3.load(outs["port"]), jn3.load(outs["jax"]))
+
+
+@pytest.mark.parametrize("bd", [1, 4, 9, 16, 25])
+def test_sh_basis_equals_the_original(bd):
+    """core.sh_np.eval_sh_basis_np (the SH-lobe mesh tool's basis) on
+    random unit directions of any batch shape: bit-equal to the
+    original's."""
+    rs = np.random.default_rng(bd)
+    dirs = rs.standard_normal((7, 11, 3))
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    for d in (dirs, dirs.astype(np.float32), dirs[0, 0]):
+        got = tsh.eval_sh_basis_np(bd, d)
+        ref = jsh.eval_sh_basis_np(bd, d)
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        np.testing.assert_array_equal(got, ref)

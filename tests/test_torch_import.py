@@ -58,6 +58,8 @@ MODULES = [
     "rt_octree_tpu_torch.tools.make_fast_kit",
     "rt_octree_tpu_torch.tools.eval_gnet_kit",
     "rt_octree_tpu_torch.tools.set_gnet_meta",
+    "rt_octree_tpu_torch.core.sh_np",
+    "rt_octree_tpu_torch.tools.gen_sh_mesh",
     "rt_octree_tpu_torch.parallel",
     "rt_octree_tpu_torch.parallel.launch",
     "rt_octree_tpu_torch.parallel.mesh",
@@ -341,6 +343,26 @@ def test_kit_tools_import_neither_jax_nor_the_jax_package(tmp_path):
         f"[0, 0, 0] {sorted(['noisy', net])!r} 2 []"
     assert sorted(os.listdir(tmp_path / "fast" / "spp_6")) == ["test",
                                                                "train"]
+
+
+def test_gen_sh_mesh_imports_neither_jax_nor_the_jax_package(tmp_path):
+    """The SH-lobe mesh tool (tools/gen_sh_mesh.py's port) writes its OBJ
+    files with no module of ``rt_octree_tpu`` and no jax imported, and
+    builds no kernel."""
+    code = (
+        "import sys\n"
+        "from rt_octree_tpu_torch.tools import gen_sh_mesh\n"
+        f"rc = gen_sh_mesh.main(['1', {str(tmp_path)!r}])\n"
+        "from rt_octree_tpu_torch.native import build\n"
+        "print(rc, sorted(build._loaded), sorted(m for m in sys.modules if "
+        f"m.split('.')[0] in {FORBIDDEN + ('rt_octree_tpu',)!r}))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=_clean_env(), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "0 [] []"
+    assert sorted(os.listdir(tmp_path)) == [f"sh_{i:02d}.obj"
+                                            for i in range(4)]
 
 
 def test_parallel_ranks_import_neither_jax_nor_the_jax_package():

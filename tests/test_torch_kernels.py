@@ -660,7 +660,8 @@ def test_ray_mode_on_a_frames_rays_is_the_frame(shell, estimator,
 @pytest.mark.cuda
 def test_ray_mode_refuses_what_the_kernel_does_not_take(shell, cuda_device):
     """On the card: an SPP the kernel has no instance for, inputs on
-    another device, a layout render_classic has no instance for."""
+    another device, a layout no instance takes (SH rows past basis_dim
+    25: no such SH basis)."""
     dt = tt.upload_tree(shell, lut_levels=5, device=cuda_device)
     d, v, c, dst = _aimed_rays(dt, 16, 5)
     with pytest.raises(ValueError, match="SPP"):
@@ -669,10 +670,8 @@ def test_ray_mode_refuses_what_the_kernel_does_not_take(shell, cuda_device):
         tr.trace_rays(dt, d.cpu(), v, c, dst[:, :4].contiguous(),
                       RenderOptions(spp=4))
     with pytest.raises(ValueError, match="basis_dim"):
-        tr.trace_rays_classic(tt.upload_tree(_classic_tree("SG26", 4),
-                                             lut_levels=4,
-                                             device=cuda_device),
-                              d, v, c, RenderOptions())
+        tr.trace_rays_classic(dataclasses.replace(dt, basis_dim=26), d, v, c,
+                              RenderOptions())
 
 
 @pytest.mark.cuda
@@ -708,7 +707,7 @@ def test_k2_refuses_what_the_kernel_does_not_take(cuda_device):
     act, img = _filter_inputs(7, L=2, H=16, W=16)
     act = torch.from_numpy(act).to(cuda_device, torch.bfloat16)
     img = torch.from_numpy(img).to(cuda_device)
-    for bad in (lambda: guided_filter(act, img, (0, 9)),
+    for bad in (lambda: guided_filter(act, img, (0, 33)),
                 lambda: guided_filter(act.float(), img, (0, 1)),
                 lambda: guided_filter(act, img[..., :3].contiguous(), (0, 1)),
                 lambda: guided_filter(act[:, :3], img, (0, 1))):
@@ -876,7 +875,7 @@ def test_k5_k6_refuse_what_the_kernels_do_not_take(cuda_device):
     w, g, x, G = (torch.from_numpy(a).to(cuda_device) for a in
                   _batch_inputs(13, 1, 2, 16, 16))
     _, saved = guided_filter_batch_fwd(w, g, x, (0, 1))
-    for bad in (lambda: guided_filter_batch_fwd(w, g, x, (0, 9)),
+    for bad in (lambda: guided_filter_batch_fwd(w, g, x, (0, 33)),
                 lambda: guided_filter_batch_fwd(w.double(), g, x, (0, 1)),
                 lambda: guided_filter_batch_fwd(w, g[..., :8], x, (0, 1)),
                 lambda: guided_filter_batch_fwd(w, g, x[..., :3], (0, 1)),
@@ -1124,3 +1123,113 @@ def test_g4_flat_gather_chain_matches_plain(size, cuda_device):
     for rounds in (0, 1, 16):
         assert torch.equal(pr.flat_gather_chain(idx, table, rounds),
                            pr.flat_gather_chain_plain(idx, table, rounds))
+
+
+# ---------------------------------------------------------------------------
+# the wide instances: K2, K5 / K6 past 8 levels or a support of 8 (or a B x L
+# past 65,535), K1 and render_classic on SG / ASG rows past basis_dim 25
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("supports,hw", [
+    (tuple(range(1, 13)), (64, 48)), (tuple(range(1, 13)), (37, 23)),
+    (tuple(range(16)), (45, 70)), (tuple(range(1, 33)), (40, 50)),
+    ((0, 9), (5, 3))], ids=["ladder 1..12", "ladder 1..12 37x23",
+                            "identity 0..15", "ladder 1..32", "(0, 9) 5x3"])
+def test_k2_wide_instance_matches_plain(supports, hw, cuda_device):
+    """K2's wide instance (guided_filter_wide) within FILTER_TOL of its
+    plain version, one launch."""
+    act, img = _filter_inputs(9, L=len(supports), H=hw[0], W=hw[1])
+    act = torch.from_numpy(act).to(cuda_device, torch.bfloat16)
+    img = torch.from_numpy(img).to(cuda_device)
+    native.reset_launches()
+    got = guided_filter(act, img, supports)
+    assert native.LAUNCHES["guided_filter_wide"] == 1
+    assert native.LAUNCHES["guided_filter"] == 0
+    ref = guided_filter_act_plain(act, img, supports)
+    torch.testing.assert_close(got, ref, atol=FILTER_TOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,supports,gscale,spike", [
+    ((2, 37, 53), tuple(range(1, 13)), 3.0, False),
+    ((2, 37, 53), tuple(range(12)), 3.0, True),
+    ((3, 80, 80), tuple(range(1, 13)), 40.0, False),
+    ((1, 16, 40), (0, 9, 32), 3.0, False),
+    ((16400, 1, 1), (1, 2, 3, 4), 3.0, False),
+    ((66000, 1, 2), (0, 1), 3.0, False)],
+    ids=["ladder 1..12", "identity 0..11 spike", "range > 60 nats",
+         "supports 0, 9, 32", "B x L 65,600", "B 66,000"])
+def test_k5_k6_wide_instances_match_plain(shape, supports, gscale, spike,
+                                          cuda_device):
+    """K5's and K6's wide instances (chosen on the host: more than 8
+    levels, a support above 8, B or B x L past 65,535) against the plain
+    versions, with their guard counts, one launch each."""
+    w, g, x, G = (torch.from_numpy(a).to(cuda_device) for a in
+                  _k56_inputs(shape, supports, gscale, spike))
+    native.reset_launches()
+    _hold_k56(w, g, x, G, supports)
+    B, L = shape[0], len(supports)
+    fwd = "guided_filter_batch" + ("_wide" if B > 65535 or L > 8 or
+                                   max(supports) > 8 else "")
+    assert native.LAUNCHES[fwd] == 1
+    assert native.LAUNCHES["guided_filter_batch_bwd_wide"] == 1
+
+
+def _wide_tree(fmt, bd, depth=5):
+    return synthetic.with_lobes(synthetic.make_synthetic_tree(
+        "shell", depth=depth, basis_dim=bd), BasisFormat[fmt], bd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spp", tr.SPP_KERNEL)
+@pytest.mark.parametrize("layout", ["SG32", "ASG48"])
+def test_k1_wide_basis_matches_plain(layout, spp, cuda_device):
+    """K1's wide instance (render_wide) on SG / ASG rows past basis_dim 25
+    at every SPP, with a basis_minmax mask: within IMG_TOL / AUX_TOL of
+    its plain version; its ray mode (render_rays_wide) too."""
+    fmt = layout.rstrip("0123456789")
+    dt = tt.upload_tree(_wide_tree(fmt, int(layout[len(fmt):])),
+                        lut_levels=5, device=cuda_device)
+    transform, kw = _render_args(spp, 37, 23)
+    tf = torch.from_numpy(transform).to(cuda_device)
+    for mask in ((0, 100), (3, 20)):
+        kw["opt"] = RenderOptions(spp=spp, denoise=False, basis_minmax=mask)
+        native.reset_launches()
+        got = tr.render_noisy(dt, tf, 12345, 7, **kw)
+        assert native.LAUNCHES["render_wide"] == 1
+        ref = tr.render_noisy_plain(dt, tf, 12345, 7, **kw)
+        for a, b, tol in zip(got, ref, (IMG_TOL, AUX_TOL, AUX_TOL)):
+            torch.testing.assert_close(a, b, atol=tol, rtol=0)
+        assert float(got[2][3].max()) > 0.5
+    d, v, c, dst = _aimed_rays(dt, 1000, spp, spp, unit=False)
+    got = tr.trace_rays(dt, d, v, c, dst, RenderOptions(spp=spp))
+    ref = tr.trace_rays_plain(dt, d, v, c, dst, RenderOptions(spp=spp))
+    torch.testing.assert_close(got, ref, atol=IMG_TOL, rtol=0)
+    with pytest.raises(ValueError, match="statistics"):
+        tr.render_stats(dt, tf, 1, 1, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["SG32", "ASG32", "SG48"])
+def test_render_classic_wide_basis_matches_plain(layout, cuda_device):
+    """render_classic's wide instance, frame and ray mode, within IMG_TOL /
+    AUX_TOL of its plain version at full-depth and level-3 LUTs."""
+    fmt = layout.rstrip("0123456789")
+    tree = _wide_tree(fmt, int(layout[len(fmt):]))
+    transform, kw = _render_args(1, 37, 23)
+    tf = torch.from_numpy(transform).to(cuda_device)
+    kw["opt"] = _classic_opt()
+    for levels in (5, 3):
+        dt = tt.upload_tree(tree, lut_levels=levels, device=cuda_device)
+        native.reset_launches()
+        got = tr.render_noisy(dt, tf, 1, 1, **kw)
+        assert native.LAUNCHES["render_classic_wide"] == 1
+        ref = tr.render_noisy_plain(dt, tf, 1, 1, **kw)
+        for a, b, tol in zip(got, ref, (IMG_TOL, AUX_TOL, AUX_TOL)):
+            torch.testing.assert_close(a, b, atol=tol, rtol=0)
+        d, v, c, _ = _aimed_rays(dt, 1000, 1, 3, unit=False)
+        got = tr.trace_rays_classic(dt, d, v, c, _classic_opt())
+        assert native.LAUNCHES["render_classic_rays_wide"] == 1
+        ref = tr.trace_rays_classic_plain(dt, d, v, c, _classic_opt())
+        torch.testing.assert_close(got, ref, atol=IMG_TOL, rtol=0)

@@ -78,9 +78,15 @@ CONFIGS = {
     "in32 32-64-8": dict(in_channels=32, mid_channels=64, kernel_levels=4),
     "wide 64-64-64": dict(in_channels=64, mid_channels=64,
                           kernel_levels=32),
+    # past 64 channels: K7's wide plan, one launch a block (the path's
+    # --mid_channels 96 --kernel_levels 12, and a 3-block 128-wide chain)
+    "mid96 8-96-24": dict(in_channels=8, mid_channels=96, num_layers=2,
+                          kernel_levels=12),
+    "mid128 8-128-128-8": dict(in_channels=8, mid_channels=128,
+                               num_layers=3, kernel_levels=4),
 }
 WIDE = ["l1 8-16", "in16 16-32-8", "mid64 8-64-16", "in32 32-64-8",
-        "wide 64-64-64"]
+        "wide 64-64-64", "mid96 8-96-24", "mid128 8-128-128-8"]
 PLAIN_FLAX_ULPS, K7_ULPS, K7_UNEQUAL_SHARE = 1.0, 2.0, 1e-3
 
 
@@ -104,14 +110,17 @@ def _config(name):
 
 
 def _params(cfg, seed=3):
-    """Folded Flax-layout params from a numpy seed: kernels ~ N(0, 0.4),
-    biases ~ N(0, 0.1), f32."""
+    """Folded Flax-layout params from a numpy seed: kernels ~ N(0, 0.4)
+    (past 64 channels N(0, 1.5 / sqrt(9 cin)), so that the sums stay
+    inside relu6's range), biases ~ N(0, 0.1), f32."""
     rs = np.random.default_rng(seed)
+    chans = cfg.layer_channels()
+    wide = max(max(c) for c in chans) > og.MAX_CHANNELS
     return {f"block_{i}": {
-        "kernel": (rs.standard_normal((3, 3, cin, cout)) * 0.4).astype(
-            np.float32),
+        "kernel": (rs.standard_normal((3, 3, cin, cout)) * (
+            1.5 / np.sqrt(9 * cin) if wide else 0.4)).astype(np.float32),
         "bias": (rs.standard_normal(cout) * 0.1).astype(np.float32)}
-        for i, (cin, cout) in enumerate(cfg.layer_channels())}
+        for i, (cin, cout) in enumerate(chans)}
 
 
 def _aux(H, W, C=8, seed=0):
@@ -285,7 +294,9 @@ def _k7_numpy(aux, packs, fold_bias=False):
     relu6; the padded output channels (0) feed the next block.  Block 0 of
     a two-block launch sums K = tap * CP + ci in order (tap = 3 ky + kx);
     the last block of a launch (the only one of a one-block launch, every
-    block of a chain) sums kx outer, then ky, then 16 channels at a time.
+    block of a chain) sums kx outer, then ky, then 16 channels at a time;
+    a block of the wide plan (past 64 channels) sums 16 channels at a
+    time outer, then the nine taps in order.
     aux [1, H, W, cin] -> each block's output [H, W, padded cout] (f32
     holding bf16 values).  ``fold_bias``: the bias added to the f32 sum,
     one rounding (not Flax's order)."""
@@ -314,6 +325,13 @@ def _k7_numpy(aux, packs, fold_bias=False):
             for s in range(0, wk.shape[0], 16):
                 acc = (acc + cols[..., s:s + 16] @ wk[s:s + 16]).astype(
                     np.float32)
+        elif og.is_wide(p):
+            for s in range(0, cps, 16):
+                for tap in range(9):
+                    ky, kx = divmod(tap, 3)
+                    acc = (acc + xc[ky:ky + H, kx:kx + W, s:s + 16]
+                           .astype(np.float64)
+                           @ wk[tap, s:s + 16]).astype(np.float32)
         else:
             for kx in range(3):
                 for ky in range(3):
@@ -378,15 +396,25 @@ def test_share_bar_rejects_the_bias_folded_into_the_sum():
 
 
 def test_limits_raise_value_error():
-    """Beyond K7's limits: more than 64 channels a block, and the wrapper
-    on a CPU tensor (CPU tensors take the plain version in activation)."""
-    with pytest.raises(ValueError, match="1..64 channels"):
-        og.pack_layer(torch.zeros(3, 3, 8, 65), torch.zeros(65))
-    with pytest.raises(ValueError, match="1..64 channels"):
-        og.pack_layer(torch.zeros(3, 3, 65, 8), torch.zeros(8))
+    """K7's limits: a block of no channels, and the wrapper on a CPU tensor
+    (CPU tensors take the plain version in activation); past 64 channels a
+    block packs for the wide plan, its channels padded to 16."""
+    for cin, cout, pads in ((8, 65, (8, 80)), (65, 8, (80, 8)),
+                            (96, 24, (96, 32)), (256, 256, (256, 256))):
+        p = og.pack_layer(torch.zeros(3, 3, cin, cout), torch.zeros(cout))
+        assert og.is_wide(p) and (p.cp, p.nt * 8) == pads
+        assert p.wt.shape == (pads[1] // 8, max(pads[0], 16) // 16, 9, 32,
+                              4)
+    assert not og.is_wide(og.pack_layer(torch.zeros(3, 3, 64, 64),
+                                        torch.zeros(64)))
+    with pytest.raises(ValueError, match="0 channels"):
+        og.pack_layer(torch.zeros(3, 3, 0, 8), torch.zeros(8))
     cfg = _config("mid4 8-4-4")
     with pytest.raises(ValueError, match="CUDA"):
         og.guidance_net(torch.zeros(1, 4, 4, 8), _packs(cfg, _params(cfg)))
+    with pytest.raises(ValueError, match="CUDA"):
+        og.chain_block(torch.zeros(1, 4, 4, 8), _packs(cfg, _params(cfg))[0],
+                       8)
     wide = tg.GuidanceNetConfig(mid_channels=65)
     net = tg.build_compact(wide, _params(wide), "cpu")  # plain: any width
     assert net.activation(torch.zeros(1, 3, 3, 8)).shape == (1, 8, 3, 3)
@@ -462,6 +490,58 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _hold_k7(net, aux):
+    """K7 vs the plain version on aux at K7's bars.  A net with a block of
+    the wide plan runs as a chain of launches (og.chain_block): each launch
+    is held on the input the chain gives it, the plain chain's bf16 output
+    padded with 0 to the block before's padded channels (no rounding
+    carried over, as the NumPy statement is held), its padded output
+    channels 0; the whole chain at both bars."""
+    ws = [c.weight for c in net.convs]
+    bs = [c.bias for c in net.convs]
+    with torch.no_grad():
+        act = net.activation(aux)
+        ref = tg.compact_activation_plain(aux, ws, bs)
+        st = ulp_stats(act.cpu(), ref.cpu())
+        assert act.shape == ref.shape and bool(
+            torch.isfinite(act.float()).all())
+        assert st[0] <= K7_ULPS and st[2] <= K7_UNEQUAL_SHARE, st
+        if not any(map(og.is_wide, net.packed)):
+            return
+        xk = xp = aux
+        for i, layer in enumerate(net.packed):
+            last = i == len(net.packed) - 1
+            out = og.chain_block(xk, layer, layer.cout if last
+                                 else layer.nt * 8)
+            ref = tg.compact_activation_plain(xp, ws[i:i + 1], bs[i:i + 1])
+            st = ulp_stats(out[..., :layer.cout].permute(0, 3, 1, 2).cpu(),
+                           ref.cpu())
+            assert st[0] <= K7_ULPS and st[2] <= K7_UNEQUAL_SHARE, (i, st)
+            assert not out[..., layer.cout:].any()
+            xp = ref.permute(0, 2, 3, 1)
+            xk = torch.nn.functional.pad(
+                xp, (0, layer.nt * 8 - layer.cout)).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [(37, 53), (800, 800)],
+                         ids=["37x53", "800x800"])
+@pytest.mark.parametrize("name", ["mid96 8-96-24", "mid128 8-128-128-8"])
+def test_k7_wide_plan_matches_plain(name, size, cuda_device):
+    """Nets past 64 channels: one launch of the wide plan a block, each
+    held on its own input, the chain within K7_ULPS."""
+    cfg = _config(name)
+    net = tg.build_compact(cfg, _params(cfg), cuda_device)
+    aux = torch.from_numpy(_aux(*size, seed=8)).to(cuda_device)
+    native.reset_launches()
+    with torch.no_grad():
+        net.activation(aux)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["guidance_net_wide"] == cfg.num_layers
+    assert native.LAUNCHES["guidance_net"] == 0
+    _hold_k7(net, aux)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("size", [(37, 53), (800, 800), (1080, 1920)],
                          ids=["37x53", "800x800", "1920x1080"])
@@ -512,14 +592,7 @@ def test_k7_matches_plain_at_tile_edges(name, shape, cuda_device):
     aux = np.concatenate([_aux(H, W, cfg.in_channels, seed=7 + b)
                           for b in range(B)])
     aux = torch.from_numpy(aux).to(cuda_device)
-    net = tg.build_compact(cfg, params, cuda_device)
-    act = net.activation(aux)
-    with torch.no_grad():
-        ref = tg.compact_activation_plain(aux, [c.weight for c in net.convs],
-                                          [c.bias for c in net.convs])
-    st = ulp_stats(act.cpu(), ref.cpu())
-    assert act.shape == ref.shape and bool(torch.isfinite(act.float()).all())
-    assert st[0] <= K7_ULPS and st[2] <= K7_UNEQUAL_SHARE, st
+    _hold_k7(tg.build_compact(cfg, params, cuda_device), aux)
 
 
 @pytest.mark.cuda
@@ -569,9 +642,20 @@ def test_one_k7_launch_per_denoised_frame(cuda_device):
 
 @pytest.mark.cuda
 def test_k7_limits_raise_on_the_card(cuda_device):
+    """What K7 refuses on the card; a 65-channel net, refused before the
+    wide plan, now runs it (one launch a block) and holds to the plain
+    version."""
     wide = tg.GuidanceNetConfig(mid_channels=65)
-    with pytest.raises(ValueError, match="1..64 channels"):
-        tg.build_compact(wide, _params(wide), cuda_device)
+    net = tg.build_compact(wide, _params(wide), cuda_device)
+    aux = torch.from_numpy(_aux(23, 41, seed=6)).to(cuda_device)
+    native.reset_launches()
+    with torch.no_grad():
+        act = net.activation(aux)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["guidance_net_wide"] == 2
+    assert native.LAUNCHES["guidance_net"] == 0
+    assert act.shape == (1, 8, 23, 41)
+    _hold_k7(net, aux)
     cfg, params = tg.load_compact(TRAINED)
     net = tg.build_compact(cfg, params, cuda_device, torch.float32)
     with pytest.raises(ValueError, match="bf16"):

@@ -1,0 +1,320 @@
+"""The nets and trees past the card's unrolled instances (the wide
+instances of K7, K2, K5 / K6, K1 and render_classic) through the port's
+plain versions against the JAX package, which takes them all: compact
+nets of 96 and 128 channels against Flax, the guided filter at 12 and 16
+levels, the batched filter and its gradient at 12 levels, a training step
+of the Runner at --mid_channels 96 --kernel_levels 12, SG and ASG frames
+of basis_dim 32; and the SH-lobe mesh tool against the JAX tool.
+
+The JAX filter's exact path runs eagerly (``jax.disable_jit``): at 12
+levels it unrolls ~3,000 window taps, which take XLA longer to compile
+than to run once.  The batched filter and the step are held to its fast
+path (jitted, without the guard's cond, which would compile the exact
+path too) on inputs where the guard takes it, as the JAX training step
+does.  Tolerances are those of each function's existing tests."""
+
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rt_octree_tpu.core.camera import Camera as JCamera
+from rt_octree_tpu.core.options import RenderOptions as JOptions
+from rt_octree_tpu.io import synthetic as jsyn
+from rt_octree_tpu.io.n3tree import BasisFormat as JBasis
+from rt_octree_tpu.io.n3tree import DataFormat as JFormat
+from rt_octree_tpu.models import guidance_net as jg
+from rt_octree_tpu.ops import traversal as jt
+from rt_octree_tpu.ops.filtering import guided_filter as jax_filter
+from rt_octree_tpu.ops.filtering import guided_filter_batch as jax_batch
+from rt_octree_tpu.render import renderer as jr
+from rt_octree_tpu.train.metrics import smape_loss as jsmape
+from rt_octree_tpu_torch.core.options import RenderOptions
+from rt_octree_tpu_torch.io import synthetic as tsyn
+from rt_octree_tpu_torch.io.n3tree import BasisFormat
+from rt_octree_tpu_torch.models import guidance_net as tg
+from rt_octree_tpu_torch.ops import filtering as tf
+from rt_octree_tpu_torch.ops import traversal as tt
+from rt_octree_tpu_torch.render import renderer as tr
+from rt_octree_tpu_torch.train.config import parse_args
+from rt_octree_tpu_torch.train.runner import Runner
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the filters: f32 softmax sums taken in another order (values in [0, 1]);
+# the gradients within rtol 1e-4 plus atol 1e-5 (test_torch_filtering.py,
+# test_torch_train_filter.py)
+FILTER_TOL, GRAD_RTOL, GRAD_ATOL = 1e-5, 1e-4, 1e-5
+# frames: test_torch_render.py's bars
+IMG_TOL, AUX_TOL = 2e-5, 4e-5
+# the step: gradient entries that cancel to near zero, in f32, against
+# their leaf's largest.  test_torch_train_model.py holds an 8-channel,
+# 3-level net at 1e-6, which the biases meet here (at most 9.1e-7 on the
+# CPU, both packages in f32); the kernels of this 96-channel, 12-level net
+# sum ~10x more terms an entry and measured 1.2e-6 (block 0's conv1),
+# 2.2e-6 (block 0's conv3), 5.1e-6 (block 1's conv1) and 4.9e-6 (block
+# 1's conv3), so they are held at 1e-5
+STEP_CANCEL_ATOL = {"bias": 1e-6, "kernel": 1e-5}
+
+WIDE_NETS = {"8-96-24": dict(mid_channels=96, kernel_levels=12),
+             "8-128-128-8": dict(mid_channels=128, num_layers=3,
+                                 kernel_levels=4)}
+
+
+def _net_params(cfg, seed=5):
+    """Folded params at std 1.5 / sqrt(9 cin), so that a wide block's sums
+    stay inside relu6's range."""
+    rs = np.random.default_rng(seed)
+    return {f"block_{i}": {
+        "kernel": (rs.standard_normal((3, 3, cin, cout))
+                   * (1.5 / np.sqrt(9 * cin))).astype(np.float32),
+        "bias": (rs.standard_normal(cout) * 0.1).astype(np.float32)}
+        for i, (cin, cout) in enumerate(cfg.layer_channels())}
+
+
+def _aux(B, H, W, seed=0):
+    aux = np.random.default_rng(seed).random((B, H, W, 8), np.float32)
+    aux[..., 4:] = aux[..., :4] ** 2
+    return aux
+
+
+@pytest.mark.parametrize("name", list(WIDE_NETS))
+def test_wide_compact_net_matches_flax(name):
+    """The compact net past 64 channels (K7's wide plan on the card) in
+    bf16 against Flax's GuidanceNetCompact: one bf16 ulp of the largest
+    value, as test_torch_guidance_net.py holds the committed nets."""
+    kw = WIDE_NETS[name]
+    cfg_j, cfg_t = jg.GuidanceNetConfig(**kw), tg.GuidanceNetConfig(**kw)
+    params = _net_params(cfg_t)
+    aux = _aux(1, 20, 24)
+    wj, gj = jg.GuidanceNetCompact(cfg_j, dtype=jnp.bfloat16).apply(
+        {"params": params}, jnp.asarray(aux))
+    net = tg.build_compact(cfg_t, params, "cpu")
+    with torch.no_grad():
+        wt, gt = net(torch.from_numpy(aux))
+    gj = np.asarray(gj)
+    np.testing.assert_allclose(gt.numpy(), gj, rtol=0,
+                               atol=2.0 ** (np.floor(np.log2(
+                                   np.abs(gj).max())) - 7))
+    np.testing.assert_allclose(wt.numpy(), np.asarray(wj), atol=1.0 / 128)
+
+
+def _filter_inputs(seed, L, H, W, B=None):
+    rs = np.random.default_rng(seed)
+    shape = (L, H, W) if B is None else (B, L, H, W)
+    logits = rs.standard_normal(shape) * 2.0
+    w = np.exp(logits) / np.exp(logits).sum(-3, keepdims=True)
+    g = rs.standard_normal(shape) * 3.0
+    x = rs.random(((H, W, 4) if B is None else (B, H, W, 4)))
+    G = rs.standard_normal(x.shape)
+    return tuple(a.astype(np.float32) for a in (w, g, x, G))
+
+
+@pytest.mark.parametrize("supports", [tuple(range(1, 13)),
+                                      tuple(range(16))],
+                         ids=["ladder 1..12", "identity 0..15"])
+def test_guided_filter_at_many_levels_matches_jax(supports):
+    """K2's plain version at 12 and 16 levels (K2's wide instance on the
+    card) against the JAX filter's exact path."""
+    w, g, x, _ = _filter_inputs(len(supports), len(supports), 30, 28)
+    got = tf.guided_filter_plain(torch.from_numpy(w), torch.from_numpy(g),
+                                 torch.from_numpy(x), supports).numpy()
+    with jax.disable_jit():
+        ref = np.asarray(jax_filter(jnp.asarray(w), jnp.asarray(g),
+                                    jnp.asarray(x), exact=True,
+                                    supports=supports))
+    np.testing.assert_allclose(got, ref, atol=FILTER_TOL)
+    np.testing.assert_array_equal(got[..., 3], 1.0)
+
+
+_FAST = {}
+
+
+def _jax_fast_vjp(supports):
+    """A jitted (out, dL/dw, dL/dg) = vjp of the JAX package's batched
+    filter on its fast path (ops/filtering.py:_filter_all_fast under
+    vmap: what guided_filter_batch computes while its guard holds), one
+    compile per support set, shared by the tests."""
+    if supports not in _FAST:
+        from rt_octree_tpu.ops.filtering import _filter_all_fast
+
+        def f(w, g, x, G):
+            def fwd(a, b):
+                out = jax.vmap(lambda wi, gi, xi: _filter_all_fast(
+                    wi, gi, xi[..., :3], supports))(a, b, x)
+                return jnp.concatenate(
+                    [out, jnp.ones(out.shape[:-1] + (1,), out.dtype)], -1)
+            out, vjp = jax.vjp(fwd, w, g)
+            return (out,) + vjp(G)
+        _FAST[supports] = jax.jit(f)
+    return _FAST[supports]
+
+
+def _guard_holds(g):
+    """JAX's guard takes the fast path: every level spans < 60 nats."""
+    return float((g.max(axis=(-2, -1)) - g.min(axis=(-2, -1))).max()) < 60
+
+
+LADDER12 = tuple(range(1, 13))
+B, H, W = 2, 16, 16
+
+
+def test_guided_filter_batch_at_twelve_levels_matches_jax():
+    """The batched filter (K5's plain version) and its closed-form
+    backward (K6's) at the ladder 1..12 on a batch of two, against JAX's
+    guided_filter_batch (its fast path, which its guard takes here) and
+    jax.vjp of it."""
+    w, g, x, G = _filter_inputs(12, 12, H, W, B=B)
+    assert _guard_holds(g)
+    out_j, gw_j, gg_j = _jax_fast_vjp(LADDER12)(w, g, x, G)
+    t = torch.from_numpy
+    out = tf.guided_filter_batch(t(w), t(g), t(x), LADDER12)
+    np.testing.assert_allclose(out.numpy(), np.asarray(out_j),
+                               atol=FILTER_TOL)
+    gw, gg = tf.guided_filter_backward_plain(t(G), t(w), t(g), t(x),
+                                             LADDER12)
+    np.testing.assert_allclose(gw.numpy(), np.asarray(gw_j), rtol=GRAD_RTOL,
+                               atol=GRAD_ATOL)
+    np.testing.assert_allclose(gg.numpy(), np.asarray(gg_j), rtol=GRAD_RTOL,
+                               atol=GRAD_ATOL)
+
+
+def test_runner_step_of_a_wide_net_matches_jax():
+    """One Runner.train_step of ``rtoctree train --config
+    configs/blender.txt --mid_channels 96 --kernel_levels 12`` on the CPU
+    (its net in f32, the plain filters) against the JAX package's f32 step
+    on the same params and batch (runner.py:_build_train_step's loss: the
+    net, guided_filter_batch at the ladder 1..12, SMAPE), its gradient
+    taken by the chain rule through jax.vjp of each part (the net, the
+    filter's fast path, which its guard takes here, and SMAPE).  The loss
+    within 1e-6 relative and the gradients within rtol 1e-4
+    (test_torch_train_model.py's bars); entries that cancel to near zero
+    within STEP_CANCEL_ATOL of their leaf's largest, by the leaf's kind."""
+    args = parse_args(["--config", os.path.join(REPO, "configs",
+                                                "blender.txt"),
+                       "--mid_channels", "96", "--kernel_levels", "12",
+                       "--device", "cpu"])
+    runner = Runner(args)
+    assert runner.supports == LADDER12
+    params = runner.params()  # Flax's init, drawn from a seeded generator
+    runner.model = tg.GuidanceNet(runner.net_cfg, dtype=torch.float32)
+    runner.set_params(params)
+    rs = np.random.default_rng(2)
+    aux = _aux(B, H, W, seed=3)
+    img_in = rs.random((B, H, W, 4), np.float32)
+    img_gt = rs.random((B, H, W, 3), np.float32)
+    runner.optimizer = runner.make_optimizer()
+    loss = runner.train_step(torch.from_numpy(aux).permute(0, 3, 1, 2),
+                             torch.from_numpy(img_in),
+                             torch.from_numpy(img_gt))
+    grads_t = tg.params_to_numpy(runner.net_cfg, {
+        n: p.grad for n, p in runner.model.named_parameters()})
+    cfg_j = jg.GuidanceNetConfig(
+        in_channels=8, mid_channels=96, num_layers=2, num_branches=5,
+        kernel_levels=12)
+    model_j = jax.jit(jg.GuidanceNet(cfg_j, dtype=jnp.float32).apply)
+    (w, g), net_vjp = jax.vjp(
+        lambda p: model_j({"params": p}, jnp.asarray(aux)), params)
+    assert _guard_holds(np.asarray(g))
+    filt = _jax_fast_vjp(LADDER12)
+    out = filt(w, g, img_in, jnp.zeros((B, H, W, 4), jnp.float32))[0]
+    loss_j, G = jax.value_and_grad(
+        lambda o: jsmape(o[..., :3], jnp.asarray(img_gt)))(out)
+    _, dw, dg = filt(w, g, img_in, G)
+    grads_j = net_vjp((dw, dg))[0]
+    assert abs(loss.item() - float(loss_j)) <= 1e-6 * abs(float(loss_j))
+    leaves = jax.tree_util.tree_leaves_with_path(grads_j)
+    assert len(leaves) == len(jax.tree.leaves(grads_t)) == 40
+    for got, (path, ref) in zip(jax.tree.leaves(grads_t), leaves):
+        ref, kind = np.asarray(ref), path[-1].key
+        np.testing.assert_allclose(
+            got, ref, rtol=1e-4,
+            atol=STEP_CANCEL_ATOL[kind] * np.abs(ref).max(),
+            err_msg=jax.tree_util.keystr(path))
+
+
+@pytest.mark.parametrize("fmt", ["SG", "ASG"])
+def test_wide_basis_frame_matches_jax(fmt):
+    """A 32x32 frame (SPP 6) of a depth-5 shell with SG / ASG rows of
+    basis_dim 32 (K1's wide instance on the card): the port's tree from
+    synthetic.with_lobes, the same arrays in the JAX package's tree."""
+    tree = tsyn.with_lobes(tsyn.make_synthetic_tree("shell", depth=5,
+                                                    basis_dim=32),
+                           BasisFormat[fmt], 32)
+    jtree = jsyn.make_synthetic_tree("shell", depth=5, basis_dim=32)
+    jtree.data = tree.data.copy()
+    jtree.extra = tree.extra.copy()
+    jtree.data_format = JFormat(JBasis[fmt], 32)
+    cam = JCamera(width=32, height=32, fx=53.0, fy=53.0)
+    r = jr.Renderer(jt.upload_tree(jtree, lut_levels=5), 32, 32, cam.fx,
+                    cam.fy, options=JOptions(spp=6, denoise=False),
+                    schedule=((0, 1),))
+    img_j, aux_j = (np.asarray(a) for a in r.render(cam.transform))
+    dt = tt.upload_tree(tree, lut_levels=5, device="cpu")
+    assert tr.is_wide(dt) and tr.classic_layout(
+        dt.fmt, dt.basis_dim, dt.data_dim) == "wide"
+    rp = tr.Renderer(dt, 32, 32, cam.fx, cam.fy,
+                     options=RenderOptions(spp=6, denoise=False))
+    img, aux = (a.numpy() for a in rp.render(cam.transform))
+    np.testing.assert_allclose(img, img_j, atol=IMG_TOL)
+    np.testing.assert_allclose(aux, aux_j, atol=AUX_TOL)
+    assert aux[3].max() > 0.5
+
+
+@pytest.mark.parametrize("max_degree", [0, 1, 2, 3, 4])
+def test_gen_sh_mesh_writes_the_jax_tools_files(max_degree, tmp_path):
+    """rt_octree_tpu_torch/tools/gen_sh_mesh.py against tools/gen_sh_mesh.py
+    (run as scripts, with the same arguments): the same OBJ files, byte
+    for byte."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    runs = {"jax": [sys.executable, os.path.join(REPO, "tools",
+                                                 "gen_sh_mesh.py")],
+            "port": [sys.executable, "-m",
+                     "rt_octree_tpu_torch.tools.gen_sh_mesh"]}
+    for side, cmd in runs.items():
+        out = subprocess.run(cmd + [str(max_degree), str(tmp_path / side)],
+                             cwd=REPO, env=env, capture_output=True,
+                             text=True, timeout=120)
+        assert out.returncode == 0, out.stderr
+    names = sorted(os.listdir(tmp_path / "jax"))
+    assert names == [f"sh_{i:02d}.obj" for i in range((max_degree + 1) ** 2)]
+    assert sorted(os.listdir(tmp_path / "port")) == names
+    for name in names:
+        assert (tmp_path / "port" / name).read_bytes() == \
+            (tmp_path / "jax" / name).read_bytes(), name
+
+
+def test_wide_instances_are_chosen_on_the_host():
+    """Which instance each wrapper takes, decided in Python before any
+    launch: the unrolled instances for the committed shapes, the wide
+    ones past them, a ValueError past those; CPU tensors at wide shapes
+    take the plain versions and launch nothing."""
+    from rt_octree_tpu_torch.native import build as native
+    from rt_octree_tpu_torch.ops import guidance as og
+    assert not tf.wide_plan(32, 4, (1, 2, 3, 4))
+    assert not tf.wide_plan(65535, 8, tuple(range(8)))
+    assert tf.wide_plan(32, 12, LADDER12)
+    assert tf.wide_plan(1, 2, (0, 9))
+    assert tf.wide_plan(65536, 1, (1,))
+    with pytest.raises(ValueError):
+        tf._check_levels("k", 2, (0, 33))
+    with pytest.raises(ValueError):
+        tf._check_levels("k", 65, (1,) * 65)
+    for kw, wide in ((WIDE_NETS["8-96-24"], [True, True]),
+                     (WIDE_NETS["8-128-128-8"], [True] * 3),
+                     ({}, [False, False])):
+        cfg = tg.GuidanceNetConfig(**kw)
+        net = tg.build_compact(cfg, _net_params(cfg), "cpu")
+        net.pack()
+        assert [og.is_wide(p) for p in net.packed] == wide
+    native.reset_launches()
+    w, g, x, G = (torch.from_numpy(a) for a in _filter_inputs(1, 12, 8, 8,
+                                                              B=1))
+    tf.guided_filter_batch(w, g, x, LADDER12)
+    assert not any(native.LAUNCHES.values())
