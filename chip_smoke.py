@@ -45,12 +45,14 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      three images), and the chain on the nets and aux of K7_CHAIN_SEEDS
      at 799x801;
   6b. the wide instances (phase_wide), each vs its plain version and
-     timed: K7's wide plan on 8 -> 96 -> 24, 8 -> 128 -> 128 -> 8 and
-     8 -> 256 -> 64 nets at 800x800 and at K7's tile edges, launch by
-     launch on the input the chain gives it and the whole chain at both
-     bars (K7_SHARE_TIES: the share reported beside each side's distance
-     from an f64 sum), K2's at 12, 16 and 32
-     levels, K5's and K6's on the L = 12 train batch and past 65,535
+     timed: K7's wide instances on 8 -> 96 -> 24 (the fused wide
+     instance, one launch a frame), 8 -> 128 -> 128 -> 8 and 8 -> 256 ->
+     64 nets (the per-block plan, one launch a block) at 800x800 and at
+     K7's tile edges, block by block on the input the chain gives it and
+     the whole net at both bars (K7_SHARE_TIES: the share reported beside
+     each side's distance from an f64 sum), K2's at 12, 16 and 32 levels
+     (as given and channels last; the guard's share; an 80-nat spike that
+     must take the guard), K5's and K6's on the L = 12 train batch and past 65,535
      slices, K1's and render_classic's (frame and ray mode) on SG / ASG
      trees of basis_dim 32 and 48 at every SPP, and on the path's
      depth-8 SG32 / ASG32 frames at 800x800 and the SG32 frame's 640,000
@@ -126,7 +128,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      reset just before and read just after: rtoctree train of two
      8 -> 96 -> 24 nets of 12 levels (the ladder, --identity_level) for
      WIDE_TRAIN_EPOCHS on the train kit, their compact task, rtoctree
-     render on the headline tree with each .gnet (PSNR, no bar), rtoctree
+     render on the headline tree with each .gnet (PSNR, no bar; K7's fused
+     wide instance and K2 wide once a frame; K2 wide's guard share on
+     pose r_0), rtoctree
      render of SG32 / ASG32 depth-8 trees with both estimators and
      trace_rays / trace_rays_classic on aimed rays: {"wide_path": ...};
   9b. multi-device (rt_octree_tpu_torch/parallel, ranks launched by
@@ -293,6 +297,20 @@ training step (torch.profiler), as one JSON line {"filter_ms": ...};
 script on OTHER_ROOT's package and on its own in turns, and prints each
 side's times, their paired differences and each side's digests as one
 JSON line {"filter_pairs": ...}.
+
+    python3 chip_smoke.py --wide-times [ROOT]
+    python3 chip_smoke.py --wide-pairs OTHER_ROOT [PAIRS]
+
+--wide-times times the wide path's kernels of the package under ROOT
+(default: beside this file) alone: K7 on the seeded 8 -> 96 -> 24 net at
+800x800, K2 wide on its channels-last activation (ladder 1..12), and the
+headline tree's 800x800 frame (pose r_0, SPP 6) denoised by that net, as
+one JSON line {"wide_times": ...}, the frame saved in build/chip_smoke;
+--wide-pairs runs it in PAIRS (default 6) pairs of processes, this script
+on OTHER_ROOT's package and on its own in turns, and prints each side's
+times, their paired differences and the largest difference between the
+two sides' frames (at most WIDE_PAIRS_FRAME_TOL) as one JSON line
+{"wide_pairs": ...}.
 """
 
 from __future__ import annotations
@@ -307,11 +325,13 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-# --classic-only ROOT and --filter-only ROOT import the package of another
-# checkout (the timers of --classic-pairs and --filter-pairs); every other
-# mode imports the one beside this file
+# --classic-only ROOT, --filter-only ROOT and --wide-times ROOT import the
+# package of another checkout (the timers of --classic-pairs,
+# --filter-pairs and --wide-pairs); every other mode imports the one beside
+# this file
 PKG_ROOT = (os.path.abspath(sys.argv[2])
-            if sys.argv[1:2] in (["--classic-only"], ["--filter-only"])
+            if sys.argv[1:2] in (["--classic-only"], ["--filter-only"],
+                                 ["--wide-times"])
             and len(sys.argv) == 3 else HERE)
 sys.path.insert(0, PKG_ROOT)
 
@@ -507,6 +527,15 @@ PROBE_KERNELS = {
     "row_ring_rounds": "tools/microbench_gather.py:132",
     "flat_gather_chain": "tools/microbench_gather.py:183",
 }
+# the wide kernels' entry functions in ptxas's report: (source, kernel) ->
+# instances (K7's fused wide instance a block-1 n-group of 2, 3, 4; its
+# per-block plan 1, 2, 4; K2's tiles of 32 x 32 and 16 x 8, and the 32 x
+# 32 statistics instance)
+WIDE_PTXAS = {("net", "guidance_wide2_kernel"): 3,
+              ("net", "guidance_wide_kernel"): 3,
+              ("filter", "guided_filter_wide_kernel"): 3,
+              ("filter", "guided_filter_batch_wide_kernel"): 1,
+              ("filter", "guided_filter_batch_bwd_wide_kernel"): 1}
 # the wide kernels (launch name -> source, what they stand in for)
 WIDE_KERNELS = {
     "guidance_net_wide": ("rt_octree_tpu_torch/csrc/net.cu",
@@ -609,20 +638,20 @@ def phase_ptxas(native):
            + (" wide" if m.group(4) == "1" else "")] = v
     log(json.dumps({"ptxas_render": rt}))
     wide = {}
-    for src, kernel in (("net", "guidance_wide_kernel"),
-                        ("filter", "guided_filter_wide_kernel"),
-                        ("filter", "guided_filter_batch_wide_kernel"),
-                        ("filter", "guided_filter_batch_bwd_wide_kernel")):
-        for v in ptxas_kernels(native.PTXAS.get(src, ""), kernel).values():
-            wide[kernel] = v
+    for src, kernel in WIDE_PTXAS:
+        for name, v in ptxas_kernels(native.PTXAS.get(src, ""),
+                                     kernel).items():
+            args = re.findall(r"L[ib](\d+)E", name.split(kernel)[1])
+            wide[kernel + (f"<{', '.join(args)}>" if args else "")] = v
     log(json.dumps({"ptxas_wide": wide}))
     require(len(table) == 23 and all(len(v) == 4 for v in table.values()),
             f"ptxas reported {sorted(table)}, not the 23 render_classic "
             "instances")
     require(len(rt) == 40, f"ptxas reported {sorted(rt)}, not the 40 "
             "render_kernel instances")
-    require(len(wide) == 4, f"ptxas reported {sorted(wide)}, not the 4 "
-            "wide instances of K7, K2, K5 and K6")
+    require(len(wide) == sum(WIDE_PTXAS.values()), f"ptxas reported "
+            f"{sorted(wide)}, not the {sum(WIDE_PTXAS.values())} wide "
+            "instances of K7, K2, K5 and K6")
     require(all(v["stack_bytes"] == v["spill_store_bytes"]
                 == v["spill_load_bytes"] == 0 for v in table.values()),
             "a render_classic instance has a stack frame or spills")
@@ -1302,7 +1331,7 @@ def phase_k7(err):
 WIDE_K7_NETS = (dict(mid_channels=96, kernel_levels=12),
                 dict(mid_channels=128, num_layers=3, kernel_levels=4),
                 dict(mid_channels=256, kernel_levels=32))
-WIDE_K7_EDGES = ((1, 17, 57), (3, 17, 57), (1, 801, 799))
+WIDE_K7_EDGES = ((1, 37, 53), (1, 17, 57), (3, 17, 57), (1, 801, 799))
 # The one wide hold whose whole chain passes K7_UNEQUAL_SHARE: a rounding
 # tie carried through three 128-wide blocks on a small batch (1.89e-3 of
 # its elements unequal; block by block, K7 and the plain chain lie equally
@@ -1315,6 +1344,12 @@ WIDE_K2_CASES = (("ladder 1..12", tuple(range(1, 13)), 800, 800),
                  ("ladder 1..12", tuple(range(1, 13)), 801, 799),
                  ("identity 0..15", tuple(range(16)), 800, 800),
                  ("ladder 1..32", tuple(range(1, 33)), 80, 96))
+# K2 wide's guard: a spike of WIDE_K2_SPIKE nats in every guidance level
+# at one pixel of a seeded activation (3 nats elsewhere), so that the
+# (tile, level) pairs whose region holds it take the per-window form
+WIDE_K2_SPIKE = 80.0
+WIDE_K2_GUARD_CASE = ("ladder 1..12, an 80-nat spike", tuple(range(1, 13)),
+                      160, 192, (77, 101))
 # K5 / K6's wide cases: (label, B, supports, H, W); the training batch at
 # L = 12 with either ladder, and batches past 65,535 slices
 WIDE_K56_CASES = (("train batch ladder 1..12", 32, tuple(range(1, 13)), 80,
@@ -1396,23 +1431,26 @@ def hold_k56(label, w, g, x, G, sup, err):
 
 
 def hold_k7_wide(label, net, aux_nhwc, err):
-    """A net with a block past 64 channels, which K7 runs as a chain of
-    one-block launches (ops.guidance.chain_block; the wide plan for the
-    wide blocks).  Each launch is held at K7's bars against the plain
-    block on the input the chain gives it: block 0 the f32 aux, each later
-    block the plain chain's bf16 output, its channels padded with 0 as the
-    chain pads them (no rounding carried over, as tests/test_torch_net.py
-    holds K7 block by block), and its padded output channels must be 0.
-    Then the whole chain against the plain chain at both bars, but for
-    the K7_SHARE_TIES, whose share is reported beside how far K7 and the
-    plain chain (cuDNN) each lie, block by block, from the block summed in
-    f64 and rounded as the net rounds (a rounding tie carried through the
-    chain moves elements in either; a bug moves K7 alone)."""
+    """A net with a block past 64 channels.  Each block alone as a chain
+    launch (ops.guidance.chain_block: the per-block plan for a wide block)
+    is held at K7's bars against the plain block on the input the chain
+    gives it: block 0 the f32 aux, each later block the plain chain's bf16
+    output, its channels padded with 0 as the chain pads them (no rounding
+    carried over, as tests/test_torch_net.py holds K7 block by block), and
+    its padded output channels must be 0.  Then the whole net as K7 runs
+    it (the fused wide instance's one launch, or the chain) against the
+    plain chain at both bars, but for the K7_SHARE_TIES, whose share is
+    reported beside how far K7's blocks and the plain chain (cuDNN) each
+    lie, block by block, from the block summed in f64 and rounded as the
+    net rounds (a rounding tie carried through the chain moves elements in
+    either; a bug moves K7 alone).  The fused wide instance's output must
+    equal the per-block plan's chain bit for bit (the same sums)."""
     import torch
     import torch.nn.functional as F
     from rt_octree_tpu_torch.models.guidance_net import \
         compact_activation_plain
-    from rt_octree_tpu_torch.ops.guidance import chain_block, is_wide
+    from rt_octree_tpu_torch.ops.guidance import (chain_block, is_wide,
+                                                  net_plan)
     ws = [c.weight for c in net.convs]
     bs = [c.bias for c in net.convs]
     xk = xp = aux_nhwc  # the kernel's input to a block, the plain block's
@@ -1426,7 +1464,7 @@ def hold_k7_wide(label, net, aux_nhwc, err):
             ref = compact_activation_plain(xp, ws[i:i + 1], bs[i:i + 1])
             t_ulps, e_ulps, share, e = bf16_ulps(got, ref)
             pad_zero = not bool(out[..., layer.cout:].any())
-            kind = "wide plan" if is_wide(layer) else "fused instance"
+            kind = "per-block plan" if is_wide(layer) else "fused instance"
             log(f"[k7] {label}, block {i} ({layer.cin} -> {layer.cout}, "
                 f"{kind}) on the plain chain's {xk.dtype} input of "
                 f"{xk.shape[-1]} channels: max|diff| {e:.3g} = {t_ulps:g} "
@@ -1452,6 +1490,17 @@ def hold_k7_wide(label, net, aux_nhwc, err):
             xk = F.pad(xp, (0, layer.nt * 8 - layer.cout)).contiguous()
         act = net.activation(aux_nhwc)
         ref = compact_activation_plain(aux_nhwc, ws, bs)
+        if net_plan(net.packed) == "fused_wide":
+            # one launch, the per-block plan's sums: its chain bit for bit
+            x = aux_nhwc
+            for i, layer in enumerate(net.packed):
+                x = chain_block(x, layer, layer.cout if i == len(
+                    net.packed) - 1 else layer.nt * 8)
+            same = bool(torch.equal(act.permute(0, 2, 3, 1), x))
+            log(f"[k7] {label}: the fused wide instance bit-equal to the "
+                f"per-block plan's chain: {same}")
+            require(same, f"K7's fused wide instance is not the per-block "
+                    f"plan's chain bit for bit on {label}")
     t_ulps, e_ulps, share, e = bf16_ulps(act, ref)
     tie = label in K7_SHARE_TIES
     log(f"[k7] {label}, the whole chain: max|diff| {e:.3g} = {t_ulps:g} "
@@ -1478,9 +1527,61 @@ def k2_bound(L, sup, n):
     return bound(n * (4 * L + 12 + 16), n * (9 * taps + 10 * L))
 
 
+def k2_wide_bound(L, sup, n, guard=0.0):
+    """K2 wide's bound in the form it takes: the activation (2L bf16), rgb
+    and the output once; a pixel and level of support s > 0 in the
+    separable form 16 s + 8 operations (as k56_bounds counts K5's), the
+    guarded share of the (tile, level) pairs at 9 operations a window tap
+    (spread evenly over the levels), and 10 a level for the blend."""
+    pos = [s for s in sup if s > 0]
+    sep = sum(16 * s + 8 for s in pos)
+    taps = sum((2 * s + 1) ** 2 for s in pos)
+    ops = (1 - guard) * sep + guard * 9 * taps + 10 * L
+    return bound(n * (4 * L + 12 + 16), n * ops)
+
+
+def k2_spike(act, L, yx):
+    """The activation ``act`` [1, 2L, H, W] with WIDE_K2_SPIKE in every
+    guidance level at pixel ``yx`` (WIDE_K2_GUARD_CASE)."""
+    act = act.clone()
+    act[0, L:, yx[0], yx[1]] = WIDE_K2_SPIKE
+    return act
+
+
+def k2_guards(act, img, sup):
+    """One K2 call with the guard counter: (guarded (tile, level) pairs,
+    their share of wide_filter_tiles)."""
+    import torch
+    from rt_octree_tpu_torch.ops import filtering as Fm
+    guards = torch.zeros(1, dtype=torch.int32, device="cuda")
+    Fm.guided_filter(act, img, sup, guards=guards)
+    n = int(guards)
+    return n, n / Fm.wide_filter_tiles(img.shape[0], img.shape[1], sup)
+
+
+def k7_wide_launches(net, aux):
+    """K7's launches for one activation of ``net`` -> (plan, launches
+    (guidance_net_wide, guidance_net), what the plan launches): the fused
+    wide instance once, a chain once a block (the per-block plan for its
+    wide blocks, a fused instance for the others)."""
+    import torch
+    from rt_octree_tpu_torch.native import build as native
+    from rt_octree_tpu_torch.ops.guidance import is_wide, net_plan
+    native.reset_launches()
+    with torch.no_grad():
+        net.activation(aux)
+    torch.cuda.synchronize()
+    got = (native.LAUNCHES["guidance_net_wide"],
+           native.LAUNCHES["guidance_net"])
+    plan = net_plan(net.packed)
+    wide = sum(map(is_wide, net.packed))
+    want = (1, 0) if plan == "fused_wide" else (wide, len(net.packed) - wide)
+    return plan, got, want
+
+
 def phase_wide(err):
     """The wide instances against their plain versions on the card, and
-    their times: K7's wide plan on WIDE_K7_NETS (800x800 and
+    their times: K7's wide instances on WIDE_K7_NETS (800x800 and
     WIDE_K7_EDGES, K7's bars), K2's wide instance on WIDE_K2_CASES, K5's
     and K6's on WIDE_K56_CASES, and K1's and render_classic's wide
     instances (frame and ray mode; render_classic's statistics) on
@@ -1489,11 +1590,14 @@ def phase_wide(err):
     classic frames and rays ride in phases 4 (classic_layout_trees).
     Then the path's shapes: the depth-8 SG32 and ASG32 trees' 800x800
     frames (SPP 6, classic) held, and the SG32 frame's own 640,000 rays
-    held in both ray modes.  Returns (ms, bounds) of the eight wide
-    kernels, each timed at the path's shapes: the 8 -> 96 -> 24 net and
-    K2 at L = 12 at 800x800, K5 and K6 on the L = 12 train batch (their
-    bounds from the run's guard shares), K1, render_classic and their ray
-    modes on the SG32 tree at 800x800 (SPP 6)."""
+    held in both ray modes.  K7's launches a frame are pinned for each
+    net (net_plan); K2 is held on each case as given and channels last,
+    and on WIDE_K2_GUARD_CASE, which must take the guard.  Returns (ms,
+    bounds) of the eight wide kernels, each timed at the path's shapes:
+    the 8 -> 96 -> 24 net (the fused wide instance) and K2 at L = 12
+    (channels last) at 800x800, K5 and K6 on the L = 12 train batch (K2's,
+    K5's and K6's bounds from the run's guard shares), K1, render_classic
+    and their ray modes on the SG32 tree at 800x800 (SPP 6)."""
     import torch
     from rt_octree_tpu_torch.core.camera import Camera
     from rt_octree_tpu_torch.core.options import RenderOptions
@@ -1503,7 +1607,7 @@ def phase_wide(err):
     from rt_octree_tpu_torch.ops.traversal import upload_tree
     from rt_octree_tpu_torch.render import renderer as R
     ms, bounds = {}, {}
-    # ---- K7's wide plan ----
+    # ---- K7's wide instances ----
     rs = np.random.default_rng(41)
     nets = {}
     for kw in WIDE_K7_NETS:
@@ -1512,6 +1616,17 @@ def phase_wide(err):
             cout for _, cout in cfg.layer_channels()])
         net = build_compact(cfg, wide_net_params(cfg, rs), "cuda")
         nets[chans] = net
+        plan, got, want = k7_wide_launches(net, k7_aux(800, 800))
+        with torch.no_grad():  # strided channels: cp.async, not TMA
+            nchw = k7_aux(800, 800).permute(0, 3, 1, 2).contiguous()
+            strided = bool(torch.equal(net.activation(
+                nchw.permute(0, 2, 3, 1)), net.activation(k7_aux(800, 800))))
+        log(f"[wide] K7 {chans}: plan {plan}, launches (guidance_net_wide, "
+            f"guidance_net) {got} a frame; a permuted NCHW aux bit-equal: "
+            f"{strided}")
+        require(got == want and strided, f"K7 on {chans}: launches {got}, "
+                f"not {want} ({plan}), or another activation from a "
+                "permuted aux")
         hold_k7_wide(f"random aux 800x800, random net {chans}", net,
                      k7_aux(800, 800), err)
         for B, H, W in WIDE_K7_EDGES:
@@ -1536,27 +1651,68 @@ def phase_wide(err):
             device_ms(lambda: net.activation(aux), 50, 5),
             cuda_ms(lambda: compact_activation_plain(aux, ws, bs), 10, 2))
         lib = device_ms(cudnn_chain, 50, 5)
+        chain = nets["8 -> 128 -> 128 -> 8"]
+        chain_ms = device_ms(lambda: chain.activation(aux), 20, 2)
     bounds["guidance_net_wide"] = k7_bound(net, 800 * 800) + (lib,)
+    log(f"[wide] K7 per-block plan, 8 -> 128 -> 128 -> 8 at 800x800 (3 "
+        f"launches): {chain_ms:.4f} ms, bound "
+        f"{k7_bound(chain, 800 * 800)[0]:.4f} ms")
+    err.setdefault("k7", {"holds": {}, "ms": {}})["ms"][
+        "wide chain 8 -> 128 -> 128 -> 8 800x800"] = chain_ms
     # ---- K2's wide instance ----
     for label, sup, H, W in WIDE_K2_CASES:
         L = len(sup)
         act = filter_activation(rs, L, H, W, 3.0)
         img = torch.from_numpy(rs.random((H, W, 4), np.float32)).cuda()
-        got = Fm.guided_filter(act, img, sup)
         ref = Fm.guided_filter_act_plain(act, img, sup)
-        e = float((got - ref).abs().max())
-        log(f"[wide] K2 {label} {W}x{H}: max|diff| {e:.3g}")
-        require(e <= K2_TOL and bool(torch.isfinite(got).all()),
-                f"K2's wide instance disagrees with its plain version "
-                f"({label})")
-        err["guided_filter_wide"] = max(err.get("guided_filter_wide", 0.0),
-                                        e)
+        # the activation as given and channels last (as K7 hands it over)
+        for layout, a in (("contiguous", act), ("channels last", act.contiguous(
+                memory_format=torch.channels_last))):
+            got = Fm.guided_filter(a, img, sup)
+            e = float((got - ref).abs().max())
+            n_guard, share = k2_guards(a, img, sup)
+            log(f"[wide] K2 {label} {W}x{H} {layout}: max|diff| {e:.3g}, "
+                f"{n_guard} (tile, level) pairs took the guard")
+            require(e <= K2_TOL and bool(torch.isfinite(got).all()),
+                    f"K2's wide instance disagrees with its plain version "
+                    f"({label}, {layout})")
+            err["guided_filter_wide"] = max(
+                err.get("guided_filter_wide", 0.0), e)
         if (label, H) == ("ladder 1..12", 800):
             ms["guided_filter_wide"] = (
-                device_ms(lambda: Fm.guided_filter(act, img, sup), 20, 2),
+                device_ms(lambda: Fm.guided_filter(a, img, sup), 20, 2),
                 cuda_ms(lambda: Fm.guided_filter_act_plain(act, img, sup),
                         1, 0))
-            bounds["guided_filter_wide"] = k2_bound(L, sup, H * W) + (None,)
+            contiguous_ms = device_ms(lambda: Fm.guided_filter(act, img, sup),
+                                      20, 2)
+            bounds["guided_filter_wide"] = k2_wide_bound(
+                L, sup, H * W, share) + (None,)
+            got_st, stats = Fm.guided_filter_wide_stats(a, img, sup)
+            require(bool(torch.equal(got_st, Fm.guided_filter(a, img, sup))),
+                    "K2 wide's statistics instance gave another image")
+            log(f"[wide] K2 ladder 1..12 800x800: channels last "
+                f"{ms['guided_filter_wide'][0]:.4f} ms, contiguous "
+                f"{contiguous_ms:.4f} ms; guard share {share:.4g}; cycles "
+                f"a tile (thread 0) {stats['cycles_per_tile']}")
+            err.setdefault("k2_wide", {})["ladder 1..12 800x800"] = {
+                "channels_last_ms": ms["guided_filter_wide"][0],
+                "contiguous_ms": contiguous_ms, "guard_share": share,
+                "stats": stats}
+    label, sup, H, W, yx = WIDE_K2_GUARD_CASE
+    L = len(sup)
+    act = k2_spike(filter_activation(rs, L, H, W, 3.0), L, yx)
+    img = torch.from_numpy(rs.random((H, W, 4), np.float32)).cuda()
+    got = Fm.guided_filter(act, img, sup)
+    e = float((got - Fm.guided_filter_act_plain(act, img, sup)).abs().max())
+    n_guard, share = k2_guards(act, img, sup)
+    log(f"[wide] K2 {label} {W}x{H}: max|diff| {e:.3g}, {n_guard} (tile, "
+        f"level) pairs took the guard ({share:.4g})")
+    require(e <= K2_TOL and bool(torch.isfinite(got).all()) and n_guard >= 1,
+            f"K2's wide instance on {label}: max|diff| {e:.3g}, {n_guard} "
+            "guarded pairs")
+    err["guided_filter_wide"] = max(err["guided_filter_wide"], e)
+    err["k2_wide"][label] = {"max_abs": e, "guarded_pairs": n_guard,
+                             "guard_share": share}
     # ---- K5 / K6's wide instances ----
     for label, B, sup, H, W in WIDE_K56_CASES:
         w, g, x, G = filter_batch_inputs(rs, B, len(sup), H, W)
@@ -1692,6 +1848,8 @@ def wide_only():
                                     "library_ms": bounds[k][2],
                                     "max_abs_err": err.get(k)}
                                 for k in WIDE_KERNELS}}))
+    log(json.dumps({"wide_holds": {"k7": err.get("k7"),
+                                   "k2_wide": err.get("k2_wide")}}))
     return 0
 
 
@@ -1918,6 +2076,20 @@ def spread(values):
     return dict(zip(("min", "q1", "median", "q3", "max"), map(float, q)))
 
 
+def pair_times(other_root, pairs, ms):
+    """The paired processes' times ``ms`` {side: {key: [ms a process]}}:
+    each side's least value, quartiles and largest value, this side's less
+    the other's within a pair, and the raw lists."""
+    return {"pairs": pairs, "order": "other, this, this, other, ...",
+            "roots": {"other": os.path.abspath(other_root), "this": HERE},
+            "raw_ms": ms,
+            **{side: {k: spread(v) for k, v in ms[side].items()}
+               for side in ms},
+            "this_less_other": {k: spread(np.subtract(ms["this"][k],
+                                                      ms["other"][k]))
+                                for k in ms["this"]}}
+
+
 def load_pairs(other_root, pairs):
     """--load-pairs: ``pairs`` pairs of --load-only processes, OTHER_ROOT's
     and this checkout's in turns, on the headline npz; each side's least
@@ -2096,13 +2268,7 @@ def classic_pairs(other_root, pairs):
             if "digest" in got[0][k]:
                 digests[side].setdefault(k, set()).add(got[0][k]["digest"])
     log(json.dumps({"classic_pairs": {
-        "pairs": pairs, "order": "other, this, this, other, ...",
-        "roots": {"other": os.path.abspath(other_root), "this": HERE},
-        "raw_ms": ms,
-        **{side: {k: spread(v) for k, v in ms[side].items()} for side in ms},
-        "this_less_other": {k: spread(np.subtract(ms["this"][k],
-                                                  ms["other"][k]))
-                            for k in keys},
+        **pair_times(other_root, pairs, ms),
         "bit_equal": {k: len(digests["this"][k] | digests["other"][k]) == 1
                       for k in digests["this"]},
         "digests": {side: {k: sorted(v) for k, v in d.items()}
@@ -2968,19 +3134,112 @@ def filter_pairs(other_root, pairs):
         digests[side].add(got[0]["digest"])
         last[side] = got[0]
     log(json.dumps({"filter_pairs": {
-        "pairs": pairs, "order": "other, this, this, other, ...",
-        "roots": {"other": os.path.abspath(other_root), "this": HERE},
-        "raw_ms": ms,
-        **{side: {k: spread(v) for k, v in ms[side].items()} for side in ms},
-        "this_less_other": {k: spread(np.subtract(ms["this"][k],
-                                                  ms["other"][k]))
-                            for k in ms["this"]},
+        **pair_times(other_root, pairs, ms),
         "other_over_this": {k: float(np.median(ms["other"][k]) /
                                      np.median(ms["this"][k]))
                             for k in ms["this"]},
         "digests": {side: sorted(d) for side, d in digests.items()},
         "step_ops": step_ops_diff(last),
         "last": last}}))
+    return 0
+
+
+WIDE_PAIRS_FRAME_TOL = 2e-5  # the two packages' wide frames (K2's bar x 2)
+
+
+def wide_frame_path(root):
+    """Where --wide-times saves the wide frame of the package under
+    ``root``: this checkout's or the other one's."""
+    side = "this" if os.path.abspath(root) == HERE else "other"
+    return os.path.join(WORK, f"wide_frame_{side}.npy")
+
+
+def wide_times(root):
+    """--wide-times [ROOT]: the wide path's K7 and K2 of the package under
+    ROOT (default: beside this file) alone, by device_ms: K7 on the
+    8 -> 96 -> 24 net (WIDE_K7_NETS' first, seeded as phase_wide) on
+    random aux at 800x800, K2 wide on that net's activation (channels last,
+    ladder 1..12) with seeded rgb, and whether K7's activation equals the
+    net run one block a launch (chain_block) bit for bit; then the
+    headline tree's 800x800 frame (pose r_0, SPP 6, PCG32 seeded 20230418,
+    1) denoised by that net, by cuda_ms, saved for --wide-pairs.  One JSON
+    line {"wide_times": ...}."""
+    import torch
+    from rt_octree_tpu_torch.io import n3tree
+    from rt_octree_tpu_torch.io.poses import load_poses
+    from rt_octree_tpu_torch.models.guidance_net import (GuidanceNetConfig,
+                                                         build_compact)
+    from rt_octree_tpu_torch.native import build as native
+    from rt_octree_tpu_torch.ops import filtering as Fm
+    from rt_octree_tpu_torch.ops.guidance import chain_block
+    from rt_octree_tpu_torch.ops.traversal import upload_tree
+    from rt_octree_tpu_torch.render.renderer import Renderer
+    native.build()
+    res = {"root": root, "package": os.path.dirname(os.path.dirname(
+        os.path.abspath(Fm.__file__)))}
+    cfg = GuidanceNetConfig(**WIDE_K7_NETS[0])
+    params = wide_net_params(cfg, np.random.default_rng(41))
+    net = build_compact(cfg, params, "cuda")
+    aux = k7_aux(800, 800)
+    sup = cfg.supports()
+    img = torch.from_numpy(np.random.default_rng(7).random(
+        (800, 800, 4), np.float32)).cuda()
+    with torch.no_grad():
+        act = net.activation(aux)
+        res["k7_ms"] = device_ms(lambda: net.activation(aux), 50, 5)
+        x = aux  # the net one block a launch
+        for i, layer in enumerate(net.packed):
+            x = chain_block(x, layer, layer.cout if i == len(net.packed) - 1
+                            else layer.nt * 8)
+    res["k7_equals_chain"] = bool(torch.equal(act.permute(0, 2, 3, 1), x))
+    res["k2_ms"] = device_ms(lambda: Fm.guided_filter(act, img, sup), 50, 5)
+    tree_path = os.path.join(WORK, "shell_d9_sh9.npz")
+    if not os.path.isfile(tree_path):
+        headline_tree_path()
+    dt = upload_tree(n3tree.load(tree_path), lut_levels=9, device="cuda")
+    ps = load_poses("blender", os.path.join(KIT, "transforms_test.json"),
+                    800, 800)
+    r = Renderer(dt, 800, 800, ps.fx, ps.fy, options=headline_options())
+    r.set_denoiser(cfg, params)
+    pose = ps.poses[0]
+    r.rng.seed(20230418, 1)
+    frame = r.render(pose, want_aux=False)[0]
+    require(bool(torch.isfinite(frame).all()), "the wide frame is not finite")
+    np.save(wide_frame_path(root), frame.cpu().numpy())
+    res["digest"] = frame_digest((frame,))
+    res["frame_ms"] = cuda_ms(lambda: r.render(pose, want_aux=False), 20, 3)
+    log(json.dumps({"wide_times": res}))
+    return 0
+
+
+def wide_pairs(other_root, pairs):
+    """--wide-pairs: ``pairs`` pairs of --wide-times processes, this
+    script on OTHER_ROOT's package and on its own in turns; each side's
+    times (least, quartiles, largest), this side's less the other's within
+    a pair, each side's frame digests and the largest |difference| between
+    the two sides' frames (at most WIDE_PAIRS_FRAME_TOL).  One JSON line
+    {"wide_pairs": ...}."""
+    if not os.path.isfile(os.path.join(WORK, "shell_d9_sh9.npz")):
+        headline_tree_path()
+    ms = {side: {k: [] for k in ("k7_ms", "k2_ms", "frame_ms")}
+          for side in ("other", "this")}
+    digests = {side: set() for side in ms}
+    for i, side, lines in alternate(other_root, pairs, ["--wide-times"],
+                                    "wide_pairs", own_script=True):
+        got = [ln["wide_times"] for ln in lines if "wide_times" in ln]
+        require(len(got) == 1, f"{side} wide process {i}: unexpected output")
+        for k in ms[side]:
+            ms[side][k].append(got[0][k])
+        digests[side].add(got[0]["digest"])
+    frames = {side: np.load(wide_frame_path(root)) for side, root in
+              (("this", HERE), ("other", other_root))}
+    diff = float(np.abs(frames["this"] - frames["other"]).max())
+    log(json.dumps({"wide_pairs": {
+        **pair_times(other_root, pairs, ms),
+        "digests": {side: sorted(d) for side, d in digests.items()},
+        "frame_max_abs_diff": diff}}))
+    require(diff <= WIDE_PAIRS_FRAME_TOL, f"the two packages' wide frames "
+            f"differ by {diff:.3g}")
     return 0
 
 
@@ -3195,15 +3454,28 @@ WIDE_TREE_DEPTH = 8
 WIDE_PATH_RAYS = 65536
 
 
-def phase_wide_path(native, tree_path, err):
+def path_guard_share(r, ps, gnet):
+    """K2 wide's guarded (tile, level) pairs on the headline frame (pose
+    r_0, SPP 6) denoised by the .gnet at ``gnet``: a Renderer on the tree
+    of ``r``, K1's noisy frame, K7 on its aux, then K2 with the counter."""
+    from rt_octree_tpu_torch.render.renderer import Renderer
+    w = Renderer(r.tree, 800, 800, ps.fx, ps.fy, options=headline_options())
+    w.set_denoiser(gnet)
+    img, aux_nhwc, _ = w.render_noisy(ps.poses[0])
+    n, share = k2_guards(w.net_forward(aux_nhwc), img, w.net_cfg.supports())
+    return {"guarded_pairs": n, "share": share}
+
+
+def phase_wide_path(native, r, ps, tree_path, err):
     """The wide path through the entry points a user calls, each run with
     the launch counts set to 0 just before it and read just after:
     ``rtoctree train`` of the two wide nets (K5 and K6's wide instances
-    once a step; the test split after the last epoch through K7's wide
-    plan and K2's wide instance) and its compact task, ``rtoctree
-    render`` with each exported .gnet (K7's wide
-    plan and K2's wide instance a frame; PSNR on benchmarks/quality's 8
-    poses, no bar), ``rtoctree render`` on the SG32 and ASG32 trees with
+    once a step; the test split after the last epoch through K7's fused
+    wide instance and K2's wide instance) and its compact task, ``rtoctree
+    render`` with each exported .gnet (K7's fused wide instance and K2's
+    wide instance once a frame; PSNR on benchmarks/quality's 8 poses, no
+    bar; K2 wide's guard share on pose r_0 through a Renderer on the tree
+    of ``r``), ``rtoctree render`` on the SG32 and ASG32 trees with
     the headline flags and with --estimator classic (K1's and
     render_classic's wide instances), and trace_rays / trace_rays_classic
     on aimed rays at those trees (their ray modes), their outputs held
@@ -3246,17 +3518,23 @@ def phase_wide_path(native, tree_path, err):
                        ("render", "guidance_net_wide", "guided_filter_wide"))
         require(not c["guidance_net"] and not c["guided_filter"],
                 "a wide net ran an unrolled instance")
+        require(c["guidance_net_wide"] == c["guided_filter_wide"] ==
+                c["render"], "the wide net's frames did not launch K7's "
+                "fused wide instance and K2 wide once a frame")
         for k in ("guidance_net_wide", "guided_filter_wide"):
             counts[k] = max(counts[k], c[k])
         frames_dir = os.path.join(WORK, f"frames_wide_net_{label}")
         den = [psnr(read_png(os.path.join(frames_dir, f"r_{i}.png"))
                     .astype(np.float32) / 255.0, g)
                for i, g in enumerate(gt)]
+        guard = path_guard_share(r, ps, gnet)
         out[f"net {label}"] = {"denoised_db": float(np.mean(den)),
-                               "supports": list(cfg.supports())}
+                               "supports": list(cfg.supports()),
+                               "k2_guard": guard}
         log(f"[wide] net {label} ({WIDE_TRAIN_EPOCHS} epoch): denoised "
             f"{np.mean(den):.3f} dB on benchmarks/quality's 8 poses (no "
-            f"bar; supports {cfg.supports()})")
+            f"bar; supports {cfg.supports()}); K2 wide's guard on pose "
+            f"r_0: {guard}")
     for label, fmt in (("SG32", "SG"), ("ASG32", "ASG")):
         t0 = time.time()
         tree = wide_tree(label, fmt, 32, depth=WIDE_TREE_DEPTH)
@@ -4678,6 +4956,10 @@ def main(argv) -> int:
         return filter_pairs(argv[1], int(argv[2]) if len(argv) == 3 else 6)
     if argv == ["--wide-only"]:
         return wide_only()
+    if argv[:1] == ["--wide-times"] and len(argv) in (1, 2):
+        return wide_times(PKG_ROOT)
+    if argv[:1] == ["--wide-pairs"] and len(argv) in (2, 3):
+        return wide_pairs(argv[1], int(argv[2]) if len(argv) == 3 else 6)
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -4740,7 +5022,7 @@ def main(argv) -> int:
     counts.update(train_counts)
     ms.update(ms_new)
     bounds.update(bounds_new)
-    counts.update(phase_wide_path(native, tree_path, err))
+    counts.update(phase_wide_path(native, r, ps, tree_path, err))
     ms.update(wide_ms)
     bounds.update(wide_bounds)
     sharded = phase_multidev(r, ps, tree_path, gates, smi[0])

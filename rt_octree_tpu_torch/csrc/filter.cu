@@ -216,18 +216,13 @@ RT_API int rt_guided_filter(const void* act, long long sc, long long sh,
 }
 
 // ---------------------------------------------------------------------------
-// The wide instances: K2 (guided_filter_wide_kernel, launch name
-// "guided_filter_wide"), K5 and K6 (below theirs) for the nets the unrolled
-// instances do not take: more than 8 levels (up to kWideMaxLevels), a
-// support above 8 (up to kWideMaxSupport), and for K5 / K6 batches whose
-// B or B x L passes 65535.  The same function in the same order: K2's
-// per-window max and its dy-outer, dx-inner sums; K5 / K6's tile stabiliser,
-// separable shifted adds and 60-nat guard.  The window loops run at the
-// support the level has (a runtime count, not a template a support), the
-// level weights' softmax runs over the levels without holding them, and
-// the supports ride in a kWideMaxLevels array.  Shared memory grows with
-// the halo R (the largest support): above 48 KB the kernel is allowed more
-// first; kWideMaxSupport is what 227 KB holds at K5's 40x16 tile.
+// The wide instances of K2, K5 and K6 for the nets the unrolled instances do
+// not take: more than 8 levels (up to kWideMaxLevels), a support above 8 (up
+// to kWideMaxSupport), and for K5 / K6 batches whose B or B x L passes
+// 65535.  The supports ride in a kWideMaxLevels array; shared memory grows
+// with the halo R (the largest support): above 48 KB the kernel is allowed
+// more first.  K2's wide instance is at the end of this file (it computes
+// the fast form, with K5's numerics); K5's and K6's are after theirs.
 // ---------------------------------------------------------------------------
 
 namespace {
@@ -239,109 +234,6 @@ constexpr int kSmemOptin = 232448;  // 227 KB a block
 struct WideSupports {
   int s[kWideMaxLevels];
 };
-
-// K2's level of a runtime support s: filter_level<S>'s passes and order.
-__device__ __forceinline__ void filter_level_rt(int S, const float4* tile,
-                                                float* rmax, int R, int TW,
-                                                int tx, int ty, bool inside,
-                                                float& f0, float& f1,
-                                                float& f2) {
-  for (int i = ty * kTileW + tx; i < (kTileH + 2 * S) * kTileW;
-       i += kTileW * kTileH) {
-    const int r = R - S + i / kTileW, c = i % kTileW;
-    const float4* row = tile + r * TW + R + c;
-    float m = -INFINITY;
-    for (int dx = -S; dx <= S; ++dx) m = fmaxf(m, row[dx].w);
-    rmax[r * kTileW + c] = m;
-  }
-  __syncthreads();
-  if (!inside) return;
-  float gmax = -INFINITY;
-  for (int dy = -S; dy <= S; ++dy)
-    gmax = fmaxf(gmax, rmax[(ty + R + dy) * kTileW + tx]);
-  float n0 = 0.f, n1 = 0.f, n2 = 0.f, den = 0.f;
-  const float4* centre = tile + (ty + R) * TW + tx + R;
-  for (int dy = -S; dy <= S; ++dy) {
-    const float4* row = centre + dy * TW;
-#pragma unroll 4
-    for (int dx = -S; dx <= S; ++dx) {
-      const float4 q = row[dx];
-      const float k = expf(q.w - gmax);
-      den = den + k;
-      n0 = n0 + q.x * k;
-      n1 = n1 + q.y * k;
-      n2 = n2 + q.z * k;
-    }
-  }
-  f0 = n0 / den;
-  f1 = n1 / den;
-  f2 = n2 / den;
-}
-
-__global__ void __launch_bounds__(kTileW* kTileH) guided_filter_wide_kernel(
-    const __nv_bfloat16* __restrict__ act, long long sc, long long sh,
-    long long sw, const float4* __restrict__ img, float4* __restrict__ out,
-    int levels, WideSupports sup, int R, int H, int W) {
-  extern __shared__ float4 tile[];  // [TH][TW]: rgb, the level's guidance in .w
-  const int TW = kTileW + 2 * R, TH = kTileH + 2 * R;
-  float* rmax = reinterpret_cast<float*>(tile + TH * TW);  // [TH][kTileW]
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int x0 = blockIdx.x * kTileW, y0 = blockIdx.y * kTileH;
-  const int x = x0 + tx, y = y0 + ty;
-  const bool inside = x < W && y < H;
-
-  for (int r = ty; r < TH; r += kTileH) {
-    const int gy = y0 - R + r;
-    for (int c = tx; c < TW; c += kTileW) {
-      const int gx = x0 - R + c;
-      tile[r * TW + c] = (gy >= 0 && gy < H && gx >= 0 && gx < W)
-                             ? img[(long long)gy * W + gx]
-                             : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  }
-  // the softmax over the L weight channels (max, then sum), read twice
-  const __nv_bfloat16* px = act + (long long)y * sh + (long long)x * sw;
-  float wmax = -INFINITY, wsum = 0.f;
-  if (inside) {
-    for (int l = 0; l < levels; ++l)
-      wmax = fmaxf(wmax, __bfloat162float(px[l * sc]));
-    for (int l = 0; l < levels; ++l)
-      wsum = wsum + expf(__bfloat162float(px[l * sc]) - wmax);
-  }
-
-  float o0 = 0.f, o1 = 0.f, o2 = 0.f;
-  for (int l = 0; l < levels; ++l) {
-    const int s = sup.s[l];
-    __syncthreads();  // rgb staged; the previous level's reads are done
-    float f0 = 0.f, f1 = 0.f, f2 = 0.f;
-    if (s == 0) {
-      const float4 q = tile[(ty + R) * TW + tx + R];
-      f0 = q.x;
-      f1 = q.y;
-      f2 = q.z;
-    } else {
-      const __nv_bfloat16* g = act + (levels + l) * sc;
-      // the level's region only (halo s): the window never reads past it
-      for (int r = ty + R - s; r < TH - (R - s); r += kTileH) {
-        const int gy = y0 - R + r;
-        for (int c = tx + R - s; c < TW - (R - s); c += kTileW) {
-          const int gx = x0 - R + c;
-          tile[r * TW + c].w = (gy >= 0 && gy < H && gx >= 0 && gx < W)
-                                   ? __bfloat162float(g[gy * sh + gx * sw])
-                                   : -INFINITY;
-        }
-      }
-      __syncthreads();
-      filter_level_rt(s, tile, rmax, R, TW, tx, ty, inside, f0, f1, f2);
-    }
-    if (!inside) continue;
-    const float wl = expf(__bfloat162float(px[l * sc]) - wmax) / wsum;
-    o0 = o0 + wl * f0;
-    o1 = o1 + wl * f1;
-    o2 = o2 + wl * f2;
-  }
-  if (inside) out[(long long)y * W + x] = make_float4(o0, o1, o2, 1.f);
-}
 
 // The supports into `sup` and their largest as the halo R; false if a
 // count or a support is out of the wide instances' range.
@@ -369,30 +261,6 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
 }
 
 }  // namespace
-
-// K2's wide instance: rt_guided_filter's arguments, 1..64 levels of support
-// 0..32.
-RT_API int rt_guided_filter_wide(const void* act, long long sc, long long sh,
-                                 long long sw, const void* img, void* out,
-                                 int levels, const int* supports, int height,
-                                 int width, void* stream) {
-  WideSupports sup;
-  int R;
-  if (!wide_supports(levels, supports, sup, R) || height < 1 || width < 1)
-    return (int)cudaErrorInvalidValue;
-  // (8 + 64) x (32 + 64) x 16 + 72 x 32 x 4 = 119,808 bytes at R = 32
-  const int bytes = (kTileH + 2 * R) * (kTileW + 2 * R) * 16 +
-                    (kTileH + 2 * R) * kTileW * 4;
-  const cudaError_t err = allow_smem(guided_filter_wide_kernel, bytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 block(kTileW, kTileH);
-  const dim3 grid((width + kTileW - 1) / kTileW,
-                  (height + kTileH - 1) / kTileH);
-  guided_filter_wide_kernel<<<grid, block, bytes, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)act, sc, sh, sw, (const float4*)img,
-      (float4*)out, levels, sup, R, height, width);
-  return (int)cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // K5 and K6: the batched filter of the training step and its backward.
@@ -1488,5 +1356,554 @@ RT_API int rt_guided_filter_batch_bwd_wide(
       (const float*)guidance, Strides{gsb, gsl, gsh}, (const float4*)img,
       (const float4*)fm, (const float*)den, (float*)gw, (float*)gg,
       (int*)guards, levels, sup, R, height, width);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// K2's wide instance (guided_filter_wide_kernel, launch name
+// "guided_filter_wide"): rt_guided_filter's function at 1..kWideMaxLevels
+// levels of support 0..kWideMaxSupport (the nets past the unrolled
+// instance's 8 levels or support 8: a 12-level net's ladder 1..12).  It
+// replaces rt_octree_tpu/ops/filtering.py:guided_filter (:153-185) as JAX's
+// frame calls it (exact=False, render/renderer.py:1248): the fast form, with
+// K5's numerics.  Per (tile, level of support s > 0) the stabiliser c is the
+// largest guidance over the tile and its halo of s (clipped to the image).
+// While that region's guidance spans less than kGuardRange nats (the JAX
+// package's FAST_SAFE_RANGE, filtering.py:114), e = exp(g - c) is taken once
+// per staged pixel, the window sums of (e rgb, e) are 2s+1 shifted adds
+// along rows, then down columns, each output a fresh sum in tap order (no
+// running difference, which cancels: filtering.py:80-89), and f = sum(e rgb)
+// / sum(e).  Else the tile and level take the guard: the per-window form
+// (the window max as stabiliser, one expf a tap, dy-outer, dx-inner), and
+// add one to an optional counter.  The level weights are K2's prologue: the
+// softmax over the first L channels, read through the activation's strides.
+//
+// Bound on this card at L = 12, the ladder 1..12, 800x800: bytes, 76 B a
+// pixel (the 2L bf16 channels, rgb and the output once: 0.0145 ms), against
+// sum_s (16 s + 8) + 10 L = 1,464 f32 operations a pixel (0.0140 ms at 67
+// TFLOP/s); the per-window form costs 9 operations a window tap, 2,924 taps
+// a pixel at supports 1..12.
+//
+// Design for K2's shape (one image, 2L channels, the ladder's halo R = 12):
+// a block of 256 threads owns a 32 x 32 output tile (16 x 8 past R = 16)
+// and stages once, for all levels, the rgb of the tile and its halo R as
+// float4 (cp.async), the guidance of every level as bf16 planes and the
+// tile's weight logits, from a pixel's 16-byte pieces loaded back to back
+// when the activation is channels last as K7 hands it over (element by
+// element otherwise; where L planes do not fit 227 KB, each level's
+// guidance is staged on its own and the logits are read in place).  Every
+// level's range comes from one pass before the levels.  Per level, two
+// barriers: (e rgb, e) into one float4 array; the row pass (a thread 8
+// outputs of a region row, from 8 + 2s staged pixels) into the row sums;
+// the column pass (a thread 4 outputs of a column, from 4 + 2s row sums).
+// The loops over a region take four pixels an iteration, so that their
+// loads overlap.  The tap loops are unrolled (tap_sums): inputs 0..N-1 open
+// the N outputs, 2s+1..2s+N-1 close them, the inputs between add to every
+// output; a window narrower than N takes run_sums<N, S>.  The staged
+// arrays' rows have an odd pitch, so lanes that walk down rows hit distinct
+// banks.  Without fast math: expf, IEEE division.  Statistics instance
+// (kStats, 32 x 32 tiles): thread 0's clock64() cycles of each phase a tile
+// (w2_mark).
+// ---------------------------------------------------------------------------
+
+namespace {
+
+constexpr int kW2Threads = 256, kW2Warps = kW2Threads / 32;
+constexpr int kW2Run = 8;       // row-pass outputs a thread
+constexpr int kW2SmallR = 16;   // the largest halo of the 32 x 32 tile
+
+// acc[o] = x[o] + x[o + 1] + ... + x[o + 2s], in that order, for o < N, as
+// run_sums, at a runtime support s: unrolled but for the run of inputs
+// that adds to every output.
+template <int N, class Load>
+__device__ __forceinline__ void tap_sums(float4 (&acc)[N], int s, Load load) {
+  static_assert(N == 4 || N == 8, "N");
+  if (2 * s + 1 < N) {  // a window narrower than the run
+    if (s == 1) {
+      run_sums<N, 1>(acc, load);
+    } else if constexpr (N == 8) {
+      if (s == 2)
+        run_sums<N, 2>(acc, load);
+      else
+        run_sums<N, 3>(acc, load);
+    }
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {  // each input opens output i
+    const float4 x = load(i);
+#pragma unroll
+    for (int o = 0; o < N; ++o) {
+      if (o == i)
+        acc[o] = x;
+      else if (o < i)
+        acc[o] = add4(acc[o], x);
+    }
+  }
+#pragma unroll 4
+  for (int i = N; i <= 2 * s; ++i) {
+    const float4 x = load(i);
+#pragma unroll
+    for (int o = 0; o < N; ++o) acc[o] = add4(acc[o], x);
+  }
+#pragma unroll
+  for (int j = 1; j < N; ++j) {  // input 2s + j closes output j - 1
+    const float4 x = load(2 * s + j);
+#pragma unroll
+    for (int o = 0; o < N; ++o)
+      if (o >= j) acc[o] = add4(acc[o], x);
+  }
+}
+
+// f(rr, cc, ok) on this thread's pixels of a region of RWs x CWs, four at
+// a time (independent, so their loads overlap), i = tid, tid + 256, ...
+// walked without a division (CWs <= 256)
+template <class F>
+__device__ __forceinline__ void w2_region(int RWs, int CWs, F f) {
+  const int n = RWs * CWs, step_r = kW2Threads / CWs;
+  const int step_c = kW2Threads - step_r * CWs;
+  int r = threadIdx.x / CWs, c = threadIdx.x - r * CWs;
+  for (int i = threadIdx.x; i < n; i += 4 * kW2Threads) {
+    int rr[4], cc[4];
+    bool ok[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      rr[k] = r;
+      cc[k] = c;
+      ok[k] = i + k * kW2Threads < n;
+      c += step_c;
+      r += step_r;
+      if (c >= CWs) {
+        c -= CWs;
+        ++r;
+      }
+    }
+    f(rr, cc, ok);
+  }
+}
+
+// This thread's largest and smallest guidance (-inf excluded) over the
+// region of a level of support s (the tile and a halo of s) in the staged
+// layout g (rows of RW, halo R), reduced over its warp.
+template <int TW, int TH>
+__device__ __forceinline__ void w2_scan(int s, int R, int RW,
+                                        const __nv_bfloat16* g, float& mx,
+                                        float& mn) {
+  const int org = R - s;
+  float m4[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+  float n4[4] = {INFINITY, INFINITY, INFINITY, INFINITY};
+  w2_region(TH + 2 * s, TW + 2 * s, [&](const int (&rr)[4],
+                                        const int (&cc)[4],
+                                        const bool (&ok)[4]) {
+    float v[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      v[k] = ok[k] ? __bfloat162float(g[(org + rr[k]) * RW + org + cc[k]])
+                   : -INFINITY;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      m4[k] = fmaxf(m4[k], v[k]);
+      if (v[k] > -INFINITY) n4[k] = fminf(n4[k], v[k]);
+    }
+  });
+  mx = fmaxf(fmaxf(m4[0], m4[1]), fmaxf(m4[2], m4[3]));
+  mn = fminf(fminf(n4[0], n4[1]), fminf(n4[2], n4[3]));
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    mn = fminf(mn, __shfl_xor_sync(0xffffffffu, mn, o));
+  }
+}
+
+// The statistics instance's clock: thread 0 adds the cycles since the last
+// mark to clk[k] (kW2Stats phases: staging, ranges, prologue, (e rgb, e),
+// row sums, column sums, every level whole).
+constexpr int kW2Stats = 7;
+template <bool kStats>
+__device__ __forceinline__ void w2_mark(long long (&clk)[kW2Stats], int k,
+                                        long long& t0) {
+  if constexpr (kStats) {
+    if (threadIdx.x == 0) {
+      const long long t1 = clock64();
+      clk[k] += t1 - t0;
+      t0 = t1;
+    }
+  }
+}
+
+// One level of support s > 0 whose region spans less than kGuardRange
+// nats, c its largest guidance: (e rgb, e) over the region into eb, the row
+// sums into hs, then this thread's column run (active: it has one) of
+// filtered rgb f.  Two __syncthreads.
+template <int TW, int TH, bool kStats>
+__device__ __forceinline__ void w2_fast(int s, float c, int R, int RW, int P,
+                                        const float4* rgbs, float4* eb,
+                                        float4* hs, const __nv_bfloat16* g,
+                                        int col, int run, bool active,
+                                        float3 (&f)[kColRun],
+                                        long long (&clk)[kW2Stats]) {
+  long long t0 = kStats ? clock64() : 0;
+  constexpr int HP = TW + 1;  // the row sums' pitch (odd)
+  const int tid = threadIdx.x, RWs = TH + 2 * s, CWs = TW + 2 * s;
+  const int org = R - s;  // the level's region in the staged arrays
+  w2_region(RWs, CWs, [&](const int (&rr)[4], const int (&cc)[4],
+                          const bool (&ok)[4]) {
+    float gv[4];
+    float4 q[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int j = (org + rr[k]) * P + org + cc[k];
+      gv[k] = ok[k] ? __bfloat162float(g[(org + rr[k]) * RW + org + cc[k]])
+                    : 0.f;
+      q[k] = ok[k] ? rgbs[j] : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float e = expf(gv[k] - c);
+      if (ok[k])
+        eb[(org + rr[k]) * P + org + cc[k]] =
+            make_float4(e * q[k].x, e * q[k].y, e * q[k].z, e);
+    }
+  });
+  __syncthreads();
+  w2_mark<kStats>(clk, 3, t0);
+  // the row pass: region row rr, outputs c0..c0+7 (one round: the entry
+  // keeps RWs * TW / 8 within the block)
+  const int rr = tid % RWs, c0 = tid / RWs * kW2Run;
+  if (tid < RWs * (TW / kW2Run)) {
+    float4 h[kW2Run];
+    tap_sums<kW2Run>(h, s, [&](int i) {
+      return eb[(org + rr) * P + org + c0 + i];
+    });
+#pragma unroll
+    for (int o = 0; o < kW2Run; ++o) hs[rr * HP + c0 + o] = h[o];
+  }
+  __syncthreads();
+  w2_mark<kStats>(clk, 4, t0);
+  if (!active) return;
+  float4 acc[kColRun];
+  tap_sums<kColRun>(acc, s, [&](int i) {
+    return hs[(run * kColRun + i) * HP + col];
+  });
+#pragma unroll
+  for (int k = 0; k < kColRun; ++k)
+    f[k] = make_float3(acc[k].x / acc[k].w, acc[k].y / acc[k].w,
+                       acc[k].z / acc[k].w);
+  w2_mark<kStats>(clk, 5, t0);
+}
+
+// One level of support s > 0 that takes the guard: row maxima [RWs][TW]
+// over hs, then per output the column max and the window's taps, dy-outer,
+// dx-inner.  Two __syncthreads.
+template <int TW, int TH>
+__device__ __forceinline__ void w2_guarded(int s, int R, int RW, int P,
+                                           const float4* rgbs, float4* hs,
+                                           const __nv_bfloat16* g, int col,
+                                           int run, bool active,
+                                           float3 (&f)[kColRun]) {
+  const int tid = threadIdx.x, RWs = TH + 2 * s, org = R - s;
+  float* hm = reinterpret_cast<float*>(hs);
+  __syncthreads();  // the previous level's reads of hs are done
+  for (int i = tid; i < RWs * TW; i += kW2Threads) {
+    const __nv_bfloat16* row = g + (org + i / TW) * RW + org + i % TW;
+    float v = __bfloat162float(row[0]);
+    for (int dx = 1; dx <= 2 * s; ++dx)
+      v = fmaxf(v, __bfloat162float(row[dx]));
+    hm[i] = v;
+  }
+  __syncthreads();
+  if (!active) return;
+#pragma unroll
+  for (int k = 0; k < kColRun; ++k) {
+    const int t = run * kColRun + k;  // the output's row in the tile
+    float mm = hm[t * TW + col];
+    for (int dy = 1; dy <= 2 * s; ++dy)
+      mm = fmaxf(mm, hm[(t + dy) * TW + col]);
+    float n0 = 0.f, n1 = 0.f, n2 = 0.f, den = 0.f;
+    for (int dy = 0; dy <= 2 * s; ++dy) {
+      const int r = org + t + dy, c = org + col;
+#pragma unroll 4
+      for (int dx = 0; dx <= 2 * s; ++dx) {
+        const float kq = expf(__bfloat162float(g[r * RW + c + dx]) - mm);
+        const float4 q = rgbs[r * P + c + dx];
+        den = den + kq;
+        n0 = n0 + q.x * kq;
+        n1 = n1 + q.y * kq;
+        n2 = n2 + q.z * kq;
+      }
+    }
+    f[k] = make_float3(n0 / den, n1 / den, n2 / den);
+  }
+}
+
+// the static shared memory of guided_filter_wide_kernel (bytes)
+constexpr int kW2Static = (2 * kW2Warps + 2 * kWideMaxLevels) * 4;
+
+template <int TW, int TH, bool kStats>
+__global__ void __launch_bounds__(kW2Threads, 1) guided_filter_wide_kernel(
+    const __nv_bfloat16* __restrict__ act, long long sc, long long sh,
+    long long sw, const float4* __restrict__ img, float4* __restrict__ out,
+    int* __restrict__ guards, int levels, WideSupports sup, int R,
+    bool all_levels, bool vec, int H, int W, long long* __restrict__ stats) {
+  constexpr int HP = TW + 1, NT = TW * TH;
+  extern __shared__ float4 smem[];
+  const int RH = TH + 2 * R, RW = TW + 2 * R, P = RW + 1, npix = RH * RW;
+  float4* rgbs = smem;         // [RH][P]: rgb of the tile and halo R
+  float4* eb = rgbs + RH * P;  // [RH][P]: a level's (e rgb, e)
+  float4* hs = eb + RH * P;    // [RH][HP]: its row sums
+  // all levels: [L][NT] the weight logits of the tile; [L][RH][RW] the
+  // guidance (else one level's)
+  __nv_bfloat16* wlog = reinterpret_cast<__nv_bfloat16*>(hs + RH * HP);
+  __nv_bfloat16* gs = wlog + (all_levels ? levels * NT : 0);
+  __shared__ float red[2 * kW2Warps];
+  __shared__ float2 range[kWideMaxLevels];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
+  const __nv_bfloat16 kNegInf = __float2bfloat16(-INFINITY);
+  long long clk[kW2Stats] = {}, t0 = kStats ? clock64() : 0;
+
+  // rgb of the tile and its halo R, 0 outside the image
+  for (int i = tid; i < npix; i += kW2Threads) {
+    const int r = i / RW, c = i - r * RW, gy = y0 - R + r, gx = x0 - R + c;
+    const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W;
+    cp_async16(smem_addr(rgbs + r * P + c),
+               ok ? img + (long long)gy * W + gx : img, ok ? 16 : 0);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  if (all_levels && vec) {
+    // channels last: a pixel's 16-byte pieces back to back (the lanes'
+    // first piece brings the sectors the others read from L1), two pixels
+    // a thread at a time; the halo needs only the pieces that hold a
+    // guidance channel (L..2L-1)
+    const int np = (2 * levels - 1) / 8 + 1, p0 = levels / 8;
+    for (int q0 = tid; q0 < npix; q0 += 2 * kW2Threads) {
+      int q[2], r[2], c[2];
+      bool ok[2], in_tile[2];
+      const uint4* src[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        q[h] = q0 + h * kW2Threads;
+        r[h] = q[h] / RW;
+        c[h] = q[h] - r[h] * RW;
+        const int gy = y0 - R + r[h], gx = x0 - R + c[h];
+        in_tile[h] = r[h] >= R && r[h] < R + TH && c[h] >= R && c[h] < R + TW;
+        ok[h] = q[h] < npix && gy >= 0 && gy < H && gx >= 0 && gx < W;
+        src[h] = reinterpret_cast<const uint4*>(act + gy * sh + gx * sw);
+      }
+      for (int pc0 = 0; pc0 < np; pc0 += 4) {
+        uint4 u[2][4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int pc = pc0 + k;
+            u[h][k] = ok[h] && pc < np && (pc >= p0 || in_tile[h])
+                          ? __ldg(src[h] + pc)
+                          : make_uint4(0u, 0u, 0u, 0u);
+          }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (q[h] >= npix) continue;
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int pc = pc0 + k;
+            if (pc >= np || (pc < p0 && !in_tile[h])) continue;
+            const __nv_bfloat16* v =
+                reinterpret_cast<const __nv_bfloat16*>(&u[h][k]);
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              const int ch = pc * 8 + e;
+              if (ch < levels) {
+                if (in_tile[h])
+                  wlog[ch * NT + (r[h] - R) * TW + c[h] - R] = v[e];
+              } else if (ch < 2 * levels) {
+                gs[(ch - levels) * npix + q[h]] = ok[h] ? v[e] : kNegInf;
+              }
+            }
+          }
+        }
+      }
+    }
+  } else if (all_levels) {
+    for (int i = tid; i < levels * npix; i += kW2Threads) {
+      const int l = i / npix, q = i - l * npix;
+      const int r = q / RW, c = q - r * RW, gy = y0 - R + r, gx = x0 - R + c;
+      gs[i] = gy >= 0 && gy < H && gx >= 0 && gx < W
+                  ? act[(levels + l) * sc + gy * sh + gx * sw]
+                  : kNegInf;
+    }
+    for (int i = tid; i < levels * NT; i += kW2Threads) {
+      const int l = i / NT, t = i - l * NT, y = y0 + t / TW, x = x0 + t % TW;
+      wlog[i] = y < H && x < W ? act[l * sc + y * sh + x * sw]
+                               : __float2bfloat16(0.f);
+    }
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+  w2_mark<kStats>(clk, 0, t0);
+
+  // every level's range at once (all levels staged): a warp's partials
+  // over eb, then the block's
+  if (all_levels) {
+    float* part = reinterpret_cast<float*>(eb);
+    for (int l = 0; l < levels; ++l) {
+      if (sup.s[l] == 0) continue;
+      float mx, mn;
+      w2_scan<TW, TH>(sup.s[l], R, RW, gs + l * npix, mx, mn);
+      if (lane == 0) {
+        part[(l * kW2Warps + warp) * 2] = mx;
+        part[(l * kW2Warps + warp) * 2 + 1] = mn;
+      }
+    }
+    __syncthreads();
+    if (tid < levels && sup.s[tid] > 0) {
+      float mx = part[tid * kW2Warps * 2], mn = part[tid * kW2Warps * 2 + 1];
+      for (int w = 1; w < kW2Warps; ++w) {
+        mx = fmaxf(mx, part[(tid * kW2Warps + w) * 2]);
+        mn = fminf(mn, part[(tid * kW2Warps + w) * 2 + 1]);
+      }
+      range[tid] = make_float2(mx, mn);
+    }
+    __syncthreads();
+  }
+  w2_mark<kStats>(clk, 1, t0);
+
+  // the prologue: the softmax over the L weight channels of this thread's
+  // outputs (max, then sum)
+  const int col = tid % TW, run = tid / TW;
+  const bool active = run * kColRun < TH;
+  const int x = x0 + col;
+  auto logit = [&](int l, int k) {
+    const int t = (run * kColRun + k) * TW + col;
+    return __bfloat162float(
+        all_levels ? wlog[l * NT + t]
+                   : act[l * sc + (y0 + t / TW) * sh + x * sw]);
+  };
+  float wmax[kColRun], wsum[kColRun];
+#pragma unroll
+  for (int k = 0; k < kColRun; ++k) {
+    const int y = y0 + run * kColRun + k;
+    wmax[k] = -INFINITY;
+    wsum[k] = 0.f;
+    if (!active || y >= H || x >= W) continue;
+    for (int l = 0; l < levels; ++l) wmax[k] = fmaxf(wmax[k], logit(l, k));
+    for (int l = 0; l < levels; ++l)
+      wsum[k] = wsum[k] + expf(logit(l, k) - wmax[k]);
+  }
+
+  float3 o[kColRun];
+#pragma unroll
+  for (int k = 0; k < kColRun; ++k) o[k] = make_float3(0.f, 0.f, 0.f);
+  w2_mark<kStats>(clk, 2, t0);
+  for (int l = 0; l < levels; ++l) {
+    const int s = sup.s[l];
+    float3 f[kColRun];
+    if (s == 0) {
+#pragma unroll
+      for (int k = 0; k < kColRun; ++k) {
+        const float4 q =
+            rgbs[(R + (active ? run * kColRun : 0) + k) * P + R + col];
+        f[k] = make_float3(q.x, q.y, q.z);
+      }
+    } else {
+      const __nv_bfloat16* g = gs + (all_levels ? l * npix : 0);
+      float2 rg;
+      if (all_levels) {
+        rg = range[l];
+      } else {  // this level's guidance over its region alone, and its range
+        __syncthreads();  // the previous level's reads are done
+        const int rw = TH + 2 * s, cw = TW + 2 * s;
+        for (int i = tid; i < rw * cw; i += kW2Threads) {
+          const int r = R - s + i / cw, c = R - s + i % cw;
+          const int gy = y0 - R + r, gx = x0 - R + c;
+          gs[r * RW + c] = gy >= 0 && gy < H && gx >= 0 && gx < W
+                               ? act[(levels + l) * sc + gy * sh + gx * sw]
+                               : kNegInf;
+        }
+        __syncthreads();
+        w2_scan<TW, TH>(s, R, RW, g, rg.x, rg.y);
+        if (lane == 0) {
+          red[warp] = rg.x;
+          red[kW2Warps + warp] = rg.y;
+        }
+        __syncthreads();
+        rg = make_float2(red[0], red[kW2Warps]);
+        for (int w = 1; w < kW2Warps; ++w)
+          rg = make_float2(fmaxf(rg.x, red[w]), fminf(rg.y, red[kW2Warps + w]));
+      }
+      if (rg.x - rg.y < kGuardRange) {
+        w2_fast<TW, TH, kStats>(s, rg.x, R, RW, P, rgbs, eb, hs, g, col, run,
+                                active, f, clk);
+      } else {
+        w2_guarded<TW, TH>(s, R, RW, P, rgbs, hs, g, col, run, active, f);
+        if (tid == 0 && guards != nullptr) atomicAdd(guards, 1);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kColRun; ++k) {
+      const int y = y0 + run * kColRun + k;
+      if (!active || y >= H || x >= W) continue;
+      const float wl = expf(logit(l, k) - wmax[k]) / wsum[k];
+      o[k].x = o[k].x + wl * f[k].x;
+      o[k].y = o[k].y + wl * f[k].y;
+      o[k].z = o[k].z + wl * f[k].z;
+    }
+    w2_mark<kStats>(clk, 6, t0);
+  }
+#pragma unroll
+  for (int k = 0; k < kColRun; ++k) {
+    const int y = y0 + run * kColRun + k;
+    if (active && y < H && x < W)
+      out[(long long)y * W + x] = make_float4(o[k].x, o[k].y, o[k].z, 1.f);
+  }
+  if (kStats && tid == 0) {
+    long long* st = stats + (blockIdx.y * gridDim.x + blockIdx.x) * kW2Stats;
+    for (int k = 0; k < kW2Stats; ++k) st[k] = clk[k];
+  }
+}
+
+}  // namespace
+
+// K2's wide instance: rt_guided_filter's arguments at 1..64 levels of
+// support 0..32, and guards: null or an int the kernel adds the (tile,
+// level) pairs that took the guard to.  A non-null ``stats`` (int64
+// [tiles][7], a row a 32x32 tile) selects the statistics instance (supports
+// up to 16): thread 0's clock64() cycles of each phase (w2_mark).  Dynamic
+// shared memory: rgb and the (e rgb, e) array over the tile and halo R, the
+// row sums, and the guidance and weight logits of every level (231,552
+// bytes at L = 12, R = 12), else one level's guidance (217,728 at R = 32).
+RT_API int rt_guided_filter_wide(const void* act, long long sc, long long sh,
+                                 long long sw, const void* img, void* out,
+                                 void* guards, int levels,
+                                 const int* supports, int height, int width,
+                                 void* stats, void* stream) {
+  WideSupports sup;
+  int R;
+  if (!wide_supports(levels, supports, sup, R) || height < 1 || width < 1)
+    return (int)cudaErrorInvalidValue;
+  const bool small = R <= kW2SmallR;
+  if (stats && !small) return (int)cudaErrorInvalidValue;
+  const int TW = small ? 32 : 16, TH = small ? 32 : 8;
+  const int RH = TH + 2 * R, RW = TW + 2 * R;
+  // rgb and (e rgb, e) [RH][RW + 1], the row sums [RH][TW + 1]; with every
+  // level staged, their guidance [L][RH][RW] and weight logits [L][TH][TW]
+  // (bf16), else one level's guidance
+  const int base = 2 * RH * (RW + 1) * 16 + RH * (TW + 1) * 16;
+  const int all_bytes = base + levels * (RH * RW + TH * TW) * 2;
+  const bool all = all_bytes + kW2Static <= kSmemOptin;
+  const int bytes = all ? all_bytes : base + RH * RW * 2;
+  if (bytes + kW2Static > kSmemOptin) return (int)cudaErrorInvalidValue;
+  const bool vec = sc == 1 && sw % 8 == 0 && sh % 8 == 0 &&
+                   reinterpret_cast<uintptr_t>(act) % 16 == 0;
+  auto kernel = stats   ? guided_filter_wide_kernel<32, 32, true>
+                : small ? guided_filter_wide_kernel<32, 32, false>
+                        : guided_filter_wide_kernel<16, 8, false>;
+  const cudaError_t err = allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((width + TW - 1) / TW, (height + TH - 1) / TH);
+  kernel<<<grid, kW2Threads, bytes, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)act, sc, sh, sw, (const float4*)img,
+      (float4*)out, (int*)guards, levels, sup, R, all, vec, height, width,
+      (long long*)stats);
   return (int)cudaGetLastError();
 }

@@ -80,9 +80,9 @@
 // blocks in one launch, input channels 1-64 (padded to 8, 16, 32 or 64),
 // 2-64 output channels; a deeper net runs as a chain of one-block launches
 // whose bf16 intermediates keep their padded channels (0).  Wider blocks
-// get fewer tile rows (16, 8 or 4) to fit 227 KB of shared memory.  A
-// block with more than 64 input or output channels takes the wide plan
-// (guidance_wide_kernel, after rt_guidance_net), one launch a block.
+// get fewer tile rows (16, 8 or 4) to fit 227 KB of shared memory.  A net
+// with a block of more than 64 input or output channels takes K7's wide
+// instances (after rt_guidance_net).
 //
 // Statistics instance (kStats, compiled out of the frame's instances; the
 // 8 -> 32 -> 8 shape): per block the clock64() cycles of staging (the wait
@@ -136,6 +136,7 @@ struct Cfg {
   // read through the cache
   static constexpr bool kW0Regs = NL == 2 && KS0 * NT0 <= 20;
   static constexpr int ESZ = F32_IN ? 4 : 2;
+  static constexpr int TW = kTileW;
   static constexpr int WI = kTileW + 2 * NL, WM = kTileW + 2;
   static constexpr int bytes(int th) {
     return 128 + (th + 2 * NL) * WI * (CP0 * ESZ + (16 << LG0)) +
@@ -184,6 +185,17 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
 }
 
+// d += a . b on 8 channels: mma.m16n8k8 (A rows g, g + 8 and channels 2t,
+// 2t + 1 in a0, a1; B channels 2t, 2t + 1 of column g in b)
+__device__ __forceinline__ void mma_bf16_k8(float (&d)[4], uint32_t a0,
+                                            uint32_t a1, uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b));
+}
+
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -228,12 +240,12 @@ __device__ __forceinline__ uint32_t bf16x2_bits(float lo, float hi) {
 template <class C>
 __device__ __forceinline__ void tile_origin(const Params& p, int t, int& bz,
                                             int& ty, int& tx) {
-  const int tiles_x = (p.width + kTileW - 1) / kTileW;
+  const int tiles_x = (p.width + C::TW - 1) / C::TW;
   const int tiles_y = (p.height + C::TH - 1) / C::TH;
   bz = t / (tiles_x * tiles_y);
   const int r = t - bz * tiles_x * tiles_y;
   ty = (r / tiles_x) * C::TH;
-  tx = (r % tiles_x) * kTileW;
+  tx = (r % tiles_x) * C::TW;
 }
 
 // 1. issue the copies of tile t's input region (HI x WI pixels, CP0
@@ -740,33 +752,328 @@ bool layer_ok(int cpl, int nt) {
 }
 
 // ---------------------------------------------------------------------------
-// The wide plan (guidance_wide_kernel, launch name "guidance_net_wide"): one
-// block of a net whose input or output has more than 64 channels (a
-// --mid_channels above 64, or more than 32 kernel levels), one launch a
-// block, the blocks of such a net chained through bf16 intermediates that
-// keep their padded channels (0), as the fused instances' chain does.  The
-// numerics are the header's: each output is one f32 sum over the nine taps
-// and every input channel, rounded to bf16 once, then the bf16 bias added
-// with a second rounding and relu6; zero padding at the block's input.
+// K7's wide instances (launch name "guidance_net_wide"): a net with a block
+// of more than 64 input or output channels (a --mid_channels above 64, or
+// more than 32 kernel levels).  They replace
+// rt_octree_tpu/models/guidance_net.py:GuidanceNetCompact.__call__ (:117-136)
+// for such nets, with the header's numerics: each output one f32 sum over the
+// nine taps and every input channel, rounded to bf16, the bf16 bias added
+// with a second rounding, relu6; zero padding at every block's input.
 //
-// Design: a block of 8 warps owns an output tile of 16 x 8 pixels (a warp a
-// row of 16, the mma's M) and a group of up to kWGroup n-tiles (grid.y walks
-// the groups, so the output channels have no limit).  The K loop walks the
-// input channels in chunks of kWIn: the chunk's 18 x 10 pixels (tile and
-// 1-pixel halo) are staged in shared memory as bf16, 0 outside the image and
-// past the input's channels; then each of its k-steps of 16 channels and each
-// tap adds one mma.m16n8k16 per n-tile into the tile's f32 accumulators, whose
-// sum is never split.  A fragments are read from shared memory as 32-bit
-// words (a staged pixel takes kWPitch words, 4 more than its channels, so the
-// eight pixels of a fragment fall in distinct banks); B fragments are the
-// tap-major pack (pack_layer's ``wt``), read through the cache.  Nothing is
-// kept across tiles: the plan is simple and general; the fused instances
-// above are the fast path of the committed nets.
-constexpr int kWTileW = 16, kWTileH = kWarps;  // a warp an output row
-constexpr int kWHaloW = kWTileW + 2, kWHaloH = kWTileH + 2;
-constexpr int kWIn = 64;             // input channels staged a pass
-constexpr int kWPitch = kWIn / 2 + 4;  // 32-bit words a staged pixel
-constexpr int kWGroup = 8;           // n-tiles (64 output channels) a block
+// Bound on this card at 8 -> 96 -> 24 (the wide path's net,
+// --mid_channels 96 --kernel_levels 12): 55,296 operations a pixel on the
+// bf16 tensor cores (0.0358 ms at 800x800 and 989 TFLOP/s) against 80 B a
+// pixel that must move (0.0153 ms): operations, if the 96-channel
+// intermediate never reaches device memory (its round trip alone, 384 B a
+// pixel, would take 0.073 ms).
+//
+// Both instances share an output tile of 64 x 8 pixels and one product,
+// ``conv_rows``: eight warps, each owning a strip of 16 output columns and
+// kXRows = 4 output rows, for NB n-tiles of 8 output channels at a time.
+// The block's input is staged in shared memory as bf16 over the tile and a
+// 1-pixel halo (66 x 10 pixels), one plane a group of 8 channels (16 bytes a
+// pixel, so the 8 rows of an ldmatrix matrix are 128 consecutive bytes: no
+// bank conflict), 0 outside the image.  For each k-step of 16 channels the
+// warp loads the 9 x NB B fragments of the nine taps from shared memory
+// once and walks the kXRows + 2 input rows of its strip: each row's A
+// fragment at each kx (one ldmatrix.x4) feeds mma.m16n8k16 for every output
+// row it is a tap of (row - ky) and every n-tile, so an A fragment feeds up
+// to 3 NB products and a B fragment kXRows.  An output sums the k-steps in
+// turn, the nine taps in order within each, 16 channels a product, so that
+// both instances give the same bf16 activation bit for bit.
+//
+//  - The fused wide instance (guidance_wide2_kernel): a two-block net from
+//    at most 8 input channels whose weights and intermediate fit 227 KB
+//    (ops/guidance.fused_wide_smem; 210,752 bytes at 8 -> 96 -> 24), both
+//    blocks in one launch.  A persistent grid (one block of 8 warps an SM
+//    walking the tiles); both blocks' B fragments go into shared memory
+//    once a block, padded with zero n-tiles to whole groups; the f32 aux of
+//    a tile (68 x 12 x 8 channels, a 2-pixel halo) comes in by one tensor
+//    copy (TMA, or cp.async for strided channels), the next tile's issued
+//    as soon as block 0 has read this one's, so it lands while block 1
+//    computes.  Block 0 on the 66 x 10 region: a warp holds the B fragments
+//    of kXNB0 = 4 n-tiles in registers while it walks the region's m-tiles,
+//    one mma.m16n8k8 a tap on the pixel's 8 channels, read from the f32
+//    staging and rounded to bf16: the per-block plan's one-tap k-step of
+//    16 channels, 8 of them 0, in half the tensor work and bit for bit (the
+//    5 k-steps of a K packed over the 8 real channels would add other
+//    groups of products and move the activation's roundings); its output
+//    (bias, relu6, 0 outside the image) is stored by stmatrix into the bf16
+//    planes that conv_rows reads as block 1's input.  The intermediate
+//    never leaves the SM.
+//  - The per-block plan (guidance_wide_kernel): one block a launch, for
+//    chains the fused instance cannot take (3 blocks, or weights past 227
+//    KB: 8 -> 128 -> 128 -> 8, 8 -> 256 -> 64), their bf16 intermediates
+//    keeping their padded channels (0).  A block a tile; the input is
+//    staged in chunks of at most 64 channels, only the channels the input
+//    has rounded up to 16; an input of one chunk is staged once for every
+//    n-group of the block; each (n-group, chunk) has its B fragments staged
+//    in shared memory.
+// ---------------------------------------------------------------------------
+constexpr int kXTileW = 64, kXTileH = 8;  // the wide instances' output tile
+constexpr int kXRows = 4;                 // output rows a warp owns
+constexpr int kXStrips = kXTileW / 16;    // strips of 16 columns
+static_assert(kXStrips * (kXTileH / kXRows) == kWarps, "a warp a strip band");
+constexpr int kXWM = kXTileW + 2, kXHM = kXTileH + 2;  // the 1-pixel halo
+constexpr int kXNPix = kXWM * kXHM;                    // 660
+constexpr int kXNPixM = (kXNPix + 15) / 16 * 16;       // whole m-tiles
+// bytes of a plane of 8 channels; the extra 16 bytes put the planes of one
+// pixel in distinct banks when a warp stages several of them
+constexpr int kXPlane = kXNPixM * 16 + 16;
+constexpr int kXNB0 = 4;   // block 0's n-tiles a warp holds (fused instance)
+constexpr int kXChunk = 64;  // the per-block plan's channels a chunk
+
+// the fused wide instance's input staging (stage_async): 8 f32 channels
+// with a 2-pixel halo
+struct WideCfg {
+  static constexpr int TW = kXTileW, TH = kXTileH;
+  static constexpr int WI = TW + 4, HI = TH + 4;
+  static constexpr int STAGE = HI * WI * 8 * 4;
+};
+
+// Shared-memory bytes of the fused wide instance: barrier, staging, ng0 *
+// kXNB0 planes of the intermediate, block 0's B fragments (9 taps, the 8
+// channels of an m16n8k8: 128 bytes each) and block 1's (256 bytes each;
+// ops/guidance.fused_wide_smem computes the same).
+constexpr int fused_wide_smem(int ng0, int ng1, int nb1, int ks1) {
+  return 128 + WideCfg::STAGE + ng0 * kXNB0 * kXPlane +
+         ng0 * 9 * kXNB0 * 128 + ng1 * ks1 * 9 * nb1 * 256;
+}
+static_assert(fused_wide_smem(3, 1, 3, 6) == 210752, "8 -> 96 -> 24");
+
+// Block 1 (or a per-block plan's block) on the staged planes at src: this
+// warp's kXRows output rows of its strip, NB n-tiles, ks_n k-steps from
+// plane 0; ws: the B fragments [ks][tap][nb][lane] (note).  Each output
+// sums k-step by k-step, the taps in order (input row i = j + ky, then kx),
+// 16 channels a product.
+template <int NB>
+__device__ __forceinline__ void conv_rows(uint32_t src, int ks_n,
+                                          const uint2* ws, int strip,
+                                          int band, int lane,
+                                          float (&acc)[kXRows][NB][4]) {
+  const int row = (lane & 7) + (lane & 8), khalf = lane >> 4;
+  const uint32_t base = src + khalf * kXPlane +
+                        ((band * kXRows) * kXWM + strip * 16 + row) * 16;
+#pragma unroll 1
+  for (int ks = 0; ks < ks_n; ++ks) {
+    uint2 b[9][NB];
+    const uint2* wk = ws + ks * 9 * NB * 32 + lane;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap)
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) b[tap][nb] = wk[(tap * NB + nb) * 32];
+#pragma unroll
+    for (int i = 0; i < kXRows + 2; ++i) {
+#pragma unroll
+      for (int kx = 0; kx < 3; ++kx) {
+        uint32_t a[4];
+        ldmatrix_x4(a, base + 2 * ks * kXPlane + (i * kXWM + kx) * 16);
+#pragma unroll
+        for (int ky = 0; ky < 3; ++ky) {
+          const int j = i - ky;  // the output row this input row is a tap of
+          if (j < 0 || j >= kXRows) continue;
+#pragma unroll
+          for (int nb = 0; nb < NB; ++nb)
+            mma_bf16(acc[j][nb], a, b[3 * ky + kx][nb]);
+        }
+      }
+    }
+  }
+}
+
+// conv_rows' accumulators of n-tiles nt0.. : bias, relu6, the pairs of
+// channels below p.cout stored in out (rows g and g + 8 of a C fragment are
+// output columns g and g + 8 of the strip)
+template <int NB>
+__device__ __forceinline__ void store_rows(const Params& p,
+                                           const __nv_bfloat16* bias,
+                                           int nt0, float (&acc)[kXRows][NB][4],
+                                           int bz, int ty, int tx, int strip,
+                                           int band, int lane) {
+  const int g = lane >> 2, t2 = (lane & 3) * 2;
+  const int x_lo = tx + strip * 16 + g, x_hi = x_lo + 8;
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb) {
+    const int n = (nt0 + nb) * 8 + t2;
+    if (n >= p.cout) continue;  // cout even: n + 1 too
+    const __nv_bfloat162 b = load_bias(bias, n);
+#pragma unroll
+    for (int j = 0; j < kXRows; ++j) {
+      const int y = ty + band * kXRows + j;
+      if (y >= p.height) continue;
+      __nv_bfloat16* o =
+          p.out + ((static_cast<long long>(bz) * p.height + y) * p.width) *
+                      p.ostride + n;
+      if (x_lo < p.width)
+        *reinterpret_cast<uint32_t*>(o + x_lo * p.ostride) =
+            bias_relu6(acc[j][nb][0], acc[j][nb][1], b);
+      if (x_hi < p.width)
+        *reinterpret_cast<uint32_t*>(o + x_hi * p.ostride) =
+            bias_relu6(acc[j][nb][2], acc[j][nb][3], b);
+    }
+  }
+}
+
+struct FusedWideParams {
+  Params p;  // the f32 input and its strides, the output, the frame
+  const uint2* w0;  // block 0's tap-major pack [nt0][1][9][32]
+  const __nv_bfloat16* b0;
+  int nt0, ng0;  // its n-tiles, and their groups of kXNB0
+  const uint2* w1;  // block 1's tap-major pack [nt1][ks1][9][32]
+  const __nv_bfloat16* b1;
+  int nt1, ks1, ng1;  // its n-tiles, k-steps, groups of NB1
+};
+
+// The fused wide instance's block 0 on the tile's region (66 x 10 pixels)
+// from the staged f32 input into the planes at xmid, 0 outside the image;
+// w0s: the B fragments [group][tap][nb][lane].  One product a tap, the
+// taps in order, on the 8 channels rounded to bf16 (mma.m16n8k8: the
+// per-block plan's k-step of 16 channels whose last 8 are 0 sums the same
+// products, checked bit for bit on the card).  A warp walks
+// the (group, m-tile) units warp, warp + 8, ..., group-major, and reloads
+// its B fragments only when the group changes.
+__device__ __forceinline__ void wide_block0(const FusedWideParams& q,
+                                            const uint32_t* w0s,
+                                            const float* stage,
+                                            uint32_t xmid, int ty, int tx,
+                                            int warp, int lane) {
+  constexpr int MT = kXNPixM / 16;
+  const int g = lane >> 2, t = lane & 3, t2 = 2 * t;
+  const int mrow = (lane & 7) + 8 * ((lane >> 3) & 1), mnt = lane >> 4;
+  const uint32_t kZero = 0u;
+  int cur = -1;
+  uint32_t b[9][kXNB0];  // the B fragments' channels 0..7 (8..15 are 0)
+  __nv_bfloat162 bias[kXNB0];
+  for (int u = warp; u < q.ng0 * MT; u += kWarps) {
+    const int grp = u / MT, m0 = (u - grp * MT) * 16;
+    if (grp != cur) {
+      cur = grp;
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap)
+#pragma unroll
+        for (int nb = 0; nb < kXNB0; ++nb)
+          b[tap][nb] = w0s[((grp * 9 + tap) * kXNB0 + nb) * 32 + lane];
+#pragma unroll
+      for (int nb = 0; nb < kXNB0; ++nb) {
+        const int n = (grp * kXNB0 + nb) * 8 + t2;
+        bias[nb] = n < q.nt0 * 8
+                       ? load_bias(q.b0, n)
+                       : *reinterpret_cast<const __nv_bfloat162*>(&kZero);
+      }
+    }
+    float acc[kXNB0][4];
+#pragma unroll
+    for (int nb = 0; nb < kXNB0; ++nb)
+      acc[nb][0] = acc[nb][1] = acc[nb][2] = acc[nb][3] = 0.f;
+    // this lane's rows g and g + 8 of the m-tile (past the region: any)
+    int q0[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = min(m0 + g + 8 * h, kXNPix - 1);
+      q0[h] = (m / kXWM) * WideCfg::WI + m % kXWM;
+    }
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int ky = tap / 3, kx = tap - 3 * ky;
+      uint32_t a[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float2 v = *reinterpret_cast<const float2*>(
+            stage + (q0[h] + ky * WideCfg::WI + kx) * 8 + t2);
+        a[h] = bf16x2_bits(v.x, v.y);
+      }
+#pragma unroll
+      for (int nb = 0; nb < kXNB0; ++nb)
+        mma_bf16_k8(acc[nb], a[0], a[1], b[tap][nb]);
+    }
+    uint32_t v[2][kXNB0];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int mm = m0 + g + 8 * half;
+      const int y = ty - 1 + mm / kXWM, x = tx - 1 + mm % kXWM;
+      const bool inside = mm < kXNPix && y >= 0 && y < q.p.height &&
+                          x >= 0 && x < q.p.width;
+#pragma unroll
+      for (int nb = 0; nb < kXNB0; ++nb)
+        v[half][nb] = inside ? bias_relu6(acc[nb][2 * half],
+                                          acc[nb][2 * half + 1], bias[nb])
+                             : 0u;
+    }
+#pragma unroll
+    for (int np = 0; np < kXNB0; np += 2)
+      stmatrix_x4(xmid + (grp * kXNB0 + np + mnt) * kXPlane +
+                      (m0 + mrow) * 16,
+                  v[0][np], v[1][np], v[0][np + 1], v[1][np + 1]);
+  }
+}
+
+template <int NB1>
+__global__ void __launch_bounds__(kThreads, 1)
+    guidance_wide2_kernel(const __grid_constant__ CUtensorMap tmap,
+                          const __grid_constant__ FusedWideParams q) {
+  using C = WideCfg;
+  const Params& p = q.p;
+  // [barrier | staging | xmid planes | w0s | w1s]
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t bar = smem_addr(smem);
+  unsigned char* stage_p = smem + 128;
+  unsigned char* xmid = stage_p + C::STAGE;
+  uint32_t* w0s =
+      reinterpret_cast<uint32_t*>(xmid + q.ng0 * kXNB0 * kXPlane);
+  uint2* w1s = reinterpret_cast<uint2*>(w0s + q.ng0 * 9 * kXNB0 * 32);
+  const uint32_t stage = smem_addr(stage_p);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int strip = warp % kXStrips, band = warp / kXStrips;
+  const int ntiles = p.batch * ((p.height + C::TH - 1) / C::TH) *
+                     ((p.width + C::TW - 1) / C::TW);
+  const int first = blockIdx.x, step = gridDim.x;
+
+  if (p.tma && threadIdx.x == kThreads - 1) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (first < ntiles) stage_async<C, true, 2, 8>(tmap, p, first, stage, bar);
+  // both blocks' B fragments, once a block, [group][ks][tap][nb][lane]
+  // (block 0: one k-step, channels 0..7), n-tiles past the packs' 0
+  for (int i = threadIdx.x; i < q.ng0 * 9 * kXNB0 * 32; i += kThreads) {
+    const int f = i / 32, nb = f % kXNB0, tap = f / kXNB0 % 9;
+    const int nt = f / (kXNB0 * 9) * kXNB0 + nb;
+    w0s[i] = nt < q.nt0 ? __ldg(q.w0 + (nt * 9 + tap) * 32 + i % 32).x : 0u;
+  }
+  for (int i = threadIdx.x; i < q.ng1 * q.ks1 * 9 * NB1 * 32;
+       i += kThreads) {
+    const int f = i / 32, nb = f % NB1, tap = f / NB1 % 9;
+    const int ks = f / (NB1 * 9) % q.ks1, nt = f / (NB1 * 9 * q.ks1) * NB1 + nb;
+    w1s[i] = nt < q.nt1 ? __ldg(q.w1 + ((nt * q.ks1 + ks) * 9 + tap) * 32 +
+                                i % 32)
+                        : make_uint2(0u, 0u);
+  }
+  uint32_t parity = 0;
+  for (int t = first; t < ntiles; t += step) {
+    stage_wait(p.tma, bar, parity);
+    parity ^= 1u;
+    __syncthreads();  // tile t staged, the weights too; the last reads done
+    int bz, ty, tx;
+    tile_origin<C>(p, t, bz, ty, tx);
+    wide_block0(q, w0s, reinterpret_cast<const float*>(stage_p),
+                smem_addr(xmid), ty, tx, warp, lane);
+    __syncthreads();  // block 0's output staged, the staging buffer free
+    if (t + step < ntiles)
+      stage_async<C, true, 2, 8>(tmap, p, t + step, stage, bar);
+    for (int ng = 0; ng < q.ng1; ++ng) {
+      float acc[kXRows][NB1][4];
+#pragma unroll
+      for (int j = 0; j < kXRows; ++j)
+#pragma unroll
+        for (int nb = 0; nb < NB1; ++nb)
+          acc[j][nb][0] = acc[j][nb][1] = acc[j][nb][2] = acc[j][nb][3] = 0.f;
+      conv_rows<NB1>(smem_addr(xmid), q.ks1, w1s + ng * q.ks1 * 9 * NB1 * 32,
+                     strip, band, lane, acc);
+      store_rows<NB1>(p, q.b1, ng * NB1, acc, bz, ty, tx, strip, band, lane);
+    }
+  }
+}
 
 struct WideParams {
   const void* in;  // f32 [B, H, W, cin] through strides, or bf16 [B, H, W, cin]
@@ -774,96 +1081,148 @@ struct WideParams {
   int f32_in, cin;           // cin: the input's channels (bf16: a pixel's)
   const uint2* wt;  // [nt][ks][9 taps][32] x 4 bf16 (pack_layer's ``wt``)
   const __nv_bfloat16* b;
-  int ks, nt;          // k-steps of 16 input channels, n-tiles of 8 outputs
-  __nv_bfloat16* out;  // [B, H, W, ostride]
-  int ostride, cout;
-  int batch, height, width;
+  int ks, nt, ng;  // k-steps of 16 input channels, n-tiles, groups of NB
+  int chunk;       // input channels staged a chunk (a multiple of 16)
+  Params o;        // the output (out, ostride, cout) and the frame
 };
 
-__global__ void __launch_bounds__(kThreads) guidance_wide_kernel(
-    const WideParams p) {
-  __shared__ uint32_t xs[kWHaloH * kWHaloW * kWPitch];
+// The per-block plan's input channels [c0, c0 + cn) of tile (bz, ty, tx)
+// and its halo into the planes at xs, bf16, 0 outside the image and past
+// the input's channels.
+__device__ __forceinline__ void wide_stage(const WideParams& p,
+                                           unsigned char* xs, int c0, int cn,
+                                           int bz, int ty, int tx) {
+  const int H = p.o.height, W = p.o.width, groups = cn / 8;
+  for (int i = threadIdx.x; i < groups * kXNPix; i += kThreads) {
+    const int cg = i / kXNPix, q = i - cg * kXNPix;
+    const int y = ty - 1 + q / kXWM, x = tx - 1 + q % kXWM, c = c0 + cg * 8;
+    const bool ok = y >= 0 && y < H && x >= 0 && x < W && c < p.cin;
+    unsigned char* dst = xs + cg * kXPlane + q * 16;
+    if (p.f32_in) {
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (ok) {
+        const float* px = static_cast<const float*>(p.in) + bz * p.sb +
+                          y * p.sh + x * p.sw;
+        float f[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          f[e] = c + e < p.cin ? __ldg(px + (c + e) * p.sc) : 0.f;
+        v = make_uint4(bf16x2_bits(f[0], f[1]), bf16x2_bits(f[2], f[3]),
+                       bf16x2_bits(f[4], f[5]), bf16x2_bits(f[6], f[7]));
+      }
+      *reinterpret_cast<uint4*>(dst) = v;
+    } else {  // cin a multiple of 8: 16 bytes a group
+      const __nv_bfloat16* px =
+          static_cast<const __nv_bfloat16*>(p.in) +
+          ((static_cast<long long>(bz) * H + y) * W + x) * p.cin + c;
+      cp_async16(smem_addr(dst), ok ? px : p.in, ok ? 16 : 0);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+template <int NB>
+__global__ void __launch_bounds__(kThreads, 1)
+    guidance_wide_kernel(const __grid_constant__ WideParams p) {
+  // [xs: chunk / 8 planes | ws: the chunk's B fragments of one n-group]
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* xs = smem;
+  uint2* ws = reinterpret_cast<uint2*>(smem + p.chunk / 8 * kXPlane);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int H = p.height, W = p.width;
-  const int tiles_x = (W + kWTileW - 1) / kWTileW;
-  const int tiles_y = (H + kWTileH - 1) / kWTileH;
+  const int strip = warp % kXStrips, band = warp / kXStrips;
+  const int tiles_x = (p.o.width + kXTileW - 1) / kXTileW;
+  const int tiles_y = (p.o.height + kXTileH - 1) / kXTileH;
   const int bz = blockIdx.x / (tiles_x * tiles_y);
-  const int rt = blockIdx.x - bz * tiles_x * tiles_y;
-  const int ty = (rt / tiles_x) * kWTileH, tx = (rt % tiles_x) * kWTileW;
-  const int nt0 = blockIdx.y * kWGroup;
-  float acc[kWGroup][4];
+  const int r = blockIdx.x - bz * tiles_x * tiles_y;
+  const int ty = (r / tiles_x) * kXTileH, tx = (r % tiles_x) * kXTileW;
+  const int kc = p.ks * 16, chunks = (kc + p.chunk - 1) / p.chunk;
+  for (int ng = 0; ng < p.ng; ++ng) {
+    float acc[kXRows][NB][4];
 #pragma unroll
-  for (int j = 0; j < kWGroup; ++j)
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  const float* inf = static_cast<const float*>(p.in) + bz * p.sb;
-  const __nv_bfloat16* inb = static_cast<const __nv_bfloat16*>(p.in) +
-                             static_cast<long long>(bz) * H * W * p.cin;
-  for (int c0 = 0; c0 < p.ks * 16; c0 += kWIn) {
-    __syncthreads();  // the previous chunk's reads are done
-    // word wd of staged pixel q: channels c0 + 2 wd and c0 + 2 wd + 1
-    for (int i = threadIdx.x; i < kWHaloH * kWHaloW * (kWIn / 2);
-         i += kThreads) {
-      const int wd = i % (kWIn / 2), q = i / (kWIn / 2);
-      const int y = ty - 1 + q / kWHaloW, x = tx - 1 + q % kWHaloW;
-      const int c = c0 + 2 * wd;
-      uint32_t v = 0u;
-      if (y >= 0 && y < H && x >= 0 && x < W && c < p.cin) {
-        if (p.f32_in) {
-          const float* px = inf + y * p.sh + x * p.sw;
-          v = bf16x2_bits(px[c * p.sc],
-                          c + 1 < p.cin ? px[(c + 1) * p.sc] : 0.f);
-        } else {  // cin is even: the pair is whole
-          v = *reinterpret_cast<const uint32_t*>(
-              inb + (static_cast<long long>(y) * W + x) * p.cin + c);
-        }
+    for (int j = 0; j < kXRows; ++j)
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+        acc[j][nb][0] = acc[j][nb][1] = acc[j][nb][2] = acc[j][nb][3] = 0.f;
+    for (int c = 0; c < chunks; ++c) {
+      const int c0 = c * p.chunk, cn = min(p.chunk, kc - c0);
+      __syncthreads();  // the previous product's reads are done
+      // an input of one chunk is staged once for every n-group
+      if (chunks > 1 || ng == 0) wide_stage(p, xs, c0, cn, bz, ty, tx);
+      for (int i = threadIdx.x; i < cn / 16 * 9 * NB * 32; i += kThreads) {
+        const int f = i / 32, nb = f % NB, tap = f / NB % 9;
+        const int ks = c0 / 16 + f / (NB * 9), nt = ng * NB + nb;
+        ws[i] = nt < p.nt ? __ldg(p.wt + ((nt * p.ks + ks) * 9 + tap) * 32 +
+                                  i % 32)
+                          : make_uint2(0u, 0u);
       }
-      xs[q * kWPitch + wd] = v;
+      __syncthreads();
+      conv_rows<NB>(smem_addr(xs), cn / 16, ws, strip, band, lane, acc);
     }
-    __syncthreads();
-    const int kss = min(kWIn / 16, p.ks - c0 / 16);
-    for (int kk = 0; kk < kss; ++kk) {
-      const int ks = c0 / 16 + kk;
-#pragma unroll
-      for (int tap = 0; tap < 9; ++tap) {
-        const int ky = tap / 3, kx = tap - 3 * ky;
-        // A: rows = the warp's 16 output pixels shifted by the tap, k = the
-        // k-step's 16 channels (8 words of the staged pixel)
-        const uint32_t* row = xs + ((warp + ky) * kWHaloW + kx) * kWPitch +
-                              kk * 8 + t;
-        uint32_t a[4];
-        a[0] = row[g * kWPitch];
-        a[1] = row[(g + 8) * kWPitch];
-        a[2] = row[g * kWPitch + 4];
-        a[3] = row[(g + 8) * kWPitch + 4];
-#pragma unroll
-        for (int j = 0; j < kWGroup; ++j)
-          if (nt0 + j < p.nt)
-            mma_bf16(acc[j], a,
-                     __ldg(p.wt + (((nt0 + j) * p.ks + ks) * 9 + tap) * 32 +
-                           lane));
-      }
-    }
+    store_rows<NB>(p.o, p.b, ng * NB, acc, bz, ty, tx, strip, band, lane);
   }
-  // C: rows g and g + 8 are output columns tx + g and tx + g + 8, columns
-  // 2t and 2t + 1 of n-tile nt0 + j its channels
-  const int y = ty + warp;
-  if (y >= H) return;
-  __nv_bfloat16* orow =
-      p.out + (static_cast<long long>(bz) * H + y) * W * p.ostride;
-#pragma unroll
-  for (int j = 0; j < kWGroup; ++j) {
-    const int n = (nt0 + j) * 8 + 2 * t;
-    if (nt0 + j >= p.nt || n >= p.cout) continue;  // cout even: n + 1 too
-    const __nv_bfloat162 bias = load_bias(p.b, n);
-    const int x_lo = tx + g, x_hi = tx + g + 8;
-    if (x_lo < W)
-      *reinterpret_cast<uint32_t*>(orow + x_lo * p.ostride + n) =
-          bias_relu6(acc[j][0], acc[j][1], bias);
-    if (x_hi < W)
-      *reinterpret_cast<uint32_t*>(orow + x_hi * p.ostride + n) =
-          bias_relu6(acc[j][2], acc[j][3], bias);
+}
+
+// the n-tiles the fused wide instance's block 1 takes at a time, of nt
+int wide_nb(int nt) { return nt <= 2 ? 2 : nt == 3 ? 3 : 4; }
+
+// Allow `bytes` of dynamic shared memory (once a device and instance).
+template <class Kernel>
+int allow_smem(Kernel kernel, int bytes, int (&done)[64]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= 64 || bytes > kSmemMax) return (int)cudaErrorInvalidValue;
+  if (!done[dev]) {
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+    if (e != cudaSuccess) return (int)e;
+    done[dev] = 1;
   }
+  return 0;
+}
+
+template <int NB1>
+int launch_wide2(const FusedWideParams& q, int smem, cudaStream_t stream) {
+  auto kernel = guidance_wide2_kernel<NB1>;
+  static int done[64] = {}, sms[64] = {};
+  int rc = allow_smem(kernel, smem, done);
+  if (rc) return rc;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (!sms[dev]) {
+    const cudaError_t e =
+        cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const Params& p = q.p;
+  const long long ntiles = static_cast<long long>(p.batch) *
+                           ((p.height + kXTileH - 1) / kXTileH) *
+                           ((p.width + kXTileW - 1) / kXTileW);
+  if (ntiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int grid = static_cast<int>(ntiles < sms[dev] ? ntiles : sms[dev]);
+  CUtensorMap map{};
+  if (p.tma) {
+    rc = encode_input(p, 8, WideCfg::WI, WideCfg::HI, &map);
+    if (rc) return rc;
+  }
+  kernel<<<grid, kThreads, smem, stream>>>(map, q);
+  return (int)cudaGetLastError();
+}
+
+template <int NB>
+int launch_wide(const WideParams& p, cudaStream_t stream) {
+  auto kernel = guidance_wide_kernel<NB>;
+  static int done[64] = {};
+  const int smem = p.chunk / 8 * kXPlane + p.chunk / 16 * 9 * NB * 256;
+  const int rc = allow_smem(kernel, smem, done);
+  if (rc) return rc;
+  const long long tiles = static_cast<long long>(p.o.batch) *
+                          ((p.o.height + kXTileH - 1) / kXTileH) *
+                          ((p.o.width + kXTileW - 1) / kXTileW);
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  kernel<<<static_cast<unsigned>(tiles), kThreads, smem, stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -923,28 +1282,90 @@ RT_API int rt_guidance_net(const void* in, long long sb, long long sh,
                   static_cast<cudaStream_t>(stream));
 }
 
-// One launch of the wide plan: one block from ``in`` to ``out``.  in: f32
-// [B, H, W, cin] through the element strides (sb, sh, sw, sc) when f32_in,
-// else bf16 [B, H, W, cin] contiguous with cin even (a previous launch's
-// out, its padded channels 0).  wt, b: the block's tap-major packed weights
-// (pack_layer's ``wt``: ks k-steps of 16 input channels, at least cin of
-// them) and bias (nt * 8 values).  out: bf16 [B, H, W, ostride], channels
-// 0..cout-1 written (cout and ostride even, cout at most nt * 8).
+// Shared-memory bytes of the fused wide instance for a block 0 of nt0
+// n-tiles and a block 1 of ks1 k-steps writing cout channels (what
+// ops/guidance.fused_wide_smem computes); the instance takes the net when
+// they are at most 232,448.
+RT_API int rt_guidance_wide_fused_smem(int nt0, int ks1, int cout) {
+  const int nt1 = (cout + 7) / 8, nb1 = wide_nb(nt1);
+  return fused_wide_smem((nt0 + kXNB0 - 1) / kXNB0, (nt1 + nb1 - 1) / nb1,
+                         nb1, ks1);
+}
+
+// One launch of the fused wide instance: a two-block net from ``in``, f32
+// [B, H, W, cin] through the element strides (sb, sh, sw, sc), cin <= 8,
+// to ``out``.  Block 0: its K-major pack w0 (input channels padded to 8)
+// and bias b0, nt0 n-tiles; block 1: its tap-major pack w1 (ks1 k-steps of
+// 16 channels, 2 ks1 <= the n-tiles block 0 stores) and bias b1, nt1
+// n-tiles.  out: bf16 [B, H, W, ostride], channels 0..cout-1 written (cout
+// and ostride even, cout at most nt1 * 8).
+RT_API int rt_guidance_wide_fused(const void* in, long long sb, long long sh,
+                                  long long sw, long long sc, int cin,
+                                  const void* w0, const void* b0, int nt0,
+                                  const void* w1, const void* b1, int nt1,
+                                  int ks1, void* out, int ostride, int cout,
+                                  int batch, int height, int width,
+                                  void* stream) {
+  if (cin < 1 || cin > 8 || nt0 < 1 || nt1 < 1 || ks1 < 1 || cout < 2 ||
+      cout % 2 || cout > nt1 * 8 || ostride < cout || ostride % 2 ||
+      batch < 1 || height < 1 || width < 1)
+    return (int)cudaErrorInvalidValue;
+  FusedWideParams q;
+  q.nt0 = nt0;
+  q.ng0 = (nt0 + kXNB0 - 1) / kXNB0;
+  if (2 * ks1 > q.ng0 * kXNB0) return (int)cudaErrorInvalidValue;
+  const int nb1 = wide_nb((cout + 7) / 8);
+  q.ng1 = ((cout + 7) / 8 + nb1 - 1) / nb1;
+  q.nt1 = nt1;
+  q.ks1 = ks1;
+  const int smem = fused_wide_smem(q.ng0, q.ng1, nb1, ks1);
+  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
+  q.w0 = static_cast<const uint2*>(w0);
+  q.b0 = static_cast<const __nv_bfloat16*>(b0);
+  q.w1 = static_cast<const uint2*>(w1);
+  q.b1 = static_cast<const __nv_bfloat16*>(b1);
+  Params& p = q.p;
+  p = Params{};
+  p.in = in;
+  p.sb = sb;
+  p.sh = sh;
+  p.sw = sw;
+  p.sc = sc;
+  p.cin = cin;
+  p.tma = sc == 1 && cin % 4 == 0 && sw % 4 == 0 && sh % 4 == 0 &&
+          sb % 4 == 0 && reinterpret_cast<uintptr_t>(in) % 16 == 0;
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.ostride = ostride;
+  p.cout = cout;
+  p.batch = batch;
+  p.height = height;
+  p.width = width;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (nb1) {
+    case 2: return launch_wide2<2>(q, smem, s);
+    case 3: return launch_wide2<3>(q, smem, s);
+    default: return launch_wide2<4>(q, smem, s);
+  }
+}
+
+// One launch of the per-block plan: one block from ``in`` to ``out``.  in:
+// f32 [B, H, W, cin] through the element strides (sb, sh, sw, sc) when
+// f32_in, else bf16 [B, H, W, cin] contiguous with cin a multiple of 8 (a
+// previous launch's out, its padded channels 0).  wt, b: the block's
+// tap-major packed weights (pack_layer's ``wt``: ks k-steps of 16 input
+// channels, at least cin of them) and bias (nt * 8 values).  out: bf16 [B,
+// H, W, ostride], channels 0..cout-1 written (cout and ostride even, cout
+// at most nt * 8).
 RT_API int rt_guidance_wide(const void* in, long long sb, long long sh,
                             long long sw, long long sc, int f32_in, int cin,
                             const void* wt, const void* b, int ks, int nt,
                             void* out, int ostride, int cout, int batch,
                             int height, int width, void* stream) {
   if (ks < 1 || nt < 1 || cin < 1 || cin > ks * 16 ||
-      (!f32_in && cin % 2) || cout < 2 || cout % 2 || cout > nt * 8 ||
+      (!f32_in && cin % 8) || cout < 2 || cout % 2 || cout > nt * 8 ||
       ostride < cout || ostride % 2 || batch < 1 || height < 1 || width < 1)
     return (int)cudaErrorInvalidValue;
-  const long long tiles = static_cast<long long>(batch) *
-                          ((height + kWTileH - 1) / kWTileH) *
-                          ((width + kWTileW - 1) / kWTileW);
-  const int groups = (nt + kWGroup - 1) / kWGroup;
-  if (tiles > 0x7fffffffLL || groups > 65535)
-    return (int)cudaErrorInvalidValue;
+  const int nb = nt <= 2 ? nt : 4;
   WideParams p;
   p.in = in;
   p.sb = sb;
@@ -957,14 +1378,20 @@ RT_API int rt_guidance_wide(const void* in, long long sb, long long sh,
   p.b = static_cast<const __nv_bfloat16*>(b);
   p.ks = ks;
   p.nt = nt;
-  p.out = static_cast<__nv_bfloat16*>(out);
-  p.ostride = ostride;
-  p.cout = cout;
-  p.batch = batch;
-  p.height = height;
-  p.width = width;
-  guidance_wide_kernel<<<dim3(static_cast<unsigned>(tiles), groups),
-                         kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      p);
-  return (int)cudaGetLastError();
+  p.ng = (nt + nb - 1) / nb;
+  // only the channels the input has, rounded up to 16
+  p.chunk = (cin + 15) / 16 * 16 < kXChunk ? (cin + 15) / 16 * 16 : kXChunk;
+  p.o = Params{};
+  p.o.out = static_cast<__nv_bfloat16*>(out);
+  p.o.ostride = ostride;
+  p.o.cout = cout;
+  p.o.batch = batch;
+  p.o.height = height;
+  p.o.width = width;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (nb) {
+    case 1: return launch_wide<1>(p, s);
+    case 2: return launch_wide<2>(p, s);
+    default: return launch_wide<4>(p, s);
+  }
 }

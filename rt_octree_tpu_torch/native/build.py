@@ -66,8 +66,8 @@ ENTRIES = {
                                [_I, _I, _V, _I, _I, _V]),
     "rt_guided_filter_batch_bwd": ("filter", [_V] + [_V, _L, _L, _L] * 2 +
                                    [_V] * 6 + [_I, _I, _V, _I, _I, _V]),
-    "rt_guided_filter_wide": ("filter", [_V, _L, _L, _L, _V, _V, _I, _V, _I,
-                                         _I, _V]),
+    "rt_guided_filter_wide": ("filter", [_V, _L, _L, _L, _V, _V, _V, _I, _V,
+                                         _I, _I, _V, _V]),
     "rt_guided_filter_batch_wide": ("filter", [_V, _L, _L, _L] * 2 +
                                     [_V] * 5 + [_I, _I, _V, _I, _I, _V]),
     "rt_guided_filter_batch_bwd_wide": ("filter", [_V] + [_V, _L, _L, _L] * 2
@@ -79,6 +79,10 @@ ENTRIES = {
     "rt_guidance_net": ("net", [_V, _L, _L, _L, _L, _I, _I, _I, _V, _V, _I,
                                 _I, _V, _V, _I, _I, _V, _I, _I, _I, _I, _I,
                                 _V, _V]),
+    "rt_guidance_wide_fused": ("net", [_V, _L, _L, _L, _L, _I, _V, _V, _I,
+                                       _V, _V, _I, _I, _V, _I, _I, _I, _I,
+                                       _I, _V]),
+    "rt_guidance_wide_fused_smem": ("net", [_I, _I, _I]),
     "rt_guidance_wide": ("net", [_V, _L, _L, _L, _L, _I, _I, _V, _V, _I, _I,
                                  _V, _I, _I, _I, _I, _I, _V]),
     "rt_probe_affine": ("probes", [_V, _V, _I, _V]),
@@ -108,7 +112,8 @@ LAUNCHES: Dict[str, int] = {
     "guided_filter_batch_wide": 0, "guided_filter_batch_bwd_wide": 0,
     # the compact GuidanceNet (K7): one launch for a net of 1 or 2 blocks
     "guidance_net": 0,
-    # K7's wide plan: one launch a block of more than 64 channels
+    # K7's wide instances (a block of more than 64 channels): one launch a
+    # net of the fused wide instance, else one a block
     "guidance_net_wide": 0,
     # the probe kernels of the measurement tools (csrc/probes.cu)
     "probe_affine": 0, "lane_gather": 0, "lane_gather_chain": 0,

@@ -42,7 +42,12 @@ more than MAX_LEVELS levels or a support above MAX_SUPPORT (up to
 WIDE_MAX_LEVELS and WIDE_MAX_SUPPORT: ``--kernel_levels`` up to 32 with
 either ladder), and for K5 / K6 a B or B x L above MAX_GRID_Z.  The
 wrappers choose on the host (``wide_plan``); the launch names gain
-``_wide``.  A shape past the wide instances raises.
+``_wide``.  A shape past the wide instances raises.  K2's wide instance
+computes the form JAX's frame takes (the fast one) with K5's numerics: a
+stabiliser a tile and level (``wide_tile``), separable
+window sums, and the per-window form where a tile's staged guidance spans
+GUARD_RANGE nats; its optional counter takes the guarded (tile, level)
+pairs of ``wide_filter_tiles``.
 """
 
 from __future__ import annotations
@@ -66,6 +71,12 @@ MAX_GRID_Z = 65535
 # take the per-window form (the JAX package's FAST_SAFE_RANGE)
 BATCH_TILE_W, BATCH_TILE_H = 40, 16
 GUARD_RANGE = 60.0
+# K2's wide instance's output tile (csrc/filter.cu), width x height: 32 x
+# 32 up to a halo of WIDE_SMALL_R (the largest support), else 16 x 8
+WIDE_TILE, WIDE_TILE_LARGE_R, WIDE_SMALL_R = (32, 32), (16, 8), 16
+# the phases of K2 wide's statistics instance (csrc/filter.cu:w2_mark)
+WIDE_STAT_PHASES = ("staging", "ranges", "prologue", "e_rgb", "row_sums",
+                    "column_sums", "levels")
 
 
 def resolve_supports(L: int, supports) -> tuple:
@@ -145,6 +156,19 @@ def wide_plan(slices: int, L: int, supports) -> bool:
         slices > MAX_GRID_Z
 
 
+def wide_tile(supports) -> tuple:
+    """K2's wide instance's output tile (width, height)."""
+    return WIDE_TILE if max(supports) <= WIDE_SMALL_R else WIDE_TILE_LARGE_R
+
+
+def wide_filter_tiles(H: int, W: int, supports) -> int:
+    """The (tile, level) pairs of a K2 wide call on an H x W image: the
+    count its guard counter is a share of (support-0 levels have no
+    guard)."""
+    tw, th = wide_tile(supports)
+    return -(-H // th) * -(-W // tw) * sum(1 for s in supports if s > 0)
+
+
 def _check_levels(name: str, L: int, supports) -> None:
     if not 1 <= L <= WIDE_MAX_LEVELS or max(supports) > WIDE_MAX_SUPPORT:
         raise ValueError(f"{name}: the kernels take 1..{WIDE_MAX_LEVELS} "
@@ -153,11 +177,14 @@ def _check_levels(name: str, L: int, supports) -> None:
 
 
 def guided_filter(act: torch.Tensor, img_in: torch.Tensor,
-                  supports=None) -> torch.Tensor:
+                  supports=None, guards=None) -> torch.Tensor:
     """Kernel K2 wrapper: the net's last activation ``act`` [1, 2L, H, W]
     and the noisy image ``img_in`` [H, W, 4] -> [H, W, 4] with alpha 1.
     CPU tensors take ``guided_filter_act_plain``; on a CUDA device ``act``
-    is bf16 in any strides (read in place) and ``img_in`` contiguous f32."""
+    is bf16 in any strides (read in place) and ``img_in`` contiguous f32.
+    ``guards``: an int32 CUDA tensor to which the wide instance adds the
+    (tile, level) pairs that took the guard (of ``wide_filter_tiles``);
+    the unrolled instance computes the per-window form and adds none."""
     if img_in.device.type == "cpu":
         return guided_filter_act_plain(act, img_in, supports)
     if act.dim() != 4 or act.shape[0] != 1 or act.shape[1] % 2:
@@ -177,18 +204,64 @@ def guided_filter(act: torch.Tensor, img_in: torch.Tensor,
                          f"{img_in.dtype} {tuple(img_in.shape)} on "
                          f"{img_in.device}")
     _check_levels("guided_filter", L, supports)
-    suffix = "_wide" if wide_plan(1, L, supports) else ""
+    if wide_plan(1, L, supports):
+        return _launch_wide(act, img_in, supports, _guard_ptr(guards))
     out = torch.empty((H, W, 4), dtype=torch.float32, device=img_in.device)
     sup = (ctypes.c_int * L)(*supports)
     _, sc, sh, sw = act.stride()
-    fn = native.entry("rt_guided_filter" + suffix)
     with torch.cuda.device(img_in.device):
-        rc = fn(act.data_ptr(), sc, sh, sw, img_in.data_ptr(),
-                out.data_ptr(), L, ctypes.cast(sup, ctypes.c_void_p), H, W,
-                native.stream_ptr(img_in.device))
-        native.count_launch("guided_filter" + suffix)
-    native.check(rc, f"guided_filter{suffix}_kernel")
+        rc = native.entry("rt_guided_filter")(
+            act.data_ptr(), sc, sh, sw, img_in.data_ptr(), out.data_ptr(), L,
+            ctypes.cast(sup, ctypes.c_void_p), H, W,
+            native.stream_ptr(img_in.device))
+        native.count_launch("guided_filter")
+    native.check(rc, "guided_filter_kernel")
     return out
+
+
+def _launch_wide(act, img_in, supports, guards: int, stats=None):
+    """One launch of K2's wide instance (the checks are guided_filter's);
+    ``stats`` (int64 [tiles, len(WIDE_STAT_PHASES)]) selects its
+    statistics instance."""
+    H, W = img_in.shape[:2]
+    out = torch.empty((H, W, 4), dtype=torch.float32, device=img_in.device)
+    sup = (ctypes.c_int * len(supports))(*supports)
+    _, sc, sh, sw = act.stride()
+    with torch.cuda.device(img_in.device):
+        rc = native.entry("rt_guided_filter_wide")(
+            act.data_ptr(), sc, sh, sw, img_in.data_ptr(), out.data_ptr(),
+            guards, len(supports), ctypes.cast(sup, ctypes.c_void_p), H, W,
+            0 if stats is None else stats.data_ptr(),
+            native.stream_ptr(img_in.device))
+        native.count_launch("guided_filter_wide")
+    native.check(rc, "guided_filter_wide_kernel")
+    return out
+
+
+def guided_filter_wide_stats(act: torch.Tensor, img_in: torch.Tensor,
+                             supports) -> tuple:
+    """K2 wide's statistics instance (supports up to WIDE_SMALL_R, 32x32
+    tiles) on guided_filter's CUDA inputs -> (out, {"tiles", per phase of
+    WIDE_STAT_PHASES the clock64() cycles of a tile's thread 0, averaged
+    over the tiles, and each phase's share of staging + ranges + prologue
+    + levels})."""
+    supports = tuple(supports)
+    H, W = img_in.shape[:2]
+    if img_in.device.type != "cuda" or max(supports) > WIDE_SMALL_R:
+        raise ValueError("guided_filter_wide_stats: CUDA tensors and "
+                         f"supports up to {WIDE_SMALL_R}")
+    tw, th = WIDE_TILE
+    tiles = -(-H // th) * -(-W // tw)
+    st = torch.zeros((tiles, len(WIDE_STAT_PHASES)), dtype=torch.int64,
+                     device=img_in.device)
+    out = _launch_wide(act, img_in, supports, 0, st)
+    cyc = st.double().mean(0).cpu()
+    total = float(cyc[0] + cyc[1] + cyc[2] + cyc[6])
+    return out, {"tiles": tiles,
+                 "cycles_per_tile": dict(zip(WIDE_STAT_PHASES,
+                                             map(float, cyc))),
+                 "share": {k: float(c) / total
+                           for k, c in zip(WIDE_STAT_PHASES, cyc)}}
 
 
 # ---------------------------------------------------------------------------

@@ -26,12 +26,20 @@ k-step of 16, ``lane // 4`` its column in an n-tile of 8):
 The output channels are padded to 8, 16, 32 or 64 (n-tiles of 8).  Padded
 weights and biases are 0, so padded output channels are relu6(0) = 0.
 
-A block with more than 64 input or output channels (a wide net: a
-``--mid_channels`` above 64, or more than 32 levels) takes K7's wide plan
-(``guidance_wide_kernel``, launch name ``guidance_net_wide``): one launch
-a block from the tap-major pack ``wt``, its channels padded to a multiple
-of 16 (``padded_channels``); a net with such a block runs as a chain of
-one-block launches (``chain_block``), each block on its own plan.
+A net with a block of more than 64 input or output channels (a wide net:
+a ``--mid_channels`` above 64, or more than 32 levels) takes K7's wide
+instances (launch name ``guidance_net_wide``), which read the tap-major
+pack ``wt`` of a wide block, its channels padded to a multiple of 16
+(``padded_channels``).  ``net_plan`` chooses on the host:
+
+- ``"fused"``: one or two blocks of at most 64 channels, one launch;
+- ``"fused_wide"``: a two-block wide net from at most 8 channels whose
+  weights and 64 x 8 tile's intermediate fit 227 KB (``fused_wide_smem``;
+  the 8 -> 96 -> 24 net of ``--mid_channels 96 --kernel_levels 12``), one
+  launch of the fused wide instance;
+- ``"chain"``: any other net, one launch a block (``chain_block``): the
+  per-block plan for a wide block, a fused instance's one-block launch for
+  the others.
 
 ``guidance_net`` is K7's wrapper, for CUDA tensors only; its plain
 version is ``models.guidance_net.compact_activation_plain``, and
@@ -47,11 +55,16 @@ import torch
 from ..native import build as native
 
 MAX_CHANNELS = 64  # csrc/net.cu: the fused instances' channels a block
+SMEM_MAX = 232448  # csrc/net.cu:kSmemMax, 227 KB a block
+# csrc/net.cu: the wide instances' output tile, and the n-tiles a warp of
+# the fused wide instance holds in block 0
+WIDE_TILE_W, WIDE_TILE_H = 64, 8
+WIDE_NB0 = 4
 
 
 def padded_channels(c: int) -> int:
     """The channels K7 pads ``c`` to: the smallest of 8, 16, 32, 64 that
-    holds them, and above 64 (the wide plan) a multiple of 16."""
+    holds them, and above 64 (the wide instances) a multiple of 16."""
     if c < 1:
         raise ValueError(f"guidance_net: a block of {c} channels")
     if c > MAX_CHANNELS:
@@ -64,8 +77,49 @@ def padded_channels(c: int) -> int:
 
 def is_wide(layer: "PackedLayer") -> bool:
     """A block that the fused instances do not take (more than 64 input or
-    output channels): it runs the wide plan, one launch of its own."""
+    output channels): its net runs on K7's wide instances (``net_plan``)."""
     return layer.cin > MAX_CHANNELS or layer.cout > MAX_CHANNELS
+
+
+def _wide_nb(nt: int) -> int:
+    """csrc/net.cu:wide_nb: the n-tiles the fused wide instance's block 1
+    takes at a time."""
+    return 2 if nt <= 2 else 3 if nt == 3 else 4
+
+
+def fused_wide_smem(layers) -> int | None:
+    """The shared-memory bytes K7's fused wide instance takes for this net
+    (csrc/net.cu:fused_wide_smem), or None when it is not a two-block wide
+    net from at most 8 channels: the barrier and the f32 staging of a 68 x
+    12 region, block 0's output over the 66 x 10 region (a plane of 16
+    bytes a pixel for each 8 of its channels, its n-tiles rounded up to
+    groups of WIDE_NB0), and both blocks' B fragments, 9 taps a k-step
+    (block 0's one k-step of 8 channels, 128 bytes a fragment; block 1's
+    256, its n-tiles rounded up to groups of ``_wide_nb``)."""
+    layers = list(layers)
+    if len(layers) != 2 or not any(map(is_wide, layers)) or \
+            layers[0].cp != 8:
+        return None
+    npix = (WIDE_TILE_W + 2) * (WIDE_TILE_H + 2)
+    plane = -(-npix // 16) * 16 * 16 + 16
+    ng0 = -(-layers[0].nt // WIDE_NB0)
+    nt1 = -(-layers[1].cout // 8)
+    nb1 = _wide_nb(nt1)
+    ks1 = layers[1].wt.shape[1]
+    return (128 + (WIDE_TILE_H + 4) * (WIDE_TILE_W + 4) * 8 * 4
+            + ng0 * WIDE_NB0 * plane + ng0 * 9 * WIDE_NB0 * 128
+            + -(-nt1 // nb1) * ks1 * 9 * nb1 * 256)
+
+
+def net_plan(layers) -> str:
+    """How K7 runs the packed blocks (module doc): "fused", "fused_wide"
+    or "chain"."""
+    layers = list(layers)
+    if len(layers) <= 2 and not any(map(is_wide, layers)):
+        return "fused"
+    smem = fused_wide_smem(layers)
+    return "fused_wide" if smem is not None and smem <= SMEM_MAX \
+        else "chain"
 
 
 @dataclasses.dataclass
@@ -149,8 +203,22 @@ def _launch(x, f32_in, cin, blocks, out, stream, stats=None):
     native.check(rc, "guidance_net_kernel")
 
 
+def _launch_fused_wide(x, layers, out, stream):
+    """One launch of K7's fused wide instance: both blocks from the f32 x
+    to out."""
+    B, H, W, C = x.shape
+    first, last = layers
+    rc = native.entry("rt_guidance_wide_fused")(
+        x.data_ptr(), *x.stride(), C, first.wt.data_ptr(), first.b.data_ptr(),
+        first.nt, last.wt.data_ptr(), last.b.data_ptr(), last.nt,
+        last.wt.shape[1], out.data_ptr(), out.shape[-1], out.shape[-1], B, H,
+        W, stream)
+    native.count_launch("guidance_net_wide")
+    native.check(rc, "guidance_wide2_kernel")
+
+
 def _launch_wide(x, f32_in, cin, layer, out, stream):
-    """One launch of K7's wide plan: ``layer`` from x to out."""
+    """One launch of K7's per-block plan: ``layer`` from x to out."""
     B, H, W = x.shape[:3]
     sb, sh, sw, sc = x.stride() if f32_in else (0, 0, 0, 0)
     rc = native.entry("rt_guidance_wide")(
@@ -165,8 +233,8 @@ def guidance_net(aux_nhwc: torch.Tensor, layers) -> torch.Tensor:
     """Kernel K7 wrapper: the f32 aux [B, H, W, cin] on a CUDA device (any
     strides) through the packed blocks ``layers`` -> the last block's
     activation [B, H, W, cout] bf16, contiguous.  One launch for one or two
-    blocks of at most 64 channels, else one a block (the wide plan for a
-    block of more)."""
+    blocks of at most 64 channels and for the fused wide instance's nets,
+    else one a block (``net_plan``)."""
     layers = list(layers)
     if aux_nhwc.device.type != "cuda" or aux_nhwc.dtype != torch.float32 \
             or aux_nhwc.dim() != 4:
@@ -190,12 +258,16 @@ def guidance_net(aux_nhwc: torch.Tensor, layers) -> torch.Tensor:
         raise ValueError(f"guidance_net: the packed blocks must be bf16 on "
                          f"{aux_nhwc.device} (GuidanceNetCompact.pack)")
     dev = aux_nhwc.device
+    plan = net_plan(layers)
     with torch.cuda.device(dev):
         stream = native.stream_ptr(dev)
-        if len(layers) <= 2 and not any(map(is_wide, layers)):
+        if plan != "chain":
             out = torch.empty((B, H, W, layers[-1].cout),
                               dtype=torch.bfloat16, device=dev)
-            _launch(aux_nhwc, True, C, layers, out, stream)
+            if plan == "fused":
+                _launch(aux_nhwc, True, C, layers, out, stream)
+            else:
+                _launch_fused_wide(aux_nhwc, layers, out, stream)
             return out
     # the chain: each intermediate keeps its padded channels (0)
     x = aux_nhwc
@@ -211,7 +283,8 @@ def chain_block(x: torch.Tensor, layer: PackedLayer,
     cin] (any strides) or the chain's bf16 intermediate [B, H, W, C]
     (contiguous, C the block before's padded channels, the padding 0), to
     a bf16 [B, H, W, width], ``width`` even, from ``layer.cout`` to
-    ``layer.nt * 8`` (the padding 0); the wide plan for a wide block."""
+    ``layer.nt * 8`` (the padding 0); the per-block plan for a wide
+    block."""
     B, H, W, C = x.shape
     f32_in = x.dtype == torch.float32
     if x.device.type != "cuda" or not (f32_in or (

@@ -32,7 +32,8 @@ from rt_octree_tpu_torch.ops.filtering import BATCH_TILE_H, BATCH_TILE_W, \
     GUARD_RANGE, batch_tiles, guided_filter, guided_filter_act_plain, \
     guided_filter_backward_plain, guided_filter_batch, \
     guided_filter_batch_bwd, guided_filter_batch_fwd, \
-    guided_filter_batch_plain, guided_filter_plain, split_activation
+    guided_filter_batch_plain, guided_filter_plain, split_activation, \
+    guided_filter_wide_stats, wide_filter_tiles
 from rt_octree_tpu_torch.ops.resize import fast_upsample, \
     fast_upsample_plain
 from rt_octree_tpu_torch.render import renderer as tr
@@ -1131,23 +1132,56 @@ def test_g4_flat_gather_chain_matches_plain(size, cuda_device):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("supports,hw", [
-    (tuple(range(1, 13)), (64, 48)), (tuple(range(1, 13)), (37, 23)),
-    (tuple(range(16)), (45, 70)), (tuple(range(1, 33)), (40, 50)),
-    ((0, 9), (5, 3))], ids=["ladder 1..12", "ladder 1..12 37x23",
-                            "identity 0..15", "ladder 1..32", "(0, 9) 5x3"])
-def test_k2_wide_instance_matches_plain(supports, hw, cuda_device):
+@pytest.mark.parametrize("supports,hw,spike", [
+    (tuple(range(1, 13)), (64, 48), None),
+    (tuple(range(1, 13)), (37, 23), None),
+    (tuple(range(16)), (45, 70), None), (tuple(range(1, 33)), (40, 50), None),
+    ((0, 9), (5, 3), None), (tuple(range(1, 13)), (100, 90), (50, 40)),
+    (tuple(range(1, 13)), (96, 80), None)],
+    ids=["ladder 1..12", "ladder 1..12 37x23", "identity 0..15",
+         "ladder 1..32", "(0, 9) 5x3", "ladder 1..12 80-nat spike",
+         "ladder 1..12 no guard 80x96"])
+def test_k2_wide_instance_matches_plain(supports, hw, spike, cuda_device):
     """K2's wide instance (guided_filter_wide) within FILTER_TOL of its
-    plain version, one launch."""
-    act, img = _filter_inputs(9, L=len(supports), H=hw[0], W=hw[1])
+    plain version, one launch, on the activation as given and channels
+    last (as K7 hands it over).  Its guard counter: no (tile, level) pair
+    of the seeded inputs spans 60 nats, and an 80-nat spike in every
+    guidance level sends at least one (and not all) to the per-window
+    form."""
+    L = len(supports)
+    act, img = _filter_inputs(9, L=L, H=hw[0], W=hw[1])
+    if spike is not None:
+        act[0, L:, spike[0], spike[1]] = 80.0
     act = torch.from_numpy(act).to(cuda_device, torch.bfloat16)
     img = torch.from_numpy(img).to(cuda_device)
-    native.reset_launches()
-    got = guided_filter(act, img, supports)
-    assert native.LAUNCHES["guided_filter_wide"] == 1
-    assert native.LAUNCHES["guided_filter"] == 0
     ref = guided_filter_act_plain(act, img, supports)
-    torch.testing.assert_close(got, ref, atol=FILTER_TOL, rtol=0)
+    tiles = wide_filter_tiles(hw[0], hw[1], supports)
+    for a in (act, act.contiguous(memory_format=torch.channels_last)):
+        guards = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+        native.reset_launches()
+        got = guided_filter(a, img, supports, guards=guards)
+        assert native.LAUNCHES["guided_filter_wide"] == 1
+        assert native.LAUNCHES["guided_filter"] == 0
+        torch.testing.assert_close(got, ref, atol=FILTER_TOL, rtol=0)
+        if spike is None:
+            assert int(guards) == 0
+        else:
+            assert 1 <= int(guards) < tiles
+
+
+@pytest.mark.cuda
+def test_k2_wide_statistics_instance(cuda_device):
+    """K2 wide's statistics instance gives the frame instance's image bit
+    for bit, with every phase's cycles counted on every tile."""
+    supports = tuple(range(1, 13))
+    act, img = _filter_inputs(9, L=12, H=70, W=90)
+    act = torch.from_numpy(act).to(cuda_device, torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    img = torch.from_numpy(img).to(cuda_device)
+    got, st = guided_filter_wide_stats(act, img, supports)
+    assert torch.equal(got, guided_filter(act, img, supports))
+    assert st["tiles"] == 9
+    assert all(c > 0 for c in st["cycles_per_tile"].values())
 
 
 @pytest.mark.cuda

@@ -292,19 +292,22 @@ def _k7_numpy(aux, packs, fold_bias=False):
     block's sums in one f32 accumulator, a k-step of 16 products at a time
     (the mma's shape), then rounded to bf16, the bias added and rounded,
     relu6; the padded output channels (0) feed the next block.  Block 0 of
-    a two-block launch sums K = tap * CP + ci in order (tap = 3 ky + kx);
-    the last block of a launch (the only one of a one-block launch, every
-    block of a chain) sums kx outer, then ky, then 16 channels at a time;
-    a block of the wide plan (past 64 channels) sums 16 channels at a
-    time outer, then the nine taps in order.
+    a fused instance's two-block launch (og.net_plan) sums K = tap * CP +
+    ci in order (tap = 3 ky + kx); the last block of a fused instance's
+    launch (the only one of a one-block launch, every narrow block of a
+    chain) sums kx outer, then ky, then 16 channels at a time; the wide
+    instances (both blocks of the fused wide instance, every block of the
+    per-block plan) sum 16 channels at a time outer, then the nine taps in
+    order.
     aux [1, H, W, cin] -> each block's output [H, W, padded cout] (f32
     holding bf16 values).  ``fold_bias``: the bias added to the f32 sum,
     one rounding (not Flax's order)."""
     x = _bf16(aux[0])
     H, W = x.shape[:2]
     outs = []
+    plan = og.net_plan(packs)
     for i, p in enumerate(packs):
-        first = len(packs) == 2 and i == 0
+        first = plan == "fused" and len(packs) == 2 and i == 0
         wk, bb = _unpack(p)
         if first:
             wk = wk.astype(np.uint32) << 16
@@ -325,7 +328,7 @@ def _k7_numpy(aux, packs, fold_bias=False):
             for s in range(0, wk.shape[0], 16):
                 acc = (acc + cols[..., s:s + 16] @ wk[s:s + 16]).astype(
                     np.float32)
-        elif og.is_wide(p):
+        elif og.is_wide(p) or plan == "fused_wide":
             for s in range(0, cps, 16):
                 for tap in range(9):
                     ky, kx = divmod(tap, 3)
@@ -491,12 +494,13 @@ def cuda_device():
 
 
 def _hold_k7(net, aux):
-    """K7 vs the plain version on aux at K7's bars.  A net with a block of
-    the wide plan runs as a chain of launches (og.chain_block): each launch
-    is held on the input the chain gives it, the plain chain's bf16 output
+    """K7 vs the plain version on aux at K7's bars.  For a net with a wide
+    block, each block alone as a chain launch (og.chain_block) is held on
+    the input the chain gives it, the plain chain's bf16 output
     padded with 0 to the block before's padded channels (no rounding
     carried over, as the NumPy statement is held), its padded output
-    channels 0; the whole chain at both bars."""
+    channels 0; the whole chain at both bars; the fused wide instance's
+    one launch equal to the per-block plan's chain bit for bit."""
     ws = [c.weight for c in net.convs]
     bs = [c.bias for c in net.convs]
     with torch.no_grad():
@@ -508,6 +512,13 @@ def _hold_k7(net, aux):
         assert st[0] <= K7_ULPS and st[2] <= K7_UNEQUAL_SHARE, st
         if not any(map(og.is_wide, net.packed)):
             return
+        if og.net_plan(net.packed) == "fused_wide":
+            # the fused wide instance sums as the per-block plan does
+            x = aux
+            for i, layer in enumerate(net.packed):
+                x = og.chain_block(x, layer, layer.cout if i == len(
+                    net.packed) - 1 else layer.nt * 8)
+            assert torch.equal(act.permute(0, 2, 3, 1), x)
         xk = xp = aux
         for i, layer in enumerate(net.packed):
             last = i == len(net.packed) - 1
@@ -524,22 +535,50 @@ def _hold_k7(net, aux):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("size", [(37, 53), (800, 800)],
-                         ids=["37x53", "800x800"])
-@pytest.mark.parametrize("name", ["mid96 8-96-24", "mid128 8-128-128-8"])
-def test_k7_wide_plan_matches_plain(name, size, cuda_device):
-    """Nets past 64 channels: one launch of the wide plan a block, each
-    held on its own input, the chain within K7_ULPS."""
+@pytest.mark.parametrize("name,shape", [
+    ("mid96 8-96-24", (1, 37, 53)), ("mid96 8-96-24", (1, 800, 800)),
+    ("mid96 8-96-24", (1, 801, 799)), ("mid96 8-96-24", (3, 17, 57)),
+    ("mid128 8-128-128-8", (1, 37, 53)),
+    ("mid128 8-128-128-8", (1, 800, 800))],
+    ids=["mid96 37x53", "mid96 800x800", "mid96 799x801", "mid96 3x57x17",
+         "mid128 37x53", "mid128 800x800"])
+def test_k7_wide_plan_matches_plain(name, shape, cuda_device):
+    """Nets past 64 channels: the 8 -> 96 -> 24 net in one launch of the
+    fused wide instance (also at the edges of its 64x8 tiles and on a
+    batch), the 3-block 128-wide chain in one launch of the per-block
+    plan a block; each block of the chain held on its own input, the whole
+    net within K7's bars."""
     cfg = _config(name)
     net = tg.build_compact(cfg, _params(cfg), cuda_device)
-    aux = torch.from_numpy(_aux(*size, seed=8)).to(cuda_device)
+    B, H, W = shape
+    aux = np.concatenate([_aux(H, W, seed=8 + b) for b in range(B)])
+    aux = torch.from_numpy(aux).to(cuda_device)
     native.reset_launches()
     with torch.no_grad():
         net.activation(aux)
     torch.cuda.synchronize()
-    assert native.LAUNCHES["guidance_net_wide"] == cfg.num_layers
+    fused = name.startswith("mid96")
+    assert og.net_plan(net.packed) == ("fused_wide" if fused else "chain")
+    assert native.LAUNCHES["guidance_net_wide"] == (1 if fused else
+                                                    cfg.num_layers)
     assert native.LAUNCHES["guidance_net"] == 0
     _hold_k7(net, aux)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["mid96 8-96-24", "mid128 8-128-128-8"])
+def test_fused_wide_smem_is_the_kernels(name, cuda_device):
+    """ops/guidance.fused_wide_smem, with which the host chooses the fused
+    wide instance, counts the shared memory that csrc/net.cu's entry
+    computes for the net's first and last blocks (232,448 bytes at most
+    fit: the 96-wide net does, the 128-wide blocks do not)."""
+    cfg = _config(name)
+    packs = _packs(cfg, _params(cfg))
+    first, last = packs[0], packs[-1]
+    got = native.entry("rt_guidance_wide_fused_smem")(
+        first.nt, last.wt.shape[1], last.cout)
+    assert got == og.fused_wide_smem([first, last])
+    assert (got <= og.SMEM_MAX) == name.startswith("mid96")
 
 
 @pytest.mark.cuda
@@ -625,6 +664,21 @@ def test_k7_reads_strided_aux(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", ["mid96 8-96-24", "mid128 8-128-128-8"])
+def test_k7_wide_reads_strided_aux(name, cuda_device):
+    """The wide instances on a permuted NCHW aux (the fused wide
+    instance's cp.async staging instead of its tensor copy) give the
+    contiguous aux's activation bit for bit."""
+    cfg = _config(name)
+    net = tg.build_compact(cfg, _params(cfg), cuda_device)
+    aux = torch.from_numpy(_aux(40, 72, seed=6)).to(cuda_device)
+    chw = aux.permute(0, 3, 1, 2).contiguous()
+    with torch.no_grad():
+        assert torch.equal(net.activation(chw.permute(0, 2, 3, 1)),
+                           net.activation(aux))
+
+
+@pytest.mark.cuda
 def test_one_k7_launch_per_denoised_frame(cuda_device):
     tree = synthetic.make_synthetic_tree("shell", depth=5, basis_dim=9)
     dt = tt.upload_tree(tree, lut_levels=5, device=cuda_device)
@@ -643,8 +697,8 @@ def test_one_k7_launch_per_denoised_frame(cuda_device):
 @pytest.mark.cuda
 def test_k7_limits_raise_on_the_card(cuda_device):
     """What K7 refuses on the card; a 65-channel net, refused before the
-    wide plan, now runs it (one launch a block) and holds to the plain
-    version."""
+    wide instances, now runs the fused wide instance (one launch) and
+    holds to the plain version."""
     wide = tg.GuidanceNetConfig(mid_channels=65)
     net = tg.build_compact(wide, _params(wide), cuda_device)
     aux = torch.from_numpy(_aux(23, 41, seed=6)).to(cuda_device)
@@ -652,7 +706,7 @@ def test_k7_limits_raise_on_the_card(cuda_device):
     with torch.no_grad():
         act = net.activation(aux)
     torch.cuda.synchronize()
-    assert native.LAUNCHES["guidance_net_wide"] == 2
+    assert native.LAUNCHES["guidance_net_wide"] == 1
     assert native.LAUNCHES["guidance_net"] == 0
     assert act.shape == (1, 8, 23, 41)
     _hold_k7(net, aux)

@@ -306,6 +306,9 @@ def test_wide_instances_are_chosen_on_the_host():
         tf._check_levels("k", 2, (0, 33))
     with pytest.raises(ValueError):
         tf._check_levels("k", 65, (1,) * 65)
+    with pytest.raises(ValueError, match="CUDA"):  # the card's instance
+        tf.guided_filter_wide_stats(torch.zeros(1, 24, 4, 4),
+                                    torch.zeros(4, 4, 4), LADDER12)
     for kw, wide in ((WIDE_NETS["8-96-24"], [True, True]),
                      (WIDE_NETS["8-128-128-8"], [True] * 3),
                      ({}, [False, False])):
@@ -318,3 +321,108 @@ def test_wide_instances_are_chosen_on_the_host():
                                                               B=1))
     tf.guided_filter_batch(w, g, x, LADDER12)
     assert not any(native.LAUNCHES.values())
+
+
+# K7's choice of wide instance (ops/guidance.net_plan): the net's
+# GuidanceNetConfig keywords -> the plan and the fused wide instance's
+# shared-memory bytes (None: not a two-block wide net from 8 channels).
+# The bytes: 128 (barrier) + 26,112 (the f32 staging of 68 x 12 pixels x 8
+# channels) + 10,768 a plane of 8 intermediate channels (672 pixels x 16
+# bytes + 16), block 0's n-tiles in groups of 4, + 4,608 a group of block
+# 0's B fragments (9 taps x 4 n-tiles x 128 bytes: 8 channels) + 256 a
+# fragment of block 1's (k-steps x 9 taps x its n-tiles in groups of 2, 3
+# or 4).
+K7_PLANS = {
+    # the wide path's net: 3 groups, 3 n-tiles a group of 6 k-steps
+    "8-96-24": (dict(mid_channels=96, kernel_levels=12), "fused_wide",
+                128 + 26112 + 12 * 10768 + 3 * 4608 + 6 * 9 * 3 * 256),
+    # 65 channels pad to 80 (10 n-tiles in 3 groups); 8 outputs a group of 2
+    "8-65-8": (dict(mid_channels=65), "fused_wide",
+               128 + 26112 + 12 * 10768 + 3 * 4608 + 5 * 9 * 2 * 256),
+    # a narrow block 0 before a wide block 1: 1 group; 12 n-tiles in 3
+    "8-32-96": (dict(mid_channels=32, kernel_levels=48), "fused_wide",
+                128 + 26112 + 4 * 10768 + 4608 + 3 * 2 * 9 * 4 * 256),
+    # 16 levels: 4 n-tiles of block 1, 7,872 bytes to spare
+    "8-96-32": (dict(mid_channels=96, kernel_levels=16), "fused_wide",
+                128 + 26112 + 12 * 10768 + 3 * 4608 + 6 * 9 * 4 * 256),
+    # 20 levels: two groups of block 1 pass 227 KB
+    "8-96-40": (dict(mid_channels=96, kernel_levels=20), "chain",
+                128 + 26112 + 12 * 10768 + 3 * 4608 + 2 * 6 * 9 * 4 * 256),
+    "8-128-8": (dict(mid_channels=128), "chain",
+                128 + 26112 + 16 * 10768 + 4 * 4608 + 8 * 9 * 2 * 256),
+    "8-256-64": (dict(mid_channels=256, kernel_levels=32), "chain",
+                 128 + 26112 + 32 * 10768 + 8 * 4608 + 2 * 16 * 9 * 4 * 256),
+    "8-128-128-8": (WIDE_NETS["8-128-128-8"], "chain", None),
+    "16-96-24": (dict(in_channels=16, mid_channels=96, kernel_levels=12),
+                 "chain", None),
+    "8-32-8": ({}, "fused", None),
+}
+
+
+@pytest.mark.parametrize("name", list(K7_PLANS))
+def test_host_chooses_k7s_fused_wide_instance(name):
+    """K7's plan, chosen on the host from the packed blocks: the fused
+    wide instance for a two-block wide net from 8 channels whose weights
+    and intermediate fit 227 KB (one launch), the chain otherwise (one
+    launch a block), the fused instances for the committed nets; and the
+    shared-memory bytes of the fused wide instance (K7_PLANS)."""
+    from rt_octree_tpu_torch.ops import guidance as og
+    kw, plan, smem = K7_PLANS[name]
+    cfg = tg.GuidanceNetConfig(**kw)
+    net = tg.build_compact(cfg, _net_params(cfg), "cpu")
+    net.pack()
+    assert og.fused_wide_smem(net.packed) == smem
+    assert og.net_plan(net.packed) == plan
+    assert (smem is not None and smem <= og.SMEM_MAX) == (plan ==
+                                                           "fused_wide")
+
+
+def _k2_wide_statement(act, img, supports):
+    """K2 wide's algorithm in NumPy: K2's prologue (the softmax over the
+    first L channels of the bf16 activation [1, 2L, H, W]) and K5's tile
+    algorithm (test_torch_train_filter.k5_statement) at K2 wide's square
+    tile -> (out [H, W, 4], the guarded (level, y0, x0))."""
+    from tests.test_torch_train_filter import k5_statement
+    L = act.shape[1] // 2
+    lg = act[0, :L]
+    e = np.exp(lg - lg.max(0))
+    out, _, _, guards = k5_statement((e / e.sum(0))[None], act[0, L:][None],
+                                     img[None], supports,
+                                     tf.wide_tile(supports))
+    return out[0], {(l, y0, x0) for _, l, y0, x0 in guards}
+
+
+@pytest.mark.parametrize("spike", [False, True],
+                         ids=["seeded", "80-nat spike"])
+def test_k2_wide_tile_statement_matches_plain_and_jax(spike):
+    """K2 wide's tile algorithm (a stabiliser a 32x32 tile and level,
+    separable shifted adds, the per-tile 60-nat guard) at the ladder
+    1..12 against K2's plain version and, on the seeded activation, the
+    JAX filter's fast path (what JAX's frame takes); the guard exactly in
+    the (level, tile) pairs whose region holds an 80-nat spike, and in
+    none on the seeded one, as the counter reads on the card."""
+    L, H, W, yx = 12, 70, 75, (40, 50)
+    rs = np.random.default_rng(17)
+    act = np.concatenate([rs.standard_normal((L, H, W)) * 2.0,
+                          rs.standard_normal((L, H, W)) * 3.0])[None]
+    if spike:
+        act[0, L:, yx[0], yx[1]] = 80.0
+    act = torch.from_numpy(act.astype(np.float32)).to(torch.bfloat16)
+    img = rs.random((H, W, 4)).astype(np.float32)
+    out, guards = _k2_wide_statement(act.float().numpy(), img, LADDER12)
+    ref = tf.guided_filter_act_plain(act, torch.from_numpy(img), LADDER12)
+    np.testing.assert_allclose(out, ref.numpy(), atol=FILTER_TOL, rtol=0)
+    tw, th = tf.wide_tile(LADDER12)
+    want = {(l, y0, x0) for l, s in enumerate(LADDER12)
+            for y0 in range(0, H, th) for x0 in range(0, W, tw)
+            if spike and y0 - s <= yx[0] < y0 + th + s
+            and x0 - s <= yx[1] < x0 + tw + s}
+    assert guards == want
+    assert len(want) < tf.wide_filter_tiles(H, W, LADDER12)
+    if not spike:
+        w, g = (a.numpy() for a in tf.split_activation(act))
+        with jax.disable_jit():
+            jref = np.asarray(jax_filter(jnp.asarray(w), jnp.asarray(g),
+                                         jnp.asarray(img), exact=False,
+                                         supports=LADDER12))
+        np.testing.assert_allclose(out, jref, atol=FILTER_TOL, rtol=0)
