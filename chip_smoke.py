@@ -53,11 +53,15 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      each side's distance from an f64 sum), K2's at 12, 16 and 32 levels
      (as given and channels last; the guard's share; an 80-nat spike that
      must take the guard), K5's and K6's on the L = 12 train batch and past 65,535
-     slices, K1's and render_classic's (frame and ray mode) on SG / ASG
+     slices (K5's guard share there and with an 80-nat spike that must
+     take the guard exactly where its regions hold it; on the train batch
+     its statistics instance, cycles a block by phase), K1's and
+     render_classic's (frame and ray mode) on SG / ASG
      trees of basis_dim 32 and 48 at every SPP, and on the path's
      depth-8 SG32 / ASG32 frames at 800x800 and the SG32 frame's 640,000
-     rays (phase 4 holds render_classic's on classic_layout_trees' SG32 /
-     ASG48 too);
+     rays, render_classic's chunked wide instance on WIDE_CHUNKED_TREE's
+     frame and rays (phase 4 holds render_classic's on
+     classic_layout_trees' SG32 / ASG48 / SG96 too);
   7. the main paths, each a headless CLI run on the depth-9 SH9 shell tree
      with the level-9 LUT, SPP 6, denoise on, its launch counts reset just
      before it and read just after: the headline frame (trained.gnet; K1,
@@ -131,8 +135,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      render on the headline tree with each .gnet (PSNR, no bar; K7's fused
      wide instance and K2 wide once a frame; K2 wide's guard share on
      pose r_0), rtoctree
-     render of SG32 / ASG32 depth-8 trees with both estimators and
-     trace_rays / trace_rays_classic on aimed rays: {"wide_path": ...};
+     render of SG32 / ASG32 depth-8 trees with both estimators and of
+     WIDE_CHUNKED_TREE with the classic one, and trace_rays /
+     trace_rays_classic on aimed rays: {"wide_path": ...};
   9b. multi-device (rt_octree_tpu_torch/parallel, ranks launched by
      parallel/launch.py on the one card): the headline frame sharded by
      row bands at world 1 on nccl and, with fast mode at s = 0.5 and the
@@ -303,14 +308,26 @@ JSON line {"filter_pairs": ...}.
 
 --wide-times times the wide path's kernels of the package under ROOT
 (default: beside this file) alone: K7 on the seeded 8 -> 96 -> 24 net at
-800x800, K2 wide on its channels-last activation (ladder 1..12), and the
-headline tree's 800x800 frame (pose r_0, SPP 6) denoised by that net, as
-one JSON line {"wide_times": ...}, the frame saved in build/chip_smoke;
---wide-pairs runs it in PAIRS (default 6) pairs of processes, this script
-on OTHER_ROOT's package and on its own in turns, and prints each side's
-times, their paired differences and the largest difference between the
-two sides' frames (at most WIDE_PAIRS_FRAME_TOL) as one JSON line
-{"wide_pairs": ...}.
+800x800, K2 wide on its channels-last activation (ladder 1..12), the
+headline tree's 800x800 frame (pose r_0, SPP 6) denoised by that net,
+render_classic's wide instance on the SG32 depth-8 shell at 800x800
+(frame and ray mode, the rays in row order and in the frame's 8x4
+tiles) and K5's wide instance on the L = 12 train batch,
+as one JSON line {"wide_times": ...}, the outputs saved in
+build/chip_smoke; --wide-pairs runs it in PAIRS (default 6) pairs of
+processes, this script on OTHER_ROOT's package and on its own in turns,
+and prints each side's times, their paired differences and the largest
+differences between the two sides' outputs (the denoised frames at most
+WIDE_PAIRS_FRAME_TOL, render_classic's frames and rays 0, K5's outputs
+at most K5_TOL) as one JSON line {"wide_pairs": ...}.
+
+    python3 chip_smoke.py --wide-sweep [ROOT]
+
+--wide-sweep times render_classic's wide instances of the package under
+ROOT on depth-7 shells of SG rows at each basis_dim of WIDE_SWEEP
+(800x800), with the instance each frame took and its digest, as one JSON
+line {"wide_sweep": ...}: where the shared-memory instance gives way to
+the chunked one.
 """
 
 from __future__ import annotations
@@ -325,13 +342,14 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-# --classic-only ROOT, --filter-only ROOT and --wide-times ROOT import the
-# package of another checkout (the timers of --classic-pairs,
-# --filter-pairs and --wide-pairs); every other mode imports the one beside
-# this file
+# --classic-only ROOT, --filter-only ROOT, --wide-times ROOT and
+# --wide-sweep ROOT import the package of another checkout (the timers of
+# --classic-pairs, --filter-pairs and --wide-pairs, and a copy of the
+# package with one change); every other mode imports the one beside this
+# file
 PKG_ROOT = (os.path.abspath(sys.argv[2])
             if sys.argv[1:2] in (["--classic-only"], ["--filter-only"],
-                                 ["--wide-times"])
+                                 ["--wide-times"], ["--wide-sweep"])
             and len(sys.argv) == 3 else HERE)
 sys.path.insert(0, PKG_ROOT)
 
@@ -534,7 +552,7 @@ PROBE_KERNELS = {
 WIDE_PTXAS = {("net", "guidance_wide2_kernel"): 3,
               ("net", "guidance_wide_kernel"): 3,
               ("filter", "guided_filter_wide_kernel"): 3,
-              ("filter", "guided_filter_batch_wide_kernel"): 1,
+              ("filter", "guided_filter_batch_wide_kernel"): 2,
               ("filter", "guided_filter_batch_bwd_wide_kernel"): 1}
 # the wide kernels (launch name -> source, what they stand in for)
 WIDE_KERNELS = {
@@ -554,6 +572,12 @@ WIDE_KERNELS = {
                          "rt_octree_tpu/render/renderer.py:540"),
     "render_classic_rays_wide": ("rt_octree_tpu_torch/csrc/render.cu",
                                  "rt_octree_tpu/render/renderer.py:1060"),
+    # render_classic's chunked wide instance: basis_dim above 88
+    "render_classic_wide_chunked": ("rt_octree_tpu_torch/csrc/render.cu",
+                                    "rt_octree_tpu/render/renderer.py:1060"),
+    "render_classic_rays_wide_chunked": (
+        "rt_octree_tpu_torch/csrc/render.cu",
+        "rt_octree_tpu/render/renderer.py:1060"),
 }
 KERNELS = {**FRAME_KERNELS, **RAY_KERNELS, **TRAIN_KERNELS, **WIDE_KERNELS,
            **{k: ("rt_octree_tpu_torch/csrc/probes.cu", v)
@@ -611,8 +635,8 @@ def ptxas_kernels(report, kernel):
 
 def phase_ptxas(native):
     """Every render_classic_kernel instance (7 row layouts, each for the
-    frame, its statistics and the ray mode, and the wide rows' frame and
-    ray mode) as ptxas compiled it: no stack frame, no spills; and every render_kernel instance (8 SPP, each for
+    frame, its statistics and the ray mode, and the two wide layouts'
+    frame and ray mode) as ptxas compiled it: no stack frame, no spills; and every render_kernel instance (8 SPP, each for
     the frame, its statistics and the ray mode, and the wide rows' frame
     and ray mode), recorded; and the wide instances of K7, K2, K5 and K6.
     Prints one {"ptxas_render_classic": ...}, one {"ptxas_render": ...}
@@ -627,7 +651,8 @@ def phase_ptxas(native):
         m = re.search(r"render_classic_kernelIL(i|in)(\d+)ELb([01])ELb([01])"
                       "EE", name)
         bd = (-1 if m.group(1) == "in" else 1) * int(m.group(2))
-        layout = {-1: "rgba", 0: "any", -2: "wide"}.get(bd, f"sh{bd}")
+        layout = {-1: "rgba", 0: "any", -2: "wide",
+                  -3: "wide_chunked"}.get(bd, f"sh{bd}")
         table[layout + mode(m.group(3), m.group(4))] = v
     log(json.dumps({"ptxas_render_classic": table}))
     rt = {}
@@ -644,8 +669,8 @@ def phase_ptxas(native):
             args = re.findall(r"L[ib](\d+)E", name.split(kernel)[1])
             wide[kernel + (f"<{', '.join(args)}>" if args else "")] = v
     log(json.dumps({"ptxas_wide": wide}))
-    require(len(table) == 23 and all(len(v) == 4 for v in table.values()),
-            f"ptxas reported {sorted(table)}, not the 23 render_classic "
+    require(len(table) == 25 and all(len(v) == 4 for v in table.values()),
+            f"ptxas reported {sorted(table)}, not the 25 render_classic "
             "instances")
     require(len(rt) == 40, f"ptxas reported {sorted(rt)}, not the 40 "
             "render_kernel instances")
@@ -833,8 +858,8 @@ def classic_layout_trees():
     """A depth-6 shell in each row layout render_classic is instantiated
     on: SH at basis_dim 1, 4, 9, 16, 25, raw rgb, SG and ASG at basis_dim
     4 and 25 (random lobes), an RGBA-format tree with a basis_dim (a
-    zero basis, the "any" instance), and SG32 and ASG48 (the wide
-    instance); as (label, tree, layout)."""
+    zero basis, the "any" instance), SG32 and ASG48 (the wide instance)
+    and SG96 (the chunked wide instance); as (label, tree, layout)."""
     from rt_octree_tpu_torch.io import synthetic
     from rt_octree_tpu_torch.io.n3tree import BasisFormat, DataFormat
     out = []
@@ -861,6 +886,7 @@ def classic_layout_trees():
     out.append(("RGBA-format basis_dim 4", zero, "any"))
     for label, fmt, bd in (("SG32", "SG", 32), ("ASG48", "ASG", 48)):
         out.append((label, wide_tree(label, fmt, bd), "wide"))
+    out.append(("SG96", wide_tree("SG96", "SG", 96), "wide_chunked"))
     return out
 
 
@@ -913,9 +939,9 @@ def phase_classic_layouts(err):
                     == layout, f"{label}: not the {layout} instance")
             kw = dict(base, opt=opt())
             name = f"{label} LUT {levels} 128x128"
-            hold_k1(f"{name} classic", dt, tf, kw, "render_classic" + (
-                "_wide" if layout == "wide" else ""), err)
-            if layout != "wide":  # the wide instance has no statistics
+            hold_k1(f"{name} classic", dt, tf, kw, "render_classic"
+                    + R.wide_suffix(dt, True), err)
+            if not R.is_wide(dt):  # the wide instances have no statistics
                 hold_classic_stats(name, dt, tf, kw)
             seen.add(layout)
         if label in ("SH9", "SH25"):
@@ -978,7 +1004,7 @@ def hold_rays(label, dt, rays, opt, err, min_hit=RAY_MIN_HIT, **kw):
         key = "render_classic_rays"
         got = R.trace_rays_classic(dt, *rays, opt, **kw)
         ref = R.trace_rays_classic_plain(dt, *rays, opt, **kw)
-    key += "_wide" if R.is_wide(dt) else ""
+    key += R.wide_suffix(dt, len(rays) == 3)
     hold_ray_result(label, key, got, ref, err, min_hit)
 
 
@@ -1358,6 +1384,10 @@ WIDE_K56_CASES = (("train batch ladder 1..12", 32, tuple(range(1, 13)), 80,
                    80),
                   ("B x L = 65,600", 16400, (1, 2, 3, 4), 8, 8),
                   ("B = 66,000", 66000, (0, 1), 8, 8))
+# K5 wide's guard: WIDE_K2_SPIKE nats at this pixel of image 0 in every
+# guidance level of the train batch (3 nats elsewhere), so that the (tile,
+# level) pairs whose region holds it take the per-window form
+WIDE_K5_SPIKE_YX = (37, 45)
 # K1's and render_classic's wide trees: depth-6 shells with SG / ASG rows
 # of basis_dim 32 and 48 (synthetic.with_lobes), held at every SPP of K1
 WIDE_BASIS_TREES = (("SG32", "SG", 32), ("ASG32", "ASG", 32),
@@ -1382,6 +1412,40 @@ def wide_tree(label, fmt, bd, depth=6):
     from rt_octree_tpu_torch.io.n3tree import BasisFormat
     tree = synthetic.make_synthetic_tree("shell", depth=depth, basis_dim=bd)
     return synthetic.with_lobes(tree, BasisFormat[fmt], bd)
+
+
+# render_classic's chunked wide instance (basis_dim above 88) on the card:
+# (label, format, basis_dim, shell depth) of the tree it is timed on and
+# that the wide path renders
+WIDE_CHUNKED_TREE = ("SG96", "SG", 96, 7)
+
+
+def wide_tree_path(label, fmt, bd, depth):
+    """The npz of wide_tree(label, fmt, bd, depth) in WORK, built and saved
+    first if absent; returns (path, seconds spent building).  Its name
+    carries the format, basis_dim, depth and a hash of io/synthetic.py,
+    which builds it, so that a changed generator builds the tree anew."""
+    import hashlib
+    from rt_octree_tpu_torch.io import synthetic
+    with open(synthetic.__file__, "rb") as f:
+        gen = hashlib.sha256(f.read()).hexdigest()[:12]
+    path = os.path.join(WORK, f"shell_d{depth}_{fmt}{bd}_{gen}.npz")
+    t0 = time.time()
+    if not os.path.isfile(path):
+        os.makedirs(WORK, exist_ok=True)
+        tree = wide_tree(label, fmt, bd, depth=depth)
+        synthetic.save_npz(tree, path + ".tmp.npz")
+        os.replace(path + ".tmp.npz", path)
+    return path, time.time() - t0
+
+
+def load_wide_tree(label, fmt, bd, depth, lut_levels=None):
+    """wide_tree_path's tree uploaded to the card (LUT at its depth)."""
+    from rt_octree_tpu_torch.io import n3tree
+    from rt_octree_tpu_torch.ops.traversal import upload_tree
+    path, _ = wide_tree_path(label, fmt, bd, depth)
+    return upload_tree(n3tree.load(path), device="cuda",
+                       lut_levels=depth if lut_levels is None else lut_levels)
 
 
 def filter_batch_inputs(rs, B, L, H, W):
@@ -1739,6 +1803,37 @@ def phase_wide(err):
             bounds["guided_filter_batch_wide"] = b56["guided_filter_batch"]
             bounds["guided_filter_batch_bwd_wide"] = b56[
                 "guided_filter_batch_bwd"]
+            got = Fm.guided_filter_batch_fwd(w, g, x, sup)
+            got_st = Fm.guided_filter_batch_wide_stats(w, g, x, sup)
+            require(all(bool(torch.equal(a, c)) for a, c in zip(
+                (got[0],) + tuple(got[1]), (got_st[0],) + tuple(got_st[1]))),
+                    "K5 wide's statistics instance gave other outputs")
+            log(f"[wide] K5 {label}: cycles a block (thread 0) "
+                f"{got_st[2]['cycles_per_block']}")
+            err.setdefault("k5_wide", {})[label] = {"guard_share": guard[0],
+                                                    "stats": got_st[2]}
+    # K5 wide's guard on the train batch with a spike in image 0: exactly
+    # the (tile, level) pairs whose staged region holds it
+    label, B, sup, H, W = WIDE_K56_CASES[0]
+    w, g, x, G = filter_batch_inputs(rs, B, len(sup), H, W)
+    y, xx = WIDE_K5_SPIKE_YX
+    g[0, :, y, xx] = WIDE_K2_SPIKE
+    label += f", an {WIDE_K2_SPIKE:g}-nat spike"
+    hold_k56(label, w, g, x, G, sup, err)
+    tiles = Fm.batch_tiles(B, H, W, sup)
+    want = sum(1 for s in sup if s > 0
+               for y0 in range(0, H, Fm.BATCH_TILE_H)
+               for x0 in range(0, W, Fm.BATCH_TILE_W)
+               if y0 - s <= y < y0 + Fm.BATCH_TILE_H + s
+               and x0 - s <= xx < x0 + Fm.BATCH_TILE_W + s)
+    share = guard_share(lambda d: Fm.guided_filter_batch_fwd(
+        w, g, x, sup, guards=d), tiles)
+    log(f"[wide] K5 {label}: guard share {share:.4g} of {tiles} "
+        f"tile-levels ({round(share * tiles)}, {want} hold the spike)")
+    require(round(share * tiles) == want,
+            f"K5 wide's guard on {label}: {round(share * tiles)} (tile, "
+            f"level) pairs, not the {want} whose region holds the spike")
+    err["k5_wide"][label] = {"guard_share": share, "guarded_pairs": want}
     # ---- K1's and render_classic's wide instances ----
     cam = Camera(width=128, height=128, fx=175.0, fy=175.0)
     tf = torch.from_numpy(cam.transform.astype(np.float32)).cuda()
@@ -1761,21 +1856,23 @@ def phase_wide(err):
                       RenderOptions(spp=spp), err,
                       tmax_bg=ray_tmax(dt, RAY_LAYOUT_RAYS, 60 + i))
     # the times at the path's shapes: the SG32 tree at 800x800, SPP 6
-    dt = upload_tree(wide_tree("SG32", "SG", 32, depth=8), lut_levels=8,
-                     device="cuda")
+    dt = load_wide_tree("SG32", "SG", 32, WIDE_TREE_DEPTH)
     cam = Camera(width=800, height=800, fx=1111.0, fy=1111.0)
     tf = torch.from_numpy(cam.transform.astype(np.float32)).cuda()
     kw = dict(width=800, height=800, fx=cam.fx, fy=cam.fy)
     opt = RenderOptions(spp=6, denoise=False)
     copt = RenderOptions(spp=1, denoise=False, estimator="classic")
-    asg = upload_tree(wide_tree("ASG32", "ASG", 32, depth=8), lut_levels=8,
-                      device="cuda")
+    asg = load_wide_tree("ASG32", "ASG", 32, WIDE_TREE_DEPTH)
+    ck = load_wide_tree(*WIDE_CHUNKED_TREE)
     for label, tree in (("SG32", dt), ("ASG32", asg)):
         hold_k1(f"{label} depth-8 800x800 spp 6", tree, tf,
                 dict(kw, opt=opt), "render_wide", err)
         hold_k1(f"{label} depth-8 800x800 classic", tree, tf,
                 dict(kw, opt=copt), "render_classic_wide", err)
     del asg, tree
+    ck_label = f"{WIDE_CHUNKED_TREE[0]} depth-{WIDE_CHUNKED_TREE[3]}"
+    hold_k1(f"{ck_label} 800x800 classic", ck, tf, dict(kw, opt=copt),
+            "render_classic_wide_chunked", err)
     # the frame's own rays and PCG32 thresholds (the ray mode's bound
     # reads the frame's statistics)
     dirs, cens = R.device_camera_rays(tf, 800, 800, cam.fx, cam.fy)
@@ -1788,6 +1885,8 @@ def phase_wide(err):
     hold_rays("SG32 depth-8, the 800x800 frame's rays, spp 6", dt,
               (d, vdirs, c, dst), opt, err, min_hit=0.0)
     hold_rays("SG32 depth-8, the 800x800 frame's rays, classic", dt,
+              (d, vdirs, c), copt, err, min_hit=0.0)
+    hold_rays(f"{ck_label}, the 800x800 frame's rays, classic", ck,
               (d, vdirs, c), copt, err, min_hit=0.0)
     ms["render_wide"] = (
         cuda_ms(lambda: R.render_noisy(dt, tf, 7, 1, opt=opt, **kw), 20, 3),
@@ -1804,23 +1903,33 @@ def phase_wide(err):
         cuda_ms(lambda: R.trace_rays_classic(dt, d, vdirs, c, copt), 20, 3),
         cuda_ms(lambda: R.trace_rays_classic_plain(dt, d, vdirs, c, copt),
                 1, 0))
+    ms["render_classic_wide_chunked"] = (
+        cuda_ms(lambda: R.render_noisy(ck, tf, 0, 0, opt=copt, **kw), 20, 3),
+        cuda_ms(lambda: R.render_noisy_plain(ck, tf, 0, 0, opt=copt, **kw),
+                1, 0))
+    ms["render_classic_rays_wide_chunked"] = (
+        cuda_ms(lambda: R.trace_rays_classic(ck, d, vdirs, c, copt), 20, 3),
+        cuda_ms(lambda: R.trace_rays_classic_plain(ck, d, vdirs, c, copt),
+                1, 0))
     n = 800 * 800
     # as K1's and the ray mode's bounds (phase 9), from the plain march's
     # statistics of the same frame: a shaded row costs 6 bd + 16 operations
-    for key, o, rng, ray_extra in (
-            ("render_wide", opt, (7, 1), None),
-            ("render_classic_wide", copt, (0, 0), None),
-            ("render_rays_wide", opt, (7, 1), 4 * opt.spp),
-            ("render_classic_rays_wide", copt, (0, 0), 0)):
-        st = R.render_stats_plain(dt, tf, *rng, opt=o, **kw)
+    for key, tree, o, rng, ray_extra in (
+            ("render_wide", dt, opt, (7, 1), None),
+            ("render_classic_wide", dt, copt, (0, 0), None),
+            ("render_rays_wide", dt, opt, (7, 1), 4 * opt.spp),
+            ("render_classic_rays_wide", dt, copt, (0, 0), 0),
+            ("render_classic_wide_chunked", ck, copt, (0, 0), None),
+            ("render_classic_rays_wide_chunked", ck, copt, (0, 0), 0)):
+        st = R.render_stats_plain(tree, tf, *rng, opt=o, **kw)
         shaded = (float(st.shaded.sum()) if st.shaded is not None
                   else st.data_rows)
         io = (80 * n + 48 if ray_extra is None else
               40 * n + (12 + ray_extra) * int((st.steps > 0).sum()))
         nbytes = (io + 8 * (st.lut_cells + st.chs_rows)
-                  + 2 * dt.data_dim * st.data_rows)
+                  + 2 * tree.data_dim * st.data_rows)
         ops = (K1_OPS_PER_STEP * float(st.steps.sum())
-               + (6 * dt.basis_dim + 16) * shaded)
+               + (6 * tree.basis_dim + 16) * shaded)
         bounds[key] = bound(nbytes, ops) + (None,)
     for k in WIDE_KERNELS:
         log(f"[timing] {k}: kernel {ms[k][0]:.4f} ms, plain {ms[k][1]:.3f} "
@@ -1848,9 +1957,15 @@ def wide_only():
                                     "library_ms": bounds[k][2],
                                     "max_abs_err": err.get(k)}
                                 for k in WIDE_KERNELS}}))
-    log(json.dumps({"wide_holds": {"k7": err.get("k7"),
-                                   "k2_wide": err.get("k2_wide")}}))
+    log_wide_holds(err)
     return 0
+
+
+def log_wide_holds(err):
+    """One {"wide_holds": ...} line: K7's wide holds, K2 wide's and K5
+    wide's errors and guard shares."""
+    log(json.dumps({"wide_holds": {k: err.get(k)
+                                   for k in ("k7", "k2_wide", "k5_wide")}}))
 
 
 def headline_tree_path():
@@ -3154,6 +3269,25 @@ def wide_frame_path(root):
     return os.path.join(WORK, f"wide_frame_{side}.npy")
 
 
+def wide_outputs_path(root):
+    """Where --wide-times saves the classic wide frame and rays and K5
+    wide's outputs of the package under ``root``."""
+    side = "this" if os.path.abspath(root) == HERE else "other"
+    return os.path.join(WORK, f"wide_outputs_{side}.npz")
+
+
+def tile_order(width, height, tw, th):
+    """The pixel indices (row major) of a width x height frame in the
+    order of tw x th tiles, the tiles in row order and the pixels of a
+    tile in row order: a CUDA long tensor; width and height multiples of
+    the tile."""
+    import torch
+    y, x = np.divmod(np.arange(width * height), width)
+    key = ((y // th) * (width // tw) + x // tw) * (tw * th) + \
+        (y % th) * tw + x % tw
+    return torch.from_numpy(np.argsort(key)).cuda()
+
+
 def wide_times(root):
     """--wide-times [ROOT]: the wide path's K7 and K2 of the package under
     ROOT (default: beside this file) alone, by device_ms: K7 on the
@@ -3162,8 +3296,15 @@ def wide_times(root):
     ladder 1..12) with seeded rgb, and whether K7's activation equals the
     net run one block a launch (chain_block) bit for bit; then the
     headline tree's 800x800 frame (pose r_0, SPP 6, PCG32 seeded 20230418,
-    1) denoised by that net, by cuda_ms, saved for --wide-pairs.  One JSON
-    line {"wide_times": ...}."""
+    1) denoised by that net, by cuda_ms, saved for --wide-pairs; then
+    render_classic's wide instance on the SG32 depth-8 shell at 800x800
+    (phase_wide's camera), the frame and its 640,000 rays in ray mode (in
+    row order, and in the order of the frame's 8x4 warp tiles: equal
+    outputs, both timed), and K5's wide instance on seeded inputs at the L = 12 train batch
+    (WIDE_K56_CASES' first), by device_ms, their outputs saved for
+    --wide-pairs with their digests, and the classic frames and rays of
+    WIDE_PAIRS_TREES' depth-7 shells, saved too.  One JSON line
+    {"wide_times": ...}."""
     import torch
     from rt_octree_tpu_torch.io import n3tree
     from rt_octree_tpu_torch.io.poses import load_poses
@@ -3208,6 +3349,58 @@ def wide_times(root):
     np.save(wide_frame_path(root), frame.cpu().numpy())
     res["digest"] = frame_digest((frame,))
     res["frame_ms"] = cuda_ms(lambda: r.render(pose, want_aux=False), 20, 3)
+    del r, dt
+    from rt_octree_tpu_torch.core.camera import Camera
+    from rt_octree_tpu_torch.core.options import RenderOptions
+    from rt_octree_tpu_torch.render import renderer as R
+    sg = load_wide_tree("SG32", "SG", 32, WIDE_TREE_DEPTH)
+    cam = Camera(width=800, height=800, fx=1111.0, fy=1111.0)
+    tf = torch.from_numpy(cam.transform.astype(np.float32)).cuda()
+    kw = dict(width=800, height=800, fx=cam.fx, fy=cam.fy)
+    copt = RenderOptions(spp=1, denoise=False, estimator="classic")
+    classic = R.render_noisy(sg, tf, 0, 0, opt=copt, **kw)[:2]
+    dirs, cens = R.device_camera_rays(tf, 800, 800, cam.fx, cam.fy)
+    vdirs = R.rodrigues(copt.rot_dirs, dirs)
+    d, c = (t.contiguous() for t in R.maybe_world2ndc(sg, dirs, cens))
+    rays = R.trace_rays_classic(sg, d, vdirs, c, copt)
+    res["classic_ms"] = device_ms(
+        lambda: R.render_noisy(sg, tf, 0, 0, opt=copt, **kw), 20, 3)
+    res["classic_rays_ms"] = device_ms(
+        lambda: R.trace_rays_classic(sg, d, vdirs, c, copt), 20, 3)
+    # the same rays in the frame's warp order (a warp an 8x4 pixel tile,
+    # csrc/render.cu:kTileW x kTileH), their outputs equal to row order's
+    tile = tile_order(800, 800, 8, 4)
+    dt_, ct_, vt_ = (t.reshape(-1, t.shape[-1])[tile].contiguous()
+                     for t in (d, c, vdirs))
+    rays_t = torch.empty_like(rays)
+    rays_t[tile] = R.trace_rays_classic(sg, dt_, vt_, ct_, copt)
+    require(bool(torch.equal(rays_t, rays)), "render_classic wide's rays "
+            "in tile order are not those in row order")
+    res["classic_rays_tiled_ms"] = device_ms(
+        lambda: R.trace_rays_classic(sg, dt_, vt_, ct_, copt), 20, 3)
+    _, B, sup5, H, W = WIDE_K56_CASES[0]
+    w, g, x, _ = filter_batch_inputs(np.random.default_rng(43), B, len(sup5),
+                                     H, W)
+    k5 = Fm.guided_filter_batch_fwd(w, g, x, sup5)
+    k5 = (k5[0],) + tuple(k5[1])  # out, fm, den
+    res["k5_ms"] = device_ms(lambda: Fm.guided_filter_batch_fwd(w, g, x,
+                                                                sup5), 50, 5)
+    res["classic_digest"] = frame_digest(classic + (rays,))
+    res["k5_digest"] = frame_digest(k5)
+    outs = {"classic_SG32_img": classic[0], "classic_SG32_aux": classic[1],
+            "classic_SG32_rays": rays,
+            **{f"k5_{k}": t for k, t in zip(("out", "fm", "den"), k5)}}
+    # the other wide row layouts' classic frames and rays, for the pairs'
+    # bit-equality (depth-7 shells)
+    del sg
+    for label, fmt, bd in WIDE_PAIRS_TREES:
+        tree = load_wide_tree(label, fmt, bd, 7)
+        outs[f"classic_{label}_img"], outs[f"classic_{label}_aux"] = \
+            R.render_noisy(tree, tf, 0, 0, opt=copt, **kw)[:2]
+        outs[f"classic_{label}_rays"] = R.trace_rays_classic(
+            tree, d, vdirs, c, copt)
+    np.savez(wide_outputs_path(root),
+             **{k: t.cpu().numpy() for k, t in outs.items()})
     log(json.dumps({"wide_times": res}))
     return 0
 
@@ -3217,12 +3410,17 @@ def wide_pairs(other_root, pairs):
     script on OTHER_ROOT's package and on its own in turns; each side's
     times (least, quartiles, largest), this side's less the other's within
     a pair, each side's frame digests and the largest |difference| between
-    the two sides' frames (at most WIDE_PAIRS_FRAME_TOL).  One JSON line
-    {"wide_pairs": ...}."""
+    the two sides' frames (at most WIDE_PAIRS_FRAME_TOL), render_classic
+    wide's frames and rays (bit-equal) and K5 wide's out, fm and den (at
+    most K5_TOL).  One JSON line {"wide_pairs": ...}."""
     if not os.path.isfile(os.path.join(WORK, "shell_d9_sh9.npz")):
         headline_tree_path()
-    ms = {side: {k: [] for k in ("k7_ms", "k2_ms", "frame_ms")}
-          for side in ("other", "this")}
+    wide_tree_path("SG32", "SG", 32, WIDE_TREE_DEPTH)
+    for label, fmt, bd in WIDE_PAIRS_TREES:
+        wide_tree_path(label, fmt, bd, 7)
+    keys = ("k7_ms", "k2_ms", "frame_ms", "classic_ms", "classic_rays_ms",
+            "classic_rays_tiled_ms", "k5_ms")
+    ms = {side: {k: [] for k in keys} for side in ("other", "this")}
     digests = {side: set() for side in ms}
     for i, side, lines in alternate(other_root, pairs, ["--wide-times"],
                                     "wide_pairs", own_script=True):
@@ -3230,16 +3428,68 @@ def wide_pairs(other_root, pairs):
         require(len(got) == 1, f"{side} wide process {i}: unexpected output")
         for k in ms[side]:
             ms[side][k].append(got[0][k])
-        digests[side].add(got[0]["digest"])
+        digests[side].add(tuple(got[0][k] for k in ("digest",
+                                                    "classic_digest",
+                                                    "k5_digest")))
     frames = {side: np.load(wide_frame_path(root)) for side, root in
               (("this", HERE), ("other", other_root))}
     diff = float(np.abs(frames["this"] - frames["other"]).max())
+    outs = {side: np.load(wide_outputs_path(root)) for side, root in
+            (("this", HERE), ("other", other_root))}
+    diffs = {k: float(np.abs(outs["this"][k] - outs["other"][k]).max())
+             for k in outs["this"].files}
     log(json.dumps({"wide_pairs": {
         **pair_times(other_root, pairs, ms),
         "digests": {side: sorted(d) for side, d in digests.items()},
-        "frame_max_abs_diff": diff}}))
+        "frame_max_abs_diff": diff, "outputs_max_abs_diff": diffs}}))
     require(diff <= WIDE_PAIRS_FRAME_TOL, f"the two packages' wide frames "
             f"differ by {diff:.3g}")
+    require(all(diffs[k] == 0 for k in diffs if k.startswith("classic")),
+            f"render_classic's wide outputs are not the other package's bit "
+            f"for bit: {diffs}")
+    require(all(diffs[k] <= K5_TOL for k in diffs if k.startswith("k5")),
+            f"K5 wide's outputs differ from the other package's: {diffs}")
+    return 0
+
+
+# --wide-times' other classic trees, held bit for bit by --wide-pairs:
+# (label, format, basis_dim), depth-7 shells
+WIDE_PAIRS_TREES = (("ASG32", "ASG", 32), ("SG48", "SG", 48),
+                    ("ASG48", "ASG", 48))
+# --wide-sweep's trees: (label, format, basis_dim), depth-7 shells
+WIDE_SWEEP = (("SG32", "SG", 32), ("SG48", "SG", 48), ("SG64", "SG", 64),
+              ("SG72", "SG", 72), ("SG80", "SG", 80), ("SG88", "SG", 88),
+              ("SG96", "SG", 96))
+
+
+def wide_sweep(root):
+    """--wide-sweep [ROOT]: render_classic's classic frame at 800x800
+    (phase_wide's camera) on a depth-7 shell of each WIDE_SWEEP row
+    layout, by device_ms, with the launch name of the instance it took
+    and the frame's digest.  One JSON line {"wide_sweep": ...}."""
+    import torch
+    from rt_octree_tpu_torch.core.camera import Camera
+    from rt_octree_tpu_torch.core.options import RenderOptions
+    from rt_octree_tpu_torch.native import build as native
+    from rt_octree_tpu_torch.render import renderer as R
+    native.build()
+    cam = Camera(width=800, height=800, fx=1111.0, fy=1111.0)
+    tf = torch.from_numpy(cam.transform.astype(np.float32)).cuda()
+    kw = dict(width=800, height=800, fx=cam.fx, fy=cam.fy)
+    copt = RenderOptions(spp=1, denoise=False, estimator="classic")
+    res = {"root": root}
+    for label, fmt, bd in WIDE_SWEEP:
+        dt = load_wide_tree(label, fmt, bd, 7)
+        native.reset_launches()
+        frame = R.render_noisy(dt, tf, 0, 0, opt=copt, **kw)[:2]
+        torch.cuda.synchronize()
+        res[label] = {
+            "instance": [k for k, n in native.LAUNCHES.items() if n],
+            "digest": frame_digest(frame),
+            "ms": device_ms(lambda: R.render_noisy(dt, tf, 0, 0, opt=copt,
+                                                   **kw), 20, 3)}
+        del dt
+    log(json.dumps({"wide_sweep": res}))
     return 0
 
 
@@ -3477,13 +3727,15 @@ def phase_wide_path(native, r, ps, tree_path, err):
     bar; K2 wide's guard share on pose r_0 through a Renderer on the tree
     of ``r``), ``rtoctree render`` on the SG32 and ASG32 trees with
     the headline flags and with --estimator classic (K1's and
-    render_classic's wide instances), and trace_rays / trace_rays_classic
-    on aimed rays at those trees (their ray modes), their outputs held
-    against the plain versions after the counts are read.  Prints
-    {"wide_path": ...}; returns each wide kernel's launches on its path."""
+    render_classic's wide instances) and on WIDE_CHUNKED_TREE with
+    --estimator classic (render_classic's chunked wide instance), and
+    trace_rays / trace_rays_classic on aimed rays at those trees (their
+    ray modes), their outputs held against the plain versions after the
+    counts are read.  Prints {"wide_path": ...}; returns each wide
+    kernel's launches on its path."""
     import torch
     from rt_octree_tpu_torch.core.options import RenderOptions
-    from rt_octree_tpu_torch.io import synthetic
+    from rt_octree_tpu_torch.io import n3tree
     from rt_octree_tpu_torch.io.png import read_png
     from rt_octree_tpu_torch.models.guidance_net import load_compact
     from rt_octree_tpu_torch.ops.traversal import upload_tree
@@ -3535,27 +3787,35 @@ def phase_wide_path(native, r, ps, tree_path, err):
             f"{np.mean(den):.3f} dB on benchmarks/quality's 8 poses (no "
             f"bar; supports {cfg.supports()}); K2 wide's guard on pose "
             f"r_0: {guard}")
-    for label, fmt in (("SG32", "SG"), ("ASG32", "ASG")):
-        t0 = time.time()
-        tree = wide_tree(label, fmt, 32, depth=WIDE_TREE_DEPTH)
-        path = os.path.join(WORK, f"shell_d{WIDE_TREE_DEPTH}_{label}.npz")
-        synthetic.save_npz(tree, path)
-        log(f"[wide] {label} depth-{WIDE_TREE_DEPTH} shell: "
-            f"{tree.data.shape[0]} rows of {tree.data_dim} halfs, built "
-            f"and saved in {time.time() - t0:.1f} s")
+    for label, fmt, bd, depth in (("SG32", "SG", 32, WIDE_TREE_DEPTH),
+                                  ("ASG32", "ASG", 32, WIDE_TREE_DEPTH),
+                                  WIDE_CHUNKED_TREE):
+        path, sec = wide_tree_path(label, fmt, bd, depth)
+        tree = n3tree.load(path)
+        # render_classic's instance (the host's choice) names its launches
+        wide = "_" + R.classic_layout(tree.data_format.format.value,
+                                      tree.data_format.basis_dim,
+                                      tree.data_dim)
+        log(f"[wide] {label} depth-{depth} shell: {tree.data.shape[0]} rows "
+            f"of {tree.data_dim} halfs, built and saved in {sec:.1f} s")
         flags = ["--gnet", os.path.join(KIT, "trained.gnet"), "--lut_levels",
-                 str(WIDE_TREE_DEPTH)] + common
-        c = phase_main(native, path, f"{label} tree", flags,
-                       ("render_wide", "guidance_net", "guided_filter"))
-        counts["render_wide"] = max(counts["render_wide"], c["render_wide"])
+                 str(depth)] + common
+        if wide == "_wide":  # K1's wide instance (the chunked tree: classic)
+            c = phase_main(native, path, f"{label} tree", flags,
+                           ("render_wide", "guidance_net", "guided_filter"))
+            counts["render_wide"] = max(counts["render_wide"],
+                                        c["render_wide"])
         c = phase_main(native, path, f"{label} tree classic",
                        flags + ["--estimator", "classic"],
-                       ("render_classic_wide",))
-        counts["render_classic_wide"] = max(counts["render_classic_wide"],
-                                            c["render_classic_wide"])
-        require(not c["render"] and not c["render_classic"],
-                "a wide tree ran an unrolled instance")
-        dt = upload_tree(tree, lut_levels=WIDE_TREE_DEPTH, device="cuda")
+                       ("render_classic" + wide,))
+        counts["render_classic" + wide] = max(counts["render_classic" + wide],
+                                              c["render_classic" + wide])
+        require(not c["render"] and not c["render_classic"] and
+                sum(c[k] for k in ("render_classic_wide",
+                                   "render_classic_wide_chunked"))
+                == c["render_classic" + wide],
+                "a wide tree ran another render_classic instance")
+        dt = upload_tree(tree, lut_levels=depth, device="cuda")
         d, v, cen, dst = aimed_rays(dt, WIDE_PATH_RAYS, 6, 70)
         native.reset_launches()
         rt = R.trace_rays(dt, d, v, cen, dst, RenderOptions(spp=6))
@@ -3565,17 +3825,18 @@ def phase_wide_path(native, r, ps, tree_path, err):
         c = dict(native.LAUNCHES)
         log(f"[wide] {label} ray API, {WIDE_PATH_RAYS} aimed rays: launches "
             f"{ {k: n for k, n in c.items() if n} }")
-        require(c["render_rays_wide"] == 1 and c["render_classic_rays_wide"]
-                == 1, "the ray API did not run the wide instances")
+        require(c["render_rays_wide"] == 1 and
+                c["render_classic_rays" + wide] == 1,
+                "the ray API did not run the wide instances")
         hold_ray_result(f"{label} ray API", "render_rays_wide", rt,
                         R.trace_rays_plain(dt, d, v, cen, dst,
                                            RenderOptions(spp=6)), err)
         hold_ray_result(f"{label} ray API classic",
-                        "render_classic_rays_wide", cl,
+                        "render_classic_rays" + wide, cl,
                         R.trace_rays_classic_plain(
                             dt, d, v, cen, RenderOptions(estimator="classic")),
                         err)
-        for k in ("render_rays_wide", "render_classic_rays_wide"):
+        for k in ("render_rays_wide", "render_classic_rays" + wide):
             counts[k] = max(counts[k], c[k])
     out["launches"] = counts
     log(json.dumps({"wide_path": out}))
@@ -4960,6 +5221,8 @@ def main(argv) -> int:
         return wide_times(PKG_ROOT)
     if argv[:1] == ["--wide-pairs"] and len(argv) in (2, 3):
         return wide_pairs(argv[1], int(argv[2]) if len(argv) == 3 else 6)
+    if argv[:1] == ["--wide-sweep"] and len(argv) in (1, 2):
+        return wide_sweep(PKG_ROOT)
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -4990,6 +5253,7 @@ def main(argv) -> int:
     phase_k2(err)
     phase_k7(err)
     wide_ms, wide_bounds = phase_wide(err)
+    log_wide_holds(err)
     tree, tree_path, gen = headline_tree_path()
     paths = main_paths(make_drawlist())
     runs = {label: phase_main(native, tree_path, label, flags, required)

@@ -914,11 +914,32 @@ RT_API int rt_guided_filter_batch_bwd(
 // "guided_filter_batch_bwd_wide"): the unrolled instances' tile algorithm
 // at a runtime support (up to kWideMaxSupport) and 1..kWideMaxLevels
 // levels.  The row pass loops over the region's rows (at support 32 they are
-// 80 x 5 runs for 160 threads); each run's sums keep run_sums' order.  K5
-// stages a level's weight and guidance behind the previous level's sums no
-// more: one buffer each (two do not fit 227 KB at support 32).  The grid is
-// one dimension over (slice, tile row, tile column), so B and B x L have no
-// 65535 cap.
+// 80 x 5 runs for 160 threads); each run's sums keep run_sums' order.  The
+// grid is one dimension over (slice, tile row, tile column), so B and B x L
+// have no 65535 cap.
+//
+// K5's wide instance (guided_filter_batch_wide_kernel) walks a tile's
+// levels in order, as the unrolled one does, and sums each output's terms
+// in run_sums' order.  It is far from its bytes bound: at the training
+// batch (32 x 80 x 80, L = 12, ladder 1..12, R = 12) a block runs 12
+// levels of staging, a range reduction, a row pass over up to 40 x 64
+// region pixels and a column pass, each ended by a barrier, at 320 blocks
+// (its statistics instance splits a block's cycles by phase).  Its
+// design:
+//  - e = exp(g - c) is taken once per staged pixel after the level's range
+//    reduction, in place of the guidance (the row pass forms (e rgb, e)
+//    from it and the rgb planes as it reads them: 3 multiplies a read, no
+//    expf);
+//  - the window sums at a runtime support add without runtime predicates
+//    (run_sums_wide: the head and the tail of a run unrolled, its middle a
+//    loop in which every output adds);
+//  - a row-pass task sums 10 outputs, so that a region of 40 rows (support
+//    12) takes one round of the block's 160 threads;
+//  - rgb lives in three f32 planes (not float4) and each level's guidance
+//    takes one buffer, so that the training batch's block takes 72,960
+//    bytes and three blocks fit an SM (15 warps, the 320 blocks in one
+//    wave); the next level's weight and guidance are staged as soon as the
+//    row pass has read this level's e (behind the column pass).
 // ---------------------------------------------------------------------------
 
 namespace {
@@ -962,15 +983,111 @@ __device__ __forceinline__ void window_sums_rt(int S, float4* hs, int org,
       acc, S, [&](int i) { return hs[(run * kColRun + i) * kHP + col]; });
 }
 
-// k5_level at a runtime support S.
-__device__ __forceinline__ bool k5_level_rt(int S, const float4* rgbs,
-                                            const float* gs, float4* hs,
-                                            float* red, int R, int P,
-                                            float3 (&f)[kColRun],
-                                            float (&m)[kColRun],
-                                            float (&d)[kColRun]) {
+// run_sums at a runtime support S with 2S >= N - 1, without a runtime
+// predicate: inputs 0..N-1 start and extend the sums (acc[i] = x_i,
+// acc[o < i] += x_i), inputs N..2S add to every sum, and inputs 2S + t
+// (t = 1..N-1) to the sums o >= t that still run; each sum in run_sums'
+// order.
+template <int N, class Load>
+__device__ __forceinline__ void run_sums_wide(float4 (&acc)[N], int S,
+                                              Load load) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float4 x = load(i);
+#pragma unroll
+    for (int o = 0; o < N; ++o) {
+      if (o == i)
+        acc[o] = x;
+      else if (o < i)
+        acc[o] = add4(acc[o], x);
+    }
+  }
+  for (int i = N; i <= 2 * S; ++i) {
+    const float4 x = load(i);
+#pragma unroll
+    for (int o = 0; o < N; ++o) acc[o] = add4(acc[o], x);
+  }
+#pragma unroll
+  for (int t = 1; t < N; ++t) {
+    const float4 x = load(2 * S + t);
+#pragma unroll
+    for (int o = t; o < N; ++o) acc[o] = add4(acc[o], x);
+  }
+}
+
+// run_sums at any runtime support S >= 1: run_sums_wide, or the unrolled
+// run_sums where 2S < N - 1 (S <= 4 in a row pass of 10, S = 1 in a
+// column pass of 4).
+template <int N, class Load>
+__device__ __forceinline__ void run_sums_any(float4 (&acc)[N], int S,
+                                             Load load) {
+  static_assert(N <= 10, "the unrolled supports reach 2S >= N - 1");
+  if (2 * S >= N - 1) {
+    run_sums_wide<N>(acc, S, load);
+  } else if (S == 1) {
+    run_sums<N, 1>(acc, load);
+  } else if (S == 2) {
+    run_sums<N, 2>(acc, load);
+  } else if (S == 3) {
+    run_sums<N, 3>(acc, load);
+  } else {
+    run_sums<N, 4>(acc, load);
+  }
+}
+
+// K5 wide's row pass: a task sums 10 outputs of a row, so that the 40 x 4
+// tasks of a 40-row region (support 12) take one round of 160 threads.
+constexpr int kWideRowRun = 10;
+static_assert(kBatchTileW % kWideRowRun == 0, "tile");
+
+// K5 wide's staged tile: rgb planes and a level's guidance of the tile and
+// its halo R at pitch P, the row sums and the level's weight.
+struct K5WideSmem {
+  const float* rgb[3];  // [RH][P] each: r, g, b (0 outside the image)
+  float* gs;            // [RH][P]: the level's guidance, then its e
+  float4* hs;           // [RH][kHP]: row sums
+  const float* w;       // [tile]: the level's weight
+};
+
+// K5 wide's statistics instance (kStats): thread 0's clock64() cycles of
+// each phase a block, summed over its levels: the rgb planes (with level
+// 0's staging issued), the wait for a level's staging, the range
+// reduction, e, the row pass, the issue of the next level's staging, the
+// column pass with the level's stores, and the guarded levels'
+// per-window form.  Each phase ends at a barrier, so they add up to the
+// block's time.
+constexpr int kK5Stats = 8;
+enum K5Phase : int {
+  kK5Rgb, kK5Wait, kK5Range, kK5E, kK5RowPass, kK5Issue, kK5ColumnPass,
+  kK5Guard
+};
+template <bool kStats>
+__device__ __forceinline__ void k5_mark(long long* clk, int k,
+                                        long long& t0) {
+  if constexpr (kStats) {
+    if (threadIdx.x == 0) {
+      const long long t1 = clock64();
+      clk[k] += t1 - t0;
+      t0 = t1;
+    }
+  }
+}
+
+// One K5 wide level of support S over the staged tile: this thread's
+// column run of filtered rgb f, stabiliser m and denominator d; true if the
+// tile took the guard.  On the fast path free_g() runs once the row pass
+// has read the level's e (its buffer may take the next level's guidance).
+template <bool kStats, class FreeG>
+__device__ __forceinline__ bool k5_level_wide(int S, const K5WideSmem& t,
+                                              float* red, int R, int P,
+                                              float3 (&f)[kColRun],
+                                              float (&m)[kColRun],
+                                              float (&d)[kColRun],
+                                              FreeG free_g, long long* clk,
+                                              long long& t0) {
   const int RW = kBatchTileH + 2 * S, CW = kBatchTileW + 2 * S;
   const int tid = threadIdx.x, org = (R - S) * P + (R - S);
+  float* gs = t.gs;
   float mx = -INFINITY, mn = INFINITY;
   for (int i = tid; i < RW * CW; i += kBThreads) {
     const float v = gs[org + i / CW * P + i % CW];
@@ -978,13 +1095,38 @@ __device__ __forceinline__ bool k5_level_rt(int S, const float4* rgbs,
     if (v > -INFINITY) mn = fminf(mn, v);
   }
   block_max_min(mx, mn, red);
+  k5_mark<kStats>(clk, kK5Range, t0);
   const int col = tid % kBatchTileW, run = tid / kBatchTileW;
+  const float *rr = t.rgb[0], *rg = t.rgb[1], *rb = t.rgb[2];
   if (mx - mn < kGuardRange) {
+    // e = exp(g - c) in place, once a staged pixel (block_max_min's
+    // barrier follows every thread's reads of g)
+    for (int i = tid; i < RW * CW; i += kBThreads) {
+      float* q = gs + org + i / CW * P + i % CW;
+      *q = expf(*q - mx);
+    }
+    __syncthreads();
+    k5_mark<kStats>(clk, kK5E, t0);
+    const auto x = [&](int j) {
+      const float e = gs[j];
+      return make_float4(e * rr[j], e * rg[j], e * rb[j], e);
+    };
+    for (int task = tid; task < RW * (kBatchTileW / kWideRowRun);
+         task += kBThreads) {
+      const int r = task % RW, c0 = task / RW * kWideRowRun;
+      const int base = org + r * P + c0;
+      float4 h[kWideRowRun];
+      run_sums_any<kWideRowRun>(h, S, [&](int i) { return x(base + i); });
+#pragma unroll
+      for (int o = 0; o < kWideRowRun; ++o) t.hs[r * kHP + c0 + o] = h[o];
+    }
+    __syncthreads();
+    k5_mark<kStats>(clk, kK5RowPass, t0);
+    free_g();
+    k5_mark<kStats>(clk, kK5Issue, t0);
     float4 acc[kColRun];
-    window_sums_rt(S, hs, org, P, acc, [&](int j) {
-      const float e = expf(gs[j] - mx);
-      const float4 q = rgbs[j];
-      return make_float4(e * q.x, e * q.y, e * q.z, e);
+    run_sums_any<kColRun>(acc, S, [&](int i) {
+      return t.hs[(run * kColRun + i) * kHP + col];
     });
 #pragma unroll
     for (int o = 0; o < kColRun; ++o) {
@@ -995,7 +1137,8 @@ __device__ __forceinline__ bool k5_level_rt(int S, const float4* rgbs,
     }
     return false;
   }
-  float* hm = reinterpret_cast<float*>(hs);
+  // the guard: the per-window form (k5_level's)
+  float* hm = reinterpret_cast<float*>(t.hs);
   for (int i = tid; i < RW * kBatchTileW; i += kBThreads) {
     const float* row = gs + org + i / kBatchTileW * P + i % kBatchTileW;
     float v = row[0];
@@ -1015,11 +1158,10 @@ __device__ __forceinline__ bool k5_level_rt(int S, const float4* rgbs,
 #pragma unroll 4
       for (int dx = 0; dx <= 2 * S; ++dx) {
         const float k = expf(gs[base + dx] - mm);
-        const float4 q = rgbs[base + dx];
         den = den + k;
-        n0 = n0 + q.x * k;
-        n1 = n1 + q.y * k;
-        n2 = n2 + q.z * k;
+        n0 = n0 + rr[base + dx] * k;
+        n1 = n1 + rg[base + dx] * k;
+        n2 = n2 + rb[base + dx] * k;
       }
     }
     f[o] = make_float3(n0 / den, n1 / den, n2 / den);
@@ -1042,23 +1184,37 @@ __device__ __forceinline__ void wide_tile(int H, int W, long long& slice,
   y0 = (r / tiles_x) * kBatchTileH;
 }
 
-__global__ void __launch_bounds__(kBThreads)
+// K5's wide instance: a block a tile of one image, its levels in order.
+// One guidance buffer: level l + 1's weight and guidance are staged as
+// soon as level l's row pass has read its e (at once on a support-0
+// level, after the level on a guarded one).  The weight has two buffers.
+// kStats: the statistics instance (stats, int64 [blocks][kK5Stats]).
+template <bool kStats>
+__global__ void __launch_bounds__(kBThreads, 3)
     guided_filter_batch_wide_kernel(
         const float* __restrict__ weight, Strides ws,
         const float* __restrict__ guidance, Strides gst,
         const float4* __restrict__ img, float4* __restrict__ out,
         float4* __restrict__ fm, float* __restrict__ den,
         int* __restrict__ guards, int levels, WideSupports sup, int R, int H,
-        int W) {
+        int W, long long* __restrict__ stats) {
   extern __shared__ float4 smem[];
   constexpr int kTile = kBatchTileW * kBatchTileH;
   const int P = kBatchTileW + 2 * R + 1, RH = kBatchTileH + 2 * R;
-  float4* rgbs = smem;         // [RH][P]: rgb of the tile and halo R
-  float4* hs = rgbs + RH * P;  // [RH][kHP]: row sums
-  float* wbuf = reinterpret_cast<float*>(hs + RH * kHP);  // [tile]
-  float* gs = wbuf + kTile;    // [RH][P]: guidance
+  float4* hs = smem;                                     // [RH][kHP]
+  float* rgb = reinterpret_cast<float*>(hs + RH * kHP);  // [3][RH][P]
+  float* gs = rgb + 3 * RH * P;                          // [RH][P]
+  float* wbuf = gs + RH * P;                             // [2][tile]
   __shared__ float red[2 * kBWarps];
+  __shared__ long long clk[kStats ? kK5Stats : 1];
   const int tid = threadIdx.x;
+  long long t0 = 0;
+  if constexpr (kStats) {
+    if (tid == 0) {
+      for (int k = 0; k < kK5Stats; ++k) clk[k] = 0;
+      t0 = clock64();
+    }
+  }
   long long b;
   int x0, y0;
   wide_tile(H, W, b, x0, y0);
@@ -1070,35 +1226,22 @@ __global__ void __launch_bounds__(kBThreads)
   weight += b * ws.b;
   guidance += b * gst.b;
 
+  // level l's weight over the tile into buffer l % 2 and its guidance over
+  // its region (-inf outside the image); a cp.async group a level
   const int warp = tid >> 5, lane = tid & 31;
-  for (int r = warp; r < RH; r += kBWarps) {
-    const int gy = y0 - R + r;
-    for (int c = lane; c < kBatchTileW + 2 * R; c += 32) {
-      const int gx = x0 - R + c;
-      const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W;
-      cp_async16(smem_addr(rgbs + r * P + c),
-                 ok ? img + (long long)gy * W + gx : img, ok ? 16 : 0);
+  auto stage = [&](int l) {
+    if (l < levels) {
+      float* wdst = wbuf + (l & 1) * kTile;
+      const float* wsrc = weight + l * ws.l;
+      for (int r = warp; r < kBatchTileH; r += kBWarps)
+        for (int c = lane; c < kBatchTileW; c += 32)
+          if (y0 + r < H && x0 + c < W)
+            cp_async4(smem_addr(wdst + r * kBatchTileW + c),
+                      wsrc + (y0 + r) * ws.h + x0 + c);
     }
-  }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-
-  const int col = tid % kBatchTileW, run = tid / kBatchTileW;
-  const int x = x0 + col, yr = y0 + run * kColRun;
-  float3 o[kColRun];
-#pragma unroll
-  for (int k = 0; k < kColRun; ++k) o[k] = make_float3(0.f, 0.f, 0.f);
-  for (int l = 0; l < levels; ++l) {
-    const int s = sup.s[l];
-    // level l's weight over the tile and guidance over its region (-inf
-    // outside the image)
-    const float* wsrc = weight + l * ws.l;
-    for (int r = warp; r < kBatchTileH; r += kBWarps)
-      for (int c = lane; c < kBatchTileW; c += 32)
-        if (y0 + r < H && x0 + c < W)
-          cp_async4(smem_addr(wbuf + r * kBatchTileW + c),
-                    wsrc + (y0 + r) * ws.h + x0 + c);
-    if (s > 0) {
-      const int rw = kBatchTileH + 2 * s, cw = kBatchTileW + 2 * s;
+    if (l < levels && sup.s[l] > 0) {
+      const int s = sup.s[l], rw = kBatchTileH + 2 * s,
+                cw = kBatchTileW + 2 * s;
       float* dst = gs + (R - s) * P + (R - s);
       const float* src = guidance + l * gst.l;
       for (int r = warp; r < rw; r += kBWarps) {
@@ -1113,21 +1256,59 @@ __global__ void __launch_bounds__(kBThreads)
       }
     }
     asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  stage(0);
+  // rgb of the tile and its halo R into the three planes, 0 outside the
+  // image; a warp a row, lanes along it
+  for (int r = warp; r < RH; r += kBWarps) {
+    const int gy = y0 - R + r;
+    for (int c = lane; c < kBatchTileW + 2 * R; c += 32) {
+      const int gx = x0 - R + c;
+      const float4 q = gy >= 0 && gy < H && gx >= 0 && gx < W
+                           ? __ldg(img + (long long)gy * W + gx)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+      rgb[r * P + c] = q.x;
+      rgb[(RH + r) * P + c] = q.y;
+      rgb[(2 * RH + r) * P + c] = q.z;
+    }
+  }
+  k5_mark<kStats>(clk, kK5Rgb, t0);
+
+  const int col = tid % kBatchTileW, run = tid / kBatchTileW;
+  const int x = x0 + col, yr = y0 + run * kColRun;
+  float3 o[kColRun];
+#pragma unroll
+  for (int k = 0; k < kColRun; ++k) o[k] = make_float3(0.f, 0.f, 0.f);
+  for (int l = 0; l < levels; ++l) {
+    const int s = sup.s[l];
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     __syncthreads();  // level l's weight and guidance (and the rgb) staged
+    k5_mark<kStats>(clk, kK5Wait, t0);
+    const K5WideSmem t{{rgb, rgb + RH * P, rgb + 2 * RH * P}, gs, hs,
+                       wbuf + (l & 1) * kTile};
+    // the next level's staging starts once this level's guidance is read
+    bool next = false;
+    const auto free_g = [&] {
+      if (!next) stage(l + 1);
+      next = true;
+    };
     float3 f[kColRun];
     float m[kColRun], d[kColRun];
+    bool guard = false;
     if (s == 0) {
+      free_g();
+      k5_mark<kStats>(clk, kK5Issue, t0);
 #pragma unroll
       for (int k = 0; k < kColRun; ++k) {
-        const float4 q = rgbs[(R + run * kColRun + k) * P + R + col];
-        f[k] = make_float3(q.x, q.y, q.z);
+        const int j = (R + run * kColRun + k) * P + R + col;
+        f[k] = make_float3(t.rgb[0][j], t.rgb[1][j], t.rgb[2][j]);
       }
     } else {
-      const bool guard = k5_level_rt(s, rgbs, gs, hs, red, R, P, f, m, d);
+      guard = k5_level_wide<kStats>(s, t, red, R, P, f, m, d, free_g, clk,
+                                    t0);
       if (guard && tid == 0 && guards != nullptr) atomicAdd(guards, 1);
     }
-    const float* wl = wbuf + run * kColRun * kBatchTileW;
+    const float* wl = t.w + run * kColRun * kBatchTileW;
     if (x < W) {
 #pragma unroll
       for (int k = 0; k < kColRun; ++k) {
@@ -1145,6 +1326,9 @@ __global__ void __launch_bounds__(kBThreads)
       }
     }
     __syncthreads();  // this level's reads of its buffers and hs are done
+    k5_mark<kStats>(clk, guard ? kK5Guard : kK5ColumnPass, t0);
+    free_g();  // a guarded level's next staging starts here
+    k5_mark<kStats>(clk, kK5Issue, t0);
   }
   if (x < W) {
 #pragma unroll
@@ -1153,6 +1337,11 @@ __global__ void __launch_bounds__(kBThreads)
       if (y >= H) break;
       out[(long long)y * W + x] = make_float4(o[k].x, o[k].y, o[k].z, 1.f);
     }
+  }
+  if constexpr (kStats) {
+    if (tid == 0)
+      for (int k = 0; k < kK5Stats; ++k)
+        stats[blockIdx.x * kK5Stats + k] = clk[k];
   }
 }
 
@@ -1298,17 +1487,26 @@ unsigned wide_blocks(long long slices, int height, int width) {
   return n > 0x7fffffffLL ? 0u : (unsigned)n;
 }
 
+// K5 wide's dynamic shared memory at halo R: row sums, three rgb planes,
+// one guidance region and two weight tiles (72,960 bytes at R = 12,
+// 192,000 at R = 32).
+int k5_wide_smem(int R) {
+  const int P = kBatchTileW + 2 * R + 1, RH = kBatchTileH + 2 * R;
+  return RH * kHP * 16 + 4 * RH * P * 4 + 2 * kBatchTileW * kBatchTileH * 4;
+}
+
 }  // namespace
 
 // K5's wide instance: rt_guided_filter_batch's arguments at 1..64 levels of
-// support 0..32 and any batch.  Dynamic shared memory: rgb, row sums and
-// one guidance region at halo R and one weight tile (223,040 bytes at
-// R = 32).
+// support 0..32 and any batch.  A non-null ``stats`` (int64
+// [blocks][kK5Stats], a row a block of the one-dimensional grid over
+// (slice, tile row, tile column)) selects the statistics instance.
 RT_API int rt_guided_filter_batch_wide(
     const void* weight, long long wsb, long long wsl, long long wsh,
     const void* guidance, long long gsb, long long gsl, long long gsh,
     const void* img, void* out, void* fm, void* den, void* guards, int batch,
-    int levels, const int* supports, int height, int width, void* stream) {
+    int levels, const int* supports, int height, int width, void* stats,
+    void* stream) {
   WideSupports sup;
   int R;
   if (!wide_supports(levels, supports, sup, R) || batch < 1 || height < 1 ||
@@ -1316,16 +1514,16 @@ RT_API int rt_guided_filter_batch_wide(
     return (int)cudaErrorInvalidValue;
   const unsigned blocks = wide_blocks(batch, height, width);
   if (!blocks) return (int)cudaErrorInvalidValue;
-  const int P = kBatchTileW + 2 * R + 1, RH = kBatchTileH + 2 * R;
-  const int bytes =
-      RH * P * 20 + RH * kHP * 16 + kBatchTileW * kBatchTileH * 4;
-  const cudaError_t err = allow_smem(guided_filter_batch_wide_kernel, bytes);
+  const auto kernel = stats ? guided_filter_batch_wide_kernel<true>
+                            : guided_filter_batch_wide_kernel<false>;
+  const int bytes = k5_wide_smem(R);
+  const cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return (int)err;
-  guided_filter_batch_wide_kernel<<<blocks, kBThreads, bytes,
-                                    (cudaStream_t)stream>>>(
+  kernel<<<blocks, kBThreads, bytes, (cudaStream_t)stream>>>(
       (const float*)weight, Strides{wsb, wsl, wsh}, (const float*)guidance,
       Strides{gsb, gsl, gsh}, (const float4*)img, (float4*)out, (float4*)fm,
-      (float*)den, (int*)guards, levels, sup, R, height, width);
+      (float*)den, (int*)guards, levels, sup, R, height, width,
+      (long long*)stats);
   return (int)cudaGetLastError();
 }
 

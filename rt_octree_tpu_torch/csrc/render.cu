@@ -86,12 +86,20 @@
 // row of step i is loaded while step i + 1's LUT read is in flight and
 // summed after it, in step order (render_classic_kernel).
 //
-// Wide rows (kWide, kBdWide; launch names with "_wide"): SG and ASG trees
-// of a basis_dim above kMaxBasis, which the JAX package renders too.  Their
-// instances of K1 (frame and ray mode at every SPP) and of render_classic
-// (frame and ray mode), none with a statistics variant, evaluate the basis
-// kBasisChunk values at a time for each shaded row (wide_channels) instead
-// of holding it in registers; every other instance is as it was.
+// Wide rows (kWide, kBdWide, kBdWideChunked; launch names with "_wide"):
+// SG and ASG trees of a basis_dim above kMaxBasis, which the JAX package
+// renders too.  Their instances of K1 (frame and ray mode at every SPP)
+// evaluate the basis kBasisChunk values at a time for each shaded row
+// (wide_channels) instead of holding it in registers.  render_classic's
+// wide instance (frame and ray mode, up to kWideSmemMaxBasis) evaluates
+// the ray's masked basis once into shared memory, [b][thread], and copies
+// each shaded row a step ahead into a shared slot of its thread by
+// cp.async (ClassicRow<kBdWide>); above kWideSmemMaxBasis the chunked
+// instance (kBdWideChunked, launch names with "_wide_chunked") evaluates
+// the basis for each shaded row as K1's wide instances do.  Both compute
+// the same f32 operations in the same order, so their outputs are equal
+// bit for bit.  None has a statistics variant; every other instance is as
+// it was.
 //
 // Ray mode (kRays; C entry rt_render_rays, launch names "render_rays" and
 // "render_classic_rays"): the counterparts of trace_rays (:540-588) and
@@ -675,6 +683,12 @@ __device__ __forceinline__ void leaf_rgb(const RenderParams& p, int ptr,
 // ---- rows of a basis_dim above kMaxBasis (SG / ASG; the wide instances) ----
 
 constexpr int kBasisChunk = 8;  // basis values a wide row holds at a time
+// the largest basis_dim of render_classic's shared-memory wide instance
+// (render/renderer.py:CLASSIC_WIDE_MAX_BASIS): 114,688 bytes a block at 88,
+// the last basis_dim at which two blocks share an SM; past it one block an
+// SM costs more than the basis evaluations it saves (chip_smoke.py
+// --wide-sweep times both instances at 80, 88 and 96)
+constexpr int kWideSmemMaxBasis = 88;
 
 // Basis value b of the view direction v, masked by basis_minmax: the
 // expression of eval_basis (and classic_basis) for that b alone.
@@ -811,24 +825,39 @@ __device__ __forceinline__ void write_ray(const RenderParams& p, long long i,
 // The row layouts the classic kernel is instantiated on (p.classic, chosen
 // by render/renderer.py:classic_layout): SH rows of a fixed basis_dim, raw
 // rgb rows, one instance for SG / ASG rows (or a format without a basis)
-// of any basis_dim <= kMaxBasis, and one for those above it (wide).
+// of any basis_dim <= kMaxBasis, and two for those above it: wide up to
+// kWideSmemMaxBasis, wide_chunked past it.
 enum ClassicLayout : int {
   kClassicSh1 = 1, kClassicSh4, kClassicSh9, kClassicSh16, kClassicSh25,
-  kClassicRgba, kClassicAny, kClassicWide
+  kClassicRgba, kClassicAny, kClassicWide, kClassicWideChunked
 };
-// the kBd of the three layouts that are not SH
-constexpr int kBdRgba = -1, kBdAny = 0, kBdWide = -2;
+// the kBd of the four layouts that are not SH
+constexpr int kBdRgba = -1, kBdAny = 0, kBdWide = -2, kBdWideChunked = -3;
+
+// The wide instance's 16-byte pieces of a row: 3 bd halfs that start up to
+// 7 halfs into the first piece.
+__host__ __device__ constexpr int wide_row_pieces(int bd) {
+  return (3 * bd + 7 + 7) / 8;
+}
+
+// The wide instance's dynamic shared memory: a thread's basis (bd floats)
+// and its row slot, for each of the block's threads.
+constexpr int wide_classic_smem(int bd) {
+  return kThreads * (4 * bd + 16 * wide_row_pieces(bd));
+}
 
 // The masked basis of the view direction v, in registers: eval_sh at a
 // compile-time bd for SH; for kBdAny, eval_basis's expressions for every
 // b < kMaxBasis, unrolled, with the guard b < basis_dim.
-// kBdWide: the basis array carries the view direction (basis[0..2]), and
-// each row evaluates its basis chunk by chunk (ClassicRow<kBdWide>).
+// kBdWideChunked: the basis array carries the view direction
+// (basis[0..2]), and each row evaluates its basis chunk by chunk
+// (ClassicRow<kBdWideChunked>).  kBdWide keeps its basis in shared memory
+// (ClassicRow<kBdWide>::set_basis) and takes no call.
 template <int kBd>
 __device__ __forceinline__ void classic_basis(const RenderParams& p,
                                               const float v[3],
                                               float basis[kMaxBasis]) {
-  if constexpr (kBd == kBdWide) {
+  if constexpr (kBd == kBdWideChunked) {
     basis[0] = v[0];
     basis[1] = v[1];
     basis[2] = v[2];
@@ -960,12 +989,93 @@ struct ClassicRow<kBdAny> {
   }
 };
 
-// SG / ASG rows of a basis_dim above kMaxBasis: issue() keeps the row,
-// channels() reads it and evaluates the basis of the view direction that
-// classic_basis<kBdWide> left in basis[0..2] chunk by chunk
-// (wide_channels): no basis_dim-sized array in registers or on a stack.
+// SG / ASG rows of a basis_dim above kMaxBasis, up to kWideSmemMaxBasis.
+// The ray's masked basis (basis_at's expression for each b) is evaluated
+// once into this thread's column of a [bd][kThreads] shared array, so that
+// the lanes of a warp read distinct banks.  issue() copies the aligned
+// 16-byte pieces that cover the row's 3 bd halfs (2-byte aligned: the row
+// starts `skew` halfs into its first piece) by cp.async into this thread's
+// slot, [piece][kThreads] (a warp's pieces side by side, so that the
+// 16-byte copies and reads take the fewest wavefronts); channels() waits
+// for them a step later and sums each channel in the order of b from the
+// shared basis: wide_channels' f32 operations, without a basis
+// evaluation or a load from the device's memory on the march's chain.
 template <>
 struct ClassicRow<kBdWide> {
+  float* basis;      // this thread's basis value b at basis[b * kThreads]
+  const uint4* slot;  // this thread's piece k at slot[k * kThreads]
+  int skew;          // the row's first half within its first piece, 0..7
+
+  __device__ __forceinline__ void init(const RenderParams& p, float* smem) {
+    basis = smem + threadIdx.x;
+    slot = reinterpret_cast<const uint4*>(smem + kThreads * p.basis_dim) +
+           threadIdx.x;
+  }
+
+  __device__ __forceinline__ void set_basis(const RenderParams& p,
+                                            const float v[3]) {
+    for (int b = 0; b < p.basis_dim; ++b)
+      basis[b * kThreads] = basis_at(p, v, b);
+  }
+
+  __device__ __forceinline__ void issue(const RenderParams& p, int ptr) {
+    const uintptr_t a =
+        reinterpret_cast<uintptr_t>(p.data + (long long)ptr * p.data_dim);
+    const char* src = reinterpret_cast<const char*>(a & ~uintptr_t{15});
+    skew = (int)((a & 15) >> 1);
+    const int n = (skew + 3 * p.basis_dim + 7) >> 3;
+    const uint32_t dst =
+        static_cast<uint32_t>(__cvta_generic_to_shared(slot));
+    for (int k = 0; k < n; ++k)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(
+                       dst + k * kThreads * 16),
+                   "l"(src + 16 * k)
+                   : "memory");
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+
+  // acc plus halfs e in [lo, hi) of piece k, each times its basis value
+  // b = 8k + e - h0, in the order of e
+  __device__ __forceinline__ float piece(int k, int lo, int hi, int h0,
+                                         float acc) const {
+    const uint4 w = slot[k * kThreads];
+    const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      if (e >= lo && e < hi) {
+        __half2 hh;
+        memcpy(&hh, &u[e >> 1], sizeof(hh));
+        const float f = (e & 1) ? __high2float(hh) : __low2float(hh);
+        acc = acc + f * basis[(8 * k + e - h0) * kThreads];
+      }
+    }
+    return acc;
+  }
+
+  // Each channel's halfs [h0, h1): its first piece and its last in part,
+  // the pieces between whole.
+  __device__ __forceinline__ void channels(const RenderParams& p,
+                                           const float*, float out[3]) const {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    const int bd = p.basis_dim;
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      const int h0 = skew + ch * bd, h1 = h0 + bd;
+      const int k0 = h0 >> 3, k1 = (h1 - 1) >> 3;
+      float acc = piece(k0, h0 - 8 * k0, min(h1 - 8 * k0, 8), h0, 0.f);
+      for (int k = k0 + 1; k < k1; ++k) acc = piece(k, 0, 8, h0, acc);
+      if (k1 > k0) acc = piece(k1, 0, h1 - 8 * k1, h0, acc);
+      out[ch] = acc;
+    }
+  }
+};
+
+// SG / ASG rows of a basis_dim above kWideSmemMaxBasis: issue() keeps the
+// row, channels() reads it and evaluates the basis of the view direction
+// that classic_basis<kBdWideChunked> left in basis[0..2] chunk by chunk
+// (wide_channels): no basis_dim-sized array in registers or on a stack.
+template <>
+struct ClassicRow<kBdWideChunked> {
   int ptr;
 
   __device__ __forceinline__ void issue(const RenderParams&, int row) {
@@ -1009,13 +1119,19 @@ __global__ void __launch_bounds__(kThreads) render_classic_kernel(
     setup_geom<true>(p, px, py, r);
   }
   float basis[kMaxBasis];
-  if (kBd != kBdRgba && r.active) classic_basis<kBd>(p, r.vdir, basis);
+  ClassicRow<kBd> row;  // the previous step's row while pend
+  if constexpr (kBd == kBdWide) {
+    extern __shared__ float4 wide_smem[];
+    row.init(p, reinterpret_cast<float*>(wide_smem));
+    if (r.active) row.set_basis(p, r.vdir);
+  } else if (kBd != kBdRgba && r.active) {
+    classic_basis<kBd>(p, r.vdir, basis);
+  }
   float light = 1.0f;
   float rgb[3] = {0.f, 0.f, 0.f};
   // the JAX loop tests max_steps every 2 steps (the frame); the ray
   // mode's wrapper rounds its limit up to its own unroll
   const int max_steps = kRays ? p.max_steps : p.max_steps + (p.max_steps & 1);
-  ClassicRow<kBd> row;  // the previous step's row while pend
   bool pend = false, pend_stop = false;
   float pend_w = 0.f, pend_norm = 1.f;
   int shaded = 0;
@@ -1133,8 +1249,17 @@ int launch(const RenderParams& p, cudaStream_t stream) {
 
 template <int kBd, bool kStats, bool kRays>
 int launch_classic(const RenderParams& p, cudaStream_t stream) {
-  render_classic_kernel<kBd, kStats, kRays>
-      <<<blocks_of<kRays>(p), kThreads, 0, stream>>>(p);
+  const auto kernel = render_classic_kernel<kBd, kStats, kRays>;
+  int smem = 0;
+  if constexpr (kBd == kBdWide) {
+    smem = wide_classic_smem(p.basis_dim);
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+  }
+  kernel<<<blocks_of<kRays>(p), kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -1168,8 +1293,14 @@ int launch_layout(const RenderParams& p, cudaStream_t s) {
       break;
     case kClassicWide:  // no statistics instance
       if constexpr (!kStats) {
-        if (!sh && bd > kMaxBasis)
+        if (!sh && bd > kMaxBasis && bd <= kWideSmemMaxBasis)
           return launch_classic<kBdWide, false, kRays>(p, s);
+      }
+      break;
+    case kClassicWideChunked:  // no statistics instance
+      if constexpr (!kStats) {
+        if (!sh && bd > kWideSmemMaxBasis)
+          return launch_classic<kBdWideChunked, false, kRays>(p, s);
       }
       break;
   }

@@ -77,6 +77,9 @@ WIDE_TILE, WIDE_TILE_LARGE_R, WIDE_SMALL_R = (32, 32), (16, 8), 16
 # the phases of K2 wide's statistics instance (csrc/filter.cu:w2_mark)
 WIDE_STAT_PHASES = ("staging", "ranges", "prologue", "e_rgb", "row_sums",
                     "column_sums", "levels")
+# the phases of K5 wide's statistics instance (csrc/filter.cu:K5Phase)
+K5_WIDE_STAT_PHASES = ("rgb", "wait", "range", "e", "row_pass", "issue",
+                       "column_pass", "guard")
 
 
 def resolve_supports(L: int, supports) -> tuple:
@@ -385,6 +388,16 @@ def guided_filter_batch_fwd(weight: torch.Tensor, guidance: torch.Tensor,
     B, L, H, W = weight.shape
     supports = resolve_supports(L, supports)
     _check_batch("guided_filter_batch", weight, guidance, img, supports)
+    return _launch_batch_fwd(weight, guidance, img, supports,
+                             _guard_ptr(guards))
+
+
+def _launch_batch_fwd(weight, guidance, img, supports, guards: int,
+                      stats=None):
+    """One launch of K5, or of its wide instance where ``wide_plan`` says
+    (the checks are guided_filter_batch_fwd's); ``stats`` (int64 [blocks,
+    len(K5_WIDE_STAT_PHASES)]) selects the wide statistics instance."""
+    B, L, H, W = weight.shape
     dev = img.device
     out = torch.empty((B, H, W, 4), dtype=torch.float32, device=dev)
     fm = torch.empty((B, L, H, W, 4), dtype=torch.float32, device=dev)
@@ -392,16 +405,44 @@ def guided_filter_batch_fwd(weight: torch.Tensor, guidance: torch.Tensor,
     sup = (ctypes.c_int * L)(*supports)
     suffix = "_wide" if wide_plan(B, L, supports) else ""
     fn = native.entry("rt_guided_filter_batch" + suffix)
+    extra = (0 if stats is None else stats.data_ptr(),) if suffix else ()
     with torch.cuda.device(dev):
         rc = fn(weight.data_ptr(), *_rows_strides(weight),
                 guidance.data_ptr(), *_rows_strides(guidance),
                 img.data_ptr(), out.data_ptr(), fm.data_ptr(),
-                den.data_ptr(), _guard_ptr(guards), B, L,
-                ctypes.cast(sup, ctypes.c_void_p), H, W,
+                den.data_ptr(), guards, B, L,
+                ctypes.cast(sup, ctypes.c_void_p), H, W, *extra,
                 native.stream_ptr(dev))
         native.count_launch("guided_filter_batch" + suffix)
     native.check(rc, f"guided_filter_batch{suffix}_kernel")
     return out, (fm, den)
+
+
+def guided_filter_batch_wide_stats(weight: torch.Tensor,
+                                   guidance: torch.Tensor, img: torch.Tensor,
+                                   supports) -> tuple:
+    """K5 wide's statistics instance on guided_filter_batch_fwd's CUDA
+    inputs where it takes the wide instance -> (out, (fm, den), {"blocks",
+    per phase of K5_WIDE_STAT_PHASES the clock64() cycles of a block's
+    thread 0 summed over its levels, averaged over the blocks, and each
+    phase's share of their sum})."""
+    B, L, H, W = weight.shape
+    supports = resolve_supports(L, supports)
+    _check_batch("guided_filter_batch", weight, guidance, img, supports)
+    if not wide_plan(B, L, supports):
+        raise ValueError("guided_filter_batch_wide_stats: the inputs take "
+                         "K5's unrolled instance, not its wide one")
+    blocks = B * -(-H // BATCH_TILE_H) * -(-W // BATCH_TILE_W)
+    st = torch.zeros((blocks, len(K5_WIDE_STAT_PHASES)), dtype=torch.int64,
+                     device=img.device)
+    out, saved = _launch_batch_fwd(weight, guidance, img, supports, 0, st)
+    cyc = st.double().mean(0).cpu()
+    total = float(cyc.sum())
+    return out, saved, {
+        "blocks": blocks,
+        "cycles_per_block": dict(zip(K5_WIDE_STAT_PHASES, map(float, cyc))),
+        "share": {k: float(c) / total
+                  for k, c in zip(K5_WIDE_STAT_PHASES, cyc)}}
 
 
 def guided_filter_batch_bwd(grad_out: torch.Tensor, weight: torch.Tensor,

@@ -487,11 +487,15 @@ SPP_KERNEL = (1, 2, 3, 4, 6, 8, 16, 32)  # csrc/render.cu:rt_render
 # The classic kernel's instances, one a row layout, in the order of
 # csrc/render.cu:ClassicLayout (its code is the index + 1).
 CLASSIC_LAYOUTS = ("sh1", "sh4", "sh9", "sh16", "sh25", "rgba", "any",
-                   "wide")
+                   "wide", "wide_chunked")
 # csrc/render.cu:kMaxBasis: the largest basis_dim the unrolled instances
 # hold in registers; SG / ASG rows above it take the wide instances of K1
 # and render_classic (launch names with "_wide"), SH has no basis above it
 CLASSIC_MAX_BASIS = 25
+# csrc/render.cu:kWideSmemMaxBasis: the largest basis_dim whose ray basis
+# and row render_classic's wide instance holds in shared memory; above it
+# the chunked instance (launch names with "_wide_chunked")
+CLASSIC_WIDE_MAX_BASIS = 88
 
 
 def classic_layout(fmt: int, basis_dim: int, data_dim: int) -> str:
@@ -499,7 +503,8 @@ def classic_layout(fmt: int, basis_dim: int, data_dim: int) -> str:
     BasisFormat value): "sh<bd>" for SH rows at basis_dim 1, 4, 9, 16 and
     25; "rgba" for raw rgb rows (basis_dim < 0, any format); "any" for SG
     and ASG rows, and RGBA-format rows that carry a basis_dim (their basis
-    is 0), at 0 <= basis_dim <= 25, and "wide" for those above 25.  Raises
+    is 0), at 0 <= basis_dim <= 25, "wide" for those above 25 up to
+    CLASSIC_WIDE_MAX_BASIS and "wide_chunked" past it.  Raises
     ValueError for any other layout, and for rows shorter than the
     channels they are read for."""
     if fmt not in tuple(f.value for f in BasisFormat):
@@ -515,7 +520,9 @@ def classic_layout(fmt: int, basis_dim: int, data_dim: int) -> str:
             raise ValueError(f"render_classic: no SH basis of dimension "
                              f"{basis_dim} (1, 4, 9, 16 or 25)")
         return f"sh{basis_dim}"
-    return "wide" if basis_dim > CLASSIC_MAX_BASIS else "any"
+    if basis_dim <= CLASSIC_MAX_BASIS:
+        return "any"
+    return "wide" if basis_dim <= CLASSIC_WIDE_MAX_BASIS else "wide_chunked"
 
 _params_checked = False
 
@@ -538,6 +545,16 @@ def is_wide(tree: DeviceTree) -> bool:
     """Rows of a basis_dim above CLASSIC_MAX_BASIS: K1's and
     render_classic's wide instances."""
     return tree.basis_dim > CLASSIC_MAX_BASIS
+
+
+def wide_suffix(tree: DeviceTree, classic: bool) -> str:
+    """The launch name's suffix of the instance a tree takes: "_wide" for
+    the wide instances, "_wide_chunked" for render_classic's chunked one,
+    "" for the unrolled instances."""
+    if not is_wide(tree):
+        return ""
+    return "_wide_chunked" if classic and classic_layout(
+        tree.fmt, tree.basis_dim, tree.data_dim) == "wide_chunked" else "_wide"
 
 
 def _check_tree(name: str, tree: DeviceTree) -> None:
@@ -661,7 +678,7 @@ def _launch_k1(tree: DeviceTree, transform: torch.Tensor, rng_state: int,
     p.width, p.height, p.spp, p.max_steps = width, height, spp, max_steps
     p.classic = layout
     p.row0, p.rows = row0, rows
-    wide = "_wide" if is_wide(tree) else ""
+    wide = wide_suffix(tree, classic)
     if wide and stats is not None:
         raise ValueError("render_noisy: the statistics instances take "
                          f"basis_dim <= {CLASSIC_MAX_BASIS}")
@@ -796,7 +813,7 @@ def _launch_rays(tree: DeviceTree, dirs, vdirs, cens, dst,
         rc = fn(ctypes.addressof(p), native.stream_ptr(dev))
         native.count_launch(("render_rays" if dst is not None
                              else "render_classic_rays")
-                            + ("_wide" if is_wide(tree) else ""))
+                            + wide_suffix(tree, dst is None))
     native.check(rc, "render_kernel (rays)" if dst is not None
                  else "render_classic_kernel (rays)")
     return out

@@ -34,17 +34,20 @@ def _expected(fmt, bd):
         return "rgba"
     if fmt == BasisFormat.SH.value:
         return f"sh{bd}" if bd in SH_DIMS else None
-    return "any" if bd <= 25 else "wide"
+    if bd <= 25:
+        return "any"
+    return "wide" if bd <= 88 else "wide_chunked"
 
 
 @pytest.mark.parametrize("bd", [-3, -1, 0, 1, 2, 4, 5, 9, 16, 24, 25, 26,
-                                32, 48, 100])
+                                32, 48, 80, 81, 88, 89, 100])
 @pytest.mark.parametrize("fmt", [f.value for f in BasisFormat])
 def test_classic_layout_for_every_format_and_basis_dim(fmt, bd):
     """SH rows take the instance of their basis_dim (1, 4, 9, 16, 25),
     raw rgb rows (basis_dim < 0) "rgba" whatever the format, SG, ASG and
-    RGBA-format rows with a basis_dim the unrolled "any" instance up to 25
-    and the "wide" instance above it; other SH basis_dims are refused."""
+    RGBA-format rows with a basis_dim the unrolled "any" instance up to 25,
+    the shared-memory "wide" instance above it up to 88 and the
+    "wide_chunked" instance past 88; other SH basis_dims are refused."""
     data_dim = 3 * max(bd, 1) + 1
     want = _expected(fmt, bd)
     if want is None:
@@ -79,6 +82,8 @@ def _layout_trees():
         out.append((t, "any"))
         out.append((synthetic.with_lobes(synthetic.make_synthetic_tree(
             "shell", depth=3, basis_dim=32), fmt, 1), "wide"))
+    out.append((synthetic.with_lobes(synthetic.make_synthetic_tree(
+        "shell", depth=3, basis_dim=96), BasisFormat.SG, 1), "wide_chunked"))
     return out
 
 
@@ -97,16 +102,22 @@ def test_instance_codes_follow_the_cuda_enum():
     """CLASSIC_LAYOUTS[i] is csrc/render.cu's ClassicLayout value i + 1
     (the code the wrapper passes in RenderParams.classic); the unrolled
     "any" instance holds basis_dim <= kMaxBasis = CLASSIC_MAX_BASIS in
-    registers and the wide one takes the rest: classic_layout and is_wide
-    at the boundary, and the "_wide" launch names of K1, render_classic
-    and their ray modes."""
+    registers, the wide one up to kWideSmemMaxBasis =
+    CLASSIC_WIDE_MAX_BASIS in shared memory and the chunked one takes the
+    rest: classic_layout and is_wide at the boundaries, and the "_wide"
+    launch names of K1, render_classic and their ray modes (and
+    render_classic's "_wide_chunked")."""
     src = open(RENDER_CU).read()
     body = re.search(r"enum ClassicLayout : int \{(.*?)\};", src, re.S)
     names = re.findall(r"kClassic(\w+)", body.group(1))
     assert re.search(r"kClassicSh1 = 1\b", body.group(1))
-    assert [n.lower() for n in names] == list(tr.CLASSIC_LAYOUTS)
+    # CamelCase to the layout's name: WideChunked -> wide_chunked
+    assert [re.sub(r"(?<=.)([A-Z])", r"_\1", n).lower()
+            for n in names] == list(tr.CLASSIC_LAYOUTS)
     assert re.search(r"kMaxBasis\s*=\s*(\d+)\s*;", src).group(1) == str(
         tr.CLASSIC_MAX_BASIS)
+    assert re.search(r"kWideSmemMaxBasis\s*=\s*(\d+)\s*;", src).group(
+        1) == str(tr.CLASSIC_WIDE_MAX_BASIS)
     # the host's choice at the boundary, for both lobe formats
     bd = tr.CLASSIC_MAX_BASIS
     for fmt in (BasisFormat.SG, BasisFormat.ASG):
@@ -114,9 +125,16 @@ def test_instance_codes_follow_the_cuda_enum():
         assert tr.classic_layout(fmt.value, bd + 1, 4 * bd + 4) == "wide"
     assert not tr.is_wide(types.SimpleNamespace(basis_dim=bd))
     assert tr.is_wide(types.SimpleNamespace(basis_dim=bd + 1))
+    bd = tr.CLASSIC_WIDE_MAX_BASIS
+    for fmt in (BasisFormat.SG, BasisFormat.ASG):
+        assert tr.classic_layout(fmt.value, bd, 4 * bd) == "wide"
+        assert tr.classic_layout(fmt.value, bd + 1,
+                                 4 * bd + 4) == "wide_chunked"
     for name in ("render", "render_classic", "render_rays",
                  "render_classic_rays"):
         assert {name, name + "_wide"} <= set(native.LAUNCHES)
+    for name in ("render_classic", "render_classic_rays"):
+        assert name + "_wide_chunked" in native.LAUNCHES
 
 
 def test_render_params_mirror_follows_the_cuda_struct():

@@ -173,6 +173,31 @@ def _launch_each_wrapper(shell, device):
     pr.row_ring_rounds(t(idx), t(table), 8, 2)
     idx, table = _flat_inputs(5, 1 << 10)
     pr.flat_gather_chain(t(idx), t(table), 3)
+    # the wide instances: SG rows past basis_dim 25 (render_classic's
+    # chunked instance past 88), nine levels, a 96-channel net
+    classic = RenderOptions(estimator="classic", denoise=False)
+    for bd in (32, 96):
+        wt = tt.upload_tree(_wide_tree("SG", bd, depth=3), lut_levels=0,
+                            device=device)
+        d, v, c, dst = _aimed_rays(wt, 8, 1)
+        if bd <= tr.CLASSIC_WIDE_MAX_BASIS:
+            tr.render_noisy(wt, tf, 1, 1, **dict(kw, opt=RenderOptions(
+                spp=1, denoise=False)))
+            tr.trace_rays(wt, d, v, c, dst, RenderOptions(spp=1))
+        tr.render_noisy(wt, tf, 1, 1, **dict(kw, opt=classic))
+        tr.trace_rays_classic(wt, d, v, c, RenderOptions())
+    act, img = _filter_inputs(1, L=9, H=8, W=8)
+    guided_filter(t(act).to(torch.bfloat16), t(img), tuple(range(9)))
+    cfg = GuidanceNetConfig(mid_channels=96, kernel_levels=2)
+    build_compact(cfg, {f"block_{i}": {
+        "kernel": (rs.standard_normal((3, 3, cin, cout)) * 0.05).astype(
+            np.float32),
+        "bias": rs.standard_normal(cout).astype(np.float32)}
+        for i, (cin, cout) in enumerate(cfg.layer_channels())},
+        device).activation(aux[None])
+    w, g, x, G = (t(a) for a in _batch_inputs(1, B=1, L=9, H=8, W=8))
+    w.requires_grad_()
+    guided_filter_batch(w, g, x, tuple(range(9))).backward(G)
 
 
 def test_cpu_tensors_take_the_plain_versions(shell):
@@ -184,8 +209,9 @@ def test_cpu_tensors_take_the_plain_versions(shell):
 
 @pytest.mark.cuda
 def test_each_wrapper_counts_its_launch(shell, cuda_device):
-    """One count per kernel launched: the level-3 LUT build is one launch,
-    the skip distances three (a row pass and two axis passes)."""
+    """One count per kernel launched, the wide instances' too: the level-3
+    LUT build is one launch, the skip distances three (a row pass and two
+    axis passes)."""
     native.reset_launches()
     _launch_each_wrapper(shell, cuda_device)
     torch.cuda.synchronize()
@@ -1198,16 +1224,22 @@ def test_k5_k6_wide_instances_match_plain(shape, supports, gscale, spike,
                                           cuda_device):
     """K5's and K6's wide instances (chosen on the host: more than 8
     levels, a support above 8, B or B x L past 65,535) against the plain
-    versions, with their guard counts, one launch each."""
+    versions, with their guard counts, one launch each; K5's outputs equal
+    bit for bit on a second call."""
     w, g, x, G = (torch.from_numpy(a).to(cuda_device) for a in
                   _k56_inputs(shape, supports, gscale, spike))
     native.reset_launches()
-    _hold_k56(w, g, x, G, supports)
+    held = _hold_k56(w, g, x, G, supports)
     B, L = shape[0], len(supports)
     fwd = "guided_filter_batch" + ("_wide" if B > 65535 or L > 8 or
                                    max(supports) > 8 else "")
     assert native.LAUNCHES[fwd] == 1
     assert native.LAUNCHES["guided_filter_batch_bwd_wide"] == 1
+    again = guided_filter_batch_fwd(w, g, x, supports)
+    assert torch.equal(again[0], held[0])
+    for a, b in zip(_written(held, supports)[1:3],
+                    _written((again[0], *again[1]), supports)[1:3]):
+        assert torch.equal(a, b)
 
 
 def _wide_tree(fmt, bd, depth=5):
@@ -1245,25 +1277,30 @@ def test_k1_wide_basis_matches_plain(layout, spp, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("layout", ["SG32", "ASG32", "SG48"])
+@pytest.mark.parametrize("layout", ["SG32", "ASG32", "SG48", "ASG48",
+                                    "SG80", "SG88", "SG96"])
 def test_render_classic_wide_basis_matches_plain(layout, cuda_device):
-    """render_classic's wide instance, frame and ray mode, within IMG_TOL /
-    AUX_TOL of its plain version at full-depth and level-3 LUTs."""
+    """render_classic's wide instances, frame and ray mode, within IMG_TOL /
+    AUX_TOL of its plain version at full-depth and level-3 LUTs, with and
+    without a basis_minmax mask: the shared-memory instance up to
+    basis_dim 88, the chunked one at 96."""
     fmt = layout.rstrip("0123456789")
-    tree = _wide_tree(fmt, int(layout[len(fmt):]))
+    bd = int(layout[len(fmt):])
+    tree = _wide_tree(fmt, bd)
+    name = "_wide" if bd <= tr.CLASSIC_WIDE_MAX_BASIS else "_wide_chunked"
     transform, kw = _render_args(1, 37, 23)
     tf = torch.from_numpy(transform).to(cuda_device)
-    kw["opt"] = _classic_opt()
-    for levels in (5, 3):
+    for levels, mask in ((5, (0, 100)), (3, (0, 100)), (5, (3, 20))):
+        kw["opt"] = _classic_opt(basis_minmax=mask)
         dt = tt.upload_tree(tree, lut_levels=levels, device=cuda_device)
         native.reset_launches()
         got = tr.render_noisy(dt, tf, 1, 1, **kw)
-        assert native.LAUNCHES["render_classic_wide"] == 1
+        assert native.LAUNCHES["render_classic" + name] == 1
         ref = tr.render_noisy_plain(dt, tf, 1, 1, **kw)
         for a, b, tol in zip(got, ref, (IMG_TOL, AUX_TOL, AUX_TOL)):
             torch.testing.assert_close(a, b, atol=tol, rtol=0)
         d, v, c, _ = _aimed_rays(dt, 1000, 1, 3, unit=False)
-        got = tr.trace_rays_classic(dt, d, v, c, _classic_opt())
-        assert native.LAUNCHES["render_classic_rays_wide"] == 1
-        ref = tr.trace_rays_classic_plain(dt, d, v, c, _classic_opt())
+        got = tr.trace_rays_classic(dt, d, v, c, kw["opt"])
+        assert native.LAUNCHES["render_classic_rays" + name] == 1
+        ref = tr.trace_rays_classic_plain(dt, d, v, c, kw["opt"])
         torch.testing.assert_close(got, ref, atol=IMG_TOL, rtol=0)

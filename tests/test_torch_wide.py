@@ -4,7 +4,9 @@ plain versions against the JAX package, which takes them all: compact
 nets of 96 and 128 channels against Flax, the guided filter at 12 and 16
 levels, the batched filter and its gradient at 12 levels, a training step
 of the Runner at --mid_channels 96 --kernel_levels 12, SG and ASG frames
-of basis_dim 32; and the SH-lobe mesh tool against the JAX tool.
+of basis_dim 32, the classic estimator's frames and rays at basis_dim 32
+and 48; NumPy statements of K2 wide's and K5 wide's tile algorithms; and
+the SH-lobe mesh tool against the JAX tool.
 
 The JAX filter's exact path runs eagerly (``jax.disable_jit``): at 12
 levels it unrolls ~3,000 window taps, which take XLA longer to compile
@@ -14,6 +16,7 @@ path too) on inputs where the guard takes it, as the JAX training step
 does.  Tolerances are those of each function's existing tests."""
 
 import os
+import re
 import subprocess
 import sys
 
@@ -267,6 +270,56 @@ def test_wide_basis_frame_matches_jax(fmt):
     assert aux[3].max() > 0.5
 
 
+def _wide_trees(fmt, bd, depth=5):
+    """(port tree, JAX tree): a shell of ``depth`` with with_lobes' SG /
+    ASG rows of basis_dim ``bd``, the same arrays in the JAX package's
+    tree."""
+    tree = tsyn.with_lobes(tsyn.make_synthetic_tree("shell", depth=depth,
+                                                    basis_dim=bd),
+                           BasisFormat[fmt], bd)
+    jtree = jsyn.make_synthetic_tree("shell", depth=depth, basis_dim=bd)
+    jtree.data = tree.data.copy()
+    jtree.extra = tree.extra.copy()
+    jtree.data_format = JFormat(JBasis[fmt], bd)
+    return tree, jtree
+
+
+# the classic estimator: tests/test_torch_classic.py's bar
+CLASSIC_TOL = 1e-5
+
+
+@pytest.mark.parametrize("fmt,bd", [("SG", 32), ("ASG", 32), ("SG", 48)],
+                         ids=["SG32", "ASG32", "SG48"])
+def test_wide_classic_estimator_matches_jax(fmt, bd):
+    """The classic estimator on SG / ASG rows past basis_dim 25
+    (render_classic's wide instances on the card): a 32x32 classic frame
+    of a depth-5 shell through the port's Renderer against the JAX
+    Renderer, and 256 aimed rays through trace_rays_classic against the
+    JAX package's (renderer.py:1060), both at the classic bar."""
+    tree, jtree = _wide_trees(fmt, bd)
+    cam = JCamera(width=32, height=32, fx=53.0, fy=53.0)
+    jopt = JOptions(spp=1, denoise=False, estimator="classic")
+    r = jr.Renderer(jt.upload_tree(jtree, lut_levels=5), 32, 32, cam.fx,
+                    cam.fy, options=jopt)
+    img_j, aux_j = (np.asarray(a) for a in r.render(cam.transform))
+    dt = tt.upload_tree(tree, lut_levels=5, device="cpu")
+    assert tr.classic_layout(dt.fmt, dt.basis_dim, dt.data_dim) == "wide"
+    opt = RenderOptions(spp=1, denoise=False, estimator="classic")
+    rp = tr.Renderer(dt, 32, 32, cam.fx, cam.fy, options=opt)
+    img, aux = (a.numpy() for a in rp.render(cam.transform))
+    np.testing.assert_allclose(img, img_j, atol=CLASSIC_TOL, rtol=0)
+    np.testing.assert_allclose(aux, aux_j, atol=CLASSIC_TOL, rtol=0)
+    assert aux[3].max() > 0.5
+    d, v, c = tsyn.aimed_rays(np.random.default_rng(bd), 256)
+    t = torch.from_numpy
+    got = tr.trace_rays_classic(dt, t(d), t(v), t(c), opt).numpy()
+    ref = np.asarray(jr.trace_rays_classic(
+        jt.upload_tree(jtree, lut_levels=5), jnp.asarray(d), jnp.asarray(v),
+        jnp.asarray(c), jr.FrozenOptions.from_options(jopt)))
+    np.testing.assert_allclose(got, ref, atol=CLASSIC_TOL, rtol=0)
+    assert (got[:, 3] > 0).mean() > 0.5
+
+
 @pytest.mark.parametrize("max_degree", [0, 1, 2, 3, 4])
 def test_gen_sh_mesh_writes_the_jax_tools_files(max_degree, tmp_path):
     """rt_octree_tpu_torch/tools/gen_sh_mesh.py against tools/gen_sh_mesh.py
@@ -309,6 +362,10 @@ def test_wide_instances_are_chosen_on_the_host():
     with pytest.raises(ValueError, match="CUDA"):  # the card's instance
         tf.guided_filter_wide_stats(torch.zeros(1, 24, 4, 4),
                                     torch.zeros(4, 4, 4), LADDER12)
+    with pytest.raises(ValueError, match="CUDA"):
+        tf.guided_filter_batch_wide_stats(
+            torch.zeros(1, 12, 4, 4), torch.zeros(1, 12, 4, 4),
+            torch.zeros(1, 4, 4, 4), LADDER12)
     for kw, wide in ((WIDE_NETS["8-96-24"], [True, True]),
                      (WIDE_NETS["8-128-128-8"], [True] * 3),
                      ({}, [False, False])):
@@ -426,3 +483,154 @@ def test_k2_wide_tile_statement_matches_plain_and_jax(spike):
                                          jnp.asarray(img), exact=False,
                                          supports=LADDER12))
         np.testing.assert_allclose(out, jref, atol=FILTER_TOL, rtol=0)
+
+
+def _run_sums_schedule(x, N, S):
+    """The window sums of csrc/filter.cu:run_sums_any over inputs x
+    (f32, N + 2S of them) in the order the kernel adds them: where
+    2S >= N - 1 run_sums_wide's head (inputs 0..N-1 start and extend the
+    sums), middle (inputs N..2S add to all) and tail (inputs 2S + t add to
+    the sums o >= t); else run_sums' predicated loop.  -> acc [N]."""
+    acc = [None] * N
+    if 2 * S >= N - 1:
+        for i in range(N):
+            for o in range(i):
+                acc[o] = np.float32(acc[o] + x[i])
+            acc[i] = x[i]
+        for i in range(N, 2 * S + 1):
+            for o in range(N):
+                acc[o] = np.float32(acc[o] + x[i])
+        for t in range(1, N):
+            for o in range(t, N):
+                acc[o] = np.float32(acc[o] + x[2 * S + t])
+    else:
+        for i in range(N + 2 * S):
+            for o in range(N):
+                if o == i:
+                    acc[o] = x[i]
+                elif o < i <= o + 2 * S:
+                    acc[o] = np.float32(acc[o] + x[i])
+    return np.array(acc, np.float32)
+
+
+FILTER_CU = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "rt_octree_tpu_torch", "csrc", "filter.cu")
+
+
+def _filter_cu_int(name):
+    """The value of csrc/filter.cu's ``constexpr int`` ``name``."""
+    src = open(FILTER_CU).read()
+    return int(re.search(rf"\b{name}\s*=\s*(\d+)\s*[;,]", src).group(1))
+
+
+@pytest.mark.parametrize("run", ["kWideRowRun", "kColRun"],
+                         ids=["row pass", "column pass"])
+def test_k5_wide_run_sums_keep_the_tap_order(run):
+    """K5 wide's window sums at every runtime support 1..32 add each
+    output's 2S + 1 inputs left to right, as K5's tile statement and the
+    first wide instance do: bit-equal in f32 to x[o] + x[o + 1] + ... +
+    x[o + 2S], on inputs whose sums round differently in another order.
+    N, the outputs a task sums, is read from csrc/filter.cu (the row
+    pass's 10 switches from the unrolled run_sums to run_sums_wide between
+    S = 4 and 5, the column pass's 4 between S = 1 and 2)."""
+    N = _filter_cu_int(run)
+    rs = np.random.default_rng(N)
+    for S in range(1, 33):
+        x = (rs.standard_normal(N + 2 * S) * 10.0 ** rs.integers(
+            -4, 5, N + 2 * S)).astype(np.float32)
+        want = []
+        for o in range(N):
+            a = x[o]
+            for k in range(1, 2 * S + 1):
+                a = np.float32(a + x[o + k])
+            want.append(a)
+        np.testing.assert_array_equal(_run_sums_schedule(x, N, S),
+                                      np.array(want, np.float32))
+
+
+def _k5_wide_statement(w, g, x, supports):
+    """K5 wide's algorithm in NumPy: K5's tile algorithm
+    (test_torch_train_filter.k5_statement: per 40x16 tile and level one
+    range reduction over the staged region, e = exp(g - c) once a staged
+    pixel, (e rgb, e) summed as separable shifted adds at the level's
+    runtime support, the 60-nat guard's per-window form) with a tile's
+    levels in order into out (no level split) -> (out, fm, den, the
+    guarded (b, l, y0, x0))."""
+    from tests.test_torch_train_filter import k5_statement
+    return k5_statement(w, g, x, supports,
+                        (tf.BATCH_TILE_W, tf.BATCH_TILE_H))
+
+
+def _backward_from_saved(G, w, g, x, fm, den, supports):
+    """The batched filter's closed-form backward (the module doc of
+    ops/filtering.py) from K5's saved tensors, per tap in NumPy: dL/dw =
+    G . f and dL/dg_q = sum_{p in N(q)} exp(g_q - m_p) / D_p w_p (G_p . x_q
+    - G_p . f_p)."""
+    B, L, H, W = w.shape
+    G, rgb = G[..., :3], x[..., :3]
+    gw = np.zeros((B, L, H, W), np.float64)
+    gg = np.zeros((B, L, H, W), np.float64)
+    for l, s in enumerate(supports):
+        f, m = fm[:, l, ..., :3], fm[:, l, ..., 3]
+        gw[:, l] = (G * (rgb if s == 0 else f)).sum(-1)
+        if s == 0:
+            continue
+        a = w[:, l] / den[:, l]
+        u, v = G * a[..., None], a * (G * f).sum(-1)
+        pad = ((0, 0), (s, s), (s, s))
+        mp = np.pad(m, pad, constant_values=np.inf)
+        up = np.pad(u, pad + ((0, 0),))
+        vp = np.pad(v, pad)
+        for dy in range(2 * s + 1):
+            for dx in range(2 * s + 1):
+                k = np.exp(g[:, l] - mp[:, dy:dy + H, dx:dx + W])
+                ux = (up[:, dy:dy + H, dx:dx + W] * rgb).sum(-1)
+                gg[:, l] += k * (ux - vp[:, dy:dy + H, dx:dx + W])
+    return gw, gg
+
+
+@pytest.mark.parametrize("spike", [False, True],
+                         ids=["seeded", "80-nat spike"])
+def test_k5_wide_tile_statement_matches_plain_and_jax(spike):
+    """K5 wide's tile algorithm at the ladder 1..12 on a batch of two
+    70x75 images: out against K5's plain version and, on the seeded
+    inputs, JAX's fast path (what the JAX training step takes); the saved
+    f against the plain level sums and D against the plain window
+    denominator (D exp(m - m_window)); the guard exactly in the (image,
+    level, tile) triples whose region holds an 80-nat spike, and in none
+    on the seeded inputs, as the counter reads on the card; and the
+    closed-form backward from the saved tensors against K6's plain
+    version."""
+    L, H, W, yx = 12, 70, 75, (40, 50)
+    w, g, x, G = _filter_inputs(23, L, H, W, B=2)
+    if spike:
+        g[1, :, yx[0], yx[1]] = 80.0
+    out, fm, den, guards = _k5_wide_statement(w, g, x, LADDER12)
+    t = torch.from_numpy
+    ref = tf.guided_filter_batch_plain(t(w), t(g), t(x), LADDER12)
+    np.testing.assert_allclose(out, ref.numpy(), atol=FILTER_TOL, rtol=0)
+    for l, s in enumerate(LADDER12):
+        f_p, m_p, d_p = (a.numpy() for a in tf._level_sums(
+            t(x[..., :3]), t(g[:, l]), s))
+        np.testing.assert_allclose(fm[:, l, ..., :3], f_p, atol=FILTER_TOL)
+        np.testing.assert_allclose(
+            den[:, l] * np.exp(fm[:, l, ..., 3] - m_p), d_p, rtol=1e-5)
+    tw, th = tf.BATCH_TILE_W, tf.BATCH_TILE_H
+    want = {(1, l, y0, x0) for l, s in enumerate(LADDER12)
+            for y0 in range(0, H, th) for x0 in range(0, W, tw)
+            if spike and y0 - s <= yx[0] < y0 + th + s
+            and x0 - s <= yx[1] < x0 + tw + s}
+    assert guards == want
+    assert len(want) < tf.batch_tiles(2, H, W, LADDER12)
+    gw, gg = _backward_from_saved(G, w, g, x, fm, den, LADDER12)
+    rw, rg = tf.guided_filter_backward_plain(t(G), t(w), t(g), t(x),
+                                             LADDER12)
+    np.testing.assert_allclose(gw, rw.numpy(), rtol=GRAD_RTOL,
+                               atol=GRAD_ATOL)
+    np.testing.assert_allclose(gg, rg.numpy(), rtol=GRAD_RTOL,
+                               atol=GRAD_ATOL)
+    if not spike:
+        assert _guard_holds(g)
+        out_j = _jax_fast_vjp(LADDER12)(w, g, x, G)[0]
+        np.testing.assert_allclose(out, np.asarray(out_j), atol=FILTER_TOL,
+                                   rtol=0)
