@@ -312,14 +312,17 @@ JSON line {"filter_pairs": ...}.
 headline tree's 800x800 frame (pose r_0, SPP 6) denoised by that net,
 render_classic's wide instance on the SG32 depth-8 shell at 800x800
 (frame and ray mode, the rays in row order and in the frame's 8x4
-tiles) and K5's wide instance on the L = 12 train batch,
-as one JSON line {"wide_times": ...}, the outputs saved in
-build/chip_smoke; --wide-pairs runs it in PAIRS (default 6) pairs of
-processes, this script on OTHER_ROOT's package and on its own in turns,
-and prints each side's times, their paired differences and the largest
-differences between the two sides' outputs (the denoised frames at most
-WIDE_PAIRS_FRAME_TOL, render_classic's frames and rays 0, K5's outputs
-at most K5_TOL) as one JSON line {"wide_pairs": ...}.
+tiles), its chunked instance on WIDE_CHUNKED_TREE (frame and rays), and
+K5's and K6's wide instances on the L = 12 train batch, as one JSON line
+{"wide_times": ...}, the outputs saved in build/chip_smoke (with the
+classic frames and rays of WIDE_PAIRS_TREES); --wide-pairs runs it in
+PAIRS (default 6) pairs of processes, this script on OTHER_ROOT's
+package and on its own in turns, and prints each side's times, their
+paired differences and the largest differences between the two sides'
+outputs (the denoised frames at most WIDE_PAIRS_FRAME_TOL,
+render_classic's frames and rays 0, K5's outputs at most K5_TOL, K6's
+gradients at most K6_REL_TOL of the other side's largest) as one JSON
+line {"wide_pairs": ...}.
 
     python3 chip_smoke.py --wide-sweep [ROOT]
 
@@ -548,12 +551,12 @@ PROBE_KERNELS = {
 # the wide kernels' entry functions in ptxas's report: (source, kernel) ->
 # instances (K7's fused wide instance a block-1 n-group of 2, 3, 4; its
 # per-block plan 1, 2, 4; K2's tiles of 32 x 32 and 16 x 8, and the 32 x
-# 32 statistics instance)
+# 32 statistics instance; K5's and K6's timed and statistics instances)
 WIDE_PTXAS = {("net", "guidance_wide2_kernel"): 3,
               ("net", "guidance_wide_kernel"): 3,
               ("filter", "guided_filter_wide_kernel"): 3,
               ("filter", "guided_filter_batch_wide_kernel"): 2,
-              ("filter", "guided_filter_batch_bwd_wide_kernel"): 1}
+              ("filter", "guided_filter_batch_bwd_wide_kernel"): 2}
 # the wide kernels (launch name -> source, what they stand in for)
 WIDE_KERNELS = {
     "guidance_net_wide": ("rt_octree_tpu_torch/csrc/net.cu",
@@ -572,7 +575,7 @@ WIDE_KERNELS = {
                          "rt_octree_tpu/render/renderer.py:540"),
     "render_classic_rays_wide": ("rt_octree_tpu_torch/csrc/render.cu",
                                  "rt_octree_tpu/render/renderer.py:1060"),
-    # render_classic's chunked wide instance: basis_dim above 88
+    # render_classic's chunked wide instance: basis_dim above 40
     "render_classic_wide_chunked": ("rt_octree_tpu_torch/csrc/render.cu",
                                     "rt_octree_tpu/render/renderer.py:1060"),
     "render_classic_rays_wide_chunked": (
@@ -858,10 +861,12 @@ def classic_layout_trees():
     """A depth-6 shell in each row layout render_classic is instantiated
     on: SH at basis_dim 1, 4, 9, 16, 25, raw rgb, SG and ASG at basis_dim
     4 and 25 (random lobes), an RGBA-format tree with a basis_dim (a
-    zero basis, the "any" instance), SG32 and ASG48 (the wide instance)
-    and SG96 (the chunked wide instance); as (label, tree, layout)."""
+    zero basis, the "any" instance), SG32 and ASG40 (the wide instance)
+    and ASG48, SG96 and SG232 (the chunked wide instance, SG232 past its
+    shared prefix); as (label, tree, layout)."""
     from rt_octree_tpu_torch.io import synthetic
     from rt_octree_tpu_torch.io.n3tree import BasisFormat, DataFormat
+    from rt_octree_tpu_torch.render import renderer as R
     out = []
     for bd in (1, 4, 9, 16, 25):
         out.append((f"SH{bd}", synthetic.make_synthetic_tree(
@@ -884,9 +889,14 @@ def classic_layout_trees():
     zero = synthetic.make_synthetic_tree("shell", depth=6, basis_dim=4)
     zero.data_format = DataFormat(BasisFormat.RGBA, 4)
     out.append(("RGBA-format basis_dim 4", zero, "any"))
-    for label, fmt, bd in (("SG32", "SG", 32), ("ASG48", "ASG", 48)):
-        out.append((label, wide_tree(label, fmt, bd), "wide"))
-    out.append(("SG96", wide_tree("SG96", "SG", 96), "wide_chunked"))
+    for label, fmt, bd in (("SG32", "SG", 32), ("ASG40", "ASG", 40),
+                           ("ASG48", "ASG", 48), ("SG96", "SG", 96),
+                           ("SG232", "SG", 232)):
+        t = wide_tree(label, fmt, bd)
+        out.append((label, t, R.classic_layout(
+            t.data_format.format.value, bd, t.data_dim)))
+    require([t[2] for t in out[-5:]] == ["wide"] * 2 + ["wide_chunked"] * 3,
+            "the wide trees do not take the wide and chunked instances")
     return out
 
 
@@ -1414,7 +1424,7 @@ def wide_tree(label, fmt, bd, depth=6):
     return synthetic.with_lobes(tree, BasisFormat[fmt], bd)
 
 
-# render_classic's chunked wide instance (basis_dim above 88) on the card:
+# render_classic's chunked wide instance (basis_dim above 40) on the card:
 # (label, format, basis_dim, shell depth) of the tree it is timed on and
 # that the wide path renders
 WIDE_CHUNKED_TREE = ("SG96", "SG", 96, 7)
@@ -1656,12 +1666,17 @@ def phase_wide(err):
     frames (SPP 6, classic) held, and the SG32 frame's own 640,000 rays
     held in both ray modes.  K7's launches a frame are pinned for each
     net (net_plan); K2 is held on each case as given and channels last,
-    and on WIDE_K2_GUARD_CASE, which must take the guard.  Returns (ms,
-    bounds) of the eight wide kernels, each timed at the path's shapes:
-    the 8 -> 96 -> 24 net (the fused wide instance) and K2 at L = 12
-    (channels last) at 800x800, K5 and K6 on the L = 12 train batch (K2's,
-    K5's and K6's bounds from the run's guard shares), K1, render_classic
-    and their ray modes on the SG32 tree at 800x800 (SPP 6)."""
+    and on WIDE_K2_GUARD_CASE, which must take the guard; K5's and K6's
+    statistics instances give their timed instances' outputs bit for bit
+    on the train batch (their phase splits logged), and on the train
+    batch with a spike each takes its guard exactly where its regions span
+    GUARD_RANGE.  Returns (ms, bounds) of the wide kernels, each timed at
+    the path's shapes: the 8 -> 96 -> 24 net (the fused wide instance; the
+    per-block plan's 8 -> 128 -> 128 -> 8 net and its cuDNN chain logged)
+    and K2 at L = 12 (channels last) at 800x800, K5 and K6 on the L = 12
+    train batch (K2's, K5's and K6's bounds from the run's guard shares),
+    K1, render_classic and their ray modes on the SG32 tree at 800x800
+    (SPP 6), and the chunked instance on WIDE_CHUNKED_TREE."""
     import torch
     from rt_octree_tpu_torch.core.camera import Camera
     from rt_octree_tpu_torch.core.options import RenderOptions
@@ -1701,28 +1716,37 @@ def phase_wide(err):
     aux = k7_aux(800, 800)
     ws = [c.weight for c in net.convs]
     bs = [c.bias for c in net.convs]
-    wb = [w_.to(torch.bfloat16) for w_ in ws]
-    bb = [b_.to(torch.bfloat16)[None, :, None, None] for b_ in bs]
 
-    def cudnn_chain():
-        x = aux.permute(0, 3, 1, 2).to(torch.bfloat16)
-        for w_, b_ in zip(wb, bb):
-            x = torch.nn.functional.relu6(
-                torch.nn.functional.conv2d(x, w_, padding=1) + b_)
-        return x
+    def cudnn_chain(net_):
+        """cuDNN's chain for net_ (permute, cast, then conv, bias and relu6
+        a block): the library yardstick, used nowhere in the port."""
+        wb = [c.weight.to(torch.bfloat16) for c in net_.convs]
+        bb = [c.bias.to(torch.bfloat16)[None, :, None, None]
+              for c in net_.convs]
+
+        def run():
+            x = aux.permute(0, 3, 1, 2).to(torch.bfloat16)
+            for w_, b_ in zip(wb, bb):
+                x = torch.nn.functional.relu6(
+                    torch.nn.functional.conv2d(x, w_, padding=1) + b_)
+            return x
+        return run
+    chain = nets["8 -> 128 -> 128 -> 8"]
     with torch.no_grad():
         ms["guidance_net_wide"] = (
             device_ms(lambda: net.activation(aux), 50, 5),
             cuda_ms(lambda: compact_activation_plain(aux, ws, bs), 10, 2))
-        lib = device_ms(cudnn_chain, 50, 5)
-        chain = nets["8 -> 128 -> 128 -> 8"]
+        lib = device_ms(cudnn_chain(net), 50, 5)
         chain_ms = device_ms(lambda: chain.activation(aux), 20, 2)
+        chain_lib = device_ms(cudnn_chain(chain), 20, 2)
     bounds["guidance_net_wide"] = k7_bound(net, 800 * 800) + (lib,)
     log(f"[wide] K7 per-block plan, 8 -> 128 -> 128 -> 8 at 800x800 (3 "
         f"launches): {chain_ms:.4f} ms, bound "
-        f"{k7_bound(chain, 800 * 800)[0]:.4f} ms")
-    err.setdefault("k7", {"holds": {}, "ms": {}})["ms"][
-        "wide chain 8 -> 128 -> 128 -> 8 800x800"] = chain_ms
+        f"{k7_bound(chain, 800 * 800)[0]:.4f} ms, cuDNN chain "
+        f"{chain_lib:.4f} ms")
+    k7_ms = err.setdefault("k7", {"holds": {}, "ms": {}})["ms"]
+    k7_ms["wide chain 8 -> 128 -> 128 -> 8 800x800"] = chain_ms
+    k7_ms["wide chain 8 -> 128 -> 128 -> 8 800x800 cudnn"] = chain_lib
     # ---- K2's wide instance ----
     for label, sup, H, W in WIDE_K2_CASES:
         L = len(sup)
@@ -1812,6 +1836,15 @@ def phase_wide(err):
                 f"{got_st[2]['cycles_per_block']}")
             err.setdefault("k5_wide", {})[label] = {"guard_share": guard[0],
                                                     "stats": got_st[2]}
+            gw, gg = Fm.guided_filter_batch_bwd(G, w, g, x, saved, sup)
+            gw_st, gg_st, st6 = Fm.guided_filter_batch_bwd_wide_stats(
+                G, w, g, x, saved, sup)
+            require(bool(torch.equal(gw, gw_st) and torch.equal(gg, gg_st)),
+                    "K6 wide's statistics instance gave other gradients")
+            log(f"[wide] K6 {label}: cycles a block (thread 0) "
+                f"{st6['cycles_per_block']}, share {st6['share']}")
+            err.setdefault("k6_wide", {})[label] = {"guard_share": guard[1],
+                                                    "stats": st6}
     # K5 wide's guard on the train batch with a spike in image 0: exactly
     # the (tile, level) pairs whose staged region holds it
     label, B, sup, H, W = WIDE_K56_CASES[0]
@@ -1819,7 +1852,7 @@ def phase_wide(err):
     y, xx = WIDE_K5_SPIKE_YX
     g[0, :, y, xx] = WIDE_K2_SPIKE
     label += f", an {WIDE_K2_SPIKE:g}-nat spike"
-    hold_k56(label, w, g, x, G, sup, err)
+    saved = hold_k56(label, w, g, x, G, sup, err)
     tiles = Fm.batch_tiles(B, H, W, sup)
     want = sum(1 for s in sup if s > 0
                for y0 in range(0, H, Fm.BATCH_TILE_H)
@@ -1834,6 +1867,26 @@ def phase_wide(err):
             f"K5 wide's guard on {label}: {round(share * tiles)} (tile, "
             f"level) pairs, not the {want} whose region holds the spike")
     err["k5_wide"][label] = {"guard_share": share, "guarded_pairs": want}
+    # K6 wide's guard: exactly the (tile, level) pairs whose region of
+    # saved stabilisers spans GUARD_RANGE nats
+    m = saved[0][..., 3].cpu().numpy()
+    want6 = 0
+    for b in range(B):
+        for l, s in enumerate(sup):
+            for y0 in range(0, H, Fm.BATCH_TILE_H) if s else ():
+                for x0 in range(0, W, Fm.BATCH_TILE_W):
+                    r = m[b, l, max(y0 - s, 0):y0 + Fm.BATCH_TILE_H + s,
+                          max(x0 - s, 0):x0 + Fm.BATCH_TILE_W + s]
+                    want6 += int(r.max() - r.min() >= Fm.GUARD_RANGE)
+    share6 = guard_share(lambda d: Fm.guided_filter_batch_bwd(
+        G, w, g, x, saved, sup, guards=d), tiles)
+    log(f"[wide] K6 {label}: guard share {share6:.4g} of {tiles} "
+        f"tile-levels ({round(share6 * tiles)}, {want6} whose saved "
+        "stabilisers span the guard's range)")
+    require(round(share6 * tiles) == want6 and want6 > 0,
+            f"K6 wide's guard on {label}: {round(share6 * tiles)} (tile, "
+            f"level) pairs, not the {want6} whose region spans it")
+    err["k6_wide"][label] = {"guard_share": share6, "guarded_pairs": want6}
     # ---- K1's and render_classic's wide instances ----
     cam = Camera(width=128, height=128, fx=175.0, fy=175.0)
     tf = torch.from_numpy(cam.transform.astype(np.float32)).cuda()
@@ -1962,10 +2015,10 @@ def wide_only():
 
 
 def log_wide_holds(err):
-    """One {"wide_holds": ...} line: K7's wide holds, K2 wide's and K5
-    wide's errors and guard shares."""
-    log(json.dumps({"wide_holds": {k: err.get(k)
-                                   for k in ("k7", "k2_wide", "k5_wide")}}))
+    """One {"wide_holds": ...} line: K7's wide holds, K2 wide's, K5 wide's
+    and K6 wide's errors, guard shares and statistics."""
+    log(json.dumps({"wide_holds": {k: err.get(k) for k in (
+        "k7", "k2_wide", "k5_wide", "k6_wide")}}))
 
 
 def headline_tree_path():
@@ -3300,11 +3353,12 @@ def wide_times(root):
     render_classic's wide instance on the SG32 depth-8 shell at 800x800
     (phase_wide's camera), the frame and its 640,000 rays in ray mode (in
     row order, and in the order of the frame's 8x4 warp tiles: equal
-    outputs, both timed), and K5's wide instance on seeded inputs at the L = 12 train batch
-    (WIDE_K56_CASES' first), by device_ms, their outputs saved for
-    --wide-pairs with their digests, and the classic frames and rays of
-    WIDE_PAIRS_TREES' depth-7 shells, saved too.  One JSON line
-    {"wide_times": ...}."""
+    outputs, both timed), K5's and K6's wide instances on seeded inputs
+    at the L = 12 train batch (WIDE_K56_CASES' first), by device_ms,
+    their outputs saved for --wide-pairs with their digests, the chunked
+    instance's frame and rays on WIDE_CHUNKED_TREE, timed, and the
+    classic frames and rays of WIDE_PAIRS_TREES, saved too.  One JSON
+    line {"wide_times": ...}."""
     import torch
     from rt_octree_tpu_torch.io import n3tree
     from rt_octree_tpu_torch.io.poses import load_poses
@@ -3385,16 +3439,30 @@ def wide_times(root):
     k5 = (k5[0],) + tuple(k5[1])  # out, fm, den
     res["k5_ms"] = device_ms(lambda: Fm.guided_filter_batch_fwd(w, g, x,
                                                                 sup5), 50, 5)
+    G = torch.from_numpy(np.random.default_rng(44).standard_normal(
+        (B, H, W, 4)).astype(np.float32)).cuda()
+    k6 = Fm.guided_filter_batch_bwd(G, w, g, x, k5[1:], sup5)
+    res["k6_ms"] = device_ms(lambda: Fm.guided_filter_batch_bwd(
+        G, w, g, x, k5[1:], sup5), 50, 5)
     res["classic_digest"] = frame_digest(classic + (rays,))
     res["k5_digest"] = frame_digest(k5)
+    res["k6_digest"] = frame_digest(k6)
     outs = {"classic_SG32_img": classic[0], "classic_SG32_aux": classic[1],
             "classic_SG32_rays": rays,
-            **{f"k5_{k}": t for k, t in zip(("out", "fm", "den"), k5)}}
-    # the other wide row layouts' classic frames and rays, for the pairs'
-    # bit-equality (depth-7 shells)
+            **{f"k5_{k}": t for k, t in zip(("out", "fm", "den"), k5)},
+            **{f"k6_{k}": t for k, t in zip(("dw", "dg"), k6)}}
+    # the chunked instance on the wide path's tree, timed, and the other
+    # wide row layouts' classic frames and rays, for the pairs'
+    # bit-equality
     del sg
-    for label, fmt, bd in WIDE_PAIRS_TREES:
-        tree = load_wide_tree(label, fmt, bd, 7)
+    ck = load_wide_tree(*WIDE_CHUNKED_TREE)
+    res["classic_chunked_ms"] = device_ms(
+        lambda: R.render_noisy(ck, tf, 0, 0, opt=copt, **kw), 20, 3)
+    res["classic_chunked_rays_ms"] = device_ms(
+        lambda: R.trace_rays_classic(ck, d, vdirs, c, copt), 20, 3)
+    del ck
+    for label, fmt, bd, depth in WIDE_PAIRS_TREES:
+        tree = load_wide_tree(label, fmt, bd, depth)
         outs[f"classic_{label}_img"], outs[f"classic_{label}_aux"] = \
             R.render_noisy(tree, tf, 0, 0, opt=copt, **kw)[:2]
         outs[f"classic_{label}_rays"] = R.trace_rays_classic(
@@ -3416,10 +3484,11 @@ def wide_pairs(other_root, pairs):
     if not os.path.isfile(os.path.join(WORK, "shell_d9_sh9.npz")):
         headline_tree_path()
     wide_tree_path("SG32", "SG", 32, WIDE_TREE_DEPTH)
-    for label, fmt, bd in WIDE_PAIRS_TREES:
-        wide_tree_path(label, fmt, bd, 7)
+    for label, fmt, bd, depth in WIDE_PAIRS_TREES:
+        wide_tree_path(label, fmt, bd, depth)
     keys = ("k7_ms", "k2_ms", "frame_ms", "classic_ms", "classic_rays_ms",
-            "classic_rays_tiled_ms", "k5_ms")
+            "classic_rays_tiled_ms", "classic_chunked_ms",
+            "classic_chunked_rays_ms", "k5_ms", "k6_ms")
     ms = {side: {k: [] for k in keys} for side in ("other", "this")}
     digests = {side: set() for side in ms}
     for i, side, lines in alternate(other_root, pairs, ["--wide-times"],
@@ -3430,7 +3499,8 @@ def wide_pairs(other_root, pairs):
             ms[side][k].append(got[0][k])
         digests[side].add(tuple(got[0][k] for k in ("digest",
                                                     "classic_digest",
-                                                    "k5_digest")))
+                                                    "k5_digest",
+                                                    "k6_digest")))
     frames = {side: np.load(wide_frame_path(root)) for side, root in
               (("this", HERE), ("other", other_root))}
     diff = float(np.abs(frames["this"] - frames["other"]).max())
@@ -3449,17 +3519,23 @@ def wide_pairs(other_root, pairs):
             f"for bit: {diffs}")
     require(all(diffs[k] <= K5_TOL for k in diffs if k.startswith("k5")),
             f"K5 wide's outputs differ from the other package's: {diffs}")
+    require(all(diffs[k] <= K6_REL_TOL * float(np.abs(
+        outs["other"][k]).max()) for k in diffs if k.startswith("k6")),
+            f"K6 wide's gradients differ from the other package's: {diffs}")
     return 0
 
 
 # --wide-times' other classic trees, held bit for bit by --wide-pairs:
-# (label, format, basis_dim), depth-7 shells
-WIDE_PAIRS_TREES = (("ASG32", "ASG", 32), ("SG48", "SG", 48),
-                    ("ASG48", "ASG", 48))
+# (label, format, basis_dim, shell depth); the chunked instance's SG96,
+# ASG96 and SG232, whose basis passes the shared prefix of 216
+WIDE_PAIRS_TREES = (("ASG32", "ASG", 32, 7), ("SG48", "SG", 48, 7),
+                    ("ASG48", "ASG", 48, 7), ("SG96", "SG", 96, 7),
+                    ("ASG96", "ASG", 96, 7), ("SG232", "SG", 232, 6))
 # --wide-sweep's trees: (label, format, basis_dim), depth-7 shells
-WIDE_SWEEP = (("SG32", "SG", 32), ("SG48", "SG", 48), ("SG64", "SG", 64),
-              ("SG72", "SG", 72), ("SG80", "SG", 80), ("SG88", "SG", 88),
-              ("SG96", "SG", 96))
+WIDE_SWEEP = (("SG32", "SG", 32), ("SG40", "SG", 40), ("SG48", "SG", 48),
+              ("SG64", "SG", 64), ("SG72", "SG", 72), ("SG80", "SG", 80),
+              ("SG88", "SG", 88), ("SG96", "SG", 96), ("SG128", "SG", 128),
+              ("SG192", "SG", 192))
 
 
 def wide_sweep(root):

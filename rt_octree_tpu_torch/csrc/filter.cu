@@ -940,48 +940,21 @@ RT_API int rt_guided_filter_batch_bwd(
 //    bytes and three blocks fit an SM (15 warps, the 320 blocks in one
 //    wave); the next level's weight and guidance are staged as soon as the
 //    row pass has read this level's e (behind the column pass).
+//
+// K6's wide instance (guided_filter_batch_bwd_wide_kernel) takes a block a
+// tile, image and level (3,840 blocks at the training batch), stages (u_p,
+// v_p) and m_p over the level's region, reduces m's range and sums each
+// output's window terms in run_sums' order, with K5 wide's remedies:
+//  - e_p = exp(mn - m_p) is taken once per staged pixel, in place into its
+//    (u_p, v_p), so the row pass reads scaled values with no expf;
+//  - the window sums add without runtime predicates (run_sums_any), a
+//    row-pass task of kWideRowRun outputs;
+//  - m_p shares the row sums' buffer until e, so that the block takes
+//    67,840 bytes at R = 12 and three blocks fit an SM.
+// The guard keeps its per-window form on unscaled (u_p, v_p) and m_p.
 // ---------------------------------------------------------------------------
 
 namespace {
-
-// run_sums at a runtime support S: acc[o] = x[o] + ... + x[o + 2S], in that
-// order.
-template <int N, class Load>
-__device__ __forceinline__ void run_sums_rt(float4 (&acc)[N], int S,
-                                            Load load) {
-  for (int i = 0; i < N + 2 * S; ++i) {
-    const float4 x = load(i);
-#pragma unroll
-    for (int o = 0; o < N; ++o) {
-      if (o == i)
-        acc[o] = x;
-      else if (o < i && i <= o + 2 * S)
-        acc[o] = add4(acc[o], x);
-    }
-  }
-}
-
-// window_sums at a runtime support S: the row pass in as many rounds as
-// the region's runs take, then this thread's column run.
-template <class Load>
-__device__ __forceinline__ void window_sums_rt(int S, float4* hs, int org,
-                                               int P, float4 (&acc)[kColRun],
-                                               Load load) {
-  const int RW = kBatchTileH + 2 * S;
-  for (int task = threadIdx.x; task < RW * (kBatchTileW / kRowRun);
-       task += kBThreads) {
-    const int r = task % RW, c0 = task / RW * kRowRun;
-    const int base = org + r * P + c0;
-    float4 h[kRowRun];
-    run_sums_rt<kRowRun>(h, S, [&](int i) { return load(base + i); });
-#pragma unroll
-    for (int o = 0; o < kRowRun; ++o) hs[r * kHP + c0 + o] = h[o];
-  }
-  __syncthreads();
-  const int col = threadIdx.x % kBatchTileW, run = threadIdx.x / kBatchTileW;
-  run_sums_rt<kColRun>(
-      acc, S, [&](int i) { return hs[(run * kColRun + i) * kHP + col]; });
-}
 
 // run_sums at a runtime support S with 2S >= N - 1, without a runtime
 // predicate: inputs 0..N-1 start and extend the sums (acc[i] = x_i,
@@ -1345,17 +1318,39 @@ __global__ void __launch_bounds__(kBThreads, 3)
   }
 }
 
-// k6_level at a runtime support S.
-__device__ __forceinline__ bool k6_level_rt(
+// K6 wide's statistics instance (kStats): thread 0's clock64() cycles of
+// each phase a block: the staging of (u_p, v_p) and m_p (with the tile's
+// rgb and guidance and the stores of dL/dw; a support-0 level whole), the
+// range reduction, e, the row pass, the column pass with the stores of
+// dL/dg, and a guarded level's per-window form with its stores.  The
+// phases from the range on end at a barrier or at the block's end, so
+// they add up to the block's time.
+constexpr int kK6Stats = 6;
+enum K6Phase : int {
+  kK6Stage, kK6Range, kK6E, kK6RowPass, kK6ColumnPass, kK6Guard
+};
+
+// One K6 wide level of support S >= 1: (u_p, v_p) into uvs and m_p into ms
+// over the level's region (0 and +inf outside the image), and dL/dw on the
+// tile; then this thread's column run of dL/dg.  On the fast path each
+// staged (u_p, v_p) is scaled in place by e_p = exp(mn - m_p), once, and
+// the window sums read the scaled values (ms aliases the row sums, which
+// the row pass writes after e).  grad is offset to the image; fm, den, gw
+// to the image and level; weight to the image and level (row stride wh);
+// xq, gq: this thread's outputs' rgb and guidance.  True if the tile took
+// the guard.
+template <bool kStats>
+__device__ __forceinline__ bool k6_level_wide(
     int S, const float4* __restrict__ grad, const float4* __restrict__ fm,
     const float* __restrict__ den, const float* __restrict__ weight,
     long long wh, float* __restrict__ gw, float4* uvs, float* ms, float4* hs,
     float* red, int R, int P, int x0, int y0, int H, int W,
     const float3 (&xq)[kColRun], const float (&gq)[kColRun],
-    float (&dg)[kColRun]) {
+    float (&dg)[kColRun], long long* clk, long long& t0) {
   const int RW = kBatchTileH + 2 * S, CW = kBatchTileW + 2 * S;
   const int tid = threadIdx.x, org = (R - S) * P + (R - S);
   float mx = -INFINITY, mn = INFINITY;
+#pragma unroll 4
   for (int i = tid; i < RW * CW; i += kBThreads) {
     const int r = i / CW, c = i % CW, gy = y0 - S + r, gx = x0 - S + c;
     float4 uv = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -1375,14 +1370,34 @@ __device__ __forceinline__ bool k6_level_rt(
     uvs[org + r * P + c] = uv;
     ms[org + r * P + c] = m;
   }
+  k5_mark<kStats>(clk, kK6Stage, t0);
   block_max_min(mx, mn, red);  // its __syncthreads publishes the staging
+  k5_mark<kStats>(clk, kK6Range, t0);
   const int col = tid % kBatchTileW, run = tid / kBatchTileW;
   if (mx - mn < kGuardRange) {
-    float4 acc[kColRun];
-    window_sums_rt(S, hs, org, P, acc, [&](int j) {
+    // e = exp(mn - m) once a staged pixel, into its (u, v)
+    for (int i = tid; i < RW * CW; i += kBThreads) {
+      const int j = org + i / CW * P + i % CW;
       const float e = expf(mn - ms[j]);
       const float4 q = uvs[j];
-      return make_float4(q.x * e, q.y * e, q.z * e, q.w * e);
+      uvs[j] = make_float4(q.x * e, q.y * e, q.z * e, q.w * e);
+    }
+    __syncthreads();  // ms is read: the row sums may take its place
+    k5_mark<kStats>(clk, kK6E, t0);
+    for (int task = tid; task < RW * (kBatchTileW / kWideRowRun);
+         task += kBThreads) {
+      const int r = task % RW, c0 = task / RW * kWideRowRun;
+      const int base = org + r * P + c0;
+      float4 h[kWideRowRun];
+      run_sums_any<kWideRowRun>(h, S, [&](int i) { return uvs[base + i]; });
+#pragma unroll
+      for (int o = 0; o < kWideRowRun; ++o) hs[r * kHP + c0 + o] = h[o];
+    }
+    __syncthreads();
+    k5_mark<kStats>(clk, kK6RowPass, t0);
+    float4 acc[kColRun];
+    run_sums_any<kColRun>(acc, S, [&](int i) {
+      return hs[(run * kColRun + i) * kHP + col];
     });
 #pragma unroll
     for (int k = 0; k < kColRun; ++k)
@@ -1390,6 +1405,7 @@ __device__ __forceinline__ bool k6_level_rt(
                                   xq[k].z * acc[k].z - acc[k].w);
     return false;
   }
+  // the guard: the gather over each output's window, dy-outer, dx-inner
 #pragma unroll
   for (int k = 0; k < kColRun; ++k) {
     float acc = 0.f;
@@ -1409,21 +1425,31 @@ __device__ __forceinline__ bool k6_level_rt(
 }
 
 // K6's wide instance: a block a tile, image and level, the slice b * L + l
-// from the one-dimensional grid.
-__global__ void __launch_bounds__(kBThreads)
+// from the one-dimensional grid.  kStats: the statistics instance (stats,
+// int64 [blocks][kK6Stats]).
+template <bool kStats>
+__global__ void __launch_bounds__(kBThreads, 3)
     guided_filter_batch_bwd_wide_kernel(
         const float4* __restrict__ grad, const float* __restrict__ weight,
         Strides ws, const float* __restrict__ guidance, Strides gst,
         const float4* __restrict__ img, const float4* __restrict__ fm,
         const float* __restrict__ den, float* __restrict__ gw,
         float* __restrict__ gg, int* __restrict__ guards, int levels,
-        WideSupports sup, int R, int H, int W) {
+        WideSupports sup, int R, int H, int W, long long* __restrict__ stats) {
   extern __shared__ float4 smem[];
   const int P = kBatchTileW + 2 * R + 1, RH = kBatchTileH + 2 * R;
-  float4* uvs = smem;         // [RH][P]: (u_p rgb, v_p)
+  float4* uvs = smem;         // [RH][P]: (u_p rgb, v_p), then times e_p
   float4* hs = uvs + RH * P;  // [RH][kHP]: row sums
-  float* ms = reinterpret_cast<float*>(hs + RH * kHP);  // [RH][P]: m_p
+  float* ms = reinterpret_cast<float*>(hs);  // [RH][P]: m_p, until e
   __shared__ float red[2 * kBWarps];
+  __shared__ long long clk[kStats ? kK6Stats : 1];
+  long long t0 = 0;
+  if constexpr (kStats) {
+    if (threadIdx.x == 0) {
+      for (int k = 0; k < kK6Stats; ++k) clk[k] = 0;
+      t0 = clock64();
+    }
+  }
   long long slice;
   int x0, y0;
   wide_tile(H, W, slice, x0, y0);
@@ -1451,6 +1477,7 @@ __global__ void __launch_bounds__(kBThreads)
     xq[k] = make_float3(q.x, q.y, q.z);
     gq[k] = in && s > 0 ? guidance[(yr + k) * gst.h + x] : 0.f;
   }
+  bool guard = false;
   if (s == 0) {  // f = x: dL/dw = G . x, no guidance gradient
     if (x < W) {
 #pragma unroll
@@ -1463,19 +1490,27 @@ __global__ void __launch_bounds__(kBThreads)
         gg[pix] = 0.f;
       }
     }
-    return;
-  }
-  float dg[kColRun];
-  const bool guard = k6_level_rt(s, grad, fm, den, weight, ws.h, gw, uvs, ms,
-                                 hs, red, R, P, x0, y0, H, W, xq, gq, dg);
-  if (guard && tid == 0 && guards != nullptr) atomicAdd(guards, 1);
-  if (x < W) {
+    k5_mark<kStats>(clk, kK6Stage, t0);
+  } else {
+    float dg[kColRun];
+    guard = k6_level_wide<kStats>(s, grad, fm, den, weight, ws.h, gw, uvs,
+                                  ms, hs, red, R, P, x0, y0, H, W, xq, gq,
+                                  dg, clk, t0);
+    if (guard && tid == 0 && guards != nullptr) atomicAdd(guards, 1);
+    if (x < W) {
 #pragma unroll
-    for (int k = 0; k < kColRun; ++k) {
-      const int y = yr + k;
-      if (y >= H) break;
-      gg[(long long)y * W + x] = dg[k];
+      for (int k = 0; k < kColRun; ++k) {
+        const int y = yr + k;
+        if (y >= H) break;
+        gg[(long long)y * W + x] = dg[k];
+      }
     }
+    k5_mark<kStats>(clk, guard ? kK6Guard : kK6ColumnPass, t0);
+  }
+  if constexpr (kStats) {
+    if (tid == 0)
+      for (int k = 0; k < kK6Stats; ++k)
+        stats[blockIdx.x * kK6Stats + k] = clk[k];
   }
 }
 
@@ -1493,6 +1528,14 @@ unsigned wide_blocks(long long slices, int height, int width) {
 int k5_wide_smem(int R) {
   const int P = kBatchTileW + 2 * R + 1, RH = kBatchTileH + 2 * R;
   return RH * kHP * 16 + 4 * RH * P * 4 + 2 * kBatchTileW * kBatchTileH * 4;
+}
+
+// K6 wide's dynamic shared memory at halo R: (u, v) over the region and
+// the row sums, which m_p shares until e (67,840 bytes at R = 12: three
+// blocks an SM).
+int k6_wide_smem(int R) {
+  const int P = kBatchTileW + 2 * R + 1, RH = kBatchTileH + 2 * R;
+  return RH * P * 16 + RH * kHP * 16;
 }
 
 }  // namespace
@@ -1528,13 +1571,15 @@ RT_API int rt_guided_filter_batch_wide(
 }
 
 // K6's wide instance: rt_guided_filter_batch_bwd's arguments at 1..64
-// levels of support 0..32 and any B x L.
+// levels of support 0..32 and any B x L.  A non-null ``stats`` (int64
+// [blocks][kK6Stats], a row a block of the one-dimensional grid over
+// (slice, tile row, tile column)) selects the statistics instance.
 RT_API int rt_guided_filter_batch_bwd_wide(
     const void* grad, const void* weight, long long wsb, long long wsl,
     long long wsh, const void* guidance, long long gsb, long long gsl,
     long long gsh, const void* img, const void* fm, const void* den,
     void* gw, void* gg, void* guards, int batch, int levels,
-    const int* supports, int height, int width, void* stream) {
+    const int* supports, int height, int width, void* stats, void* stream) {
   WideSupports sup;
   int R;
   if (!wide_supports(levels, supports, sup, R) || batch < 1 || height < 1 ||
@@ -1543,17 +1588,16 @@ RT_API int rt_guided_filter_batch_bwd_wide(
   const unsigned blocks =
       wide_blocks((long long)batch * levels, height, width);
   if (!blocks) return (int)cudaErrorInvalidValue;
-  const int P = kBatchTileW + 2 * R + 1, RH = kBatchTileH + 2 * R;
-  const int bytes = RH * P * 20 + RH * kHP * 16;
-  const cudaError_t err =
-      allow_smem(guided_filter_batch_bwd_wide_kernel, bytes);
+  const auto kernel = stats ? guided_filter_batch_bwd_wide_kernel<true>
+                            : guided_filter_batch_bwd_wide_kernel<false>;
+  const int bytes = k6_wide_smem(R);
+  const cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return (int)err;
-  guided_filter_batch_bwd_wide_kernel<<<blocks, kBThreads, bytes,
-                                        (cudaStream_t)stream>>>(
+  kernel<<<blocks, kBThreads, bytes, (cudaStream_t)stream>>>(
       (const float4*)grad, (const float*)weight, Strides{wsb, wsl, wsh},
       (const float*)guidance, Strides{gsb, gsl, gsh}, (const float4*)img,
       (const float4*)fm, (const float*)den, (float*)gw, (float*)gg,
-      (int*)guards, levels, sup, R, height, width);
+      (int*)guards, levels, sup, R, height, width, (long long*)stats);
   return (int)cudaGetLastError();
 }
 

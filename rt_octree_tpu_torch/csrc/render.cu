@@ -96,10 +96,13 @@
 // each shaded row a step ahead into a shared slot of its thread by
 // cp.async (ClassicRow<kBdWide>); above kWideSmemMaxBasis the chunked
 // instance (kBdWideChunked, launch names with "_wide_chunked") evaluates
-// the basis for each shaded row as K1's wide instances do.  Both compute
-// the same f32 operations in the same order, so their outputs are equal
-// bit for bit.  None has a statistics variant; every other instance is as
-// it was.
+// the ray's masked basis once into shared memory too, up to a prefix of
+// kChunkedMaxPrefix values, keeps no row slot (so that four blocks share
+// an SM at basis_dim 96) and reads each shaded row as 16-byte pieces,
+// its lines prefetched into L2 a step ahead (ClassicRow<kBdWideChunked>).
+// Both compute the same f32 operations in the same order, so their
+// outputs are equal bit for bit.  None has a statistics variant; every
+// other instance is as it was.
 //
 // Ray mode (kRays; C entry rt_render_rays, launch names "render_rays" and
 // "render_classic_rays"): the counterparts of trace_rays (:540-588) and
@@ -684,11 +687,12 @@ __device__ __forceinline__ void leaf_rgb(const RenderParams& p, int ptr,
 
 constexpr int kBasisChunk = 8;  // basis values a wide row holds at a time
 // the largest basis_dim of render_classic's shared-memory wide instance
-// (render/renderer.py:CLASSIC_WIDE_MAX_BASIS): 114,688 bytes a block at 88,
-// the last basis_dim at which two blocks share an SM; past it one block an
-// SM costs more than the basis evaluations it saves (chip_smoke.py
-// --wide-sweep times both instances at 80, 88 and 96)
-constexpr int kWideSmemMaxBasis = 88;
+// (render/renderer.py:CLASSIC_WIDE_MAX_BASIS; 53,248 bytes a block at 40):
+// its row slot, a step ahead, wins while rows are short, and the chunked
+// instance, no slot and more blocks an SM, past it (chip_smoke.py
+// --wide-sweep, both instances from basis_dim 32 to 192 on copies with
+// another switch: the shared one ahead at 32 and 40, behind from 48)
+constexpr int kWideSmemMaxBasis = 40;
 
 // Basis value b of the view direction v, masked by basis_minmax: the
 // expression of eval_basis (and classic_basis) for that b alone.
@@ -849,20 +853,13 @@ constexpr int wide_classic_smem(int bd) {
 // The masked basis of the view direction v, in registers: eval_sh at a
 // compile-time bd for SH; for kBdAny, eval_basis's expressions for every
 // b < kMaxBasis, unrolled, with the guard b < basis_dim.
-// kBdWideChunked: the basis array carries the view direction
-// (basis[0..2]), and each row evaluates its basis chunk by chunk
-// (ClassicRow<kBdWideChunked>).  kBdWide keeps its basis in shared memory
-// (ClassicRow<kBdWide>::set_basis) and takes no call.
+// The wide layouts keep their basis in shared memory
+// (ClassicRow<kBdWide>::set_basis, ClassicRow<kBdWideChunked>::set_basis)
+// and take no call.
 template <int kBd>
 __device__ __forceinline__ void classic_basis(const RenderParams& p,
                                               const float v[3],
                                               float basis[kMaxBasis]) {
-  if constexpr (kBd == kBdWideChunked) {
-    basis[0] = v[0];
-    basis[1] = v[1];
-    basis[2] = v[2];
-    return;
-  }
   if constexpr (kBd > 0) {
     eval_sh(kBd, v[0], v[1], v[2], basis);
   } else {
@@ -989,6 +986,24 @@ struct ClassicRow<kBdAny> {
   }
 };
 
+// acc plus halfs e in [lo, hi) of the 16-byte piece w, each times the
+// basis value b0 + e at basis[(b0 + e) * kThreads], in the order of e
+__device__ __forceinline__ float piece_dot(uint4 w, int lo, int hi,
+                                           const float* basis, int b0,
+                                           float acc) {
+  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    if (e >= lo && e < hi) {
+      __half2 hh;
+      memcpy(&hh, &u[e >> 1], sizeof(hh));
+      const float f = (e & 1) ? __high2float(hh) : __low2float(hh);
+      acc = acc + f * basis[(b0 + e) * kThreads];
+    }
+  }
+  return acc;
+}
+
 // SG / ASG rows of a basis_dim above kMaxBasis, up to kWideSmemMaxBasis.
 // The ray's masked basis (basis_at's expression for each b) is evaluated
 // once into this thread's column of a [bd][kThreads] shared array, so that
@@ -1034,24 +1049,6 @@ struct ClassicRow<kBdWide> {
     asm volatile("cp.async.commit_group;\n" ::: "memory");
   }
 
-  // acc plus halfs e in [lo, hi) of piece k, each times its basis value
-  // b = 8k + e - h0, in the order of e
-  __device__ __forceinline__ float piece(int k, int lo, int hi, int h0,
-                                         float acc) const {
-    const uint4 w = slot[k * kThreads];
-    const uint32_t u[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      if (e >= lo && e < hi) {
-        __half2 hh;
-        memcpy(&hh, &u[e >> 1], sizeof(hh));
-        const float f = (e & 1) ? __high2float(hh) : __low2float(hh);
-        acc = acc + f * basis[(8 * k + e - h0) * kThreads];
-      }
-    }
-    return acc;
-  }
-
   // Each channel's halfs [h0, h1): its first piece and its last in part,
   // the pieces between whole.
   __device__ __forceinline__ void channels(const RenderParams& p,
@@ -1062,30 +1059,123 @@ struct ClassicRow<kBdWide> {
     for (int ch = 0; ch < 3; ++ch) {
       const int h0 = skew + ch * bd, h1 = h0 + bd;
       const int k0 = h0 >> 3, k1 = (h1 - 1) >> 3;
-      float acc = piece(k0, h0 - 8 * k0, min(h1 - 8 * k0, 8), h0, 0.f);
-      for (int k = k0 + 1; k < k1; ++k) acc = piece(k, 0, 8, h0, acc);
-      if (k1 > k0) acc = piece(k1, 0, h1 - 8 * k1, h0, acc);
+      float acc = piece_dot(slot[k0 * kThreads], h0 - 8 * k0,
+                            min(h1 - 8 * k0, 8), basis, 8 * k0 - h0, 0.f);
+      for (int k = k0 + 1; k < k1; ++k)
+        acc = piece_dot(slot[k * kThreads], 0, 8, basis, 8 * k - h0, acc);
+      if (k1 > k0)
+        acc = piece_dot(slot[k1 * kThreads], 0, h1 - 8 * k1, basis,
+                        8 * k1 - h0, acc);
       out[ch] = acc;
     }
   }
 };
 
-// SG / ASG rows of a basis_dim above kWideSmemMaxBasis: issue() keeps the
-// row, channels() reads it and evaluates the basis of the view direction
-// that classic_basis<kBdWideChunked> left in basis[0..2] chunk by chunk
-// (wide_channels): no basis_dim-sized array in registers or on a stack.
+// The largest prefix of the basis the chunked instance holds in shared
+// memory (a row past it evaluates its tail chunk by chunk from the view
+// direction, which then takes 3 more values a thread): 112,128 bytes a
+// block with the view direction, so that two blocks share an SM.
+constexpr int kChunkedMaxPrefix = 216;
+
+__host__ __device__ constexpr int chunked_prefix(int bd) {
+  return bd < kChunkedMaxPrefix ? bd : kChunkedMaxPrefix;
+}
+
+// The chunked instance's dynamic shared memory: a thread's basis prefix,
+// and its view direction past the prefix, for each of the block's threads.
+constexpr int chunked_classic_smem(int bd) {
+  return kThreads * 4 *
+         (chunked_prefix(bd) + (bd > kChunkedMaxPrefix ? 3 : 0));
+}
+
+// SG / ASG rows of a basis_dim above kWideSmemMaxBasis.  The ray's masked
+// basis (basis_at's expression for each b) is evaluated once into this
+// thread's column of a [b][kThreads] shared array, up to kChunkedMaxPrefix
+// values, and there is no row slot, so that blocks stay small (48 KB at
+// basis_dim 96: four blocks an SM).  issue() keeps the row and prefetches
+// its lines into L2, so that they move while the next step's LUT query
+// runs (an L1 prefetch timed the same, none 13-17 % slower, the first four
+// pieces held in registers or copied by cp.async into a slot of the
+// thread slower: chip_smoke.py --wide-sweep on copies).  channels() reads
+// the aligned 16-byte pieces that cover the row's 3 bd halfs a step later
+// (2-byte aligned: the row starts `skew` halfs into its first piece) and
+// sums each channel in the order of b from the shared basis, then the
+// tail past the prefix, its basis evaluated kBasisChunk values at a time
+// from the view direction as wide_channels does: wide_channels' f32
+// operations in its order.  The row's address is worked out again in
+// channels(), so that the march carries one register for it (with the
+// address, the view direction and the pieces kept across the step, ptxas
+// spilled).
 template <>
 struct ClassicRow<kBdWideChunked> {
-  int ptr;
+  float* basis;  // this thread's basis value b at basis[b * kThreads]; past
+                 // the prefix, its view direction at basis[(nb + i) * ...]
+  int ptr;       // the row
 
-  __device__ __forceinline__ void issue(const RenderParams&, int row) {
-    ptr = row;
+  __device__ __forceinline__ void init(const RenderParams&, float* smem) {
+    basis = smem + threadIdx.x;
   }
 
+  __device__ __forceinline__ void set_basis(const RenderParams& p,
+                                            const float v[3]) {
+    const int bd = p.basis_dim, nb = chunked_prefix(bd);
+    for (int b = 0; b < nb; ++b) basis[b * kThreads] = basis_at(p, v, b);
+    if (nb < bd)
+      for (int i = 0; i < 3; ++i) basis[(nb + i) * kThreads] = v[i];
+  }
+
+  __device__ __forceinline__ void issue(const RenderParams& p, int row) {
+    ptr = row;
+    const uintptr_t a =
+        reinterpret_cast<uintptr_t>(p.data + (long long)row * p.data_dim);
+    const uintptr_t end = a + 6 * (uintptr_t)p.basis_dim;
+    for (uintptr_t line = a & ~uintptr_t{127}; line < end; line += 128)
+      asm volatile("prefetch.L2 [%0];\n" ::"l"(line));
+  }
+
+  // Each channel's prefix halfs [h0, h1): its first piece and its last in
+  // part, the pieces between whole; then the tail.
   __device__ __forceinline__ void channels(const RenderParams& p,
-                                           const float* basis,
-                                           float out[3]) const {
-    wide_channels(p, ptr, basis, out);
+                                           const float*, float out[3]) const {
+    const int bd = p.basis_dim, nb = chunked_prefix(bd);
+    const uintptr_t a =
+        reinterpret_cast<uintptr_t>(p.data + (long long)ptr * p.data_dim);
+    const uint4* src = reinterpret_cast<const uint4*>(a & ~uintptr_t{15});
+    const int skew = (int)((a & 15) >> 1);
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      const int h0 = skew + ch * bd, h1 = h0 + nb;
+      const int k0 = h0 >> 3, k1 = (h1 - 1) >> 3;
+      float acc = piece_dot(__ldg(src + k0), h0 - 8 * k0,
+                            min(h1 - 8 * k0, 8), basis, 8 * k0 - h0, 0.f);
+#pragma unroll 4
+      for (int k = k0 + 1; k < k1; ++k)
+        acc = piece_dot(__ldg(src + k), 0, 8, basis, 8 * k - h0, acc);
+      if (k1 > k0)
+        acc = piece_dot(__ldg(src + k1), 0, h1 - 8 * k1, basis, 8 * k1 - h0,
+                        acc);
+      out[ch] = acc;
+    }
+    if (nb == bd) return;
+    const float v[3] = {basis[nb * kThreads], basis[(nb + 1) * kThreads],
+                        basis[(nb + 2) * kThreads]};
+    const unsigned short* row =
+        reinterpret_cast<const unsigned short*>(p.data) +
+        (long long)ptr * p.data_dim;
+    for (int b0 = nb; b0 < bd; b0 += kBasisChunk) {
+      float bc[kBasisChunk];
+#pragma unroll
+      for (int j = 0; j < kBasisChunk; ++j)
+        bc[j] = b0 + j < bd ? basis_at(p, v, b0 + j) : 0.f;
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch)
+#pragma unroll
+        for (int j = 0; j < kBasisChunk; ++j)
+          if (b0 + j < bd)
+            out[ch] = out[ch] + __half2float(__ushort_as_half(
+                                    __ldg(row + ch * bd + b0 + j))) *
+                                    bc[j];
+    }
   }
 };
 
@@ -1120,7 +1210,7 @@ __global__ void __launch_bounds__(kThreads) render_classic_kernel(
   }
   float basis[kMaxBasis];
   ClassicRow<kBd> row;  // the previous step's row while pend
-  if constexpr (kBd == kBdWide) {
+  if constexpr (kBd == kBdWide || kBd == kBdWideChunked) {
     extern __shared__ float4 wide_smem[];
     row.init(p, reinterpret_cast<float*>(wide_smem));
     if (r.active) row.set_basis(p, r.vdir);
@@ -1251,8 +1341,9 @@ template <int kBd, bool kStats, bool kRays>
 int launch_classic(const RenderParams& p, cudaStream_t stream) {
   const auto kernel = render_classic_kernel<kBd, kStats, kRays>;
   int smem = 0;
-  if constexpr (kBd == kBdWide) {
-    smem = wide_classic_smem(p.basis_dim);
+  if constexpr (kBd == kBdWide || kBd == kBdWideChunked) {
+    smem = kBd == kBdWide ? wide_classic_smem(p.basis_dim)
+                          : chunked_classic_smem(p.basis_dim);
     if (smem > 48 * 1024) {
       const cudaError_t err = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

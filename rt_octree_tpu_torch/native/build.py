@@ -73,7 +73,7 @@ ENTRIES = {
                                                 _V]),
     "rt_guided_filter_batch_bwd_wide": ("filter", [_V] + [_V, _L, _L, _L] * 2
                                         + [_V] * 6 +
-                                        [_I, _I, _V, _I, _I, _V]),
+                                        [_I, _I, _V, _I, _I, _V, _V]),
     "rt_lut_build_scratch": ("lut", [_I, _I, _PL]),
     "rt_lut_build": ("lut", [_V, _V, _V, _I, _I, _I, _PI, _V]),
     "rt_skip_distances": ("lut", [_V, _V, _V, _I, _I, _PI, _V]),
@@ -103,7 +103,7 @@ LAUNCHES: Dict[str, int] = {
     # their wide instances: SG / ASG rows of a basis_dim above 25
     "render_wide": 0, "render_classic_wide": 0,
     "render_rays_wide": 0, "render_classic_rays_wide": 0,
-    # render_classic's chunked wide instance: basis_dim above 80
+    # render_classic's chunked wide instance: basis_dim above 40
     "render_classic_wide_chunked": 0, "render_classic_rays_wide_chunked": 0,
     "upsample": 0, "guided_filter": 0,
     # K2's wide instance (more than 8 levels or a support above 8)

@@ -80,6 +80,9 @@ WIDE_STAT_PHASES = ("staging", "ranges", "prologue", "e_rgb", "row_sums",
 # the phases of K5 wide's statistics instance (csrc/filter.cu:K5Phase)
 K5_WIDE_STAT_PHASES = ("rgb", "wait", "range", "e", "row_pass", "issue",
                        "column_pass", "guard")
+# the phases of K6 wide's statistics instance (csrc/filter.cu:K6Phase)
+K6_WIDE_STAT_PHASES = ("staging", "range", "e", "row_pass", "column_pass",
+                       "guard")
 
 
 def resolve_supports(L: int, supports) -> tuple:
@@ -451,6 +454,14 @@ def guided_filter_batch_bwd(grad_out: torch.Tensor, weight: torch.Tensor,
     """Kernel K6 wrapper: grad_out [B, H, W, 4] and what K5 saved ->
     (dL/dweight, dL/dguidance), both [B, L, H, W]; weight and guidance as
     K5 takes them, ``guards`` as K5's."""
+    supports = _check_bwd(grad_out, weight, guidance, img, saved, supports)
+    return _launch_batch_bwd(grad_out, weight, guidance, img, *saved,
+                             supports, _guard_ptr(guards))
+
+
+def _check_bwd(grad_out, weight, guidance, img, saved, supports) -> tuple:
+    """guided_filter_batch_bwd's checks of its inputs; returns the
+    supports."""
     B, L, H, W = weight.shape
     supports = resolve_supports(L, supports)
     _check_batch("guided_filter_batch_bwd", weight, guidance, img, supports)
@@ -464,22 +475,61 @@ def guided_filter_batch_bwd(grad_out: torch.Tensor, weight: torch.Tensor,
                 f"guided_filter_batch_bwd: needs a contiguous f32 tensor "
                 f"{shape} on {weight.device}, got {t.dtype} "
                 f"{tuple(t.shape)} on {t.device}")
+    return supports
+
+
+def _launch_batch_bwd(grad_out, weight, guidance, img, fm, den, supports,
+                      guards: int, stats=None):
+    """One launch of K6, or of its wide instance where ``wide_plan`` says
+    (the checks are guided_filter_batch_bwd's); ``stats`` (int64 [blocks,
+    len(K6_WIDE_STAT_PHASES)]) selects the wide statistics instance."""
+    B, L, H, W = weight.shape
     dev = img.device
     gw = torch.empty((B, L, H, W), dtype=torch.float32, device=dev)
     gg = torch.empty((B, L, H, W), dtype=torch.float32, device=dev)
     sup = (ctypes.c_int * L)(*supports)
     suffix = "_wide" if wide_plan(B * L, L, supports) else ""
     fn = native.entry("rt_guided_filter_batch_bwd" + suffix)
+    extra = (0 if stats is None else stats.data_ptr(),) if suffix else ()
     with torch.cuda.device(dev):
         rc = fn(grad_out.data_ptr(), weight.data_ptr(),
                 *_rows_strides(weight), guidance.data_ptr(),
                 *_rows_strides(guidance), img.data_ptr(), fm.data_ptr(),
-                den.data_ptr(), gw.data_ptr(), gg.data_ptr(),
-                _guard_ptr(guards), B, L, ctypes.cast(sup, ctypes.c_void_p),
-                H, W, native.stream_ptr(dev))
+                den.data_ptr(), gw.data_ptr(), gg.data_ptr(), guards, B, L,
+                ctypes.cast(sup, ctypes.c_void_p), H, W, *extra,
+                native.stream_ptr(dev))
         native.count_launch("guided_filter_batch_bwd" + suffix)
     native.check(rc, f"guided_filter_batch_bwd{suffix}_kernel")
     return gw, gg
+
+
+def guided_filter_batch_bwd_wide_stats(grad_out: torch.Tensor,
+                                       weight: torch.Tensor,
+                                       guidance: torch.Tensor,
+                                       img: torch.Tensor, saved,
+                                       supports) -> tuple:
+    """K6 wide's statistics instance on guided_filter_batch_bwd's CUDA
+    inputs where it takes the wide instance -> (dL/dweight, dL/dguidance,
+    {"blocks", per phase of K6_WIDE_STAT_PHASES the clock64() cycles of a
+    block's thread 0, averaged over the blocks, and each phase's share of
+    their sum})."""
+    B, L, H, W = weight.shape
+    supports = _check_bwd(grad_out, weight, guidance, img, saved, supports)
+    if not wide_plan(B * L, L, supports):
+        raise ValueError("guided_filter_batch_bwd_wide_stats: the inputs "
+                         "take K6's unrolled instance, not its wide one")
+    blocks = B * L * -(-H // BATCH_TILE_H) * -(-W // BATCH_TILE_W)
+    st = torch.zeros((blocks, len(K6_WIDE_STAT_PHASES)), dtype=torch.int64,
+                     device=img.device)
+    gw, gg = _launch_batch_bwd(grad_out, weight, guidance, img, *saved,
+                               supports, 0, st)
+    cyc = st.double().mean(0).cpu()
+    total = float(cyc.sum())
+    return gw, gg, {
+        "blocks": blocks,
+        "cycles_per_block": dict(zip(K6_WIDE_STAT_PHASES, map(float, cyc))),
+        "share": {k: float(c) / total
+                  for k, c in zip(K6_WIDE_STAT_PHASES, cyc)}}
 
 
 class _GuidedFilterBatch(torch.autograd.Function):

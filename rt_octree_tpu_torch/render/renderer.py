@@ -494,8 +494,9 @@ CLASSIC_LAYOUTS = ("sh1", "sh4", "sh9", "sh16", "sh25", "rgba", "any",
 CLASSIC_MAX_BASIS = 25
 # csrc/render.cu:kWideSmemMaxBasis: the largest basis_dim whose ray basis
 # and row render_classic's wide instance holds in shared memory; above it
-# the chunked instance (launch names with "_wide_chunked")
-CLASSIC_WIDE_MAX_BASIS = 88
+# the chunked instance (launch names with "_wide_chunked"), which holds
+# the basis alone there
+CLASSIC_WIDE_MAX_BASIS = 40
 
 
 def classic_layout(fmt: int, basis_dim: int, data_dim: int) -> str:

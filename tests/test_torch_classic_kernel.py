@@ -28,6 +28,12 @@ RENDER_CU = os.path.join(os.path.dirname(tr.__file__), os.pardir, "csrc",
 SH_DIMS = (1, 4, 9, 16, 25)
 
 
+def _render_cu_int(name):
+    """The value of csrc/render.cu's ``constexpr int`` ``name``."""
+    return int(re.search(rf"\b{name}\s*=\s*(\d+)\s*;",
+                         open(RENDER_CU).read()).group(1))
+
+
 def _expected(fmt, bd):
     """The instance each layout takes, or None where the kernel has none."""
     if bd < 0:
@@ -36,18 +42,23 @@ def _expected(fmt, bd):
         return f"sh{bd}" if bd in SH_DIMS else None
     if bd <= 25:
         return "any"
-    return "wide" if bd <= 88 else "wide_chunked"
+    return ("wide" if bd <= _render_cu_int("kWideSmemMaxBasis")
+            else "wide_chunked")
 
 
 @pytest.mark.parametrize("bd", [-3, -1, 0, 1, 2, 4, 5, 9, 16, 24, 25, 26,
-                                32, 48, 80, 81, 88, 89, 100])
+                                32, 40, 41, 48, 80, 88, 89, 100, 216, 217,
+                                400])
 @pytest.mark.parametrize("fmt", [f.value for f in BasisFormat])
 def test_classic_layout_for_every_format_and_basis_dim(fmt, bd):
     """SH rows take the instance of their basis_dim (1, 4, 9, 16, 25),
     raw rgb rows (basis_dim < 0) "rgba" whatever the format, SG, ASG and
     RGBA-format rows with a basis_dim the unrolled "any" instance up to 25,
-    the shared-memory "wide" instance above it up to 88 and the
-    "wide_chunked" instance past 88; other SH basis_dims are refused."""
+    the shared-memory "wide" instance above it up to csrc/render.cu's
+    kWideSmemMaxBasis (40, where --wide-sweep puts the switch) and the
+    "wide_chunked" instance past it, at any basis_dim (its basis past the
+    shared prefix evaluated row by row); other SH basis_dims are
+    refused."""
     data_dim = 3 * max(bd, 1) + 1
     want = _expected(fmt, bd)
     if want is None:
@@ -84,6 +95,8 @@ def _layout_trees():
             "shell", depth=3, basis_dim=32), fmt, 1), "wide"))
     out.append((synthetic.with_lobes(synthetic.make_synthetic_tree(
         "shell", depth=3, basis_dim=96), BasisFormat.SG, 1), "wide_chunked"))
+    out.append((synthetic.with_lobes(synthetic.make_synthetic_tree(
+        "shell", depth=3, basis_dim=48), BasisFormat.ASG, 1), "wide_chunked"))
     return out
 
 

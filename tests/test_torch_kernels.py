@@ -31,7 +31,8 @@ from rt_octree_tpu_torch.ops import traversal as tt
 from rt_octree_tpu_torch.ops.filtering import BATCH_TILE_H, BATCH_TILE_W, \
     GUARD_RANGE, batch_tiles, guided_filter, guided_filter_act_plain, \
     guided_filter_backward_plain, guided_filter_batch, \
-    guided_filter_batch_bwd, guided_filter_batch_fwd, \
+    guided_filter_batch_bwd, guided_filter_batch_bwd_wide_stats, \
+    guided_filter_batch_fwd, \
     guided_filter_batch_plain, guided_filter_plain, split_activation, \
     guided_filter_wide_stats, wide_filter_tiles
 from rt_octree_tpu_torch.ops.resize import fast_upsample, \
@@ -174,7 +175,7 @@ def _launch_each_wrapper(shell, device):
     idx, table = _flat_inputs(5, 1 << 10)
     pr.flat_gather_chain(t(idx), t(table), 3)
     # the wide instances: SG rows past basis_dim 25 (render_classic's
-    # chunked instance past 88), nine levels, a 96-channel net
+    # chunked instance past 40), nine levels, a 96-channel net
     classic = RenderOptions(estimator="classic", denoise=False)
     for bd in (32, 96):
         wt = tt.upload_tree(_wide_tree("SG", bd, depth=3), lut_levels=0,
@@ -1242,6 +1243,25 @@ def test_k5_k6_wide_instances_match_plain(shape, supports, gscale, spike,
         assert torch.equal(a, b)
 
 
+@pytest.mark.cuda
+def test_k6_wide_statistics_instance(cuda_device):
+    """K6 wide's statistics instance gives the timed instance's gradients
+    bit for bit, with the staging, range, e and both passes counted on
+    every block."""
+    supports = tuple(range(1, 13))
+    w, g, x, G = (torch.from_numpy(a).to(cuda_device) for a in
+                  _k56_inputs((2, 37, 53), supports, 3.0, False))
+    _, saved = guided_filter_batch_fwd(w, g, x, supports)
+    gw, gg, st = guided_filter_batch_bwd_wide_stats(G, w, g, x, saved,
+                                                    supports)
+    want = guided_filter_batch_bwd(G, w, g, x, saved, supports)
+    assert torch.equal(gw, want[0]) and torch.equal(gg, want[1])
+    assert st["blocks"] == 2 * 12 * 3 * 2
+    assert all(st["cycles_per_block"][k] > 0 for k in (
+        "staging", "range", "e", "row_pass", "column_pass"))
+    assert st["cycles_per_block"]["guard"] == 0
+
+
 def _wide_tree(fmt, bd, depth=5):
     return synthetic.with_lobes(synthetic.make_synthetic_tree(
         "shell", depth=depth, basis_dim=bd), BasisFormat[fmt], bd)
@@ -1278,12 +1298,14 @@ def test_k1_wide_basis_matches_plain(layout, spp, cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", ["SG32", "ASG32", "SG48", "ASG48",
-                                    "SG80", "SG88", "SG96"])
+                                    "SG80", "SG88", "SG96", "ASG96",
+                                    "SG192", "ASG232"])
 def test_render_classic_wide_basis_matches_plain(layout, cuda_device):
     """render_classic's wide instances, frame and ray mode, within IMG_TOL /
     AUX_TOL of its plain version at full-depth and level-3 LUTs, with and
     without a basis_minmax mask: the shared-memory instance up to
-    basis_dim 88, the chunked one at 96."""
+    basis_dim 40, the chunked one past it, its whole basis in shared
+    memory up to 216 and a tail past that prefix at 232."""
     fmt = layout.rstrip("0123456789")
     bd = int(layout[len(fmt):])
     tree = _wide_tree(fmt, bd)

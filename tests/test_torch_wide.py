@@ -288,14 +288,16 @@ def _wide_trees(fmt, bd, depth=5):
 CLASSIC_TOL = 1e-5
 
 
-@pytest.mark.parametrize("fmt,bd", [("SG", 32), ("ASG", 32), ("SG", 48)],
-                         ids=["SG32", "ASG32", "SG48"])
+@pytest.mark.parametrize("fmt,bd", [("SG", 32), ("ASG", 32), ("SG", 48),
+                                    ("SG", 96), ("ASG", 96)],
+                         ids=["SG32", "ASG32", "SG48", "SG96", "ASG96"])
 def test_wide_classic_estimator_matches_jax(fmt, bd):
     """The classic estimator on SG / ASG rows past basis_dim 25
-    (render_classic's wide instances on the card): a 32x32 classic frame
-    of a depth-5 shell through the port's Renderer against the JAX
-    Renderer, and 256 aimed rays through trace_rays_classic against the
-    JAX package's (renderer.py:1060), both at the classic bar."""
+    (render_classic's wide instances on the card, the chunked one past
+    CLASSIC_WIDE_MAX_BASIS): a 32x32 classic frame of a depth-5 shell
+    through the port's Renderer against the JAX Renderer, and 256 aimed
+    rays through trace_rays_classic against the JAX package's
+    (renderer.py:1060), both at the classic bar."""
     tree, jtree = _wide_trees(fmt, bd)
     cam = JCamera(width=32, height=32, fx=53.0, fy=53.0)
     jopt = JOptions(spp=1, denoise=False, estimator="classic")
@@ -303,7 +305,8 @@ def test_wide_classic_estimator_matches_jax(fmt, bd):
                     cam.fy, options=jopt)
     img_j, aux_j = (np.asarray(a) for a in r.render(cam.transform))
     dt = tt.upload_tree(tree, lut_levels=5, device="cpu")
-    assert tr.classic_layout(dt.fmt, dt.basis_dim, dt.data_dim) == "wide"
+    assert tr.classic_layout(dt.fmt, dt.basis_dim, dt.data_dim) == (
+        "wide" if bd <= tr.CLASSIC_WIDE_MAX_BASIS else "wide_chunked")
     opt = RenderOptions(spp=1, denoise=False, estimator="classic")
     rp = tr.Renderer(dt, 32, 32, cam.fx, cam.fy, options=opt)
     img, aux = (a.numpy() for a in rp.render(cam.transform))
@@ -526,13 +529,14 @@ def _filter_cu_int(name):
 @pytest.mark.parametrize("run", ["kWideRowRun", "kColRun"],
                          ids=["row pass", "column pass"])
 def test_k5_wide_run_sums_keep_the_tap_order(run):
-    """K5 wide's window sums at every runtime support 1..32 add each
-    output's 2S + 1 inputs left to right, as K5's tile statement and the
-    first wide instance do: bit-equal in f32 to x[o] + x[o + 1] + ... +
-    x[o + 2S], on inputs whose sums round differently in another order.
-    N, the outputs a task sums, is read from csrc/filter.cu (the row
-    pass's 10 switches from the unrolled run_sums to run_sums_wide between
-    S = 4 and 5, the column pass's 4 between S = 1 and 2)."""
+    """K5 wide's and K6 wide's window sums (both take these run lengths)
+    at every runtime support 1..32 add each output's 2S + 1 inputs left
+    to right, as K5's tile statement and the first wide instances do:
+    bit-equal in f32 to x[o] + x[o + 1] + ... + x[o + 2S], on inputs
+    whose sums round differently in another order.  N, the outputs a task
+    sums, is read from csrc/filter.cu (the row pass's 10 switches from the
+    unrolled run_sums to run_sums_wide between S = 4 and 5, the column
+    pass's 4 between S = 1 and 2)."""
     N = _filter_cu_int(run)
     rs = np.random.default_rng(N)
     for S in range(1, 33):
@@ -634,3 +638,114 @@ def test_k5_wide_tile_statement_matches_plain_and_jax(spike):
         out_j = _jax_fast_vjp(LADDER12)(w, g, x, G)[0]
         np.testing.assert_allclose(out, np.asarray(out_j), atol=FILTER_TOL,
                                    rtol=0)
+
+
+def _k6_wide_statement(G, w, g, x, fm, den, supports):
+    """K6 wide's algorithm in NumPy, in f32: per image, level of support
+    s > 0 and 40x16 tile, (u_p, v_p) = (G_p a_p, a_p G_p . f_p) with a_p =
+    w_p / D_p and m_p staged over the tile and its halo s (0 and +inf
+    outside the image); one range reduction of m; while it spans less
+    than 60 nats, e_p = exp(mn - m_p) once a staged pixel into (u_p, v_p),
+    the row pass in tasks of kWideRowRun outputs and the column pass in
+    runs of kColRun, each output's sum in csrc/filter.cu:run_sums_any's
+    order (_run_sums_schedule), and dL/dg_q = exp(g_q - mn) (x_q . U - V);
+    else the per-window form.  -> (dL/dw, dL/dg, the guarded (b, l, y0,
+    x0))."""
+    from tests.test_torch_train_filter import _staged
+    B, L, H, W = w.shape
+    tw, th = tf.BATCH_TILE_W, tf.BATCH_TILE_H
+    row_run, col_run = _filter_cu_int("kWideRowRun"), _filter_cu_int(
+        "kColRun")
+    rgb, G = x[..., :3], G[..., :3]
+    f32 = np.float32
+
+    def dot3(a, b):
+        return f32(f32(a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1])
+                   + a[..., 2] * b[..., 2])
+    gw = np.zeros((B, L, H, W), f32)
+    gg = np.zeros((B, L, H, W), f32)
+    guards = set()
+    for b in range(B):
+        for l, s in enumerate(supports):
+            if s == 0:
+                gw[b, l] = dot3(G[b], rgb[b])
+                continue
+            gf = dot3(G[b], fm[b, l])
+            gw[b, l] = gf
+            a = w[b, l] / den[b, l]
+            uv = np.concatenate([G[b] * a[..., None], (a * gf)[..., None]],
+                                -1)
+            for y0 in range(0, H, th):
+                for x0 in range(0, W, tw):
+                    uv_r = _staged(uv, y0, x0, th, tw, s, f32(0))
+                    m_r = _staged(fm[b, l, ..., 3], y0, x0, th, tw, s,
+                                  f32(np.inf))
+                    inside = m_r < np.inf
+                    mn, mx = m_r[inside].min(), m_r[inside].max()
+                    xq = _staged(rgb[b], y0, x0, th, tw, 0, f32(0))
+                    gq = _staged(g[b, l], y0, x0, th, tw, 0, f32(0))
+                    if mx - mn < tf.GUARD_RANGE:
+                        X = uv_r * np.exp(mn - m_r)[..., None]
+                        hs = np.zeros((th + 2 * s, tw, 4), f32)
+                        for c0 in range(0, tw, row_run):
+                            run = np.moveaxis(
+                                X[:, c0:c0 + row_run + 2 * s], 1, 0)
+                            hs[:, c0:c0 + row_run] = np.moveaxis(
+                                _run_sums_schedule(run, row_run, s), 0, 1)
+                        U = np.concatenate([_run_sums_schedule(
+                            hs[r0:r0 + col_run + 2 * s], col_run, s)
+                            for r0 in range(0, th, col_run)])
+                        acc = np.exp(gq - mn) * f32(dot3(xq, U) - U[..., 3])
+                    else:
+                        guards.add((b, l, y0, x0))
+                        acc = np.zeros((th, tw), f32)
+                        for dy in range(2 * s + 1):
+                            for dx in range(2 * s + 1):
+                                p = uv_r[dy:dy + th, dx:dx + tw]
+                                k = np.exp(gq - m_r[dy:dy + th, dx:dx + tw])
+                                acc = acc + k * (dot3(p, xq) - p[..., 3])
+                    ny, nx = min(th, H - y0), min(tw, W - x0)
+                    gg[b, l, y0:y0 + ny, x0:x0 + nx] = acc[:ny, :nx]
+    return gw, gg, guards
+
+
+@pytest.mark.parametrize("spike", [False, True],
+                         ids=["seeded", "80-nat spike"])
+def test_k6_wide_tile_statement_matches_plain_and_jax(spike):
+    """K6 wide's tile algorithm (one e a staged pixel, row tasks of 10,
+    the 60-nat guard) at the ladder 1..12 on a batch of two 70x75 images,
+    from the tensors K5 wide's statement saves: both gradients against
+    the closed-form backward from those tensors, K6's plain version and,
+    on the seeded inputs, JAX's autodiff backward of guided_filter_batch
+    (its fast path, which the JAX training step takes); the guard in no
+    tile on the seeded inputs, and with an 80-nat spike exactly in the
+    (image, level, tile) triples whose region holds a saved stabiliser of
+    a window that holds the spike (the spike within 2s of the tile)."""
+    L, H, W, yx = 12, 70, 75, (40, 50)
+    w, g, x, G = _filter_inputs(23, L, H, W, B=2)
+    if spike:
+        g[1, :, yx[0], yx[1]] = 80.0
+    _, fm, den, _ = _k5_wide_statement(w, g, x, LADDER12)
+    gw, gg, guards = _k6_wide_statement(G, w, g, x, fm, den, LADDER12)
+    sw, sg = _backward_from_saved(G, w, g, x, fm, den, LADDER12)
+    t = torch.from_numpy
+    rw, rg = tf.guided_filter_backward_plain(t(G), t(w), t(g), t(x),
+                                             LADDER12)
+    for got in (gw, gg):
+        assert np.isfinite(got).all()
+    for got, want in ((gw, sw), (gg, sg), (gw, rw.numpy()), (gg, rg.numpy())):
+        np.testing.assert_allclose(got, want, rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    tw, th = tf.BATCH_TILE_W, tf.BATCH_TILE_H
+    want = {(1, l, y0, x0) for l, s in enumerate(LADDER12)
+            for y0 in range(0, H, th) for x0 in range(0, W, tw)
+            if spike and y0 - 2 * s <= yx[0] < y0 + th + 2 * s
+            and x0 - 2 * s <= yx[1] < x0 + tw + 2 * s}
+    assert guards == want
+    assert len(want) < tf.batch_tiles(2, H, W, LADDER12)
+    if not spike:
+        assert _guard_holds(g)
+        _, gw_j, gg_j = _jax_fast_vjp(LADDER12)(w, g, x, G)
+        np.testing.assert_allclose(gw, np.asarray(gw_j), rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL)
+        np.testing.assert_allclose(gg, np.asarray(gg_j), rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL)
