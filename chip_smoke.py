@@ -7,9 +7,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   1. the card: ``nvidia-smi --query-gpu=name,power.limit``;
   2. build every kernel from csrc/ with nvcc (sm_90a); ptxas's report of
      every render_classic instance (the frame's, its statistics' and the
-     ray mode's; registers; no stack frame, no spills) and of every
-     render_kernel instance, printed as JSON lines
-     {"ptxas_render_classic": ...} and {"ptxas_render": ...};
+     ray mode's; registers; no stack frame, no spills), of every
+     render_kernel and render_wide_kernel instance (K1's wide instances at
+     SPP <= 8, frame and ray mode: no stack frame, no spills), printed as
+     JSON lines {"ptxas_render_classic": ...} and {"ptxas_render": ...};
   3. K3 (LUT build + skip distances) vs its plain version, integer-exact,
      on a depth-7 shell, a deep chain and a random 512^3 LUT (occupancy
      1e-3, cap 12);
@@ -31,7 +32,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      (trace_rays, trace_rays_classic: K1's render_rays and
      render_classic_rays) vs its plain version on the NDC blobs tree's
      camera rays and on every classic instance's tree (RAY_LAYOUT_RAYS
-     aimed rays with world depths, unroll 1, 2, 3 at an odd max_steps);
+     aimed rays with world depths, unroll 1, 2, 3 at an odd max_steps),
+     every batch also permuted (its outputs the batch's, permuted, bit for
+     bit);
   5. PCG32: the kernel's per-pixel uniforms equal the tensor twin, bit-exact;
   6. K2 (guided filter from the net's bf16 activation) vs its plain version
      at 800x800, L=4, both support ladders, channels-last strides and a
@@ -110,11 +113,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      trace_rays_classic with the counts set to 0 just before and read just
      after (each ray kernel once), composited against K1's and
      render_classic's frames (max |diff|, share of pixels unequal), a
-     seeded permutation of the rays (its results the row order's,
-     permuted), the medians of RAY_REPS calls in turns of the ray mode in
-     row order, permuted, K1's frame, the classic ray mode and
-     render_classic's frame, the plain times and the bounds, as one JSON
-     line {"rays": ...}; then the training path: a kit
+     seeded permutation of the rays (both modes' results the row order's,
+     permuted), the medians of RAY_REPS calls in turns of both ray modes in
+     row order and permuted, K1's frame and render_classic's frame, the
+     plain times and the bounds, as one JSON line {"rays": ...}; then the
+     training path: a kit
      rendered by the port's tools/make_quality_dataset.py from the
      headline tree (32 train and 8 test poses at 800x800, SPP 6 aux and
      classic-estimator GT, under build/chip_smoke/train_kit), K5 (the
@@ -328,9 +331,32 @@ line {"wide_pairs": ...}.
 
 --wide-sweep times render_classic's wide instances of the package under
 ROOT on depth-7 shells of SG rows at each basis_dim of WIDE_SWEEP
-(800x800), with the instance each frame took and its digest, as one JSON
-line {"wide_sweep": ...}: where the shared-memory instance gives way to
-the chunked one.
+(800x800), with the instance each frame took and its digest, and K1's
+wide frame there (render_wide, SPP 6), as one JSON line
+{"wide_sweep": ...}: where the shared-memory instance gives way to the
+chunked one, and where K1's shade stops holding the whole basis in shared
+memory (kWideFullBasis).
+
+    python3 chip_smoke.py --ray-times [ROOT]
+    python3 chip_smoke.py --ray-pairs OTHER_ROOT [PAIRS]
+
+--ray-times times the ray modes of the package under ROOT (default:
+beside this file) alone by device_medians, each call the whole
+trace_rays or trace_rays_classic: the headline frame's 640,000 rays in row
+order and in the RAY_PERM_SEED permutation (render_rays,
+render_classic_rays), the SG32 depth-8 shell's render_wide frame and its
+rays (render_rays_wide, render_classic_rays_wide, both orders),
+WIDE_CHUNKED_TREE's rays (render_classic_rays_wide_chunked, both orders)
+and K1's wide frame and rays on the SG96 and SG232 trees of
+WIDE_K1_TREES (its whole basis in shared memory, and a prefix of 32), as
+one JSON line {"ray_times": ...},
+the outputs saved in build/chip_smoke; --ray-pairs runs it in PAIRS
+(default 6) pairs of processes, this script on OTHER_ROOT's package (the
+parent unpacked by ``git archive <commit> rt_octree_tpu_torch | tar -x -C
+build/parent``) and on its own in turns, and prints each side's times,
+their paired differences, the digests and the largest differences between
+the two sides' outputs (0 for every ray mode and the render_wide frame)
+as one JSON line {"ray_pairs": ...}.
 """
 
 from __future__ import annotations
@@ -345,14 +371,15 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-# --classic-only ROOT, --filter-only ROOT, --wide-times ROOT and
-# --wide-sweep ROOT import the package of another checkout (the timers of
-# --classic-pairs, --filter-pairs and --wide-pairs, and a copy of the
-# package with one change); every other mode imports the one beside this
-# file
+# --classic-only ROOT, --filter-only ROOT, --wide-times ROOT, --wide-sweep
+# ROOT and --ray-times ROOT import the package of another checkout (the
+# timers of --classic-pairs, --filter-pairs, --wide-pairs and --ray-pairs,
+# and a copy of the package with one change); every other mode imports the
+# one beside this file
 PKG_ROOT = (os.path.abspath(sys.argv[2])
             if sys.argv[1:2] in (["--classic-only"], ["--filter-only"],
-                                 ["--wide-times"], ["--wide-sweep"])
+                                 ["--wide-times"], ["--wide-sweep"],
+                                 ["--ray-times"])
             and len(sys.argv) == 3 else HERE)
 sys.path.insert(0, PKG_ROOT)
 
@@ -639,9 +666,13 @@ def ptxas_kernels(report, kernel):
 def phase_ptxas(native):
     """Every render_classic_kernel instance (7 row layouts, each for the
     frame, its statistics and the ray mode, and the two wide layouts'
-    frame and ray mode) as ptxas compiled it: no stack frame, no spills; and every render_kernel instance (8 SPP, each for
-    the frame, its statistics and the ray mode, and the wide rows' frame
-    and ray mode), recorded; and the wide instances of K7, K2, K5 and K6.
+    frame and ray mode) as ptxas compiled it: no stack frame, no spills;
+    every render_kernel instance (8 SPP, each for the frame, its
+    statistics and the ray mode) and render_wide_kernel instance (the wide
+    rows' frame and ray mode), recorded, the ray mode at SPP 16 and 32
+    too, the wide ones at SPP <= 8 with no stack frame and no spills (the
+    unrolled instances keep their basis in a local array, a 104-byte stack
+    frame, as before); and the wide instances of K7, K2, K5 and K6.
     Prints one {"ptxas_render_classic": ...}, one {"ptxas_render": ...}
     and one {"ptxas_wide": ...} line."""
     import re
@@ -660,10 +691,11 @@ def phase_ptxas(native):
     log(json.dumps({"ptxas_render_classic": table}))
     rt = {}
     for name, v in ptxas_kernels(report, "render_kernel").items():
-        m = re.search(r"render_kernelILi(\d+)ELb([01])ELb([01])ELb([01])EE",
-                      name)
-        rt[f"spp{m.group(1)}" + mode(m.group(2), m.group(3))
-           + (" wide" if m.group(4) == "1" else "")] = v
+        m = re.search(r"render_kernelILi(\d+)ELb([01])ELb([01])EE", name)
+        rt[f"spp{m.group(1)}" + mode(m.group(2), m.group(3))] = v
+    for name, v in ptxas_kernels(report, "render_wide_kernel").items():
+        m = re.search(r"render_wide_kernelILi(\d+)ELb([01])EE", name)
+        rt[f"spp{m.group(1)}" + mode("0", m.group(2)) + " wide"] = v
     log(json.dumps({"ptxas_render": rt}))
     wide = {}
     for src, kernel in WIDE_PTXAS:
@@ -680,9 +712,17 @@ def phase_ptxas(native):
     require(len(wide) == sum(WIDE_PTXAS.values()), f"ptxas reported "
             f"{sorted(wide)}, not the {sum(WIDE_PTXAS.values())} wide "
             "instances of K7, K2, K5 and K6")
-    require(all(v["stack_bytes"] == v["spill_store_bytes"]
-                == v["spill_load_bytes"] == 0 for v in table.values()),
+
+    def clean(v):
+        return v["stack_bytes"] == v["spill_store_bytes"] == \
+            v["spill_load_bytes"] == 0
+    require(all(clean(v) for v in table.values()),
             "a render_classic instance has a stack frame or spills")
+    wide_k1 = {k: v for k, v in rt.items() if k.endswith(" wide")
+               and int(k.split()[0][3:]) <= 8}
+    require(len(wide_k1) == 12 and all(clean(v) for v in wide_k1.values()),
+            f"K1's wide instances at SPP <= 8 have a stack frame or spills: "
+            f"{wide_k1}")
     return table
 
 
@@ -1005,17 +1045,28 @@ def ray_tmax(dt, n, seed):
 def hold_rays(label, dt, rays, opt, err, min_hit=RAY_MIN_HIT, **kw):
     """K1's ray mode (rays = (dirs, vdirs, cens, dst)) or render_classic's
     (rays = (dirs, vdirs, cens)) vs its plain version on the same card
-    (hold_ray_result)."""
+    (hold_ray_result), and the batch permuted by RAY_PERM_SEED: its
+    outputs the batch's, permuted, bit for bit."""
+    import torch
     from rt_octree_tpu_torch.render import renderer as R
+    trace = R.trace_rays if len(rays) == 4 else R.trace_rays_classic
+    got = trace(dt, *rays, opt, **kw)
     if len(rays) == 4:
-        key, got = "render_rays", R.trace_rays(dt, *rays, opt, **kw)
-        ref = R.trace_rays_plain(dt, *rays, opt, **kw)
+        key, ref = "render_rays", R.trace_rays_plain(dt, *rays, opt, **kw)
     else:
         key = "render_classic_rays"
-        got = R.trace_rays_classic(dt, *rays, opt, **kw)
         ref = R.trace_rays_classic_plain(dt, *rays, opt, **kw)
     key += R.wide_suffix(dt, len(rays) == 3)
     hold_ray_result(label, key, got, ref, err, min_hit)
+    perm = torch.randperm(rays[0].shape[0], generator=torch.Generator()
+                          .manual_seed(RAY_PERM_SEED)).to(dt.device)
+    pkw = dict(kw)
+    if kw.get("tmax_bg") is not None:
+        pkw["tmax_bg"] = kw["tmax_bg"][perm].contiguous()
+    same = torch.equal(trace(dt, *(t[perm].contiguous() for t in rays), opt,
+                             **pkw), got[perm])
+    require(same, f"{label}: {key}'s outputs on the permuted batch are not "
+            "the batch's, permuted")
 
 
 def hold_ray_result(label, key, got, ref, err, min_hit=RAY_MIN_HIT):
@@ -1428,6 +1479,10 @@ def wide_tree(label, fmt, bd, depth=6):
 # (label, format, basis_dim, shell depth) of the tree it is timed on and
 # that the wide path renders
 WIDE_CHUNKED_TREE = ("SG96", "SG", 96, 7)
+# --ray-times' trees for K1's wide shade past the SG32 frame: the whole
+# basis in shared memory at basis_dim 96 (48 KB a block), a prefix of 32
+# at 232 (csrc/render.cu:kWideFullBasis)
+WIDE_K1_TREES = (WIDE_CHUNKED_TREE, ("SG232", "SG", 232, 6))
 
 
 def wide_tree_path(label, fmt, bd, depth):
@@ -2952,8 +3007,9 @@ def phase_rays_headline(r, ps, err, card):
     thresholds with the counts set to 0 just before and read just after
     (render_rays and render_classic_rays once each), composited against
     K1's and render_classic's frames; a seeded permutation of the same
-    rays; the times, plain times and bounds.  Prints {"rays": ...} and
-    returns (ms, bounds, launches) of the two ray kernels."""
+    rays (both modes); the times, plain times and bounds.  Prints
+    {"rays": ...} and returns (ms, bounds, launches) of the two ray
+    kernels."""
     import torch
     from rt_octree_tpu_torch.native import build as native
     from rt_octree_tpu_torch.render import renderer as R
@@ -3001,7 +3057,8 @@ def phase_rays_headline(r, ps, err, card):
     perm = torch.randperm(n, generator=gen).cuda()
     pd, pv, pc, pdst = (t[perm].contiguous() for t in (d, v, c, dst))
     same = bool(torch.equal(R.trace_rays(dt, pd, pv, pc, pdst, opt),
-                            out[perm]))
+                            out[perm])) and bool(torch.equal(
+        R.trace_rays_classic(dt, pd, pv, pc, copt), out_c[perm]))
     log(f"[rays] the permuted rays' results are the row order's, "
         f"permuted: {same}")
     require(same, "a ray's result depends on its place in the batch")
@@ -3011,6 +3068,8 @@ def phase_rays_headline(r, ps, err, card):
         "rays_perm": lambda: R.trace_rays(dt, pd, pv, pc, pdst, opt),
         "frame": lambda: R.render_noisy(dt, tf, st, inc, opt=opt, **kw),
         "classic_rays_row": lambda: R.trace_rays_classic(dt, d, v, c, copt),
+        "classic_rays_perm": lambda: R.trace_rays_classic(dt, pd, pv, pc,
+                                                          copt),
         "classic_frame": lambda: R.render_noisy(dt, tf, 0, 0, opt=copt,
                                                 **kw)}, RAY_REPS, RAY_WARMUP)
     plain = {"render_rays": cuda_ms(
@@ -3535,14 +3594,16 @@ WIDE_PAIRS_TREES = (("ASG32", "ASG", 32, 7), ("SG48", "SG", 48, 7),
 WIDE_SWEEP = (("SG32", "SG", 32), ("SG40", "SG", 40), ("SG48", "SG", 48),
               ("SG64", "SG", 64), ("SG72", "SG", 72), ("SG80", "SG", 80),
               ("SG88", "SG", 88), ("SG96", "SG", 96), ("SG128", "SG", 128),
-              ("SG192", "SG", 192))
+              ("SG160", "SG", 160), ("SG192", "SG", 192),
+              ("SG232", "SG", 232))
 
 
 def wide_sweep(root):
     """--wide-sweep [ROOT]: render_classic's classic frame at 800x800
     (phase_wide's camera) on a depth-7 shell of each WIDE_SWEEP row
     layout, by device_ms, with the launch name of the instance it took
-    and the frame's digest.  One JSON line {"wide_sweep": ...}."""
+    and the frame's digest; and K1's frame there (render_wide, SPP 6),
+    its ms and digest.  One JSON line {"wide_sweep": ...}."""
     import torch
     from rt_octree_tpu_torch.core.camera import Camera
     from rt_octree_tpu_torch.core.options import RenderOptions
@@ -3553,6 +3614,7 @@ def wide_sweep(root):
     tf = torch.from_numpy(cam.transform.astype(np.float32)).cuda()
     kw = dict(width=800, height=800, fx=cam.fx, fy=cam.fy)
     copt = RenderOptions(spp=1, denoise=False, estimator="classic")
+    o6 = RenderOptions(spp=6, denoise=False)
     res = {"root": root}
     for label, fmt, bd in WIDE_SWEEP:
         dt = load_wide_tree(label, fmt, bd, 7)
@@ -3563,9 +3625,186 @@ def wide_sweep(root):
             "instance": [k for k, n in native.LAUNCHES.items() if n],
             "digest": frame_digest(frame),
             "ms": device_ms(lambda: R.render_noisy(dt, tf, 0, 0, opt=copt,
-                                                   **kw), 20, 3)}
+                                                   **kw), 20, 3),
+            "k1_digest": frame_digest(R.render_noisy(dt, tf, 7, 1, opt=o6,
+                                                     **kw)[:2]),
+            "k1_ms": device_ms(lambda: R.render_noisy(dt, tf, 7, 1, opt=o6,
+                                                      **kw), 20, 3)}
         del dt
     log(json.dumps({"wide_sweep": res}))
+    return 0
+
+
+def ray_outputs_path(root):
+    """Where --ray-times saves the ray modes' and render_wide's outputs of
+    the package under ``root``: this checkout's or the other one's."""
+    side = "this" if os.path.abspath(root) == HERE else "other"
+    return os.path.join(WORK, f"ray_outputs_{side}.npz")
+
+
+def ray_times(root):
+    """--ray-times [ROOT]: the ray modes of the package under ROOT
+    (default: beside this file) alone, by device_medians (RAY_REPS calls
+    each in turns after RAY_WARMUP rounds), each call the whole
+    trace_rays / trace_rays_classic: the headline frame's 640,000 rays
+    (pose r_0, K1's own thresholds) in row order and in the RAY_PERM_SEED
+    permutation through render_rays and render_classic_rays; the SG32
+    depth-8 shell's render_wide frame (phase_wide's camera, SPP 6) and its
+    rays through render_rays_wide and render_classic_rays_wide;
+    WIDE_CHUNKED_TREE's rays through render_classic_rays_wide_chunked (both
+    orders); and the render_wide frame and render_rays_wide on each tree of
+    WIDE_K1_TREES.  Each permuted output must be its row order's,
+    permuted; the outputs are saved for --ray-pairs with their digests.
+    One JSON line {"ray_times": ...}."""
+    import torch
+    from rt_octree_tpu_torch.core.camera import Camera
+    from rt_octree_tpu_torch.core.options import RenderOptions
+    from rt_octree_tpu_torch.io import n3tree
+    from rt_octree_tpu_torch.io.poses import load_poses
+    from rt_octree_tpu_torch.native import build as native
+    from rt_octree_tpu_torch.ops.traversal import upload_tree
+    from rt_octree_tpu_torch.render import renderer as R
+    from rt_octree_tpu_torch.utils.rng import make_sorted_dst
+    native.build()
+    res = {"root": root, "package": os.path.dirname(os.path.dirname(
+        os.path.abspath(R.__file__))), "card": torch.cuda.get_device_name(0)}
+    tree_path = os.path.join(WORK, "shell_d9_sh9.npz")
+    if not os.path.isfile(tree_path):
+        headline_tree_path()
+    dt = upload_tree(n3tree.load(tree_path), lut_levels=9, device="cuda")
+    ps = load_poses("blender", os.path.join(KIT, "transforms_test.json"),
+                    800, 800)
+    d, v, c, u = headline_ray_batch(dt, ps.poses[0], ps.fx, ps.fy)[:4]
+    n = d.shape[0]
+    perm = torch.randperm(n, generator=torch.Generator().manual_seed(
+        RAY_PERM_SEED)).cuda()
+
+    def permuted(*ts):
+        return tuple(t[perm].contiguous() for t in ts)
+    opt, copt = headline_options(), classic_options("cli")
+    dst = make_sorted_dst(u)
+    fns = {"rays_row": lambda: R.trace_rays(dt, d, v, c, dst, opt),
+           "rays_perm": lambda: R.trace_rays(dt, *permuted(d, v, c, dst),
+                                             opt),
+           "classic_rays_row": lambda: R.trace_rays_classic(dt, d, v, c,
+                                                            copt),
+           "classic_rays_perm": lambda: R.trace_rays_classic(
+               dt, *permuted(d, v, c), copt)}
+    outs = {}
+
+    def run(fns):
+        # the outputs, each permuted one held to its row order's, then
+        # the times with the inputs permuted beforehand
+        for k, fn in fns.items():
+            outs[k] = fn()
+        for k in fns:
+            if k.endswith("_perm"):
+                require(torch.equal(outs[k], outs[k[:-5] + "_row"][perm]),
+                        f"{k}: not the row order's outputs, permuted")
+        return fns
+    run(fns)
+    pd, pv, pc, pdst = permuted(d, v, c, dst)
+    ms = device_medians({
+        "rays_row": fns["rays_row"],
+        "rays_perm": lambda: R.trace_rays(dt, pd, pv, pc, pdst, opt),
+        "classic_rays_row": fns["classic_rays_row"],
+        "classic_rays_perm": lambda: R.trace_rays_classic(dt, pd, pv, pc,
+                                                          copt)},
+        RAY_REPS, RAY_WARMUP)
+    del dt
+    sg = load_wide_tree("SG32", "SG", 32, WIDE_TREE_DEPTH)
+    cam = Camera(width=800, height=800, fx=1111.0, fy=1111.0)
+    tf = torch.from_numpy(cam.transform.astype(np.float32)).cuda()
+    kw = dict(width=800, height=800, fx=cam.fx, fy=cam.fy)
+    o6 = RenderOptions(spp=6, denoise=False)
+    wopt = RenderOptions(spp=1, denoise=False, estimator="classic")
+    dirs, cens = R.device_camera_rays(tf, 800, 800, cam.fx, cam.fy)
+    wv = R.rodrigues(o6.rot_dirs, dirs).contiguous()
+    wd, wc = (t.contiguous() for t in R.maybe_world2ndc(sg, dirs, cens))
+    wu = torch.empty((n, 6), dtype=torch.float32, device="cuda")
+    R.render_noisy(sg, tf, 7, 1, opt=o6, uniforms_out=wu, **kw)
+    wdst = make_sorted_dst(wu)
+    outs["render_wide_img"], outs["render_wide_aux"] = R.render_noisy(
+        sg, tf, 7, 1, opt=o6, **kw)[:2]
+    pwd, pwv, pwc, pwdst = permuted(wd, wv, wc, wdst)
+    wide = run({
+        "rays_wide_row": lambda: R.trace_rays(sg, wd, wv, wc, wdst, o6),
+        "rays_wide_perm": lambda: R.trace_rays(sg, pwd, pwv, pwc, pwdst,
+                                               o6),
+        "classic_rays_wide_row": lambda: R.trace_rays_classic(
+            sg, wd, wv, wc, wopt),
+        "classic_rays_wide_perm": lambda: R.trace_rays_classic(
+            sg, pwd, pwv, pwc, wopt)})
+    ms.update(device_medians({
+        "render_wide": lambda: R.render_noisy(sg, tf, 7, 1, opt=o6, **kw),
+        **wide}, RAY_REPS, RAY_WARMUP))
+    del sg
+    ck = load_wide_tree(*WIDE_CHUNKED_TREE)
+    ms.update(device_medians(run({
+        "classic_rays_wide_chunked_row": lambda: R.trace_rays_classic(
+            ck, wd, wv, wc, wopt),
+        "classic_rays_wide_chunked_perm": lambda: R.trace_rays_classic(
+            ck, pwd, pwv, pwc, wopt)}), RAY_REPS, RAY_WARMUP))
+    del ck
+    for label, *tree in WIDE_K1_TREES:
+        kt = load_wide_tree(label, *tree)
+        tag = label.lower()
+        outs[f"render_wide_{tag}_img"], outs[f"render_wide_{tag}_aux"] = \
+            R.render_noisy(kt, tf, 7, 1, opt=o6, **kw)[:2]
+        ms.update(device_medians({
+            f"render_wide_{tag}": lambda: R.render_noisy(kt, tf, 7, 1,
+                                                         opt=o6, **kw),
+            **run({f"rays_wide_{tag}_row": lambda: R.trace_rays(
+                kt, wd, wv, wc, wdst, o6)})}, RAY_REPS, RAY_WARMUP))
+        del kt
+    res["ms"] = ms
+    res["digest"] = frame_digest(tuple(outs[k] for k in sorted(outs)))
+    res["timing"] = (f"median of {RAY_REPS} calls each after {RAY_WARMUP} "
+                     "rounds, in turns, CUDA events, host queuing hidden "
+                     "behind a sleep kernel")
+    np.savez(ray_outputs_path(root),
+             **{k: t.cpu().numpy() for k, t in outs.items()})
+    log(json.dumps({"ray_times": res}))
+    return 0
+
+
+def ray_pairs(other_root, pairs):
+    """--ray-pairs: ``pairs`` pairs of --ray-times processes, this script
+    on OTHER_ROOT's package and on its own in turns; each side's times
+    (least, quartiles, largest; the keys both sides time paired, any
+    other this side's alone), this side's less the other's within a pair,
+    each side's digests and the largest |difference| between the two
+    sides' outputs, which must be 0 for every ray mode in both orders and
+    for the render_wide frames.  One JSON line {"ray_pairs": ...}."""
+    if not os.path.isfile(os.path.join(WORK, "shell_d9_sh9.npz")):
+        headline_tree_path()
+    for tree in (("SG32", "SG", 32, WIDE_TREE_DEPTH), WIDE_CHUNKED_TREE,
+                 *WIDE_K1_TREES):
+        wide_tree_path(*tree)
+    ms = {"other": {}, "this": {}}
+    digests = {side: set() for side in ms}
+    for i, side, lines in alternate(other_root, pairs, ["--ray-times"],
+                                    "ray_pairs", own_script=True):
+        got = [ln["ray_times"] for ln in lines if "ray_times" in ln]
+        require(len(got) == 1, f"{side} ray process {i}: unexpected output")
+        for k, t in got[0]["ms"].items():
+            ms[side].setdefault(k, []).append(t)
+        digests[side].add(got[0]["digest"])
+    both = sorted(set(ms["this"]) & set(ms["other"]))
+    paired = {side: {k: ms[side][k] for k in both} for side in ms}
+    outs = {side: np.load(ray_outputs_path(root)) for side, root in
+            (("this", HERE), ("other", other_root))}
+    diffs = {k: float(np.abs(outs["this"][k] - outs["other"][k]).max())
+             for k in outs["this"].files}
+    log(json.dumps({"ray_pairs": {
+        **pair_times(other_root, pairs, paired),
+        "this_only": {k: spread(v) for k, v in ms["this"].items()
+                      if k not in both},
+        "digests": {side: sorted(d) for side, d in digests.items()},
+        "outputs_max_abs_diff": diffs}}))
+    require(all(diffs[k] == 0 for k in diffs),
+            f"the ray modes' or render_wide's outputs are not the other "
+            f"package's bit for bit: {diffs}")
     return 0
 
 
@@ -5299,6 +5538,10 @@ def main(argv) -> int:
         return wide_pairs(argv[1], int(argv[2]) if len(argv) == 3 else 6)
     if argv[:1] == ["--wide-sweep"] and len(argv) in (1, 2):
         return wide_sweep(PKG_ROOT)
+    if argv[:1] == ["--ray-times"] and len(argv) in (1, 2):
+        return ray_times(PKG_ROOT)
+    if argv[:1] == ["--ray-pairs"] and len(argv) in (2, 3):
+        return ray_pairs(argv[1], int(argv[2]) if len(argv) == 3 else 6)
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2

@@ -89,8 +89,12 @@
 // Wide rows (kWide, kBdWide, kBdWideChunked; launch names with "_wide"):
 // SG and ASG trees of a basis_dim above kMaxBasis, which the JAX package
 // renders too.  Their instances of K1 (frame and ray mode at every SPP)
-// evaluate the basis kBasisChunk values at a time for each shaded row
-// (wide_channels) instead of holding it in registers.  render_classic's
+// know every shaded row once the march ends: finish_ray prefetches all
+// their lines into L2, evaluates the ray's masked basis once into shared
+// memory, [b][thread], as the chunked classic instance does (the whole
+// basis up to kWideFullBasis values, else a prefix of kWideCapPrefix and
+// the tail row by row), and reads each row as the 16-byte pieces that
+// cover it (ChunkedRow::channels), in the order of b.  render_classic's
 // wide instance (frame and ray mode, up to kWideSmemMaxBasis) evaluates
 // the ray's masked basis once into shared memory, [b][thread], and copies
 // each shaded row a step ahead into a shared slot of its thread by
@@ -111,11 +115,21 @@
 // dir, cen and vdir are read as given (already NDC-warped and rotated; not
 // normalised: delta_scale = 1 / |dir * scale| and the basis takes vdir as
 // it is), its world depth ray_tmax as given (no 1e9 clamp; 1e9 without
-// one), its sorted thresholds from ray_dst (no PCG32).  The march set-up
+// one), its sorted thresholds from ray_dst (no PCG32); vdir and the
+// thresholds only once init_march finds that the ray enters the box (a
+// miss writes 0 from its dir, cen and depth).  The march set-up
 // (init_march), the leaf step and the shade are the frame's; the output is
 // [rgb, alpha] before the background into ray_out, with no composite and no
 // aux.  The classic ray mode takes its step limit as the wrapper rounds it
-// (ceil(max_steps / unroll) * unroll).  No statistics variant.
+// (ceil(max_steps / unroll) * unroll).  No statistics variant.  A ray's
+// arithmetic does not depend on its place, so its output is the same bit
+// for bit in any order of the batch.  The order sets the time (the
+// headline's 640,000 rays: 0.2775 ms in row order, 0.7436 in a seeded
+// permutation).  A pass that sorted the batch by a Morton key of its box
+// entries before the march (a key kernel and a two-pass radix sort, five
+// launches, 0.056 ms) cut the permuted batch to 0.363 ms, but made the
+// row-order camera batches that every caller sends 15 % slower (0.319
+// ms): the march gained 0.015 ms there.  It is not kept (PERF.md).
 #include <cuda_fp16.h>
 
 #include <climits>
@@ -491,23 +505,27 @@ __device__ __forceinline__ void setup_geom(const RenderParams& p, int px,
 // and rotated view dirs): no rotation, no warp, neither vector normalised;
 // its world depth ray_tmax[i] unclamped (trace_rays has no clamp), 1e9
 // without one.
+// The view dir is read only for a ray that enters the box.
 __device__ __forceinline__ void setup_geom_ray(const RenderParams& p,
                                                long long i, RayGeom& r) {
   float dir[3], cen[3];
   for (int k = 0; k < 3; ++k) {
     dir[k] = p.ray_dirs[3 * i + k];
     cen[k] = p.ray_cens[3 * i + k];
-    r.vdir[k] = p.ray_vdirs[3 * i + k];
   }
   r.idx = 0;
   init_march(p, dir, cen, [&] { return p.ray_tmax ? p.ray_tmax[i] : 1e9f; },
              r);
+  for (int k = 0; k < 3; ++k)
+    r.vdir[k] = r.active ? p.ray_vdirs[3 * i + k] : 0.f;
 }
 
-template <int SPP>
+// kHostTrig: as setup_geom's (the wide instances take the wrapper's cosine
+// and sine, so that no instance at SPP <= 8 needs a stack frame).
+template <int SPP, bool kHostTrig = false>
 __device__ __forceinline__ void setup_ray(const RenderParams& p, int px,
                                           int py, Ray<SPP>& r) {
-  setup_geom(p, px, py, r);
+  setup_geom<kHostTrig>(p, px, py, r);
   const int idx = r.idx;
   // ---- sorted free-flight thresholds (pcg32 at idx*spp + j) ----
   {
@@ -539,13 +557,15 @@ __device__ __forceinline__ void setup_ray(const RenderParams& p, int px,
 }
 
 // Ray mode: the caller's ray i with its sorted thresholds ray_dst[i] as
-// given (trace_rays; SPP is dst.shape[1]).
+// given (trace_rays; SPP is dst.shape[1]), read only for a ray that enters
+// the box (a ray that does not takes no step).
 template <int SPP>
 __device__ __forceinline__ void setup_ray_of(const RenderParams& p,
                                              long long i, Ray<SPP>& r) {
   setup_geom_ray(p, i, r);
 #pragma unroll
-  for (int j = 0; j < SPP; ++j) r.dst[j] = p.ray_dst[i * SPP + j];
+  for (int j = 0; j < SPP; ++j)
+    r.dst[j] = r.active ? p.ray_dst[i * SPP + j] : 0.f;
   r.src = 0.0f;
   r.sppc = r.shn = 0;
 #pragma unroll
@@ -715,36 +735,6 @@ __device__ __forceinline__ float basis_at(const RenderParams& p,
   return 0.f;  // a format without a basis (RGBA rows with a basis_dim)
 }
 
-// The 3 logits of leaf ptr's row at any basis_dim: the basis evaluated
-// kBasisChunk values at a time into registers, each chunk's coefficients
-// read as halfs and added to the three channels, so each channel's dot
-// runs in the order of b as leaf_channels' does, with no basis_dim-sized
-// array.  The basis is evaluated again for every row: the price of no
-// limit on basis_dim.
-__device__ __forceinline__ void wide_channels(const RenderParams& p, int ptr,
-                                              const float v[3],
-                                              float out[3]) {
-  const int bd = p.basis_dim;
-  const unsigned short* row =
-      reinterpret_cast<const unsigned short*>(p.data) +
-      (long long)ptr * p.data_dim;
-  out[0] = out[1] = out[2] = 0.f;
-  for (int b0 = 0; b0 < bd; b0 += kBasisChunk) {
-    float basis[kBasisChunk];
-#pragma unroll
-    for (int j = 0; j < kBasisChunk; ++j)
-      basis[j] = b0 + j < bd ? basis_at(p, v, b0 + j) : 0.f;
-#pragma unroll
-    for (int ch = 0; ch < 3; ++ch)
-#pragma unroll
-      for (int j = 0; j < kBasisChunk; ++j)
-        if (b0 + j < bd)
-          out[ch] = out[ch] + __half2float(__ushort_as_half(
-                                  __ldg(row + ch * bd + b0 + j))) *
-                                  basis[j];
-  }
-}
-
 // Composite (prem: premultiplied rgb) over the background or the pixel's
 // mesh colour and write img, aux_nhwc and aux_chw (composite,
 // aux_from_composite).
@@ -779,49 +769,6 @@ __device__ __forceinline__ void write_pixel(const RenderParams& p,
     p.stat_steps[out] = r.steps;
     p.stat_descents[out] = r.descents;
   }
-}
-
-// Shade the distinct hit leaves (_shade_rows) and hand the premultiplied
-// rgb and alpha to write (the frame: composite and write the pixel).
-// kWide: rows of a basis_dim above kMaxBasis (wide_channels).
-template <int SPP, bool kStats, bool kWide, typename Write>
-__device__ __forceinline__ void finish_ray(const RenderParams& p,
-                                           const Ray<SPP>& r, Write write) {
-  float rgb[3] = {0.f, 0.f, 0.f};
-  float wsum = 0.f;
-  if (r.shn > 0) {
-    float basis[kMaxBasis];
-    const int bd = p.basis_dim;
-    if constexpr (!kWide) {
-      if (bd >= 0) eval_basis(p, r.vdir[0], r.vdir[1], r.vdir[2], basis);
-    }
-#pragma unroll
-    for (int k = 0; k < SPP; ++k) {
-      if (k < r.shn) {
-        if (kStats) mark(p.data_bits, r.rec_ptr[k]);
-        float v[3];
-        if constexpr (kWide) {
-          wide_channels(p, r.rec_ptr[k], r.vdir, v);
-          for (int ch = 0; ch < 3; ++ch) v[ch] = 1.0f / (1.0f + expf(-v[ch]));
-        } else {
-          leaf_rgb(p, r.rec_ptr[k], basis, v);
-        }
-        const float w = (float)r.rec_cnt[k];
-        for (int ch = 0; ch < 3; ++ch) rgb[ch] = rgb[ch] + v[ch] * w;
-        wsum = wsum + w;
-      }
-    }
-  }
-  const float fspp = (float)SPP;
-  const float prem[3] = {rgb[0] / fspp, rgb[1] / fspp, rgb[2] / fspp};
-  write(prem, wsum / fspp);
-}
-
-// Ray mode's output: premultiplied rgb and alpha before the background.
-__device__ __forceinline__ void write_ray(const RenderParams& p, long long i,
-                                          const float prem[3], float alpha) {
-  reinterpret_cast<float4*>(p.ray_out)[i] =
-      make_float4(prem[0], prem[1], prem[2], alpha);
 }
 
 // ---- the classic estimator (trace_rays_classic) ----
@@ -1013,7 +960,7 @@ __device__ __forceinline__ float piece_dot(uint4 w, int lo, int hi,
 // slot, [piece][kThreads] (a warp's pieces side by side, so that the
 // 16-byte copies and reads take the fewest wavefronts); channels() waits
 // for them a step later and sums each channel in the order of b from the
-// shared basis: wide_channels' f32 operations, without a basis
+// shared basis: K1 wide's f32 operations (finish_ray), without a basis
 // evaluation or a load from the device's memory on the march's chain.
 template <>
 struct ClassicRow<kBdWide> {
@@ -1077,15 +1024,20 @@ struct ClassicRow<kBdWide> {
 // block with the view direction, so that two blocks share an SM.
 constexpr int kChunkedMaxPrefix = 216;
 
+// The prefix of a basis of bd values: all of it up to kFull values (and
+// up to kCap), else kCap values.
+template <int kFull = kChunkedMaxPrefix, int kCap = kFull>
 __host__ __device__ constexpr int chunked_prefix(int bd) {
-  return bd < kChunkedMaxPrefix ? bd : kChunkedMaxPrefix;
+  return bd <= kFull || bd <= kCap ? bd : kCap;
 }
 
 // The chunked instance's dynamic shared memory: a thread's basis prefix,
 // and its view direction past the prefix, for each of the block's threads.
+template <int kFull = kChunkedMaxPrefix, int kCap = kFull>
 constexpr int chunked_classic_smem(int bd) {
   return kThreads * 4 *
-         (chunked_prefix(bd) + (bd > kChunkedMaxPrefix ? 3 : 0));
+         (chunked_prefix<kFull, kCap>(bd) +
+          (chunked_prefix<kFull, kCap>(bd) < bd ? 3 : 0));
 }
 
 // SG / ASG rows of a basis_dim above kWideSmemMaxBasis.  The ray's masked
@@ -1101,13 +1053,14 @@ constexpr int chunked_classic_smem(int bd) {
 // (2-byte aligned: the row starts `skew` halfs into its first piece) and
 // sums each channel in the order of b from the shared basis, then the
 // tail past the prefix, its basis evaluated kBasisChunk values at a time
-// from the view direction as wide_channels does: wide_channels' f32
-// operations in its order.  The row's address is worked out again in
-// channels(), so that the march carries one register for it (with the
-// address, the view direction and the pieces kept across the step, ptxas
-// spilled).
-template <>
-struct ClassicRow<kBdWideChunked> {
+// from the view direction: basis_at's f32 operations in the order of b,
+// as K1 wide's shade (finish_ray) sums them.  The row's address is worked
+// out again in channels(), so that the march carries one register for it
+// (with the address, the view direction and the pieces kept across the
+// step, ptxas spilled).  kFull, kCap: the prefix (chunked_prefix; K1
+// wide's shade takes its own, ChunkedRow<kWideFullBasis, kWideCapPrefix>).
+template <int kFull, int kCap>
+struct ChunkedRow {
   float* basis;  // this thread's basis value b at basis[b * kThreads]; past
                  // the prefix, its view direction at basis[(nb + i) * ...]
   int ptr;       // the row
@@ -1118,7 +1071,7 @@ struct ClassicRow<kBdWideChunked> {
 
   __device__ __forceinline__ void set_basis(const RenderParams& p,
                                             const float v[3]) {
-    const int bd = p.basis_dim, nb = chunked_prefix(bd);
+    const int bd = p.basis_dim, nb = chunked_prefix<kFull, kCap>(bd);
     for (int b = 0; b < nb; ++b) basis[b * kThreads] = basis_at(p, v, b);
     if (nb < bd)
       for (int i = 0; i < 3; ++i) basis[(nb + i) * kThreads] = v[i];
@@ -1137,7 +1090,7 @@ struct ClassicRow<kBdWideChunked> {
   // part, the pieces between whole; then the tail.
   __device__ __forceinline__ void channels(const RenderParams& p,
                                            const float*, float out[3]) const {
-    const int bd = p.basis_dim, nb = chunked_prefix(bd);
+    const int bd = p.basis_dim, nb = chunked_prefix<kFull, kCap>(bd);
     const uintptr_t a =
         reinterpret_cast<uintptr_t>(p.data + (long long)ptr * p.data_dim);
     const uint4* src = reinterpret_cast<const uint4*>(a & ~uintptr_t{15});
@@ -1178,6 +1131,98 @@ struct ClassicRow<kBdWideChunked> {
     }
   }
 };
+
+template <>
+struct ClassicRow<kBdWideChunked>
+    : ChunkedRow<kChunkedMaxPrefix, kChunkedMaxPrefix> {};
+
+// K1 wide's shade (finish_ray) holds a basis of up to kWideFullBasis values
+// in shared memory, and of a longer one the first kWideCapPrefix values
+// (the tail as ChunkedRow's).  K1's frame at SPP 6 on depth-7 SG shells,
+// 800x800 (chip_smoke.py --wide-sweep on copies with each rule, NVIDIA
+// H100 80GB HBM3): the whole basis against a prefix of 32 takes 0.2060
+// against 0.2225 ms at basis_dim 96, 0.2506 against 0.2506 at 128, 0.3386
+// against 0.2795 at 160, 0.4169 against 0.3723 at 232: past 128 the whole
+// basis leaves three blocks an SM or fewer and a small L1 for the march's
+// gathers, and a prefix of 32 (six blocks) wins; a prefix of 96 (four)
+// loses to both there.
+constexpr int kWideFullBasis = 128;
+constexpr int kWideCapPrefix = 32;
+
+// Shade the distinct hit leaves (_shade_rows) and hand the premultiplied
+// rgb and alpha to write (the frame: composite and write the pixel).
+// kWide: rows of a basis_dim above kMaxBasis.  The march has recorded every
+// shaded row by now, so their lines are all prefetched into L2 first; the
+// ray's masked basis is then evaluated once into this thread's column of
+// the block's shared [b][kThreads] array (ChunkedRow: the prefix of
+// kWideFullBasis and kWideCapPrefix, the tail from the view direction)
+// while those lines move, and each row is summed from its 16-byte pieces, each
+// channel in the order of b from 0 (basis_at's values, as a shade that
+// evaluates the basis row by row sums them, and as the classic wide
+// instances do).  The rows are taken one at a time by index (k < shn,
+// selected from the unrolled record slots), so that one copy of the row
+// sum serves every SPP.  The same basis held in registers, kBasisChunk
+// values at a time for groups of 4 rows, was 5 % slower on the SG32 frame
+// (chip_smoke.py --ray-pairs against a copy) and left stack frames.
+template <int SPP, bool kStats, bool kWide, typename Write>
+__device__ __forceinline__ void finish_ray(const RenderParams& p,
+                                           const Ray<SPP>& r, Write write) {
+  float rgb[3] = {0.f, 0.f, 0.f};
+  float wsum = 0.f;
+  if (r.shn > 0) {
+    if constexpr (kWide) {
+      extern __shared__ float4 wide_smem[];
+      ChunkedRow<kWideFullBasis, kWideCapPrefix> row;
+      row.init(p, reinterpret_cast<float*>(wide_smem));
+#pragma unroll
+      for (int k = 0; k < SPP; ++k)
+        if (k < r.shn) row.issue(p, r.rec_ptr[k]);
+      row.set_basis(p, r.vdir);
+      for (int k = 0; k < r.shn; ++k) {
+        int ptr = 0, cnt = 0;
+#pragma unroll
+        for (int j = 0; j < SPP; ++j) {
+          if (j == k) {
+            ptr = r.rec_ptr[j];
+            cnt = r.rec_cnt[j];
+          }
+        }
+        row.ptr = ptr;
+        float v[3];
+        row.channels(p, nullptr, v);
+        for (int ch = 0; ch < 3; ++ch) v[ch] = 1.0f / (1.0f + expf(-v[ch]));
+        const float w = (float)cnt;
+        for (int ch = 0; ch < 3; ++ch) rgb[ch] = rgb[ch] + v[ch] * w;
+        wsum = wsum + w;
+      }
+    } else {
+      float basis[kMaxBasis];
+      if (p.basis_dim >= 0)
+        eval_basis(p, r.vdir[0], r.vdir[1], r.vdir[2], basis);
+#pragma unroll
+      for (int k = 0; k < SPP; ++k) {
+        if (k < r.shn) {
+          if (kStats) mark(p.data_bits, r.rec_ptr[k]);
+          float v[3];
+          leaf_rgb(p, r.rec_ptr[k], basis, v);
+          const float w = (float)r.rec_cnt[k];
+          for (int ch = 0; ch < 3; ++ch) rgb[ch] = rgb[ch] + v[ch] * w;
+          wsum = wsum + w;
+        }
+      }
+    }
+  }
+  const float fspp = (float)SPP;
+  const float prem[3] = {rgb[0] / fspp, rgb[1] / fspp, rgb[2] / fspp};
+  write(prem, wsum / fspp);
+}
+
+// Ray mode's output: premultiplied rgb and alpha before the background.
+__device__ __forceinline__ void write_ray(const RenderParams& p, long long i,
+                                          const float prem[3], float alpha) {
+  reinterpret_cast<float4*>(p.ray_out)[i] =
+      make_float4(prem[0], prem[1], prem[2], alpha);
+}
 
 // The march runs one step ahead of the shade.  A leaf step needs only the
 // leaf's sigma for its weight light * (1 - att), the new light, the stop
@@ -1288,8 +1333,7 @@ __global__ void __launch_bounds__(kThreads) render_classic_kernel(
 // order ----
 
 template <int SPP, bool kStats, bool kRays, bool kWide>
-__global__ void __launch_bounds__(kThreads) render_kernel(
-    const RenderParams p) {
+__device__ __forceinline__ void render_body(const RenderParams& p) {
   if constexpr (kRays) {
     const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
     if (i >= p.n_rays) return;
@@ -1309,7 +1353,7 @@ __global__ void __launch_bounds__(kThreads) render_kernel(
     if (px >= p.width || py >= p.row0 + p.rows) return;  // the ragged edge
     const int res = rt::ipow(p.N, p.lut_levels);
     Ray<SPP> r;
-    setup_ray<SPP>(p, px, py, r);
+    setup_ray<SPP, kWide>(p, px, py, r);
     while (r.active && r.steps < p.max_steps)
       march_step<SPP, kStats>(p, res, r);
     finish_ray<SPP, kStats, kWide>(p, r,
@@ -1317,6 +1361,26 @@ __global__ void __launch_bounds__(kThreads) render_kernel(
                                      write_pixel<kStats>(p, r, prem, alpha);
                                    });
   }
+}
+
+template <int SPP, bool kStats, bool kRays>
+__global__ void __launch_bounds__(kThreads) render_kernel(
+    const RenderParams p) {
+  render_body<SPP, kStats, kRays, false>(p);
+}
+
+// K1's wide instances (kWide), with a floor of kWideMinBlocks blocks an
+// SM at SPP <= 8: without it ptxas keeps 56-72 registers and spills 4-8
+// bytes around the shade's division in the tail of a row past the shared
+// prefix (ChunkedRow::channels); with it, 72-80 registers and no stack
+// frame (a copy of csrc/render.cu compiled with minimum
+// blocks 4, 6 and 8: 8 spilled again at SPP 4-8).
+constexpr int kWideMinBlocks = 6;
+
+template <int SPP, bool kRays>
+__global__ void __launch_bounds__(kThreads, SPP <= 8 ? kWideMinBlocks : 1)
+    render_wide_kernel(const RenderParams p) {
+  render_body<SPP, false, kRays, true>(p);
 }
 
 // Blocks of a launch: a warp per 8x4 tile of the band's rows, or in ray
@@ -1330,10 +1394,26 @@ int blocks_of(const RenderParams& p) {
   return (int)((tiles + warps_per_block - 1) / warps_per_block);
 }
 
+// kWide: the block's shared basis (finish_ray), as the chunked classic
+// instance's.
 template <int SPP, bool kStats, bool kRays, bool kWide = false>
 int launch(const RenderParams& p, cudaStream_t stream) {
-  render_kernel<SPP, kStats, kRays, kWide>
-      <<<blocks_of<kRays>(p), kThreads, 0, stream>>>(p);
+  const auto kernel = [] {
+    if constexpr (kWide) {
+      return render_wide_kernel<SPP, kRays>;
+    } else {
+      return render_kernel<SPP, kStats, kRays>;
+    }
+  }();
+  const int smem = kWide ? chunked_classic_smem<kWideFullBasis,
+                                                kWideCapPrefix>(p.basis_dim)
+                         : 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<blocks_of<kRays>(p), kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 

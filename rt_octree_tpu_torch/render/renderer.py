@@ -665,13 +665,13 @@ def _launch_k1(tree: DeviceTree, transform: torch.Tensor, rng_state: int,
     p.rng_inc = rng_inc
     p.fx, p.fy = fx, fy
     p.rot[:] = [float(v) for v in opt.rot_dirs]
-    if classic:
-        # the classic kernel's rotation: cos and sin of |rot| in f32 as the
-        # kernel forms it, evaluated in double and rounded
-        rot = np.asarray(opt.rot_dirs, np.float32)
-        angle = float(np.sqrt(rot[0] * rot[0] + rot[1] * rot[1]
-                              + rot[2] * rot[2]))
-        p.rot_cos, p.rot_sin = math.cos(angle), math.sin(angle)
+    # the rotation of the classic kernel and K1's wide instances: cos and
+    # sin of |rot| in f32 as the kernel forms it, evaluated in double and
+    # rounded
+    rot = np.asarray(opt.rot_dirs, np.float32)
+    angle = float(np.sqrt(rot[0] * rot[0] + rot[1] * rot[1]
+                          + rot[2] * rot[2]))
+    p.rot_cos, p.rot_sin = math.cos(angle), math.sin(angle)
     if tree.ndc is not None:
         w, h, focal = tree.ndc
         p.ndc_ax, p.ndc_ay = -((2 * focal) / w), -((2 * focal) / h)
