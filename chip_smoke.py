@@ -53,14 +53,18 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      64 nets (the per-block plan, one launch a block) at 800x800 and at
      K7's tile edges, block by block on the input the chain gives it and
      the whole net at both bars (K7_SHARE_TIES: the share reported beside
-     each side's distance from an f64 sum), K2's at 12, 16 and 32 levels
+     each side's distance from an f64 sum), the per-block plan's nets
+     launch by launch (k7_chain_split: each launch's time, bound and share
+     beside cuDNN's conv, bias and relu6 for the same block, and the
+     chains), K2's at 12, 16 and 32 levels
      (as given and channels last; the guard's share; an 80-nat spike that
      must take the guard), K5's and K6's on the L = 12 train batch and past 65,535
      slices (K5's guard share there and with an 80-nat spike that must
      take the guard exactly where its regions hold it; on the train batch
      its statistics instance, cycles a block by phase), K1's and
      render_classic's (frame and ray mode) on SG / ASG
-     trees of basis_dim 32 and 48 at every SPP, and on the path's
+     trees of basis_dim 32, 48, 96 and 232 at every SPP (K1 also with a
+     basis_minmax mask and WIDE_ROT_DIRS' rotations), and on the path's
      depth-8 SG32 / ASG32 frames at 800x800 and the SG32 frame's 640,000
      rays, render_classic's chunked wide instance on WIDE_CHUNKED_TREE's
      frame and rays (phase 4 holds render_classic's on
@@ -133,11 +137,13 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      line {"train": ...};
   9a. the wide path (phase_wide_path), each run with its launch counts
      reset just before and read just after: rtoctree train of two
-     8 -> 96 -> 24 nets of 12 levels (the ladder, --identity_level) for
-     WIDE_TRAIN_EPOCHS on the train kit, their compact task, rtoctree
-     render on the headline tree with each .gnet (PSNR, no bar; K7's fused
-     wide instance and K2 wide once a frame; K2 wide's guard share on
-     pose r_0), rtoctree
+     8 -> 96 -> 24 nets of 12 levels (the ladder, --identity_level) and a
+     3-block 128-wide net (--mid_channels 128 --num_layers 3, 4 levels)
+     for WIDE_TRAIN_EPOCHS on the train kit, their compact task, rtoctree
+     render on the headline tree with each .gnet (the header checked; PSNR,
+     no bar; the 96-wide nets: K7's fused wide instance and K2 wide once a
+     frame, K2 wide's guard share on pose r_0; the 128-wide net: K7's
+     per-block plan three times a frame, K2 once), rtoctree
      render of SG32 / ASG32 depth-8 trees with both estimators and of
      WIDE_CHUNKED_TREE with the classic one, and trace_rays /
      trace_rays_classic on aimed rays: {"wide_path": ...};
@@ -316,16 +322,28 @@ headline tree's 800x800 frame (pose r_0, SPP 6) denoised by that net,
 render_classic's wide instance on the SG32 depth-8 shell at 800x800
 (frame and ray mode, the rays in row order and in the frame's 8x4
 tiles), its chunked instance on WIDE_CHUNKED_TREE (frame and rays), and
-K5's and K6's wide instances on the L = 12 train batch, as one JSON line
+K5's and K6's wide instances on the L = 12 train batch, and K7's
+per-block plan launch by launch (--k7-chain-times), as one JSON line
 {"wide_times": ...}, the outputs saved in build/chip_smoke (with the
 classic frames and rays of WIDE_PAIRS_TREES); --wide-pairs runs it in
 PAIRS (default 6) pairs of processes, this script on OTHER_ROOT's
 package and on its own in turns, and prints each side's times, their
 paired differences and the largest differences between the two sides'
-outputs (the denoised frames at most WIDE_PAIRS_FRAME_TOL,
+outputs (K7's per-block plan launch by launch bit for bit, by digest; the
+denoised frames at most WIDE_PAIRS_FRAME_TOL,
 render_classic's frames and rays 0, K5's outputs at most K5_TOL, K6's
 gradients at most K6_REL_TOL of the other side's largest) as one JSON
 line {"wide_pairs": ...}.
+
+    python3 chip_smoke.py --k7-chain-times [ROOT]
+
+--k7-chain-times times K7's per-block plan of the package under ROOT
+(default: beside this file) on the seeded nets of WIDE_K7_CHAINS at
+800x800, launch by launch on the input the chain gives each block, beside
+cuDNN's conv, bias and relu6 for the same block, with each launch's bound,
+share and output digest, as one JSON line {"k7_chain": ...}; --wide-times
+carries the same line's numbers, and --wide-pairs holds the digests of
+both sides equal.
 
     python3 chip_smoke.py --wide-sweep [ROOT]
 
@@ -372,14 +390,15 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 # --classic-only ROOT, --filter-only ROOT, --wide-times ROOT, --wide-sweep
-# ROOT and --ray-times ROOT import the package of another checkout (the
+# ROOT, --ray-times ROOT and --k7-chain-times ROOT import the package of
+# another checkout (the
 # timers of --classic-pairs, --filter-pairs, --wide-pairs and --ray-pairs,
 # and a copy of the package with one change); every other mode imports the
 # one beside this file
 PKG_ROOT = (os.path.abspath(sys.argv[2])
             if sys.argv[1:2] in (["--classic-only"], ["--filter-only"],
                                  ["--wide-times"], ["--wide-sweep"],
-                                 ["--ray-times"])
+                                 ["--ray-times"], ["--k7-chain-times"])
             and len(sys.argv) == 3 else HERE)
 sys.path.insert(0, PKG_ROOT)
 
@@ -577,10 +596,12 @@ PROBE_KERNELS = {
 }
 # the wide kernels' entry functions in ptxas's report: (source, kernel) ->
 # instances (K7's fused wide instance a block-1 n-group of 2, 3, 4; its
-# per-block plan 1, 2, 4; K2's tiles of 32 x 32 and 16 x 8, and the 32 x
+# per-block plan's ring an n-tile group of 1, 2, 4, 8 and its first-block
+# instance; K2's tiles of 32 x 32 and 16 x 8, and the 32 x
 # 32 statistics instance; K5's and K6's timed and statistics instances)
 WIDE_PTXAS = {("net", "guidance_wide2_kernel"): 3,
-              ("net", "guidance_wide_kernel"): 3,
+              ("net", "guidance_wide_kernel"): 4,
+              ("net", "guidance_wide_first_kernel"): 1,
               ("filter", "guided_filter_wide_kernel"): 3,
               ("filter", "guided_filter_batch_wide_kernel"): 2,
               ("filter", "guided_filter_batch_bwd_wide_kernel"): 2}
@@ -588,6 +609,10 @@ WIDE_PTXAS = {("net", "guidance_wide2_kernel"): 3,
 WIDE_KERNELS = {
     "guidance_net_wide": ("rt_octree_tpu_torch/csrc/net.cu",
                           "rt_octree_tpu/models/guidance_net.py:124"),
+    # K7's per-block plan (launch name guidance_net_wide too): its row reads
+    # the 3-block 128-wide net's path and times
+    "guidance_net_wide_chain": ("rt_octree_tpu_torch/csrc/net.cu",
+                                "rt_octree_tpu/models/guidance_net.py:124"),
     "guided_filter_wide": ("rt_octree_tpu_torch/csrc/filter.cu",
                            "rt_octree_tpu/ops/filtering.py:153"),
     "guided_filter_batch_wide": ("rt_octree_tpu_torch/csrc/filter.cu",
@@ -1450,9 +1475,16 @@ WIDE_K56_CASES = (("train batch ladder 1..12", 32, tuple(range(1, 13)), 80,
 # level) pairs whose region holds it take the per-window form
 WIDE_K5_SPIKE_YX = (37, 45)
 # K1's and render_classic's wide trees: depth-6 shells with SG / ASG rows
-# of basis_dim 32 and 48 (synthetic.with_lobes), held at every SPP of K1
+# of basis_dim 32, 48, 96 (K1 wide's whole basis in shared memory) and 232
+# (a prefix of 32, csrc/render.cu:kWideFullBasis) (synthetic.with_lobes),
+# held at every SPP of K1
 WIDE_BASIS_TREES = (("SG32", "SG", 32), ("ASG32", "ASG", 32),
-                    ("SG48", "SG", 48), ("ASG48", "ASG", 48))
+                    ("SG48", "SG", 48), ("ASG48", "ASG", 48),
+                    ("SG96", "SG", 96), ("SG232", "SG", 232))
+# the rotations of the view dirs K1 wide is held at on those trees (frame
+# and ray mode): a small one and one whose f32 angle (2.2e5 rad) takes the
+# host's cos / sin
+WIDE_ROT_DIRS = ((0.3, -0.2, 0.5), (1e5, 2e5, 0.0))
 
 
 def wide_net_params(cfg, rs):
@@ -1602,7 +1634,8 @@ def hold_k7_wide(label, net, aux_nhwc, err):
             require(t_ulps <= K7_ULPS and share <= K7_UNEQUAL_SHARE
                     and pad_zero, f"K7 disagrees with its plain version on "
                     f"{label}, block {i}")
-            key = "guidance_net_wide" if is_wide(layer) else "guidance_net"
+            key = ("guidance_net_wide_chain" if is_wide(layer)
+                   else "guidance_net")
             err[key] = max(err.get(key, 0.0), e)
             # the block summed in f64, rounded to bf16, the bf16 bias
             # added and rounded, relu6
@@ -1642,6 +1675,9 @@ def hold_k7_wide(label, net, aux_nhwc, err):
         act.float()).all()) and t_ulps <= K7_ULPS and (
             tie or share <= K7_UNEQUAL_SHARE),
             f"K7 disagrees with its plain version on {label}")
+    key = ("guidance_net_wide" if net_plan(net.packed) == "fused_wide"
+           else "guidance_net_wide_chain")
+    err[key] = max(err.get(key, 0.0), e)
     k7 = err.setdefault("k7", {"holds": {}, "ms": {}})
     k7["holds"][label] = {"ulps_of_max": t_ulps, "ulps_of_element": e_ulps,
                           "unequal_share": share, "max_abs": e,
@@ -1708,6 +1744,104 @@ def k7_wide_launches(net, aux):
     return plan, got, want
 
 
+# the nets of WIDE_K7_NETS that K7 runs as a chain of the per-block plan
+# (the first takes the fused wide instance)
+WIDE_K7_CHAINS = WIDE_K7_NETS[1:]
+
+
+def net_label(cfg):
+    """"8 -> 128 -> 128 -> 8": a GuidanceNetConfig's channels."""
+    return " -> ".join(str(c) for c in [cfg.in_channels] + [
+        cout for _, cout in cfg.layer_channels()])
+
+
+def k7_chain_split(net, aux, reps=20):
+    """The per-block plan's chain of ``net`` on ``aux`` [B, H, W, 8], launch
+    by launch: each block on the input the chain gives it (chain_block),
+    timed alone by device_medians in turns with cuDNN's conv, bias and
+    relu6 of the same block (on the block's NCHW bf16 input; block 0 with
+    the aux's permute and cast), with its bound (its input read once: the
+    f32 aux or the chain's padded bf16 intermediate; its output written
+    once; 2 operations a multiply-add of its real channels' 3x3 taps on
+    the bf16 tensor cores) and share; the whole chain (net.activation)
+    and cuDNN's chain timed in the same turns; a digest of each launch's
+    output.  -> {"launches": [...], "chain_ms", "cudnn_chain_ms",
+    "bound_ms", "digest"}."""
+    import torch
+    import torch.nn.functional as F
+    from rt_octree_tpu_torch.ops.guidance import chain_block
+    n = aux.shape[0] * aux.shape[1] * aux.shape[2]
+    wb = [c.weight.to(torch.bfloat16) for c in net.convs]
+    bb = [c.bias.to(torch.bfloat16)[None, :, None, None] for c in net.convs]
+    fns, rows, xs = {}, [], []
+    x = aux
+    with torch.no_grad():
+        for i, layer in enumerate(net.packed):
+            last = i == len(net.packed) - 1
+            width = layer.cout if last else layer.nt * 8
+            out = chain_block(x, layer, width)
+            xs.append((x, layer, width))
+            if i == 0:
+                lib = (lambda w_, b_: lambda: F.relu6(F.conv2d(
+                    aux.permute(0, 3, 1, 2).to(torch.bfloat16), w_,
+                    padding=1) + b_))(wb[0], bb[0])
+            else:
+                xin = x[..., :layer.cin].permute(0, 3, 1, 2).contiguous()
+                lib = (lambda x_, w_, b_: lambda: F.relu6(F.conv2d(
+                    x_, w_, padding=1) + b_))(xin, wb[i], bb[i])
+            in_bytes = (4 * layer.cin if x.dtype == torch.float32
+                        else 2 * x.shape[-1])
+            b_ms, b_by = bound(n * (in_bytes + 2 * width),
+                               n * 2 * 9 * layer.cin * layer.cout,
+                               BF16_TC_OPS_PER_S)
+            rows.append({"block": i, "channels": f"{layer.cin} -> "
+                         f"{layer.cout}", "bound_ms": b_ms,
+                         "bound_by": b_by, "digest": frame_digest((out,))})
+            fns[f"k7 {i}"] = (lambda a: lambda: chain_block(*a))(xs[-1])
+            fns[f"cudnn {i}"] = lib
+            x = out
+        fns["k7 chain"] = lambda: net.activation(aux)
+
+        def cudnn_chain():
+            y = aux.permute(0, 3, 1, 2).to(torch.bfloat16)
+            for w_, b_ in zip(wb, bb):
+                y = F.relu6(F.conv2d(y, w_, padding=1) + b_)
+            return y
+        fns["cudnn chain"] = cudnn_chain
+        med = device_medians(fns, reps, 3)
+    for r in rows:
+        r["ms"] = med[f"k7 {r['block']}"]
+        r["cudnn_ms"] = med[f"cudnn {r['block']}"]
+        r["share"] = r["bound_ms"] / r["ms"]
+    return {"launches": rows, "chain_ms": med["k7 chain"],
+            "cudnn_chain_ms": med["cudnn chain"],
+            "bound_ms": sum(r["bound_ms"] for r in rows),
+            "digest": frame_digest((x,))}
+
+
+def k7_chain_times():
+    """The per-block plan's nets (WIDE_K7_CHAINS, wide_net_params seeded
+    by 43) on random aux at 800x800, launch by launch (k7_chain_split) ->
+    {net label: split}."""
+    from rt_octree_tpu_torch.models.guidance_net import (GuidanceNetConfig,
+                                                         build_compact)
+    res = {}
+    for kw in WIDE_K7_CHAINS:
+        cfg = GuidanceNetConfig(**kw)
+        net = build_compact(cfg, wide_net_params(cfg, np.random.default_rng(
+            43)), "cuda")
+        res[net_label(cfg)] = k7_chain_split(net, k7_aux(800, 800))
+    for label, sp in res.items():
+        log(f"[wide] K7 per-block plan, {label} at 800x800: chain "
+            f"{sp['chain_ms']:.4f} ms (bound {sp['bound_ms']:.4f}), cuDNN "
+            f"chain {sp['cudnn_chain_ms']:.4f} ms; " + "; ".join(
+                f"block {r['block']} ({r['channels']}) {r['ms']:.4f} ms, "
+                f"bound {r['bound_ms']:.4f} {r['bound_by']}, share "
+                f"{r['share']:.3f}, cuDNN {r['cudnn_ms']:.4f}"
+                for r in sp["launches"]))
+    return res
+
+
 def phase_wide(err):
     """The wide instances against their plain versions on the card, and
     their times: K7's wide instances on WIDE_K7_NETS (800x800 and
@@ -1715,7 +1849,8 @@ def phase_wide(err):
     and K6's on WIDE_K56_CASES, and K1's and render_classic's wide
     instances (frame and ray mode; render_classic's statistics) on
     WIDE_BASIS_TREES: K1 at every SPP of the kernel at 128x128, a
-    basis_minmax mask, the ray mode on RAY_LAYOUT_RAYS aimed rays; the
+    basis_minmax mask and WIDE_ROT_DIRS' rotations (frame and ray mode),
+    the ray mode on RAY_LAYOUT_RAYS aimed rays; the
     classic frames and rays ride in phases 4 (classic_layout_trees).
     Then the path's shapes: the depth-8 SG32 and ASG32 trees' 800x800
     frames (SPP 6, classic) held, and the SG32 frame's own 640,000 rays
@@ -1726,9 +1861,11 @@ def phase_wide(err):
     on the train batch (their phase splits logged), and on the train
     batch with a spike each takes its guard exactly where its regions span
     GUARD_RANGE.  Returns (ms, bounds) of the wide kernels, each timed at
-    the path's shapes: the 8 -> 96 -> 24 net (the fused wide instance; the
-    per-block plan's 8 -> 128 -> 128 -> 8 net and its cuDNN chain logged)
-    and K2 at L = 12 (channels last) at 800x800, K5 and K6 on the L = 12
+    the path's shapes: the 8 -> 96 -> 24 net (the fused wide instance),
+    the per-block plan on the 8 -> 128 -> 128 -> 8 net (its own row; both
+    of WIDE_K7_CHAINS' nets logged launch by launch beside cuDNN's blocks,
+    k7_chain_times) and K2 at L = 12 (channels last) at 800x800, K5 and K6
+    on the L = 12
     train batch (K2's, K5's and K6's bounds from the run's guard shares),
     K1, render_classic and their ray modes on the SG32 tree at 800x800
     (SPP 6), and the chunked instance on WIDE_CHUNKED_TREE."""
@@ -1746,8 +1883,7 @@ def phase_wide(err):
     nets = {}
     for kw in WIDE_K7_NETS:
         cfg = GuidanceNetConfig(**kw)
-        chans = " -> ".join(str(c) for c in [cfg.in_channels] + [
-            cout for _, cout in cfg.layer_channels()])
+        chans = net_label(cfg)
         net = build_compact(cfg, wide_net_params(cfg, rs), "cuda")
         nets[chans] = net
         plan, got, want = k7_wide_launches(net, k7_aux(800, 800))
@@ -1792,16 +1928,18 @@ def phase_wide(err):
             device_ms(lambda: net.activation(aux), 50, 5),
             cuda_ms(lambda: compact_activation_plain(aux, ws, bs), 10, 2))
         lib = device_ms(cudnn_chain(net), 50, 5)
-        chain_ms = device_ms(lambda: chain.activation(aux), 20, 2)
-        chain_lib = device_ms(cudnn_chain(chain), 20, 2)
+        chain_plain = cuda_ms(lambda: compact_activation_plain(
+            aux, [c.weight for c in chain.convs],
+            [c.bias for c in chain.convs]), 10, 2)
     bounds["guidance_net_wide"] = k7_bound(net, 800 * 800) + (lib,)
-    log(f"[wide] K7 per-block plan, 8 -> 128 -> 128 -> 8 at 800x800 (3 "
-        f"launches): {chain_ms:.4f} ms, bound "
-        f"{k7_bound(chain, 800 * 800)[0]:.4f} ms, cuDNN chain "
-        f"{chain_lib:.4f} ms")
+    # the per-block plan's nets launch by launch, beside cuDNN's blocks
+    split = k7_chain_times()
+    sp = split["8 -> 128 -> 128 -> 8"]
+    ms["guidance_net_wide_chain"] = (sp["chain_ms"], chain_plain)
+    bounds["guidance_net_wide_chain"] = (sp["bound_ms"], "operations",
+                                         sp["cudnn_chain_ms"])
     k7_ms = err.setdefault("k7", {"holds": {}, "ms": {}})["ms"]
-    k7_ms["wide chain 8 -> 128 -> 128 -> 8 800x800"] = chain_ms
-    k7_ms["wide chain 8 -> 128 -> 128 -> 8 800x800 cudnn"] = chain_lib
+    k7_ms["per-block plan 800x800"] = split
     # ---- K2's wide instance ----
     for label, sup, H, W in WIDE_K2_CASES:
         L = len(sup)
@@ -1958,10 +2096,24 @@ def phase_wide(err):
                 dict(base, opt=RenderOptions(spp=6, denoise=False,
                                              basis_minmax=(3, 20))),
                 "render_wide", err)
+        for rot in WIDE_ROT_DIRS:
+            hold_k1(f"{label} 128x128 spp 6 rot_dirs {rot}", dt, tf,
+                    dict(base, opt=RenderOptions(spp=6, denoise=False,
+                                                 rot_dirs=rot)),
+                    "render_wide", err)
         for spp in (1, 6, 32):
             rays = aimed_rays(dt, RAY_LAYOUT_RAYS, spp, 60 + i)
             hold_rays(f"{label} spp {spp}", dt, rays,
                       RenderOptions(spp=spp), err,
+                      tmax_bg=ray_tmax(dt, RAY_LAYOUT_RAYS, 60 + i))
+        d, v, c, dst = aimed_rays(dt, RAY_LAYOUT_RAYS, 6, 60 + i)
+        hold_rays(f"{label} spp 6 basis_minmax (3, 20)", dt, (d, v, c, dst),
+                  RenderOptions(spp=6, basis_minmax=(3, 20)), err,
+                  tmax_bg=ray_tmax(dt, RAY_LAYOUT_RAYS, 60 + i))
+        for rot in WIDE_ROT_DIRS:
+            hold_rays(f"{label} spp 6 rot_dirs {rot}", dt,
+                      (d, R.rodrigues(rot, v).contiguous(), c, dst),
+                      RenderOptions(spp=6), err,
                       tmax_bg=ray_tmax(dt, RAY_LAYOUT_RAYS, 60 + i))
     # the times at the path's shapes: the SG32 tree at 800x800, SPP 6
     dt = load_wide_tree("SG32", "SG", 32, WIDE_TREE_DEPTH)
@@ -2066,6 +2218,27 @@ def wide_only():
                                     "max_abs_err": err.get(k)}
                                 for k in WIDE_KERNELS}}))
     log_wide_holds(err)
+    return 0
+
+
+def k7_chain_only():
+    """--k7-chain-times [ROOT]: the card's name and power limit, the build
+    of csrc/net.cu with ptxas's report of K7's wide instances (one
+    {"ptxas_k7_wide": ...} line), and the per-block plan's nets of the
+    package under ROOT launch by launch (k7_chain_times); one
+    {"k7_chain": ...} line."""
+    import re
+    from rt_octree_tpu_torch.native import build as native
+    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, check=True).stdout.strip())
+    native.build(["net"], verbose=True, force=True)
+    log(json.dumps({"ptxas_k7_wide": {
+        re.sub(r".*?(guidance_wide\w*?_kernel)IL[ib](\d+)E.*", r"\1<\2>",
+               name): v
+        for name, v in ptxas_kernels(native.PTXAS.get("net", ""),
+                                     "guidance_wide").items()}}))
+    log(json.dumps({"k7_chain": k7_chain_times()}))
     return 0
 
 
@@ -2414,9 +2587,12 @@ def classic_options(label):
 def frame_digest(frame) -> str:
     """The first 16 hex digits of the sha256 of a frame's tensors."""
     import hashlib
+    import torch
     h = hashlib.sha256()
     for t in frame:
         if t is not None:
+            if t.dtype == torch.bfloat16:
+                t = t.view(torch.int16)
             h.update(t.cpu().numpy().tobytes())
     return h.hexdigest()[:16]
 
@@ -3446,6 +3622,7 @@ def wide_times(root):
             x = chain_block(x, layer, layer.cout if i == len(net.packed) - 1
                             else layer.nt * 8)
     res["k7_equals_chain"] = bool(torch.equal(act.permute(0, 2, 3, 1), x))
+    res["k7_chain"] = k7_chain_times()
     res["k2_ms"] = device_ms(lambda: Fm.guided_filter(act, img, sup), 50, 5)
     tree_path = os.path.join(WORK, "shell_d9_sh9.npz")
     if not os.path.isfile(tree_path):
@@ -3550,16 +3727,23 @@ def wide_pairs(other_root, pairs):
             "classic_chunked_rays_ms", "k5_ms", "k6_ms")
     ms = {side: {k: [] for k in keys} for side in ("other", "this")}
     digests = {side: set() for side in ms}
+    chain_digests = {side: set() for side in ms}
     for i, side, lines in alternate(other_root, pairs, ["--wide-times"],
                                     "wide_pairs", own_script=True):
         got = [ln["wide_times"] for ln in lines if "wide_times" in ln]
         require(len(got) == 1, f"{side} wide process {i}: unexpected output")
+        for k, v in k7_chain_ms(got[0]["k7_chain"]).items():
+            got[0][k] = v
+            ms[side].setdefault(k, [])
         for k in ms[side]:
             ms[side][k].append(got[0][k])
         digests[side].add(tuple(got[0][k] for k in ("digest",
                                                     "classic_digest",
                                                     "k5_digest",
                                                     "k6_digest")))
+        chain_digests[side].add(tuple(
+            (label, sp["digest"], *(r["digest"] for r in sp["launches"]))
+            for label, sp in sorted(got[0]["k7_chain"].items())))
     frames = {side: np.load(wide_frame_path(root)) for side, root in
               (("this", HERE), ("other", other_root))}
     diff = float(np.abs(frames["this"] - frames["other"]).max())
@@ -3570,7 +3754,13 @@ def wide_pairs(other_root, pairs):
     log(json.dumps({"wide_pairs": {
         **pair_times(other_root, pairs, ms),
         "digests": {side: sorted(d) for side, d in digests.items()},
+        "k7_chain_digests": {side: sorted(d) for side, d in
+                             chain_digests.items()},
         "frame_max_abs_diff": diff, "outputs_max_abs_diff": diffs}}))
+    require(len(chain_digests["this"]) == 1 and
+            chain_digests["this"] == chain_digests["other"],
+            "K7's per-block plan is not the other package's bit for bit "
+            f"(launch by launch): {chain_digests}")
     require(diff <= WIDE_PAIRS_FRAME_TOL, f"the two packages' wide frames "
             f"differ by {diff:.3g}")
     require(all(diffs[k] == 0 for k in diffs if k.startswith("classic")),
@@ -3582,6 +3772,18 @@ def wide_pairs(other_root, pairs):
         outs["other"][k]).max()) for k in diffs if k.startswith("k6")),
             f"K6 wide's gradients differ from the other package's: {diffs}")
     return 0
+
+
+def k7_chain_ms(chains):
+    """--wide-times' k7_chain results -> flat {key: ms} of each net's
+    chain, its launches and cuDNN's chain, for pair_times."""
+    out = {}
+    for label, sp in chains.items():
+        out[f"k7_chain {label}"] = sp["chain_ms"]
+        out[f"k7_chain {label} cudnn"] = sp["cudnn_chain_ms"]
+        for r in sp["launches"]:
+            out[f"k7_chain {label} block {r['block']}"] = r["ms"]
+    return out
 
 
 # --wide-times' other classic trees, held bit for bit by --wide-pairs:
@@ -4008,13 +4210,24 @@ def phase_train(native, r, tree_path, err):
     return ({k: counts[k] for k in TRAIN_KERNELS}, ms, bounds)
 
 
-# The wide path: two 96-wide nets of 12 levels trained by the CLI on the
-# train phase's kit (the ladder 1..12, and --identity_level's 0..11) for
-# WIDE_TRAIN_EPOCHS, each rendered by the CLI on the headline tree; and SG
-# and ASG trees of basis_dim 32 (depth WIDE_TREE_DEPTH) rendered by the CLI
-# with both estimators and traced by the ray API.
+# The wide path: two 96-wide nets of 12 levels (the ladder 1..12, and
+# --identity_level's 0..11) and a 3-block 128-wide net of 4 levels trained
+# by the CLI on the train phase's kit for WIDE_TRAIN_EPOCHS, each rendered
+# by the CLI on the headline tree; and SG and ASG trees of basis_dim 32
+# (depth WIDE_TREE_DEPTH) rendered by the CLI with both estimators and
+# traced by the ray API.
 WIDE_TRAIN_FLAGS = ["--mid_channels", "96", "--kernel_levels", "12"]
 WIDE_TRAIN_EPOCHS = 1
+# (label, the CLI's flags, the exported header's (mid_channels,
+# num_layers, kernel_levels, identity_level)): the 96-wide nets take K7's
+# fused wide instance (one launch a frame), K2 wide and K5 / K6 wide; the
+# 128-wide net K7's per-block plan (three launches a frame), K2 and K5 /
+# K6 at 4 levels
+WIDE_PATH_NETS = (
+    ("ladder", WIDE_TRAIN_FLAGS, (96, 2, 12, False)),
+    ("identity", WIDE_TRAIN_FLAGS + ["--identity_level"], (96, 2, 12, True)),
+    ("chain128", ["--mid_channels", "128", "--num_layers", "3"],
+     (128, 3, 4, False)))
 WIDE_TREE_DEPTH = 8
 WIDE_PATH_RAYS = 65536
 
@@ -4060,48 +4273,62 @@ def phase_wide_path(native, r, ps, tree_path, err):
     common = ["--spp", "6", "--warmup", "1", "--device", "cuda"]
     gt = [read_png(os.path.join(KIT, "test", f"r_{i}.png"))[..., :3]
           for i in range(8)]
-    for label, extra in (("ladder", []), ("identity", ["--identity_level"])):
-        name = f"wide96_{label}"
+    wide_k56 = ("guided_filter_batch_wide", "guided_filter_batch_bwd_wide")
+    for label, flags, header in WIDE_PATH_NETS:
+        chain = header[1] > 2  # K7's per-block plan, K2 / K5 / K6 at 4 levels
+        name = f"wide_{label}"
         work = os.path.join(WORK, "train_logs", name)
         if os.path.isdir(work):
             shutil.rmtree(work)
-        argv = (train_argv(kit, WIDE_TRAIN_EPOCHS, exp_name=name)
-                + WIDE_TRAIN_FLAGS + extra)
-        c = train_cli(native, f"wide {label}", argv, required=(
-            "guided_filter_batch_wide", "guided_filter_batch_bwd_wide"),
-            absent=TRAIN_KERNELS)
-        for k in ("guided_filter_batch_wide", "guided_filter_batch_bwd_wide"):
-            counts[k] = max(counts[k], c[k])
+        argv = train_argv(kit, WIDE_TRAIN_EPOCHS, exp_name=name) + flags
+        k56, other = ((tuple(TRAIN_KERNELS), wide_k56) if chain
+                      else (wide_k56, tuple(TRAIN_KERNELS)))
+        c = train_cli(native, f"wide {label}", argv, required=k56,
+                      absent=other)
+        if not chain:
+            for k in wide_k56:
+                counts[k] = max(counts[k], c[k])
         train_cli(native, f"wide {label} compact",
                   train_argv(kit, WIDE_TRAIN_EPOCHS, "compact", name)
-                  + WIDE_TRAIN_FLAGS + extra, absent=TRAIN_KERNELS)
+                  + flags, absent=TRAIN_KERNELS)
         gnet = os.path.join(work, "ts_latest.gnet")
         cfg, _ = load_compact(gnet)
-        require(cfg.mid_channels == 96 and cfg.kernel_levels == 12 and
-                cfg.identity_level == bool(extra),
+        require((cfg.mid_channels, cfg.num_layers, cfg.kernel_levels,
+                 cfg.identity_level) == header,
                 f"the exported .gnet's header: {cfg}")
+        k2 = "guided_filter" if chain else "guided_filter_wide"
         c = phase_main(native, tree_path, f"wide net {label}",
                        ["--gnet", gnet, "--lut_levels", "9"] + common,
-                       ("render", "guidance_net_wide", "guided_filter_wide"))
-        require(not c["guidance_net"] and not c["guided_filter"],
-                "a wide net ran an unrolled instance")
-        require(c["guidance_net_wide"] == c["guided_filter_wide"] ==
-                c["render"], "the wide net's frames did not launch K7's "
-                "fused wide instance and K2 wide once a frame")
-        for k in ("guidance_net_wide", "guided_filter_wide"):
-            counts[k] = max(counts[k], c[k])
+                       ("render", "guidance_net_wide", k2))
+        # K7's launches a frame: the fused wide instance once, the
+        # per-block plan once a block
+        require(not c["guidance_net"] and not c[
+            "guided_filter_wide" if chain else "guided_filter"],
+            f"the wide net {label} ran another instance of K7 or K2")
+        plan = ("per-block plan once a block" if chain
+                else "fused wide instance once")
+        require(c["guidance_net_wide"] == (cfg.num_layers if chain else 1)
+                * c["render"] and c[k2] == c["render"],
+                f"the wide net {label}'s frames did not launch K7's {plan} "
+                f"and K2 once a frame: {c}")
+        if chain:
+            counts["guidance_net_wide_chain"] = c["guidance_net_wide"]
+        else:
+            for k in ("guidance_net_wide", "guided_filter_wide"):
+                counts[k] = max(counts[k], c[k])
         frames_dir = os.path.join(WORK, f"frames_wide_net_{label}")
         den = [psnr(read_png(os.path.join(frames_dir, f"r_{i}.png"))
                     .astype(np.float32) / 255.0, g)
                for i, g in enumerate(gt)]
-        guard = path_guard_share(r, ps, gnet)
         out[f"net {label}"] = {"denoised_db": float(np.mean(den)),
                                "supports": list(cfg.supports()),
-                               "k2_guard": guard}
+                               "k7_launches_a_frame": c["guidance_net_wide"]
+                               / c["render"]}
+        if not chain:
+            out[f"net {label}"]["k2_guard"] = path_guard_share(r, ps, gnet)
         log(f"[wide] net {label} ({WIDE_TRAIN_EPOCHS} epoch): denoised "
             f"{np.mean(den):.3f} dB on benchmarks/quality's 8 poses (no "
-            f"bar; supports {cfg.supports()}); K2 wide's guard on pose "
-            f"r_0: {guard}")
+            f"bar; supports {cfg.supports()}); {out[f'net {label}']}")
     for label, fmt, bd, depth in (("SG32", "SG", 32, WIDE_TREE_DEPTH),
                                   ("ASG32", "ASG", 32, WIDE_TREE_DEPTH),
                                   WIDE_CHUNKED_TREE):
@@ -5536,6 +5763,8 @@ def main(argv) -> int:
         return wide_times(PKG_ROOT)
     if argv[:1] == ["--wide-pairs"] and len(argv) in (2, 3):
         return wide_pairs(argv[1], int(argv[2]) if len(argv) == 3 else 6)
+    if argv[:1] == ["--k7-chain-times"] and len(argv) in (1, 2):
+        return k7_chain_only()
     if argv[:1] == ["--wide-sweep"] and len(argv) in (1, 2):
         return wide_sweep(PKG_ROOT)
     if argv[:1] == ["--ray-times"] and len(argv) in (1, 2):

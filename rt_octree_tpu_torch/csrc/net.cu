@@ -649,10 +649,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// the tensor map of the f32 input [B, H, W, cin] (element strides sb, sh,
-// sw, channels contiguous) for boxes of CP0 x WI x HI x 1, zero-filled
-// outside; cuTensorMapEncodeTiled through the runtime's driver entry point
-int encode_input(const Params& p, int cp0, int wi, int hi, CUtensorMap* map) {
+// a tensor map of a 4-d tensor [B, H, W, C] (C contiguous; byte strides of
+// W, H and B) for boxes of box[0..3], zero-filled outside;
+// cuTensorMapEncodeTiled through the runtime's driver entry point
+int encode_map(CUtensorMapDataType type, const void* base,
+               const cuuint64_t (&dims)[4], const cuuint64_t (&strides)[3],
+               const cuuint32_t (&box)[4], CUtensorMapSwizzle swizzle,
+               CUtensorMap* map) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (!encode) {
     void* fn = nullptr;
@@ -664,19 +667,25 @@ int encode_input(const Params& p, int cp0, int wi, int hi, CUtensorMap* map) {
       return (int)cudaErrorNotSupported;
     encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
   }
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, type, 4, const_cast<void*>(base), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// the tensor map of the f32 input [B, H, W, cin] (element strides sb, sh,
+// sw, channels contiguous) for boxes of CP0 x WI x HI x 1
+int encode_input(const Params& p, int cp0, int wi, int hi, CUtensorMap* map) {
   const cuuint64_t dims[4] = {(cuuint64_t)p.cin, (cuuint64_t)p.width,
                               (cuuint64_t)p.height, (cuuint64_t)p.batch};
   const cuuint64_t strides[3] = {(cuuint64_t)p.sw * 4, (cuuint64_t)p.sh * 4,
                                  (cuuint64_t)p.sb * 4};
   const cuuint32_t box[4] = {(cuuint32_t)cp0, (cuuint32_t)wi, (cuuint32_t)hi,
                              1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(p.in), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+  return encode_map(CU_TENSOR_MAP_DATA_TYPE_FLOAT32, p.in, dims, strides,
+                    box, CU_TENSOR_MAP_SWIZZLE_NONE, map);
 }
 
 template <bool F32_IN, int NL, int CP0, int NT0, bool kStats>
@@ -801,14 +810,42 @@ bool layer_ok(int cpl, int nt) {
 //    (bias, relu6, 0 outside the image) is stored by stmatrix into the bf16
 //    planes that conv_rows reads as block 1's input.  The intermediate
 //    never leaves the SM.
-//  - The per-block plan (guidance_wide_kernel): one block a launch, for
-//    chains the fused instance cannot take (3 blocks, or weights past 227
-//    KB: 8 -> 128 -> 128 -> 8, 8 -> 256 -> 64), their bf16 intermediates
-//    keeping their padded channels (0).  A block a tile; the input is
-//    staged in chunks of at most 64 channels, only the channels the input
-//    has rounded up to 16; an input of one chunk is staged once for every
-//    n-group of the block; each (n-group, chunk) has its B fragments staged
-//    in shared memory.
+//  - The per-block plan: one block a launch, for chains the fused
+//    instance cannot take (3 blocks, or weights past 227 KB: 8 -> 128 ->
+//    128 -> 8, 8 -> 256 -> 64), their bf16 intermediates keeping their
+//    padded channels (0).  Bound at 8 -> 128 -> 128 -> 8, 800x800: the
+//    128 -> 128 block by operations (294,912 a pixel, 0.191 ms), the first
+//    and last blocks by bytes (288 and 272 a pixel, 0.055 and 0.052 ms).
+//    Both instances run a persistent grid over the 64 x 8 tiles, with the
+//    B fragments in shared memory once a block.
+//    The first block (guidance_wide_first_kernel, an f32 input of at most
+//    8 channels): the fused wide instance's staging (one tensor copy of a
+//    tile's region, issued while the tile before computes), rounded once
+//    into a bf16 plane, and one mma.m16n8k8 a tap on the 8 real channels
+//    for each group of kXFirstNB n-tiles.  Both instances stage a warp's
+//    output in shared memory in the box layout of the output's tensor map
+//    and write it by tensor stores (the first block's 64 channels a store,
+//    whole 128-byte lines of each pixel; store_tile).
+//    A block from the bf16 intermediate (guidance_wide_kernel): its output
+//    n-tiles are split into ``parts`` groups of NB (1, 2, 4 or 8), each
+//    group's B fragments resident in its own blocks of the grid (at 128
+//    -> 128: 2 parts of 147,456 bytes; a tile's two parts run on
+//    neighbouring blocks at the same time, so its input is read from
+//    memory once and from L2 twice).  Thread 0 streams each tile's k-step
+//    slices (16 channels of the 66 x 10 region, 21,120 bytes, one tensor
+//    copy with the 32-byte swizzle that keeps ldmatrix free of bank
+//    conflicts) through a ring of 2-8 slices, a full and an empty mbarrier
+//    each, so that every channel of a tile lands once and the next tile's
+//    slices land while this one computes.  At 4 and 8 n-tiles the product
+//    is wgmma.m64nNk16: a warpgroup's 64 rows are a band's output row of
+//    64 pixels (each warp's A fragment loaded by ldmatrix at the tap's
+//    shifted pixel, as conv_rows does), B a tap's K-major tile resident in
+//    shared memory, its nine taps issued in order for each output row; at
+//    1 and 2 n-tiles (the last block of a net) it is conv_rows' mma.sync.
+//    Each output is summed in conv_rows' order (the k-steps in turn, the
+//    nine taps in order, 16 channels a product): wgmma's k16 products give
+//    mma.sync's bits, so the fused wide instance and both products agree
+//    bit for bit (checked on the card).
 // ---------------------------------------------------------------------------
 constexpr int kXTileW = 64, kXTileH = 8;  // the wide instances' output tile
 constexpr int kXRows = 4;                 // output rows a warp owns
@@ -821,7 +858,6 @@ constexpr int kXNPixM = (kXNPix + 15) / 16 * 16;       // whole m-tiles
 // pixel in distinct banks when a warp stages several of them
 constexpr int kXPlane = kXNPixM * 16 + 16;
 constexpr int kXNB0 = 4;   // block 0's n-tiles a warp holds (fused instance)
-constexpr int kXChunk = 64;  // the per-block plan's channels a chunk
 
 // the fused wide instance's input staging (stage_async): 8 f32 channels
 // with a 2-pixel halo
@@ -841,7 +877,7 @@ constexpr int fused_wide_smem(int ng0, int ng1, int nb1, int ks1) {
 }
 static_assert(fused_wide_smem(3, 1, 3, 6) == 210752, "8 -> 96 -> 24");
 
-// Block 1 (or a per-block plan's block) on the staged planes at src: this
+// The fused wide instance's block 1 on the staged planes at src: this
 // warp's kXRows output rows of its strip, NB n-tiles, ks_n k-steps from
 // plane 0; ws: the B fragments [ks][tap][nb][lane] (note).  Each output
 // sums k-step by k-step, the taps in order (input row i = j + ky, then kx),
@@ -1076,91 +1112,601 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 struct WideParams {
-  const void* in;  // f32 [B, H, W, cin] through strides, or bf16 [B, H, W, cin]
-  long long sb, sh, sw, sc;  // element strides of the f32 input
-  int f32_in, cin;           // cin: the input's channels (bf16: a pixel's)
+  Params o;  // the input (in, strides, cin, tma), the output and the frame
   const uint2* wt;  // [nt][ks][9 taps][32] x 4 bf16 (pack_layer's ``wt``)
   const __nv_bfloat16* b;
-  int ks, nt, ng;  // k-steps of 16 input channels, n-tiles, groups of NB
-  int chunk;       // input channels staged a chunk (a multiple of 16)
-  Params o;        // the output (out, ostride, cout) and the frame
+  int ks, nt;  // k-steps of 16 input channels, n-tiles of 8 outputs
+  int parts;   // bf16 input: the blocks a tile is split over (NB n-tiles each)
+  int stages;  // bf16 input: the k-step slices in the ring
+  bool vec;  // the output by 16-byte stores (cout, ostride multiples of 8)
 };
 
-// The per-block plan's input channels [c0, c0 + cn) of tile (bz, ty, tx)
-// and its halo into the planes at xs, bf16, 0 outside the image and past
-// the input's channels.
-__device__ __forceinline__ void wide_stage(const WideParams& p,
-                                           unsigned char* xs, int c0, int cn,
-                                           int bz, int ty, int tx) {
-  const int H = p.o.height, W = p.o.width, groups = cn / 8;
-  for (int i = threadIdx.x; i < groups * kXNPix; i += kThreads) {
-    const int cg = i / kXNPix, q = i - cg * kXNPix;
-    const int y = ty - 1 + q / kXWM, x = tx - 1 + q % kXWM, c = c0 + cg * 8;
-    const bool ok = y >= 0 && y < H && x >= 0 && x < W && c < p.cin;
-    unsigned char* dst = xs + cg * kXPlane + q * 16;
-    if (p.f32_in) {
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (ok) {
-        const float* px = static_cast<const float*>(p.in) + bz * p.sb +
-                          y * p.sh + x * p.sw;
-        float f[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          f[e] = c + e < p.cin ? __ldg(px + (c + e) * p.sc) : 0.f;
-        v = make_uint4(bf16x2_bits(f[0], f[1]), bf16x2_bits(f[2], f[3]),
-                       bf16x2_bits(f[4], f[5]), bf16x2_bits(f[6], f[7]));
-      }
-      *reinterpret_cast<uint4*>(dst) = v;
-    } else {  // cin a multiple of 8: 16 bytes a group
-      const __nv_bfloat16* px =
-          static_cast<const __nv_bfloat16*>(p.in) +
-          ((static_cast<long long>(bz) * H + y) * W + x) * p.cin + c;
-      cp_async16(smem_addr(dst), ok ? px : p.in, ok ? 16 : 0);
-    }
-  }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+// The per-block plan's output: a warp's kXRows x 16 pixels, staged in
+// shared memory a group of at most 4 n-tiles at a time (16 bytes a pixel
+// and n-tile, act_off's swizzle, which is the tensor copy's swizzle for
+// rows of 16 to 128 bytes: stmatrix free of bank conflicts), then written
+// by one tensor store of the warp's box (lane 0, cp.async.bulk.tensor; the
+// map clips the image's edges and cout)
+template <int NB>
+struct WideOut {
+  static constexpr int R = NB < 4 ? NB : 4;  // n-tiles a round
+  static constexpr int LG = log2i(R);
+  static constexpr int WARP_BYTES = kXRows * 16 * R * 16;
+  static constexpr int BYTES = kWarps * WARP_BYTES;
+};
+
+// wait until this warp's last tensor store has read its staging
+__device__ __forceinline__ void warp_store_wait(int lane) {
+  if (lane == 0)
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  __syncwarp();
 }
 
+// this warp's staging at stg, written by the warp, out by one tensor store
+// of the box at (channel c0, x0, y0, image bz)
+__device__ __forceinline__ void warp_tensor_store(const CUtensorMap& omap,
+                                                  uint32_t stg, int c0,
+                                                  int x0, int y0, int bz,
+                                                  int lane) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncwarp();
+  if (lane == 0) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%1, %2, "
+        "%3, %4}], [%5];\n" ::"l"(reinterpret_cast<uint64_t>(&omap)),
+        "r"(c0), "r"(x0), "r"(y0), "r"(bz), "r"(stg)
+        : "memory");
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  }
+}
+
+// n-tiles r0.. (R of them) of conv_rows' accumulators, bias and relu6
+// added (bias from n-tile nt0 + r0), into the staging at stg, n-tile r of
+// the round at chunk c0 + r of a pixel of 2^LG chunks, by stmatrix
+template <int NB, int R, int LG>
+__device__ __forceinline__ void stage_round(const Params& p,
+                                            const __nv_bfloat16* bias,
+                                            int nt0, int r0, int c0,
+                                            float (&acc)[kXRows][NB][4],
+                                            uint32_t stg, int lane) {
+  const int t2 = (lane & 3) * 2;
+  const int mrow = (lane & 7) + 8 * ((lane >> 3) & 1), mnt = lane >> 4;
+  __nv_bfloat162 bs[R];
+#pragma unroll
+  for (int nb = 0; nb < R; ++nb) {
+    const int n = (nt0 + r0 + nb) * 8 + t2;
+    const uint32_t kZero = 0u;
+    bs[nb] = n < p.cout ? load_bias(bias, n)
+                        : *reinterpret_cast<const __nv_bfloat162*>(&kZero);
+  }
+#pragma unroll
+  for (int j = 0; j < kXRows; ++j) {
+    uint32_t v[2][R];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int nb = 0; nb < R; ++nb)
+        v[h][nb] = bias_relu6(acc[j][r0 + nb][2 * h],
+                              acc[j][r0 + nb][2 * h + 1], bs[nb]);
+    if constexpr (R == 1) {
+      asm volatile(
+          "stmatrix.sync.aligned.m8n8.x2.shared.b16 [%0], {%1,%2};\n" ::"r"(
+              stg + act_off<LG>(j * 16 + (lane & 15), c0)),
+          "r"(v[0][0]), "r"(v[1][0]));
+    } else {
+#pragma unroll
+      for (int np = 0; np < R; np += 2)
+        stmatrix_x4(stg + act_off<LG>(j * 16 + mrow, c0 + np + mnt),
+                    v[0][np], v[1][np], v[0][np + 1], v[1][np + 1]);
+    }
+  }
+}
+
+// conv_rows' accumulators of n-tiles nt0.. : bias, relu6, the channels
+// below p.cout written to out, a round of WideOut<NB>::R n-tiles at a time
+// through this warp's staging stg and a tensor store (omap: boxes of 8 R
+// channels x 16 x kXRows pixels).  An output whose channels or stride are
+// not multiples of 8 takes store_rows.
+template <int NB>
+__device__ __forceinline__ void store_tile(const CUtensorMap& omap,
+                                           const Params& p, bool vec,
+                                           const __nv_bfloat16* bias,
+                                           int nt0,
+                                           float (&acc)[kXRows][NB][4],
+                                           uint32_t stg, int bz, int ty,
+                                           int tx, int strip, int band,
+                                           int lane) {
+  using O = WideOut<NB>;
+  if (!vec) {
+    store_rows<NB>(p, bias, nt0, acc, bz, ty, tx, strip, band, lane);
+    return;
+  }
+#pragma unroll
+  for (int r0 = 0; r0 < NB; r0 += O::R) {
+    warp_store_wait(lane);
+    stage_round<NB, O::R, O::LG>(p, bias, nt0, r0, 0, acc, stg, lane);
+    warp_tensor_store(omap, stg, (nt0 + r0) * 8, tx + strip * 16,
+                      ty + band * kXRows, bz, lane);
+  }
+}
+
+// The per-block plan's first block: its f32 input of at most 8 channels
+// with a 1-pixel halo (66 x 10 pixels), staged as the fused wide instance
+// stages its input (stage_async: a tensor copy, or cp.async for strided
+// channels)
+struct WideFirstCfg {
+  static constexpr int TW = kXTileW, TH = kXTileH;
+  static constexpr int WI = TW + 2, HI = TH + 2;
+  static constexpr int STAGE = HI * WI * 8 * 4;
+};
+static_assert(WideFirstCfg::WI == kXWM && WideFirstCfg::HI == kXHM,
+              "the staged region is the planes' region");
+constexpr int kXFirstNB = 4;  // n-tiles a warp takes at a time (first block)
+
+// The first block's output goes out by tensor stores: a warp's kXRows x
+// 16 pixels staged 64 channels (a slab: two groups of kXFirstNB n-tiles)
+// at a time in the box layout of the output's tensor map, 128 bytes a
+// pixel with the 128-byte swizzle (act_off<3>), and written by one tensor
+// store of its lane 0: whole 128-byte lines of each pixel.
+constexpr int kXSlab = kXRows * 16 * 128;  // bytes of a warp's slab
+
+// shared-memory bytes of the first block's instance for nt n-tiles: the
+// alignment's slack, the warps' slabs, barrier, staging, the bf16 plane,
+// the B fragments (9 taps, 8 channels: 128 bytes each) of nt rounded up
+// to groups of kXFirstNB
+constexpr int wide_first_smem(int nt) {
+  return 1024 + kWarps * kXSlab + 128 + WideFirstCfg::STAGE + kXPlane +
+         (nt + kXFirstNB - 1) / kXFirstNB * 9 * kXFirstNB * 128;
+}
+
+// group g's n-tiles of acc (bias, relu6) into this warp's slab at slab
+// (channels (g % 2) 32.. of each pixel), then, at the slab's second group
+// or the last one, the slab's tensor store at channel 64 (g / 2) of the
+// warp's pixels
+template <int NB>
+__device__ __forceinline__ void slab_group(const CUtensorMap& omap,
+                                           const Params& p,
+                                           const __nv_bfloat16* bias, int g,
+                                           bool last,
+                                           float (&acc)[kXRows][NB][4],
+                                           uint32_t slab, int bz, int y0,
+                                           int x0, int lane) {
+  static_assert(2 * NB * 8 == 64, "two groups a slab of 64 channels");
+  if (g % 2 == 0) warp_store_wait(lane);  // the slab's last store read it
+  stage_round<NB, NB, 3>(p, bias, g * NB, 0, (g % 2) * NB, acc, slab, lane);
+  if (g % 2 == 1 || last)
+    warp_tensor_store(omap, slab, g / 2 * 64, x0, y0, bz, lane);
+}
+
+// This warp's kXRows output rows of its strip for NB n-tiles of an input of
+// at most 8 channels, from the bf16 plane at src; ws: the B fragments'
+// channels 0..7, [tap][nb][lane].  One mma.m16n8k8 a tap: a k-step of 16
+// channels whose last 8 are 0 sums the same products, in the same order
+// (input row i = j + ky, then kx), as wide_block0 does.
+template <int NB>
+__device__ __forceinline__ void conv_first(uint32_t src, const uint32_t* ws,
+                                           int strip, int band, int lane,
+                                           float (&acc)[kXRows][NB][4]) {
+  uint32_t b[9][NB];
+#pragma unroll
+  for (int tap = 0; tap < 9; ++tap)
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+      b[tap][nb] = ws[(tap * NB + nb) * 32 + lane];
+  const uint32_t base =
+      src + ((band * kXRows) * kXWM + strip * 16 + (lane & 15)) * 16;
+#pragma unroll
+  for (int i = 0; i < kXRows + 2; ++i) {
+#pragma unroll
+    for (int kx = 0; kx < 3; ++kx) {
+      uint32_t a0, a1;  // rows g and g + 8, channels 2t, 2t + 1
+      asm volatile(
+          "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+          : "=r"(a0), "=r"(a1)
+          : "r"(base + (i * kXWM + kx) * 16));
+#pragma unroll
+      for (int ky = 0; ky < 3; ++ky) {
+        const int j = i - ky;
+        if (j < 0 || j >= kXRows) continue;
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb)
+          mma_bf16_k8(acc[j][nb], a0, a1, b[3 * ky + kx][nb]);
+      }
+    }
+  }
+}
+
+
+// The per-block plan's block from an f32 input of at most 8 channels (the
+// aux): a persistent grid walking the 64 x 8 tiles; the B fragments in
+// shared memory once a block; a tile's region staged by one copy issued
+// while the tile before computes, rounded once into a bf16 plane; every
+// n-tile group computed from that plane.
 template <int NB>
 __global__ void __launch_bounds__(kThreads, 1)
-    guidance_wide_kernel(const __grid_constant__ WideParams p) {
-  // [xs: chunk / 8 planes | ws: the chunk's B fragments of one n-group]
-  extern __shared__ __align__(16) unsigned char smem[];
-  unsigned char* xs = smem;
-  uint2* ws = reinterpret_cast<uint2*>(smem + p.chunk / 8 * kXPlane);
+    guidance_wide_first_kernel(const __grid_constant__ CUtensorMap tmap,
+                               const __grid_constant__ CUtensorMap omap,
+                               const __grid_constant__ WideParams q) {
+  using C = WideFirstCfg;
+  const Params& p = q.o;
+  // [slack | slabs | barrier | staging | plane | ws: [group][tap][nb][lane]]
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t pad = (1024u - (smem_addr(smem) & 1023u)) & 1023u;
+  unsigned char* slabs = smem + pad;
+  const uint32_t bar = smem_addr(slabs + kWarps * kXSlab);
+  unsigned char* stage_p = slabs + kWarps * kXSlab + 128;
+  unsigned char* plane = stage_p + C::STAGE;
+  uint32_t* ws = reinterpret_cast<uint32_t*>(plane + kXPlane);
+  const uint32_t stage = smem_addr(stage_p);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int strip = warp % kXStrips, band = warp / kXStrips;
-  const int tiles_x = (p.o.width + kXTileW - 1) / kXTileW;
-  const int tiles_y = (p.o.height + kXTileH - 1) / kXTileH;
-  const int bz = blockIdx.x / (tiles_x * tiles_y);
-  const int r = blockIdx.x - bz * tiles_x * tiles_y;
-  const int ty = (r / tiles_x) * kXTileH, tx = (r % tiles_x) * kXTileW;
-  const int kc = p.ks * 16, chunks = (kc + p.chunk - 1) / p.chunk;
-  for (int ng = 0; ng < p.ng; ++ng) {
+  // this warp's slab (a store_rows output stages nothing)
+  const uint32_t slab = smem_addr(slabs) + warp * kXSlab;
+  const int groups = (q.nt + NB - 1) / NB;
+  const int ntiles = p.batch * ((p.height + C::TH - 1) / C::TH) *
+                     ((p.width + C::TW - 1) / C::TW);
+  const int first = blockIdx.x, step = gridDim.x;
+  if (p.tma && threadIdx.x == kThreads - 1) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the B fragments' channels 0..7 once a block (ks == 1), n-tiles past
+  // the pack's 0
+  for (int i = threadIdx.x; i < groups * 9 * NB * 32; i += kThreads) {
+    const int f = i / 32, nb = f % NB, tap = f / NB % 9;
+    const int nt = f / (NB * 9) * NB + nb;
+    ws[i] = nt < q.nt ? __ldg(q.wt + (nt * 9 + tap) * 32 + i % 32).x : 0u;
+  }
+  __syncthreads();
+  if (first < ntiles) stage_async<C, true, 1, 8>(tmap, p, first, stage, bar);
+  uint32_t parity = 0;
+  for (int t = first; t < ntiles; t += step) {
+    stage_wait(p.tma, bar, parity);
+    parity ^= 1u;
+    __syncthreads();  // tile t staged; the previous tile's plane reads done
+    for (int i = threadIdx.x; i < kXNPix; i += kThreads) {
+      const float4* v = reinterpret_cast<const float4*>(stage_p + i * 32);
+      const float4 lo = v[0], hi = v[1];
+      *reinterpret_cast<uint4*>(plane + i * 16) = make_uint4(
+          bf16x2_bits(lo.x, lo.y), bf16x2_bits(lo.z, lo.w),
+          bf16x2_bits(hi.x, hi.y), bf16x2_bits(hi.z, hi.w));
+    }
+    __syncthreads();  // the plane ready, the staging buffer free
+    if (t + step < ntiles)
+      stage_async<C, true, 1, 8>(tmap, p, t + step, stage, bar);
+    int bz, ty, tx;
+    tile_origin<C>(p, t, bz, ty, tx);
+    for (int g = 0; g < groups; ++g) {
+      float acc[kXRows][NB][4];
+#pragma unroll
+      for (int j = 0; j < kXRows; ++j)
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb)
+          acc[j][nb][0] = acc[j][nb][1] = acc[j][nb][2] = acc[j][nb][3] = 0.f;
+      conv_first<NB>(smem_addr(plane), ws + g * 9 * NB * 32, strip, band,
+                     lane, acc);
+      if (q.vec)
+        slab_group<NB>(omap, p, q.b, g, g == groups - 1, acc, slab, bz,
+                       ty + band * kXRows, tx + strip * 16, lane);
+      else
+        store_rows<NB>(p, q.b, g * NB, acc, bz, ty, tx, strip, band, lane);
+    }
+  }
+  // the slabs' last stores done before the block leaves
+  if (lane == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// The per-block plan's ring (a block from the chain's bf16 intermediate):
+// a slice is the channels of KSL k-steps (16 each) over a tile's 66 x 10
+// region, 32 KSL bytes a pixel as the tensor copy lays them out with its
+// 32 KSL-byte swizzle (the 16-byte piece h of pixel q at 32 KSL q + 16 (h
+// ^ bits of q)), each slice 1024-byte aligned.  A block of 1 or 2 output
+// n-tiles (bound by its input's bytes) takes slices of two k-steps, whose
+// 64-byte rows halve the rows a tensor copy walks; the others one.
+template <int NB>
+struct Ring {
+  static constexpr int KSL = NB <= 2 ? 2 : 1;  // k-steps a slice
+  static constexpr int SLICE = kXNPix * 32 * KSL;  // 21,120 or 42,240
+  static constexpr int STRIDE = (SLICE + 1023) / 1024 * 1024;
+};
+constexpr int kXMaxStages = 8;
+// wgmma's B tiles: K-major core matrices of 8 n x 8 k (16 bytes a row),
+// the one of k 8..15 kXKCore bytes past that of k 0..7 (the descriptor's
+// leading offset), the next 8 n kXNCore bytes on (its stride offset)
+constexpr int kXKCore = 128, kXNCore = 256;
+
+// shared-memory bytes of the ring's instance: the alignment's slack, the
+// slices, the B fragments of NB n-tiles over ks k-steps (256 bytes each),
+// the output's staging, two barriers a slice
+constexpr int wide_ring_smem(int ks, int nb, int stages) {
+  return 1024 + stages * (nb <= 2 ? Ring<1>::STRIDE : Ring<8>::STRIDE) +
+         ks * 9 * nb * 256 + kWarps * kXRows * 16 * (nb < 4 ? nb : 4) * 16 +
+         stages * 16;
+}
+
+// the byte address of the 16-byte piece h of pixel q in a slice of KSL
+// k-steps (the tensor copy's swizzle: bits 4.. of the address flip with
+// bits 7..)
+template <int KSL>
+__device__ __forceinline__ uint32_t slice_addr(uint32_t slice, int q, int h) {
+  const uint32_t a = slice + q * 32 * KSL + h * 16;
+  return a ^ ((a >> 3) & (KSL == 1 ? 16u : 48u));
+}
+
+// One k-step of this warp's kXRows output rows of its strip for NB (1 or
+// 2) n-tiles on mma.sync, from the pieces h0.. of the slice at src; wk:
+// the k-step's B fragments [nb][tap][lane].  Each output adds the nine taps in order
+// (input row i = j + ky, then kx), 16 channels a product, as conv_rows
+// does; the nine taps' fragments stay in registers and each A fragment
+// feeds every output row it is a tap of.
+template <int NB>
+__device__ __forceinline__ void conv_slice(uint32_t src, int h0,
+                                           const uint2* wk, int strip,
+                                           int band, int lane,
+                                           float (&acc)[kXRows][NB][4]) {
+  const int row = (lane & 7) + (lane & 8), khalf = lane >> 4;
+  const int q0 = (band * kXRows) * kXWM + strip * 16 + row;
+  uint2 b[9][NB];
+#pragma unroll
+  for (int tap = 0; tap < 9; ++tap)
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+      b[tap][nb] = wk[(nb * 9 + tap) * 32 + lane];
+#pragma unroll
+  for (int i = 0; i < kXRows + 2; ++i) {
+#pragma unroll
+    for (int kx = 0; kx < 3; ++kx) {
+      uint32_t a[4];
+      ldmatrix_x4(a, slice_addr<Ring<NB>::KSL>(src, q0 + i * kXWM + kx,
+                                               h0 + khalf));
+#pragma unroll
+      for (int ky = 0; ky < 3; ++ky) {
+        const int j = i - ky;
+        if (j < 0 || j >= kXRows) continue;
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb)
+          mma_bf16(acc[j][nb], a, b[3 * ky + kx][nb]);
+      }
+    }
+  }
+}
+
+// wgmma.m64n(8 NB)k16, f32 += bf16 x bf16, A from registers (the warp's
+// 16 rows of the 64, as mma.m16n8k16's A fragment), B from shared memory
+// (K-major core matrices, desc); d: the warp's C fragments of NB n-tiles
+template <int NB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[NB][4],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<4>(float (&d)[4][4],
+                                            const uint32_t (&a)[4],
+                                            uint64_t desc) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<8>(float (&d)[8][4],
+                                            const uint32_t (&a)[4],
+                                            uint64_t desc) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc));
+}
+
+// the wgmma descriptor of a B tile at shared address addr (no swizzle)
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
+         static_cast<uint64_t>(kXKCore >> 4) << 16 |
+         static_cast<uint64_t>(kXNCore >> 4) << 32;
+}
+
+// conv_slice's k-step on wgmma: this warpgroup's 64 pixels of each of its
+// kXRows output rows (a warp a strip of 16) times the k-step's B tiles at
+// wk (a tap's 16 k x 8 NB n in K-major core matrices, NB * 256 bytes).
+// Each output adds the nine taps in order, 16 channels a product, as
+// conv_slice does; the warpgroup waits for its products before the A
+// fragments are reloaded.
+template <int NB>
+__device__ __forceinline__ void conv_slice_wgmma(uint32_t src, uint32_t wk,
+                                                 int strip, int band,
+                                                 int lane,
+                                                 float (&acc)[kXRows][NB][4]) {
+  const int row = (lane & 7) + (lane & 8), khalf = lane >> 4;
+  const int q0 = (band * kXRows) * kXWM + strip * 16 + row;
+  uint32_t a[kXRows + 2][3][4];
+#pragma unroll
+  for (int i = 0; i < kXRows + 2; ++i)
+#pragma unroll
+    for (int kx = 0; kx < 3; ++kx)
+      ldmatrix_x4(a[i][kx], slice_addr<1>(src, q0 + i * kXWM + kx, khalf));
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int tap = 0; tap < 9; ++tap)
+#pragma unroll
+    for (int j = 0; j < kXRows; ++j)
+      wgmma_rs<NB>(acc[j], a[j + tap / 3][tap % 3],
+                   wgmma_desc(wk + tap * NB * 256));
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+// the ring's slice number u (tile first + (u / spt) step, slice u % spt
+// of the spt a tile) into its slot at dst: one tensor copy, completing on
+// the slot's full barrier
+template <int NB>
+__device__ __forceinline__ void issue_slice(const CUtensorMap& tmap,
+                                            const WideParams& q, int spt,
+                                            int first, int step, int u,
+                                            uint32_t dst, uint32_t full) {
+  int bz, ty, tx;
+  tile_origin<WideFirstCfg>(q.o, first + u / spt * step, bz, ty, tx);
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(full),
+      "r"(Ring<NB>::SLICE)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(&tmap)),
+      "r"(u % spt * 16 * Ring<NB>::KSL), "r"(tx - 1), "r"(ty - 1), "r"(bz),
+      "r"(full)
+      : "memory");
+}
+
+// The per-block plan's block from the chain's bf16 intermediate (note): a
+// persistent grid in which block b computes the n-tiles [NB part, NB part
+// + NB) of part = b % parts for the tiles b / parts, + gridDim / parts,
+// ...; its B fragments in shared memory once a block; the tiles' k-step
+// slices streamed by tensor copies through a ring of ``stages`` slices (a
+// full and an empty barrier each), thread 0 refilling each slot as soon
+// as every warp is done with it; the product on wgmma (a warpgroup a band
+// of kXRows rows) at 4 and 8 n-tiles, on mma.sync at 1 and 2.
+template <int NB>
+__global__ void __launch_bounds__(kThreads, 1)
+    guidance_wide_kernel(const __grid_constant__ CUtensorMap tmap,
+                         const __grid_constant__ CUtensorMap omap,
+                         const __grid_constant__ WideParams q) {
+  const Params& p = q.o;
+  // [slack | slices | the output's staging | ws: the B fragments |
+  //  full[stages] | empty[stages]]
+  extern __shared__ __align__(128) unsigned char smem[];
+  using O = WideOut<NB>;
+  using RG = Ring<NB>;
+  constexpr bool kWgmma = NB >= 4;  // the product on wgmma
+  const uint32_t raw = smem_addr(smem);
+  const uint32_t pad = (1024u - (raw & 1023u)) & 1023u;
+  const uint32_t slices = raw + pad;
+  const uint32_t outs = slices + q.stages * RG::STRIDE;
+  uint2* ws = reinterpret_cast<uint2*>(smem + pad + q.stages * RG::STRIDE +
+                                       O::BYTES);
+  const int nfrag = q.ks * 9 * NB;
+  const uint32_t full = outs + O::BYTES + nfrag * 256;
+  const uint32_t empty = full + q.stages * 8;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int strip = warp % kXStrips, band = warp / kXStrips;
+  const uint32_t stg = outs + warp * O::WARP_BYTES;
+  const int part = blockIdx.x % q.parts;
+  const int first = blockIdx.x / q.parts, step = gridDim.x / q.parts;
+  const int ntiles = p.batch * ((p.height + kXTileH - 1) / kXTileH) *
+                     ((p.width + kXTileW - 1) / kXTileW);
+  // the slices this block streams: spt a tile
+  const int spt = (q.ks + RG::KSL - 1) / RG::KSL;
+  const int nslices = (ntiles - first + step - 1) / step * spt;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < q.stages; ++s) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(full +
+                                                                    8 * s));
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                       empty + 8 * s),
+                   "r"(kWarps));
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int u = 0; u < q.stages && u < nslices; ++u)
+      issue_slice<NB>(tmap, q, spt, first, step, u,
+                      slices + u * RG::STRIDE, full + 8 * u);
+  }
+  // this part's B fragments once a block, n-tiles past the pack's 0: for
+  // mma.sync [ks][nb][tap][lane]; for wgmma a tile a (ks, tap) of K-major
+  // core matrices, n-tile nb's at nb * kXNCore, its k 8..15 at + kXKCore
+  for (int i = threadIdx.x; i < nfrag * 32; i += kThreads) {
+    const int f = i / 32, tap = f % 9, nb = f / 9 % NB, ks = f / (NB * 9);
+    const int nt = part * NB + nb;
+    const uint2 v = nt < q.nt ? __ldg(q.wt + ((nt * q.ks + ks) * 9 + tap) *
+                                                 32 + i % 32)
+                              : make_uint2(0u, 0u);
+    if (kWgmma) {
+      uint32_t* tile = reinterpret_cast<uint32_t*>(
+          reinterpret_cast<unsigned char*>(ws) + (ks * 9 + tap) * NB * 256 +
+          nb * kXNCore + (i % 32 / 4) * 16 + (i % 4) * 4);
+      tile[0] = v.x;             // k 2t, 2t + 1
+      tile[kXKCore / 4] = v.y;   // k 2t + 8, 2t + 9
+    } else {
+      ws[i] = v;
+    }
+  }
+  __syncthreads();
+  int u = 0;  // the slice being computed
+  for (int t = first; t < ntiles; t += step) {
+    int bz, ty, tx;
+    tile_origin<WideFirstCfg>(p, t, bz, ty, tx);
     float acc[kXRows][NB][4];
 #pragma unroll
     for (int j = 0; j < kXRows; ++j)
 #pragma unroll
       for (int nb = 0; nb < NB; ++nb)
         acc[j][nb][0] = acc[j][nb][1] = acc[j][nb][2] = acc[j][nb][3] = 0.f;
-    for (int c = 0; c < chunks; ++c) {
-      const int c0 = c * p.chunk, cn = min(p.chunk, kc - c0);
-      __syncthreads();  // the previous product's reads are done
-      // an input of one chunk is staged once for every n-group
-      if (chunks > 1 || ng == 0) wide_stage(p, xs, c0, cn, bz, ty, tx);
-      for (int i = threadIdx.x; i < cn / 16 * 9 * NB * 32; i += kThreads) {
-        const int f = i / 32, nb = f % NB, tap = f / NB % 9;
-        const int ks = c0 / 16 + f / (NB * 9), nt = ng * NB + nb;
-        ws[i] = nt < p.nt ? __ldg(p.wt + ((nt * p.ks + ks) * 9 + tap) * 32 +
-                                  i % 32)
-                          : make_uint2(0u, 0u);
+    for (int sj = 0; sj < spt; ++sj, ++u) {
+      const int s = u % q.stages;
+      const uint32_t ph = (u / q.stages) & 1u;
+      // slice u - 1's slot, once every warp is done with it, takes slice
+      // u - 1 + stages
+      if (threadIdx.x == 0 && u > 0 && u - 1 + q.stages < nslices) {
+        const int s1 = (u - 1) % q.stages;
+        bar_wait(empty + 8 * s1, ((u - 1) / q.stages) & 1u);
+        issue_slice<NB>(tmap, q, spt, first, step, u - 1 + q.stages,
+                        slices + s1 * RG::STRIDE, full + 8 * s1);
       }
-      __syncthreads();
-      conv_rows<NB>(smem_addr(xs), cn / 16, ws, strip, band, lane, acc);
+      __syncwarp();
+      bar_wait(full + 8 * s, ph);  // slice u has landed
+      if constexpr (kWgmma) {
+        conv_slice_wgmma<NB>(slices + s * RG::STRIDE,
+                             smem_addr(ws) + sj * 9 * NB * 256, strip, band,
+                             lane, acc);
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < RG::KSL; ++kk) {
+          const int ks = sj * RG::KSL + kk;
+          if (ks < q.ks)
+            conv_slice<NB>(slices + s * RG::STRIDE, 2 * kk,
+                           ws + ks * 9 * NB * 32, strip, band, lane, acc);
+        }
+      }
+      __syncwarp();
+      if (lane == 0)
+        asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                         empty + 8 * s)
+                     : "memory");
     }
-    store_rows<NB>(p.o, p.b, ng * NB, acc, bz, ty, tx, strip, band, lane);
+    store_tile<NB>(omap, p, q.vec, q.b, part * NB, acc, stg, bz, ty, tx,
+                   strip, band, lane);
   }
+  // the last tensor stores done before the block leaves
+  if (lane == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // the n-tiles the fused wide instance's block 1 takes at a time, of nt
@@ -1182,25 +1728,36 @@ int allow_smem(Kernel kernel, int bytes, int (&done)[64]) {
   return 0;
 }
 
+// the SMs of the current device (once a device)
+int device_sms(int& sms) {
+  static int cached[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!cached[dev]) {
+    e = cudaDeviceGetAttribute(&cached[dev], cudaDevAttrMultiProcessorCount,
+                               dev);
+    if (e != cudaSuccess) return (int)e;
+  }
+  sms = cached[dev];
+  return 0;
+}
+
 template <int NB1>
 int launch_wide2(const FusedWideParams& q, int smem, cudaStream_t stream) {
   auto kernel = guidance_wide2_kernel<NB1>;
-  static int done[64] = {}, sms[64] = {};
+  static int done[64] = {};
+  int sms = 0;
   int rc = allow_smem(kernel, smem, done);
+  if (!rc) rc = device_sms(sms);
   if (rc) return rc;
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (!sms[dev]) {
-    const cudaError_t e =
-        cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return (int)e;
-  }
   const Params& p = q.p;
   const long long ntiles = static_cast<long long>(p.batch) *
                            ((p.height + kXTileH - 1) / kXTileH) *
                            ((p.width + kXTileW - 1) / kXTileW);
   if (ntiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const int grid = static_cast<int>(ntiles < sms[dev] ? ntiles : sms[dev]);
+  const int grid = static_cast<int>(ntiles < sms ? ntiles : sms);
   CUtensorMap map{};
   if (p.tma) {
     rc = encode_input(p, 8, WideCfg::WI, WideCfg::HI, &map);
@@ -1210,18 +1767,87 @@ int launch_wide2(const FusedWideParams& q, int smem, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+
+// the tensor map of the per-block plan's output [B, H, W, cout] (pixel
+// stride ostride) for a warp's boxes of ch channels x 16 x kXRows pixels,
+// with the swizzle of ch * 2-byte rows (act_off's)
+int encode_output(const Params& p, int ch, CUtensorMap* map) {
+  const cuuint64_t dims[4] = {(cuuint64_t)p.cout, (cuuint64_t)p.width,
+                              (cuuint64_t)p.height, (cuuint64_t)p.batch};
+  const cuuint64_t strides[3] = {
+      (cuuint64_t)p.ostride * 2, (cuuint64_t)p.ostride * 2 * p.width,
+      (cuuint64_t)p.ostride * 2 * p.width * p.height};
+  const cuuint32_t box[4] = {(cuuint32_t)ch, 16, kXRows, 1};
+  const CUtensorMapSwizzle swizzle =
+      ch == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+      : ch == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+      : ch == 16 ? CU_TENSOR_MAP_SWIZZLE_32B
+                 : CU_TENSOR_MAP_SWIZZLE_NONE;
+  return encode_map(CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p.out, dims, strides,
+                    box, swizzle, map);
+}
+
 template <int NB>
-int launch_wide(const WideParams& p, cudaStream_t stream) {
+int launch_wide_first(const WideParams& q, cudaStream_t stream) {
+  auto kernel = guidance_wide_first_kernel<NB>;
+  static int done[64] = {};
+  const int smem = wide_first_smem(q.nt);
+  int sms = 0;
+  int rc = allow_smem(kernel, smem, done);
+  if (!rc) rc = device_sms(sms);
+  if (rc) return rc;
+  const Params& p = q.o;
+  const long long ntiles = static_cast<long long>(p.batch) *
+                           ((p.height + kXTileH - 1) / kXTileH) *
+                           ((p.width + kXTileW - 1) / kXTileW);
+  if (ntiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  CUtensorMap map{}, omap{};
+  if (p.tma) {
+    rc = encode_input(p, 8, WideFirstCfg::WI, WideFirstCfg::HI, &map);
+    if (rc) return rc;
+  }
+  if (q.vec) {
+    rc = encode_output(p, 64, &omap);
+    if (rc) return rc;
+  }
+  const int grid = static_cast<int>(ntiles < sms ? ntiles : sms);
+  kernel<<<grid, kThreads, smem, stream>>>(map, omap, q);
+  return (int)cudaGetLastError();
+}
+
+template <int NB>
+int launch_wide(const WideParams& q, cudaStream_t stream) {
   auto kernel = guidance_wide_kernel<NB>;
   static int done[64] = {};
-  const int smem = p.chunk / 8 * kXPlane + p.chunk / 16 * 9 * NB * 256;
-  const int rc = allow_smem(kernel, smem, done);
+  const int smem = wide_ring_smem(q.ks, NB, q.stages);
+  int sms = 0;
+  int rc = allow_smem(kernel, smem, done);
+  if (!rc) rc = device_sms(sms);
   if (rc) return rc;
-  const long long tiles = static_cast<long long>(p.o.batch) *
-                          ((p.o.height + kXTileH - 1) / kXTileH) *
-                          ((p.o.width + kXTileW - 1) / kXTileW);
-  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  kernel<<<static_cast<unsigned>(tiles), kThreads, smem, stream>>>(p);
+  const Params& p = q.o;
+  const long long ntiles = static_cast<long long>(p.batch) *
+                           ((p.height + kXTileH - 1) / kXTileH) *
+                           ((p.width + kXTileW - 1) / kXTileW);
+  if (ntiles * q.parts > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  // the bf16 input [B, H, W, cin], boxes of one k-step's 16 channels over
+  // the 66 x 10 region
+  const cuuint64_t dims[4] = {(cuuint64_t)p.cin, (cuuint64_t)p.width,
+                              (cuuint64_t)p.height, (cuuint64_t)p.batch};
+  const cuuint64_t strides[3] = {
+      (cuuint64_t)p.cin * 2, (cuuint64_t)p.cin * 2 * p.width,
+      (cuuint64_t)p.cin * 2 * p.width * p.height};
+  const cuuint32_t box[4] = {16 * Ring<NB>::KSL, kXWM, kXHM, 1};
+  CUtensorMap map{}, omap{};
+  rc = encode_map(CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p.in, dims, strides, box,
+                  Ring<NB>::KSL == 1 ? CU_TENSOR_MAP_SWIZZLE_32B
+                                     : CU_TENSOR_MAP_SWIZZLE_64B,
+                  &map);
+  if (!rc && q.vec) rc = encode_output(p, 8 * WideOut<NB>::R, &omap);
+  if (rc) return rc;
+  // a tile's parts run side by side on neighbouring blocks
+  const long long per = sms / q.parts > 0 ? sms / q.parts : 1;
+  const int grid = static_cast<int>((ntiles < per ? ntiles : per) * q.parts);
+  kernel<<<grid, kThreads, smem, stream>>>(map, omap, q);
   return (int)cudaGetLastError();
 }
 
@@ -1349,49 +1975,70 @@ RT_API int rt_guidance_wide_fused(const void* in, long long sb, long long sh,
 }
 
 // One launch of the per-block plan: one block from ``in`` to ``out``.  in:
-// f32 [B, H, W, cin] through the element strides (sb, sh, sw, sc) when
-// f32_in, else bf16 [B, H, W, cin] contiguous with cin a multiple of 8 (a
-// previous launch's out, its padded channels 0).  wt, b: the block's
-// tap-major packed weights (pack_layer's ``wt``: ks k-steps of 16 input
-// channels, at least cin of them) and bias (nt * 8 values).  out: bf16 [B,
-// H, W, ostride], channels 0..cout-1 written (cout and ostride even, cout
-// at most nt * 8).
+// f32 [B, H, W, cin] through the element strides (sb, sh, sw, sc) with cin
+// at most 8 when f32_in (the aux), else bf16 [B, H, W, cin] contiguous with
+// cin a multiple of 8 (a previous launch's out, its padded channels 0).
+// wt, b: the block's tap-major packed weights (pack_layer's ``wt``: ks
+// k-steps of 16 input channels, at least cin of them; ks == 1 for an f32
+// input) and bias (nt * 8 values).  out: bf16 [B, H, W, ostride], channels
+// 0..cout-1 written (cout and ostride even, cout at most nt * 8).
 RT_API int rt_guidance_wide(const void* in, long long sb, long long sh,
                             long long sw, long long sc, int f32_in, int cin,
                             const void* wt, const void* b, int ks, int nt,
                             void* out, int ostride, int cout, int batch,
                             int height, int width, void* stream) {
+  const bool aligned = reinterpret_cast<uintptr_t>(in) % 16 == 0;
   if (ks < 1 || nt < 1 || cin < 1 || cin > ks * 16 ||
-      (!f32_in && cin % 8) || cout < 2 || cout % 2 || cout > nt * 8 ||
-      ostride < cout || ostride % 2 || batch < 1 || height < 1 || width < 1)
+      (f32_in && (cin > 8 || ks != 1)) || (!f32_in && (cin % 8 || !aligned)) ||
+      cout < 2 || cout % 2 || cout > nt * 8 || ostride < cout ||
+      ostride % 2 || batch < 1 || batch > 65535 || height < 1 || width < 1)
     return (int)cudaErrorInvalidValue;
-  const int nb = nt <= 2 ? nt : 4;
-  WideParams p;
+  WideParams q;
+  q.o = Params{};
+  Params& p = q.o;
   p.in = in;
   p.sb = sb;
   p.sh = sh;
   p.sw = sw;
   p.sc = sc;
-  p.f32_in = f32_in;
   p.cin = cin;
-  p.wt = static_cast<const uint2*>(wt);
-  p.b = static_cast<const __nv_bfloat16*>(b);
-  p.ks = ks;
-  p.nt = nt;
-  p.ng = (nt + nb - 1) / nb;
-  // only the channels the input has, rounded up to 16
-  p.chunk = (cin + 15) / 16 * 16 < kXChunk ? (cin + 15) / 16 * 16 : kXChunk;
-  p.o = Params{};
-  p.o.out = static_cast<__nv_bfloat16*>(out);
-  p.o.ostride = ostride;
-  p.o.cout = cout;
-  p.o.batch = batch;
-  p.o.height = height;
-  p.o.width = width;
+  // the first block's tensor copy: channels contiguous, 16-byte rows
+  p.tma = f32_in && sc == 1 && cin % 4 == 0 && sw % 4 == 0 && sh % 4 == 0 &&
+          sb % 4 == 0 && aligned;
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.ostride = ostride;
+  p.cout = cout;
+  p.batch = batch;
+  p.height = height;
+  p.width = width;
+  q.wt = static_cast<const uint2*>(wt);
+  q.b = static_cast<const __nv_bfloat16*>(b);
+  q.ks = ks;
+  q.nt = nt;
+  q.parts = 1;
+  q.stages = 0;
+  q.vec = cout % 8 == 0 && ostride % 8 == 0 &&
+          reinterpret_cast<uintptr_t>(out) % 16 == 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (f32_in) {
+    if (wide_first_smem(nt) > kSmemMax) return (int)cudaErrorInvalidValue;
+    return launch_wide_first<kXFirstNB>(q, s);
+  }
+  // the widest n-tile group (1, 2, 4, 8) that the output needs and whose B
+  // fragments leave room for two slices (the widest group's shared A
+  // fragments beat a deeper ring)
+  int nb = nt <= 1 ? 1 : nt <= 2 ? 2 : nt <= 4 ? 4 : 8;
+  while (nb > 1 && wide_ring_smem(ks, nb, 2) > kSmemMax) nb /= 2;
+  if (wide_ring_smem(ks, nb, 2) > kSmemMax) return (int)cudaErrorInvalidValue;
+  q.parts = (nt + nb - 1) / nb;
+  q.stages = 2;
+  while (q.stages < kXMaxStages &&
+         wide_ring_smem(ks, nb, q.stages + 1) <= kSmemMax)
+    ++q.stages;
   switch (nb) {
-    case 1: return launch_wide<1>(p, s);
-    case 2: return launch_wide<2>(p, s);
-    default: return launch_wide<4>(p, s);
+    case 1: return launch_wide<1>(q, s);
+    case 2: return launch_wide<2>(q, s);
+    case 4: return launch_wide<4>(q, s);
+    default: return launch_wide<8>(q, s);
   }
 }

@@ -39,7 +39,17 @@ pack ``wt`` of a wide block, its channels padded to a multiple of 16
   launch of the fused wide instance;
 - ``"chain"``: any other net, one launch a block (``chain_block``): the
   per-block plan for a wide block, a fused instance's one-block launch for
-  the others.
+  the others.  The per-block plan has two instances, both a persistent
+  grid over 64 x 8 tiles with the block's B fragments resident: one for
+  the first block from the f32 aux (at most ``WIDE_F32_CHANNELS``
+  channels, staged by one tensor copy a tile, one m16n8k8 a tap), and a
+  ring for a block from the chain's bf16 intermediate (its output n-tiles
+  split over neighbouring blocks of the grid, each tile's 16-channel
+  k-step slices streamed in by a producer warp's tensor copies); a wider
+  f32 input is rounded to bf16 first and takes the ring.  Both sum each
+  output as the fused wide instance does (the k-steps in turn, the nine
+  taps in order, 16 channels a product), so the two plans agree bit for
+  bit.
 
 ``guidance_net`` is K7's wrapper, for CUDA tensors only; its plain
 version is ``models.guidance_net.compact_activation_plain``, and
@@ -60,6 +70,10 @@ SMEM_MAX = 232448  # csrc/net.cu:kSmemMax, 227 KB a block
 # the fused wide instance holds in block 0
 WIDE_TILE_W, WIDE_TILE_H = 64, 8
 WIDE_NB0 = 4
+# csrc/net.cu: the per-block plan's first-block instance takes an f32 input
+# of at most 8 channels (the aux); a wider f32 input is rounded to bf16 and
+# goes through its ring instance
+WIDE_F32_CHANNELS = 8
 
 
 def padded_channels(c: int) -> int:
@@ -218,7 +232,8 @@ def _launch_fused_wide(x, layers, out, stream):
 
 
 def _launch_wide(x, f32_in, cin, layer, out, stream):
-    """One launch of K7's per-block plan: ``layer`` from x to out."""
+    """One launch of K7's per-block plan: ``layer`` from x to out (an f32 x
+    of at most WIDE_F32_CHANNELS channels, else a contiguous bf16 one)."""
     B, H, W = x.shape[:3]
     sb, sh, sw, sc = x.stride() if f32_in else (0, 0, 0, 0)
     rc = native.entry("rt_guidance_wide")(
@@ -300,10 +315,16 @@ def chain_block(x: torch.Tensor, layer: PackedLayer,
                       device=x.device)
     with torch.cuda.device(x.device):
         stream = native.stream_ptr(x.device)
-        if is_wide(layer):
-            _launch_wide(x, f32_in, C, layer, out, stream)
-        else:
+        if not is_wide(layer):
             _launch(x, f32_in, C, [layer], out, stream)
+            return out
+        if f32_in and C > WIDE_F32_CHANNELS:
+            # the ring's bf16 input: the rounding the first block's
+            # instance does as it stages, channels padded to 8 with 0
+            x = torch.nn.functional.pad(x.to(torch.bfloat16),
+                                        (0, -C % 8)).contiguous()
+            f32_in, C = False, x.shape[-1]
+        _launch_wide(x, f32_in, C, layer, out, stream)
     return out
 
 

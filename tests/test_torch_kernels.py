@@ -1267,20 +1267,31 @@ def _wide_tree(fmt, bd, depth=5):
         "shell", depth=depth, basis_dim=bd), BasisFormat[fmt], bd)
 
 
+# K1 wide's rotations of the view dirs: none, a small one and one whose
+# angle (2.2e5 rad) needs the host's cos / sin of the f32 angle
+K1_WIDE_ROTATIONS = ((0.0, 0.0, 0.0), (0.3, -0.2, 0.5), (1e5, 2e5, 0.0))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("spp", tr.SPP_KERNEL)
-@pytest.mark.parametrize("layout", ["SG32", "ASG48"])
+@pytest.mark.parametrize("layout", ["SG32", "ASG48", "SG96", "SG232"])
 def test_k1_wide_basis_matches_plain(layout, spp, cuda_device):
     """K1's wide instance (render_wide) on SG / ASG rows past basis_dim 25
-    at every SPP, with a basis_minmax mask: within IMG_TOL / AUX_TOL of
-    its plain version; its ray mode (render_rays_wide) too."""
+    at every SPP, with a basis_minmax mask and with each of
+    K1_WIDE_ROTATIONS: within IMG_TOL / AUX_TOL of its plain version; its
+    ray mode (render_rays_wide) too, the view dirs rotated likewise.
+    SG96 keeps its whole basis in shared memory, SG232 a prefix of 32
+    (csrc/render.cu:kWideFullBasis)."""
     fmt = layout.rstrip("0123456789")
     dt = tt.upload_tree(_wide_tree(fmt, int(layout[len(fmt):])),
                         lut_levels=5, device=cuda_device)
     transform, kw = _render_args(spp, 37, 23)
     tf = torch.from_numpy(transform).to(cuda_device)
-    for mask in ((0, 100), (3, 20)):
-        kw["opt"] = RenderOptions(spp=spp, denoise=False, basis_minmax=mask)
+    cases = [((0, 100), K1_WIDE_ROTATIONS[0]), ((3, 20), K1_WIDE_ROTATIONS[0])]
+    cases += [((0, 100), rot) for rot in K1_WIDE_ROTATIONS[1:]]
+    for mask, rot in cases:
+        kw["opt"] = RenderOptions(spp=spp, denoise=False, basis_minmax=mask,
+                                  rot_dirs=rot)
         native.reset_launches()
         got = tr.render_noisy(dt, tf, 12345, 7, **kw)
         assert native.LAUNCHES["render_wide"] == 1
@@ -1289,9 +1300,14 @@ def test_k1_wide_basis_matches_plain(layout, spp, cuda_device):
             torch.testing.assert_close(a, b, atol=tol, rtol=0)
         assert float(got[2][3].max()) > 0.5
     d, v, c, dst = _aimed_rays(dt, 1000, spp, spp, unit=False)
-    got = tr.trace_rays(dt, d, v, c, dst, RenderOptions(spp=spp))
-    ref = tr.trace_rays_plain(dt, d, v, c, dst, RenderOptions(spp=spp))
-    torch.testing.assert_close(got, ref, atol=IMG_TOL, rtol=0)
+    for mask, rot in cases:
+        opt = RenderOptions(spp=spp, basis_minmax=mask)
+        vr = tr.rodrigues(rot, v).contiguous()
+        native.reset_launches()
+        got = tr.trace_rays(dt, d, vr, c, dst, opt)
+        assert native.LAUNCHES["render_rays_wide"] == 1
+        ref = tr.trace_rays_plain(dt, d, vr, c, dst, opt)
+        torch.testing.assert_close(got, ref, atol=IMG_TOL, rtol=0)
     with pytest.raises(ValueError, match="statistics"):
         tr.render_stats(dt, tf, 1, 1, **kw)
 

@@ -84,9 +84,20 @@ CONFIGS = {
                           kernel_levels=12),
     "mid128 8-128-128-8": dict(in_channels=8, mid_channels=128,
                                num_layers=3, kernel_levels=4),
+    # the per-block plan's other shapes: a 256-wide block split over two
+    # blocks of the grid (4 n-tiles each), and an f32 input of 16 channels
+    # (rounded to bf16 for the ring instance)
+    "mid256 8-256-64": dict(in_channels=8, mid_channels=256,
+                            kernel_levels=32),
+    "in16 16-96-24": dict(in_channels=16, mid_channels=96,
+                          kernel_levels=12),
+    # 10 output channels: the last block's 4-byte stores (store_rows)
+    "mid128 8-128-10": dict(in_channels=8, mid_channels=128,
+                            kernel_levels=5),
 }
 WIDE = ["l1 8-16", "in16 16-32-8", "mid64 8-64-16", "in32 32-64-8",
-        "wide 64-64-64", "mid96 8-96-24", "mid128 8-128-128-8"]
+        "wide 64-64-64", "mid96 8-96-24", "mid128 8-128-128-8",
+        "mid256 8-256-64", "in16 16-96-24", "mid128 8-128-10"]
 PLAIN_FLAX_ULPS, K7_ULPS, K7_UNEQUAL_SHARE = 1.0, 2.0, 1e-3
 
 
@@ -467,15 +478,37 @@ def test_net_forward_matches_jax(jx, port_renderer, cam):
     np.testing.assert_allclose(wt.numpy(), np.asarray(wj), atol=1.0 / 128)
 
 
-def test_denoised_render_matches_jax(jx, port_renderer, tree, cam):
-    """A denoised frame with fast.gnet (supports 1..4) vs the JAX
-    Renderer's, as test_torch_frame.py holds trained.gnet's: 1e-3 on [0, 1]
-    pixels (one bf16 rounding inside the net may move a weight)."""
+@pytest.fixture(scope="module")
+def wide128_gnet(tmp_path_factory):
+    """A seeded 3-block 128-wide net of 4 levels (the wide path's
+    --mid_channels 128 --num_layers 3) as the port exports it."""
+    cfg = tg.GuidanceNetConfig(mid_channels=128, num_layers=3,
+                               kernel_levels=4)
+    path = str(tmp_path_factory.mktemp("gnet") / "wide128.gnet")
+    tg.save_compact(path, cfg, _params(cfg))
+    return path
+
+
+@pytest.mark.parametrize("gnet", ["fast", "wide128"])
+def test_denoised_render_matches_jax(jx, port_renderer, tree, cam, gnet,
+                                     request):
+    """A denoised frame with fast.gnet (supports 1..4), and with the port's
+    export of a 3-block 128-wide net (K7's per-block plan on the card), vs
+    the JAX Renderer's, as test_torch_frame.py holds trained.gnet's: 1e-3
+    on [0, 1] pixels (one bf16 rounding inside the net may move a
+    weight)."""
+    path = FAST if gnet == "fast" else request.getfixturevalue(
+        "wide128_gnet")
     dt = jx.jt.upload_tree(tree, lut_levels=5)
     r = jx.jr.Renderer(dt, W, H, cam.fx, cam.fy, options=_opt(jx.options),
                        schedule=((0, 1),))
-    r.set_denoiser(FAST)
+    r.set_denoiser(path)
     img_j, aux_j = (np.asarray(a) for a in r.render(cam.transform))
+    if gnet != "fast":
+        port_renderer = tr.Renderer(
+            tt.upload_tree(tree, lut_levels=5, device="cpu"), W, H, cam.fx,
+            cam.fy, options=_opt())
+        port_renderer.set_denoiser(path)
     port_renderer.rng.seed(20230418, 1)
     img, aux = port_renderer.render(cam.transform)
     np.testing.assert_allclose(aux.numpy(), aux_j, atol=4e-5)
@@ -539,19 +572,21 @@ def _hold_k7(net, aux):
     ("mid96 8-96-24", (1, 37, 53)), ("mid96 8-96-24", (1, 800, 800)),
     ("mid96 8-96-24", (1, 801, 799)), ("mid96 8-96-24", (3, 17, 57)),
     ("mid128 8-128-128-8", (1, 37, 53)),
-    ("mid128 8-128-128-8", (1, 800, 800))],
+    ("mid128 8-128-128-8", (1, 800, 800)),
+    ("mid256 8-256-64", (1, 800, 800)), ("in16 16-96-24", (1, 37, 53))],
     ids=["mid96 37x53", "mid96 800x800", "mid96 799x801", "mid96 3x57x17",
-         "mid128 37x53", "mid128 800x800"])
+         "mid128 37x53", "mid128 800x800", "mid256 800x800", "in16 37x53"])
 def test_k7_wide_plan_matches_plain(name, shape, cuda_device):
     """Nets past 64 channels: the 8 -> 96 -> 24 net in one launch of the
     fused wide instance (also at the edges of its 64x8 tiles and on a
-    batch), the 3-block 128-wide chain in one launch of the per-block
-    plan a block; each block of the chain held on its own input, the whole
-    net within K7's bars."""
+    batch), the 3-block 128-wide chain, the 256-wide net and a net from 16
+    f32 channels in one launch of the per-block plan a block; each block
+    of the chain held on its own input, the whole net within K7's bars."""
     cfg = _config(name)
     net = tg.build_compact(cfg, _params(cfg), cuda_device)
     B, H, W = shape
-    aux = np.concatenate([_aux(H, W, seed=8 + b) for b in range(B)])
+    aux = np.concatenate([_aux(H, W, cfg.in_channels, seed=8 + b)
+                          for b in range(B)])
     aux = torch.from_numpy(aux).to(cuda_device)
     native.reset_launches()
     with torch.no_grad():

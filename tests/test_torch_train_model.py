@@ -27,6 +27,9 @@ GNETS = sorted(glob.glob(os.path.join(REPO, "benchmarks", "**", "*.gnet"),
 # a tiny net: num_layers 3 gives a 8 -> 8 block (cin == cout, the identity
 # branch and the o % cin fold), 2 branches, 3 levels
 CFG = dict(mid_channels=8, num_layers=3, num_branches=2, kernel_levels=3)
+# the wide path's 3-block net (--mid_channels 128 --num_layers 3): K7's
+# per-block plan on the card
+WIDE128 = dict(mid_channels=128, num_layers=3, kernel_levels=4)
 H, W = 16, 16
 
 
@@ -115,10 +118,16 @@ def test_params_round_trip_through_the_state_dict(net):
             assert not leaf["bias"].any()
 
 
-def test_save_compact_is_byte_equal_to_jax(net, tmp_path):
+@pytest.mark.parametrize("kw", [CFG, WIDE128], ids=["tiny", "wide128"])
+def test_save_compact_is_byte_equal_to_jax(kw, tmp_path):
     """The port's .gnet equals JAX's save_compact of the same folded params
-    and meta byte for byte, and JAX's load_compact reads it back."""
-    cfg_j, cfg_t, params, _ = net
+    (JAX's init of the tiny net and of the wide path's 3-block 128-wide
+    net) and meta byte for byte, and both packages' load_compact read it
+    back."""
+    cfg_j, cfg_t = jg.GuidanceNetConfig(**kw), tg.GuidanceNetConfig(**kw)
+    params = jax.tree.map(np.asarray, jax.jit(
+        lambda key: jg.init_params(cfg_j, key, H, W))(
+            jax.random.PRNGKey(0)))
     meta = {"denoise_recommended": False, "note": "test"}
     jg.save_compact(str(tmp_path / "j.gnet"), cfg_j,
                     jg.compact_params(cfg_j, params), meta=meta)
@@ -129,9 +138,14 @@ def test_save_compact_is_byte_equal_to_jax(net, tmp_path):
     cfg_r, params_r, meta_r = jg.load_compact(str(tmp_path / "t.gnet"),
                                               with_meta=True)
     assert cfg_r == cfg_j and meta_r == meta
+    cfg_p, params_p, meta_p = tg.load_compact(str(tmp_path / "t.gnet"),
+                                              with_meta=True)
+    assert cfg_p == cfg_t and meta_p == meta
     for block in folded:
         for leaf in ("kernel", "bias"):
             np.testing.assert_array_equal(np.asarray(params_r[block][leaf]),
+                                          folded[block][leaf])
+            np.testing.assert_array_equal(params_p[block][leaf],
                                           folded[block][leaf])
 
 

@@ -188,23 +188,28 @@ def test_guided_filter_batch_at_twelve_levels_matches_jax():
                                atol=GRAD_ATOL)
 
 
-def test_runner_step_of_a_wide_net_matches_jax():
+@pytest.mark.parametrize("name", list(WIDE_NETS))
+def test_runner_step_of_a_wide_net_matches_jax(name):
     """One Runner.train_step of ``rtoctree train --config
-    configs/blender.txt --mid_channels 96 --kernel_levels 12`` on the CPU
+    configs/blender.txt`` with the wide net's flags (``--mid_channels 96
+    --kernel_levels 12``: the ladder 1..12; ``--mid_channels 128
+    --num_layers 3``: three 128-wide blocks, the ladder 1..4) on the CPU
     (its net in f32, the plain filters) against the JAX package's f32 step
     on the same params and batch (runner.py:_build_train_step's loss: the
-    net, guided_filter_batch at the ladder 1..12, SMAPE), its gradient
+    net, guided_filter_batch at the net's supports, SMAPE), its gradient
     taken by the chain rule through jax.vjp of each part (the net, the
     filter's fast path, which its guard takes here, and SMAPE).  The loss
     within 1e-6 relative and the gradients within rtol 1e-4
     (test_torch_train_model.py's bars); entries that cancel to near zero
     within STEP_CANCEL_ATOL of their leaf's largest, by the leaf's kind."""
+    kw = WIDE_NETS[name]
+    flags = [a for k, v in kw.items() for a in (f"--{k}", str(v))]
     args = parse_args(["--config", os.path.join(REPO, "configs",
                                                 "blender.txt"),
-                       "--mid_channels", "96", "--kernel_levels", "12",
-                       "--device", "cpu"])
+                       *flags, "--device", "cpu"])
     runner = Runner(args)
-    assert runner.supports == LADDER12
+    supports = tuple(range(1, kw["kernel_levels"] + 1))
+    assert runner.supports == supports
     params = runner.params()  # Flax's init, drawn from a seeded generator
     runner.model = tg.GuidanceNet(runner.net_cfg, dtype=torch.float32)
     runner.set_params(params)
@@ -218,14 +223,13 @@ def test_runner_step_of_a_wide_net_matches_jax():
                              torch.from_numpy(img_gt))
     grads_t = tg.params_to_numpy(runner.net_cfg, {
         n: p.grad for n, p in runner.model.named_parameters()})
-    cfg_j = jg.GuidanceNetConfig(
-        in_channels=8, mid_channels=96, num_layers=2, num_branches=5,
-        kernel_levels=12)
+    cfg_j = jg.GuidanceNetConfig(in_channels=8, num_branches=5,
+                                 **{"num_layers": 2, **kw})
     model_j = jax.jit(jg.GuidanceNet(cfg_j, dtype=jnp.float32).apply)
     (w, g), net_vjp = jax.vjp(
         lambda p: model_j({"params": p}, jnp.asarray(aux)), params)
     assert _guard_holds(np.asarray(g))
-    filt = _jax_fast_vjp(LADDER12)
+    filt = _jax_fast_vjp(supports)
     out = filt(w, g, img_in, jnp.zeros((B, H, W, 4), jnp.float32))[0]
     loss_j, G = jax.value_and_grad(
         lambda o: jsmape(o[..., :3], jnp.asarray(img_gt)))(out)
@@ -233,7 +237,8 @@ def test_runner_step_of_a_wide_net_matches_jax():
     grads_j = net_vjp((dw, dg))[0]
     assert abs(loss.item() - float(loss_j)) <= 1e-6 * abs(float(loss_j))
     leaves = jax.tree_util.tree_leaves_with_path(grads_j)
-    assert len(leaves) == len(jax.tree.leaves(grads_t)) == 40
+    assert len(leaves) == len(jax.tree.leaves(grads_t)) == \
+        20 * cfg_j.num_layers
     for got, (path, ref) in zip(jax.tree.leaves(grads_t), leaves):
         ref, kind = np.asarray(ref), path[-1].key
         np.testing.assert_allclose(
