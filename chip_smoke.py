@@ -206,10 +206,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
  12. probes: the six probe kernels (csrc/probes.cu, the port of the Pallas
      kernels of tools/tpu_probe.py and tools/microbench_gather.py) vs their
      plain versions at the tools' own shapes (bit-equal; P4 within 1e-5
-     relative of a float64 sum), each one's time vs its plain version, then
-     the tools' entry points (gpu_probe basic vgather vgather_loop dma,
-     microbench_gather b and c) with the counts reset: every probe kernel's
-     launch count in that run must be > 0.
+     relative of a float64 sum), each one's time vs its plain version (G3
+     with its CTA count and each CTA's ring depth), then the tools' entry
+     points (gpu_probe basic vgather vgather_loop dma, microbench_gather b
+     and c) with the counts reset: every probe kernel's launch count in
+     that run must be > 0.
  13. apps: ``rtoctree view`` (apps/viewer.py) on the depth-9 shell npz at
      800x800, SPP 6, level-9 LUT, trained.gnet, denoise turned on by an
      options event, behind ThreadingHTTPServer on 127.0.0.1:0: after 3
@@ -355,6 +356,24 @@ wide frame there (render_wide, SPP 6), as one JSON line
 chunked one, and where K1's shade stops holding the whole basis in shared
 memory (kWideFullBasis).
 
+    python3 chip_smoke.py --probe-times [ROOT]
+    python3 chip_smoke.py --probe-pairs OTHER_ROOT [PAIRS]
+
+--probe-times times G3 of the package under ROOT (default: beside this
+file) alone by device_medians at the tools' shapes: P4 (row_sum_ring on
+gpu_probe's 4096 rows of 512 B from a 512 MiB table) beside
+F.embedding_bag's sum of the same rows, and P5 (row_ring_rounds, 4
+rounds) in every config of microbench_gather's section b, its 512 B rows
+at n 8192 also at every nbuf of RING_DEPTHS and PROBE_ROUNDS rounds (a
+call's fixed cost, and the time of a round at each ring depth); and P4
+once more from a cold L2 (cuda_ms, the L2 flushed before each call), with
+P4's
+relative error against the float64 sum and whether every P5 result is
+bit-equal to its plain version, as one JSON line {"probe_ms": ...};
+--probe-pairs runs it in PAIRS (default 6) pairs of processes, this script
+on OTHER_ROOT's package and on its own in turns, and prints each side's
+times and their paired differences as one JSON line {"probe_pairs": ...}.
+
     python3 chip_smoke.py --ray-times [ROOT]
     python3 chip_smoke.py --ray-pairs OTHER_ROOT [PAIRS]
 
@@ -390,15 +409,16 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 # --classic-only ROOT, --filter-only ROOT, --wide-times ROOT, --wide-sweep
-# ROOT, --ray-times ROOT and --k7-chain-times ROOT import the package of
-# another checkout (the
-# timers of --classic-pairs, --filter-pairs, --wide-pairs and --ray-pairs,
-# and a copy of the package with one change); every other mode imports the
-# one beside this file
+# ROOT, --ray-times ROOT, --k7-chain-times ROOT and --probe-times ROOT
+# import the package of another checkout (the timers of --classic-pairs,
+# --filter-pairs, --wide-pairs, --ray-pairs and --probe-pairs, and a copy
+# of the package with one change); every other mode imports the one beside
+# this file
 PKG_ROOT = (os.path.abspath(sys.argv[2])
             if sys.argv[1:2] in (["--classic-only"], ["--filter-only"],
                                  ["--wide-times"], ["--wide-sweep"],
-                                 ["--ray-times"], ["--k7-chain-times"])
+                                 ["--ray-times"], ["--k7-chain-times"],
+                                 ["--probe-times"])
             and len(sys.argv) == 3 else HERE)
 sys.path.insert(0, PKG_ROOT)
 
@@ -698,8 +718,10 @@ def phase_ptxas(native):
     too, the wide ones at SPP <= 8 with no stack frame and no spills (the
     unrolled instances keep their basis in a local array, a 104-byte stack
     frame, as before); and the wide instances of K7, K2, K5 and K6.
-    Prints one {"ptxas_render_classic": ...}, one {"ptxas_render": ...}
-    and one {"ptxas_wide": ...} line."""
+    G3's instances (P4's and P5's at every nbuf), with no stack frame and
+    no spills.  Prints one {"ptxas_render_classic": ...}, one
+    {"ptxas_render": ...}, one {"ptxas_wide": ...} and one
+    {"ptxas_probes": ...} line."""
     import re
     report = native.PTXAS.get("render", "")
 
@@ -748,6 +770,16 @@ def phase_ptxas(native):
     require(len(wide_k1) == 12 and all(clean(v) for v in wide_k1.values()),
             f"K1's wide instances at SPP <= 8 have a stack frame or spills: "
             f"{wide_k1}")
+    ring = {}
+    for name, v in ptxas_kernels(native.PTXAS.get("probes", ""),
+                                 "row_ring_kernel").items():
+        m = re.search(r"row_ring_kernelILb([01])ELi(\d+)EE", name)
+        ring[f"row_ring_kernel<{('false', 'true')[int(m.group(1))]}, "
+             f"{m.group(2)}>"] = v
+    log(json.dumps({"ptxas_probes": ring}))
+    require(len(ring) == 6 and all(clean(v) for v in ring.values()),
+            f"G3's six instances (P4, P5 at every nbuf) must have no stack "
+            f"frame and no spills: {ring}")
     return table
 
 
@@ -2672,6 +2704,82 @@ def classic_pairs(other_root, pairs):
                       for k in digests["this"]},
         "digests": {side: {k: sorted(v) for k, v in d.items()}
                     for side, d in digests.items()}}}))
+    return 0
+
+
+PROBE_REPS = 20  # --probe-times: calls a median
+PROBE_ROUNDS = (0, 1, 16, 64)  # --probe-times: P5's other round counts
+
+
+def probe_times(root):
+    """--probe-times [ROOT]: G3 of the package under ROOT (default: beside
+    this file) at the tools' shapes, each call alone by device_medians in
+    turns: P4 on gpu_probe's dma inputs beside F.embedding_bag's sum of
+    the same rows, P5 in every config of microbench_gather's section b at
+    its RING_ROUNDS, and its 512 B rows at n 8192 also at every nbuf and
+    PROBE_ROUNDS (a call's fixed cost and the time of a round); P4 from a
+    cold L2 by cuda_ms.  One JSON line {"probe_ms": ...}."""
+    import functools
+    import hashlib
+    import itertools
+    import torch
+    import torch.nn.functional as F
+    from rt_octree_tpu_torch.native import build as native
+    from rt_octree_tpu_torch.ops import probes as P
+    from rt_octree_tpu_torch.tools import gpu_probe as gp
+    from rt_octree_tpu_torch.tools import microbench_gather as mb
+    from rt_octree_tpu_torch.utils.timer import l2_flusher
+    native.build(["probes"])
+    dev = torch.device("cuda", 0)
+    idx, tab = gp.dma_inputs(dev)
+    idx64 = idx.long()
+    offsets = torch.zeros(1, dtype=torch.long, device=dev)
+    fns = {"row_sum_ring": lambda: P.row_sum_ring(idx, tab),
+           "embedding_bag": lambda: F.embedding_bag(idx64, tab, offsets,
+                                                    mode="sum")}
+    p4 = P.row_sum_ring(idx, tab)
+    res = {"root": root, "p4_rel_err": gp.dma_rel_err(p4, idx, tab),
+           "p4_digest": hashlib.sha1(p4.cpu().numpy().tobytes()).hexdigest(),
+           "p5_bit_equal": True}
+    for w, n, nbuf, table, ridx in list(mb.dma_configs(dev)):
+        def run(table=table, ridx=ridx, nbuf=nbuf):
+            return P.row_ring_rounds(ridx, table, nbuf, mb.RING_ROUNDS)
+        res["p5_bit_equal"] &= torch.equal(run(), P.row_ring_rounds_plain(
+            ridx, table, nbuf, mb.RING_ROUNDS))
+        fns[f"row_ring_rounds {w * 4} B n {n} nbuf {nbuf}"] = run
+        if (w, n, nbuf) == (128, 8192, 32):  # fixed cost, one round's
+            for depth, rounds in itertools.product(P.RING_DEPTHS,
+                                                   PROBE_ROUNDS):
+                fns[f"row_ring_rounds {w * 4} B n {n} nbuf {depth} rounds "
+                    f"{rounds}"] = functools.partial(
+                        P.row_ring_rounds, ridx, table, depth, rounds)
+    res["ms"] = device_medians(fns, PROBE_REPS, 3)
+    res["ms"]["row_sum_ring cold"] = cuda_ms(fns["row_sum_ring"], 5, 1,
+                                             flush=l2_flusher(dev))
+    log(json.dumps({"probe_ms": res}))
+    return 0
+
+
+def probe_pairs(other_root, pairs):
+    """--probe-pairs: ``pairs`` pairs of --probe-times processes, this
+    script on OTHER_ROOT's package and on its own in turns; each side's
+    times (least, quartiles, largest), this side's less the other's within
+    a pair, P4's relative errors and P5's holds.  One JSON line
+    {"probe_pairs": ...}."""
+    ms, holds = {"other": {}, "this": {}}, {"other": [], "this": []}
+    for i, side, lines in alternate(other_root, pairs, ["--probe-times"],
+                                    "probe_pairs", own_script=True):
+        got = [ln["probe_ms"] for ln in lines if "probe_ms" in ln]
+        require(len(got) == 1, f"{side} probe process {i}: unexpected "
+                "output")
+        for k, v in got[0]["ms"].items():
+            ms[side].setdefault(k, []).append(v)
+        holds[side].append({k: got[0][k] for k in
+                            ("p4_rel_err", "p4_digest", "p5_bit_equal")})
+    require(all(h["p5_bit_equal"] for v in holds.values() for h in v),
+            "a P5 result differs from its plain version")
+    log(json.dumps({"probe_pairs": {**pair_times(other_root, pairs, ms),
+                                    "holds": holds}}))
     return 0
 
 
@@ -5313,7 +5421,8 @@ def phase_probes(native, err):
     rel_p = gp.dma_rel_err(ref, idx, tab)
     d = float((got - ref).abs().max())
     log(f"[probes] row_sum_ring {gp.DMA_N} rows of tab {tuple(tab.shape)}: "
-        f"rel err vs float64 kernel {rel_k:.3g}, plain {rel_p:.3g}; "
+        f"{len(P.ring_chunks(gp.DMA_N))} CTAs, ring depth 2 a CTA; rel err "
+        f"vs float64 kernel {rel_k:.3g}, plain {rel_p:.3g}; "
         f"max|kernel - plain| {d:.3g}")
     require(rel_k <= gp.DMA_RTOL, f"row_sum_ring rel err {rel_k:.3g} > "
             f"{gp.DMA_RTOL} against the float64 sum")
@@ -5330,7 +5439,8 @@ def phase_probes(native, err):
 
     for w, n, nbuf, table, idx in mb.dma_configs(dev):
         timed = (w, n, nbuf) == (128, 8192, 32)
-        hold("row_ring_rounds", f"rows {w * 4} B n {n} nbuf {nbuf}",
+        hold("row_ring_rounds", f"rows {w * 4} B n {n}: "
+             f"{len(P.ring_chunks(n))} CTAs, ring depth {nbuf} a CTA",
              lambda: P.row_ring_rounds(idx, table, nbuf, mb.RING_ROUNDS),
              lambda: P.row_ring_rounds_plain(idx, table, nbuf,
                                              mb.RING_ROUNDS),
@@ -5769,6 +5879,10 @@ def main(argv) -> int:
         return wide_sweep(PKG_ROOT)
     if argv[:1] == ["--ray-times"] and len(argv) in (1, 2):
         return ray_times(PKG_ROOT)
+    if argv[:1] == ["--probe-times"] and len(argv) in (1, 2):
+        return probe_times(PKG_ROOT)
+    if argv[:1] == ["--probe-pairs"] and len(argv) in (2, 3):
+        return probe_pairs(argv[1], int(argv[2]) if len(argv) == 3 else 6)
     if argv[:1] == ["--ray-pairs"] and len(argv) in (2, 3):
         return ray_pairs(argv[1], int(argv[2]) if len(argv) == 3 else 6)
     if argv:

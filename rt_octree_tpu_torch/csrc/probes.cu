@@ -103,115 +103,248 @@ __global__ void __launch_bounds__(kLaneThreads)
 
 // ---------------------------------------------------------------------------
 // G3 (P4, P5): rows table[idx[i]] (width 4-byte words each) copied by
-// dynamic index into a ring of Nbuf row slots in shared memory, Nbuf copies
-// in flight, `rounds` passes over idx.  WholeRow (P4): every column summed
-// in f32, in the order of i, into out[width] (width <= 128).  Otherwise
-// (P5): element 0 of every row summed as uint32 (JAX's int32 addition
-// wraps), out[0].
+// dynamic index into a ring of Nbuf row slots in shared memory, `rounds`
+// passes over idx.  WholeRow (P4): every column summed in f32 into
+// out[width] (width <= 128).  Otherwise (P5): element 0 of every row
+// summed as uint32 (JAX's int32 addition wraps), out[0].
 //
-// One block of one warp: the TPU probe's single issuer, so the result is
-// that issuer's sum whatever the card, and a float sum keeps the probe's
-// order.  The warp first copies idx into shared memory, as the Pallas
-// probes' scalar prefetch into SMEM does (read from global memory inside
-// the loop instead, an index cost 50-60 ns more per row on an H100).  Each
-// lane copies its own 16-, 8- or 4-byte chunks of every row with cp.async
-// (cp.async.bulk would need 16-byte multiples, and P5's width-2 rows are
-// 8 bytes) and reads back only what it copied, so after
-// cp.async.wait_group no barrier is needed; P4's sums stay in registers.
-// The whole row moves even when only element 0 is summed.  One commit
-// group per ring step, empty past the last row, so wait_group<Nbuf-1>
-// always means "the oldest row is in".
+// The Pallas probes run grid=(1,) on a TPU v5e, whose one TensorCore makes
+// their single DMA issuer the whole chip.  Here the whole card issues: idx
+// is cut into chunks of kRingChunk rows, one CTA a chunk (P4's 4096 rows
+// are 128 CTAs, P5's 8192 are 256), several CTAs to an SM (a ring of 32
+// slots of 512 B is 16 KB).  A CTA first stages its chunk's indices in
+// shared memory, as the Pallas probes' scalar prefetch does, and traps on
+// one outside the table.  Then lane 0 of warp 0 issues row after row into
+// slot k % Nbuf: one cp.async.bulk completing on the slot's full mbarrier,
+// armed with arrive.expect_tx for the row's bytes.  Warp 1 waits on the
+// slot's phase (try_wait.parity) and reads the row (P5: a group of steps
+// at once, a lane a step).  The steps go in groups of ring_group(Nbuf):
+// warp 1 frees a group's slots with one arrival on the empty mbarrier of
+// its last slot, and the issuer waits on that barrier before it fills the
+// group's slots again.  The whole row moves even when only element 0 is
+// summed.  A row that is not a multiple of 16 bytes (or a table not
+// aligned to 16) cannot go by bulk copy: the issuer copies it by cp.async
+// of 8 or 4 bytes, completing on the same barrier by
+// cp.async.mbarrier.arrive.noinc (at 8-byte rows, 15 % less time than a
+// bulk copy of the aligned 16-byte span that holds the row).
 //
-// Bound on an H100 by the warp's own path per row, not by memory: the
-// issue, commit and wait of one row take ~90 ns whether or not the row is
-// read, at Nbuf 8 and 32 alike, for a 512 KB table and a 2 GiB one, warm
-// or cold, so rings deeper than 8 buy nothing.  One warp cannot come near
-// the card's bandwidth, which is what the probe measures.
+// The chunk plan depends on n alone, so P4's f32 result is the same on any
+// card: each CTA sums its chunk in the order of i, from 0, into
+// partials[chunk][width], and the last CTA to finish (a threadfence and a
+// counter) adds the partials in chunk order, from 0.  P5's CTAs sum their
+// `rounds` passes as uint32 and add that with one atomicAdd each, exact in
+// any order, and the last CTA writes the total.  The last CTA sets the
+// counter pair back to zero for the next launch.
+//
+// Bound on an H100 (chip_smoke.py --probe-times, rows warm in the L2): a
+// call costs ~7.4 us with no row at all (launch, the indices, the last
+// CTA's finish).  A round trip of a 2-slot ring is ~0.37 us, so P4's 16
+// trips a CTA take ~6 us and its last CTA's chunk-order sum ~4 us.  From 8
+// slots up a CTA issues about one row every 100 ns, which bounds P5: a
+// second issuing warp, a barrier a group of slots or a suspend hint in
+// the waits do not move it, and half the rows a CTA (twice the CTAs an
+// SM) halves it.
 // ---------------------------------------------------------------------------
-constexpr int kRingLaneChunks = 4;  // WholeRow: row_bytes <= 32 * 4 * chunk
+constexpr int kRingChunk = 32;        // rows a CTA takes
+constexpr int kRingThreads = 64;      // warp 0 issues, warp 1 reads
+constexpr int kRowSumMaxWidth = 128;  // P4: 4 columns a lane of warp 1
+static_assert(kRowSumMaxWidth <= 2 * kRingThreads,
+              "the last CTA adds two columns a thread");
 
-__device__ __forceinline__ void copy_chunk(unsigned char* dst,
-                                           const unsigned char* src,
-                                           int chunk) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  if (chunk == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-                 "l"(src)
-                 : "memory");
-  else if (chunk == 8)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
-                 "l"(src)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-                 "l"(src)
-                 : "memory");
+// A CTA's shared memory: full[Nbuf] and empty[Nbuf] mbarriers, the
+// chunk's indices, then the ring, Nbuf slots of the row rounded up to 16
+// bytes.
+__host__ __device__ constexpr long long ring_smem_bytes(long long row_bytes,
+                                                        int nbuf) {
+  return 16LL * nbuf + 4 * kRingChunk + nbuf * ((row_bytes + 15) / 16 * 16);
 }
 
+// The ring's steps go in groups of G: the reader frees a group's slots
+// with one arrival on the empty barrier of its last slot, and the issuer
+// waits on that one barrier before it fills the group's slots again.
+__host__ __device__ constexpr int ring_group(int nbuf) {
+  return nbuf >= 8 ? nbuf / 4 : 1;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// One row from src into the slot at dst, completing on its full barrier:
+// a bulk copy (bulk: a multiple of 16 bytes from a 16-byte aligned
+// address), else cp.async pieces of 8 or 4 bytes.
+__device__ __forceinline__ void issue_row(uint32_t dst, uint32_t full,
+                                          const unsigned char* src,
+                                          int row_bytes, bool bulk,
+                                          int piece) {
+  if (bulk) {
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+            full),
+        "r"(row_bytes)
+        : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+        "l"(src), "r"(row_bytes), "r"(full)
+        : "memory");
+    return;
+  }
+  for (int o = 0; o < row_bytes; o += piece) {
+    if (piece == 8)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst + o),
+                   "l"(src + o)
+                   : "memory");
+    else
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst + o),
+                   "l"(src + o)
+                   : "memory");
+  }
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   full)
+               : "memory");
+}
+
+// counter: [CTAs finished, P5's running sum], zero between launches.
 template <bool WholeRow, int Nbuf>
-__global__ void __launch_bounds__(32)
+__global__ void __launch_bounds__(kRingThreads)
     row_ring_kernel(const int* __restrict__ idx, int n,
                     const unsigned char* __restrict__ table, int rows,
-                    int width, int chunk, int rounds, void* __restrict__ out) {
-  // ring [Nbuf][row_bytes], then idx [n]
-  extern __shared__ __align__(16) unsigned char ring[];
-  const int lane = threadIdx.x;
+                    int width, int piece, int rounds, void* __restrict__ out,
+                    float* __restrict__ partials,
+                    unsigned* __restrict__ counter) {
+  constexpr int G = ring_group(Nbuf);
+  extern __shared__ __align__(128) unsigned char ring_smem[];
   const int row_bytes = width * 4;
-  int* sidx = reinterpret_cast<int*>(ring + Nbuf * row_bytes);
-  for (int j = lane; j < n; j += 32) {
-    const int r = idx[j];
+  const bool bulk =
+      row_bytes % 16 == 0 && ((unsigned long long)table & 15) == 0;
+  const uint32_t full = smem_addr(ring_smem);
+  const uint32_t empty = full + 8 * Nbuf;
+  int* sidx = reinterpret_cast<int*>(ring_smem + 16 * Nbuf);
+  unsigned char* ring = ring_smem + 16 * Nbuf + 4 * kRingChunk;
+  const int slot = (row_bytes + 15) / 16 * 16;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int c0 = blockIdx.x * kRingChunk;
+  const int cnt = min(kRingChunk, n - c0);
+  for (int j = threadIdx.x; j < cnt; j += kRingThreads) {
+    const int r = idx[c0 + j];
     if ((unsigned)r >= (unsigned)rows) __trap();
     sidx[j] = r;
   }
-  __syncwarp();
-  const int words = chunk / 4;
-  float acc[kRingLaneChunks * 4] = {};  // WholeRow: this lane's columns
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < Nbuf; ++s) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(full +
+                                                                    8 * s));
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(empty +
+                                                                    8 * s));
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int total = cnt * rounds;  // ring steps: rounds passes of the chunk
+  float acc[kRowSumMaxWidth / 32] = {};
   uint32_t sum0 = 0;
-
-  auto issue = [&](int slot, int i) {
-    if (i < n) {
-      const unsigned char* src = table + (size_t)sidx[i] * row_bytes;
-      unsigned char* dst = ring + slot * row_bytes;
-      for (int o = lane * chunk; o < row_bytes; o += 32 * chunk)
-        copy_chunk(dst + o, src + o, chunk);
-    }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-  };
-
-  for (int rd = 0; rd < rounds; ++rd) {
-    for (int s = 0; s < Nbuf; ++s) issue(s, s);
-    for (int i = 0; i < n; ++i) {
-      const int slot = i % Nbuf;
-      asm volatile("cp.async.wait_group %0;\n" ::"n"(Nbuf - 1) : "memory");
-      const unsigned char* row = ring + slot * row_bytes;
-      if (WholeRow) {
-        const float* v = reinterpret_cast<const float*>(row);
-#pragma unroll
-        for (int c = 0; c < kRingLaneChunks; ++c) {
-          const int o = (lane + 32 * c) * chunk;
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-            if (o < row_bytes && q < words)
-              acc[c * 4 + q] = acc[c * 4 + q] + v[o / 4 + q];
-        }
-      } else if (lane == 0) {
-        sum0 += *reinterpret_cast<const uint32_t*>(row);
+  if (warp == 0) {
+    if (lane == 0) {
+      int r = sidx[0];
+      for (int k = 0, j = 0; k < total; ++k) {
+        const int s = k % Nbuf;
+        // step k's group reuses the slots of the group Nbuf steps back
+        if (k >= Nbuf && k % G == 0)
+          bar_wait(empty + 8 * ((k + G - 1) % Nbuf),
+                   ((k + G - 1) / Nbuf - 1) & 1);
+        if (++j == cnt) j = 0;
+        const int next = sidx[j];  // the next row's index, loaded ahead
+        issue_row(smem_addr(ring + s * slot), full + 8 * s,
+                  table + (long long)r * row_bytes, row_bytes, bulk, piece);
+        r = next;
       }
-      issue(slot, i + Nbuf);
     }
-  }
-  if (WholeRow) {
-    float* o_ = reinterpret_cast<float*>(out);
+  } else if constexpr (WholeRow) {
+    for (int k = 0; k < total; ++k) {
+      const int s = k % Nbuf;
+      bar_wait(full + 8 * s, (k / Nbuf) & 1);
+      const float* v = reinterpret_cast<const float*>(ring + s * slot);
 #pragma unroll
-    for (int c = 0; c < kRingLaneChunks; ++c) {
-      const int o = (lane + 32 * c) * chunk;
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        if (o < row_bytes && q < words) o_[o / 4 + q] = acc[c * 4 + q];
+      for (int q = 0; q < kRowSumMaxWidth / 32; ++q)
+        if (lane + 32 * q < width) acc[q] = acc[q] + v[lane + 32 * q];
+      __syncwarp();
+      if (lane == 0 && k % G == G - 1) bar_arrive(empty + 8 * s);
     }
-  } else if (lane == 0) {
-    *reinterpret_cast<int*>(out) = (int)sum0;
+#pragma unroll
+    for (int q = 0; q < kRowSumMaxWidth / 32; ++q)
+      if (lane + 32 * q < width)
+        partials[(long long)blockIdx.x * width + lane + 32 * q] = acc[q];
+  } else {
+    // a group's G steps at once, lane l taking its step l
+    for (int k0 = 0; k0 < total; k0 += G) {
+      const int k = k0 + lane;
+      if (lane < G && k < total) {
+        const int s = k % Nbuf;
+        bar_wait(full + 8 * s, (k / Nbuf) & 1);
+        sum0 += *reinterpret_cast<const uint32_t*>(ring + s * slot);
+      }
+      __syncwarp();
+      if (lane == 0) bar_arrive(empty + 8 * ((k0 + G - 1) % Nbuf));
+    }
+    sum0 = __reduce_add_sync(0xffffffffu, sum0);
+    if (lane == 0) atomicAdd(counter + 1, sum0);
   }
+  __threadfence();
+  __syncthreads();
+  // the ring is done with sidx: sidx[0] says whether this CTA is the last
+  if (threadIdx.x == 0) sidx[0] = atomicAdd(counter, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!sidx[0]) return;
+  __threadfence();
+  if constexpr (WholeRow) {
+    // the partials in chunk order, columns t and t + kRingThreads of
+    // thread t, 16 chunks' loads from the L2 in flight at a time
+    constexpr int kBatch = 16;
+    const int chunks = gridDim.x;
+    const int col = threadIdx.x;
+    float tot[2] = {0.f, 0.f};
+    for (int c = 0; c < chunks; c += kBatch) {
+      float v[2][kBatch];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int q = 0; q < kBatch; ++q)
+          v[h][q] = c + q < chunks && col + kRingThreads * h < width
+                        ? __ldcg(partials + (long long)(c + q) * width +
+                                 col + kRingThreads * h)
+                        : 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int q = 0; q < kBatch; ++q)
+          if (c + q < chunks) tot[h] = tot[h] + v[h][q];
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (col + kRingThreads * h < width)
+        reinterpret_cast<float*>(out)[col + kRingThreads * h] = tot[h];
+  } else if (threadIdx.x == 0) {
+    *reinterpret_cast<int*>(out) = (int)atomicExch(counter + 1, 0u);
+  }
+  if (threadIdx.x == 0) counter[0] = 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -295,23 +428,23 @@ int launch_lane_gather(const void* tab, const void* idx, void* out,
 
 template <bool WholeRow, int Nbuf>
 int launch_row_ring(const void* idx, int n, const void* table, int rows,
-                    int width, int rounds, void* out, void* stream) {
-  const int row_bytes = width * 4;
-  const long long smem = (long long)Nbuf * row_bytes + (long long)n * 4;
-  if (width < 1 || n < 1 || smem > kMaxSmemBytes)
+                    int width, int rounds, void* out, void* partials,
+                    void* counter, void* stream) {
+  const long long row_bytes = 4LL * width;
+  const long long smem = ring_smem_bytes(row_bytes, Nbuf);
+  if (width < 1 || n < 1 || rows < 1 || rounds < 0 ||
+      smem > kMaxSmemBytes || (WholeRow && width > kRowSumMaxWidth))
     return (int)cudaErrorInvalidValue;
   const unsigned long long base = (unsigned long long)table;
-  const int chunk = (row_bytes % 16 == 0 && base % 16 == 0) ? 16
-                    : (row_bytes % 8 == 0 && base % 8 == 0)  ? 8
-                                                             : 4;
-  if (WholeRow && row_bytes > 32 * kRingLaneChunks * chunk)
-    return (int)cudaErrorInvalidValue;
+  // cp.async's piece for a row that does not go by bulk copy
+  const int piece = (row_bytes % 8 == 0 && base % 8 == 0) ? 8 : 4;
   auto kernel = row_ring_kernel<WholeRow, Nbuf>;
   cudaError_t err = allow_smem(kernel, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<1, 32, (int)smem, (cudaStream_t)stream>>>(
-      (const int*)idx, n, (const unsigned char*)table, rows, width, chunk,
-      rounds, out);
+  kernel<<<(n + kRingChunk - 1) / kRingChunk, kRingThreads, (int)smem,
+           (cudaStream_t)stream>>>(
+      (const int*)idx, n, (const unsigned char*)table, rows, width, piece,
+      rounds, out, (float*)partials, (unsigned*)counter);
   return (int)cudaGetLastError();
 }
 
@@ -343,34 +476,37 @@ RT_API int rt_lane_gather_chain(const void* tab, const void* idx, void* out,
                                        rows_out, rounds, stream);
 }
 
-// idx: [n] i32; tab: [rows, width <= 128] f32; out: [width] f32.  Ring
-// depth 2; (2 * width + n) * 4 bytes of shared memory.
+// idx: [n] i32; tab: [rows, width <= 128] f32; out: [width] f32;
+// partials: [ceil(n / 32), width] f32 scratch; counter: [2] u32, zero.
+// Ring depth 2.
 RT_API int rt_row_sum_ring(const void* idx, int n, const void* tab, int rows,
-                           int width, void* out, void* stream) {
-  return launch_row_ring<true, 2>(idx, n, tab, rows, width, 1, out, stream);
+                           int width, void* out, void* partials,
+                           void* counter, void* stream) {
+  return launch_row_ring<true, 2>(idx, n, tab, rows, width, 1, out, partials,
+                                  counter, stream);
 }
 
-// idx: [n] i32; table: [rows, width] i32; out: [1] i32;
-// nbuf in {2, 4, 8, 16, 32}; (nbuf * width + n) * 4 bytes of shared memory.
+// idx: [n] i32; table: [rows, width] i32; out: [1] i32; counter: [2] u32,
+// zero; nbuf in {2, 4, 8, 16, 32}.
 RT_API int rt_row_ring_rounds(const void* idx, int n, const void* table,
                               int rows, int width, int nbuf, int rounds,
-                              void* out, void* stream) {
+                              void* out, void* counter, void* stream) {
   switch (nbuf) {
     case 2:
       return launch_row_ring<false, 2>(idx, n, table, rows, width, rounds,
-                                       out, stream);
+                                       out, nullptr, counter, stream);
     case 4:
       return launch_row_ring<false, 4>(idx, n, table, rows, width, rounds,
-                                       out, stream);
+                                       out, nullptr, counter, stream);
     case 8:
       return launch_row_ring<false, 8>(idx, n, table, rows, width, rounds,
-                                       out, stream);
+                                       out, nullptr, counter, stream);
     case 16:
       return launch_row_ring<false, 16>(idx, n, table, rows, width, rounds,
-                                        out, stream);
+                                        out, nullptr, counter, stream);
     case 32:
       return launch_row_ring<false, 32>(idx, n, table, rows, width, rounds,
-                                        out, stream);
+                                        out, nullptr, counter, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

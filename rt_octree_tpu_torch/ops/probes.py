@@ -27,7 +27,8 @@ from ..native import build as native
 # Shared memory one block may opt into on sm_90 (csrc/probes.cu).
 MAX_SMEM_BYTES = 232448
 RING_DEPTHS = (2, 4, 8, 16, 32)  # row_ring_rounds' nbuf (kernel templates)
-ROW_SUM_MAX_WIDTH = 128  # row_sum_ring: 4 chunks of >= 4 B per lane
+RING_CHUNK = 32  # G3: rows a CTA takes (csrc/probes.cu kRingChunk)
+ROW_SUM_MAX_WIDTH = 128  # row_sum_ring: 4 columns a lane of one warp
 _I32_MAX = 2 ** 31 - 1
 
 
@@ -154,6 +155,32 @@ def row_ring_rounds_plain(idx: torch.Tensor, table: torch.Tensor, nbuf: int,
     return _wrap_i32(total * rounds).reshape(1, 1)
 
 
+def ring_chunks(n: int) -> list:
+    """G3's chunk plan: the rows ``[start, stop)`` of idx that each CTA
+    takes, in chunk order.  It depends on ``n`` alone, not on the card, so
+    ``row_sum_ring``'s f32 sum order is the same everywhere."""
+    return [(c, min(c + RING_CHUNK, n)) for c in range(0, n, RING_CHUNK)]
+
+
+def ring_smem_bytes(row_bytes: int, nbuf: int) -> int:
+    """One G3 CTA's shared memory: a full and an empty mbarrier a slot, the
+    chunk's indices, and ``nbuf`` slots of the row rounded up to 16 B."""
+    return 16 * nbuf + 4 * RING_CHUNK + nbuf * -(-row_bytes // 16) * 16
+
+
+# G3's [CTAs finished, running sum] pair, one per (device, stream), zeroed
+# once here and set back to zero by each launch's last CTA: a call is one
+# kernel, with no memset before it
+_RING_COUNTERS: dict = {}
+
+
+def _ring_counter(dev: torch.device) -> torch.Tensor:
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    if key not in _RING_COUNTERS:
+        _RING_COUNTERS[key] = torch.zeros(2, dtype=torch.int32, device=dev)
+    return _RING_COUNTERS[key]
+
+
 def _check_ring(fn: str, idx: torch.Tensor, tab: torch.Tensor, dtype,
                 slots: int):
     dev = _cuda_device(fn, idx)
@@ -161,17 +188,17 @@ def _check_ring(fn: str, idx: torch.Tensor, tab: torch.Tensor, dtype,
     _check(fn, "table", tab, dtype, 2, dev)
     if idx.shape[0] == 0 or 0 in tab.shape:
         raise ValueError(f"{fn}: idx and table must be non-empty")
-    if (slots * tab.shape[1] + idx.shape[0]) * 4 > MAX_SMEM_BYTES:
+    if ring_smem_bytes(tab.shape[1] * 4, slots) > MAX_SMEM_BYTES:
         raise ValueError(f"{fn}: {slots} row slots of {tab.shape[1] * 4} B "
-                         f"and {idx.shape[0]} indices exceed "
-                         f"{MAX_SMEM_BYTES} B of shared memory")
+                         f"exceed {MAX_SMEM_BYTES} B of shared memory")
     return dev
 
 
 def row_sum_ring(idx: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
-    """``sum_i tab[idx[i], :]`` by double-buffered row copies (G3): idx i32
-    [n], tab f32 [M, W <= 128] -> f32 [1, W], summed in the order of i.
-    The ring and idx share one block's shared memory: (2 W + n) * 4 B."""
+    """``sum_i tab[idx[i], :]`` by row copies through a ring of 2 slots in
+    each CTA (G3): idx i32 [n], tab f32 [M, W <= 128] -> f32 [1, W].  Each
+    chunk of ``ring_chunks(n)`` is summed in the order of i, then the
+    chunks' sums in chunk order: one order for any card.  One launch."""
     if idx.device.type == "cpu":
         return row_sum_ring_plain(idx, tab)
     dev = _check_ring("row_sum_ring", idx, tab, torch.float32, 2)
@@ -179,18 +206,21 @@ def row_sum_ring(idx: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"row_sum_ring: {tab.shape[1]} columns > "
                          f"{ROW_SUM_MAX_WIDTH} (the sums live in registers)")
     out = torch.empty((1, tab.shape[1]), dtype=torch.float32, device=dev)
+    partials = torch.empty((len(ring_chunks(idx.shape[0])), tab.shape[1]),
+                           dtype=torch.float32, device=dev)
     _launch("row_sum_ring", "rt_row_sum_ring", dev, idx.data_ptr(),
             idx.shape[0], tab.data_ptr(), tab.shape[0], tab.shape[1],
-            out.data_ptr())
+            out.data_ptr(), partials.data_ptr(),
+            _ring_counter(dev).data_ptr())
     return out
 
 
 def row_ring_rounds(idx: torch.Tensor, table: torch.Tensor, nbuf: int,
                     rounds: int) -> torch.Tensor:
     """``rounds`` passes of whole-row copies through a ring of ``nbuf`` slots
-    (G3), summing element 0 of each row: idx i32 [n], table i32 [S, W] ->
-    i32 [1, 1] = rounds * sum_i table[idx[i], 0], wrapping.  The ring and
-    idx share one block's shared memory: (nbuf W + n) * 4 B."""
+    in each CTA (G3), summing element 0 of each row: idx i32 [n], table i32
+    [S, W] -> i32 [1, 1] = rounds * sum_i table[idx[i], 0], wrapping.  One
+    launch."""
     if idx.device.type == "cpu":
         return row_ring_rounds_plain(idx, table, nbuf, rounds)
     dev = _check_ring("row_ring_rounds", idx, table, torch.int32, nbuf)
@@ -200,7 +230,7 @@ def row_ring_rounds(idx: torch.Tensor, table: torch.Tensor, nbuf: int,
     out = torch.empty((1, 1), dtype=torch.int32, device=dev)
     _launch("row_ring_rounds", "rt_row_ring_rounds", dev, idx.data_ptr(),
             idx.shape[0], table.data_ptr(), table.shape[0], table.shape[1],
-            nbuf, rounds, out.data_ptr())
+            nbuf, rounds, out.data_ptr(), _ring_counter(dev).data_ptr())
     return out
 
 

@@ -5,8 +5,9 @@ port of tools/tpu_probe.py, with its probe names.
   vgather       G2: per-lane gather out[i,l] = tab[idx[i,l], l] (P2)
   vgather_loop  G2: 32 chained per-lane gathers, the march's dependency
                 shape, from a table staged in shared memory (P3)
-  dma           G3: 4096 dynamic-index 512 B row copies, double buffered,
-                summed, from a 512 MiB table (P4)
+  dma           G3: 4096 dynamic-index 512 B row copies, summed, from a
+                512 MiB table (P4): a CTA a chunk of 32 rows, each through
+                a ring of 2 bulk-copy slots
   xgather       plain PyTorch: chains of dependent index_select vs index
                 count and row width (the TPU tool's XLA gather)
   loop          plain PyTorch: a loop that syncs the host every round
@@ -39,7 +40,7 @@ VG_T, VG_R = 4096, 1024            # vgather: table rows, result rows
 VL_T, VL_R, VL_K = 8192, 2048, 32  # vgather_loop: table, result rows, rounds
 VL_K_LONG = VL_K + 1024           # second round count for the marginal
 DMA_N, DMA_W, DMA_M = 4096, 128, 1 << 20  # dma: rows copied, width, table rows
-# f32 sum of 4096 terms in the order of i against a float64 sum
+# f32 sum of 4096 terms (G3's chunk order) against a float64 sum
 DMA_RTOL = 1e-5
 
 
@@ -119,7 +120,8 @@ def probe_dma(dev):
     cold = cuda_ms(run, 5, 1, flush=l2_flusher(dev))
     warm = device_ms(run, 5, 1)
     log(f"[dma] ok={ok} (rel err {rel:.2e}) {DMA_N} row copies "
-        f"({DMA_W * 4}B rows, 2-buf): cold L2 {cold:.4f} ms -> "
+        f"({DMA_W * 4}B rows, {len(P.ring_chunks(DMA_N))} CTAs of a 2-slot "
+        f"ring): cold L2 {cold:.4f} ms -> "
         f"{DMA_N / cold / 1e3:.2f} M rows/s, {cold / DMA_N * 1e6:.0f} "
         f"ns/row; warm L2 {warm:.4f} ms, {warm / DMA_N * 1e6:.0f} ns/row")
 

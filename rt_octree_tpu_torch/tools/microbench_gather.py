@@ -4,7 +4,8 @@ tools/microbench_gather.py, with its sections.
   a  serial dependent gather, plain PyTorch index_select chains, vs row
      width and index count (the TPU tool's XLA gather); whole-card rate
   b  G3: per-row async copies of whole rows from HBM through a ring of
-     nbuf slots, one issuing warp, summing element 0 (P5)
+     nbuf slots in each CTA of 32 rows, one issuing thread a CTA, summing
+     element 0 (P5)
   c  G4: chained gathers idx = (idx + table[idx]) & (S-1) from a table in
      shared memory (S = 2^14) or in the L2 (2^18, 2^20) (P6); the port adds
      S = 2^28 (1 GiB, the size of the render kernel's LUT), a table past
@@ -87,7 +88,8 @@ def dma_configs(dev):
 
 
 def bench_pallas_dma(dev):
-    log("== B. per-row async-copy gather from HBM (G3 ring, one warp) ==")
+    log("== B. per-row async-copy gather from HBM (G3 rings, a CTA a "
+        "chunk) ==")
     flush = l2_flusher(dev)
     for width, n, nbuf, table, idx in dma_configs(dev):
         run = lambda r: P.row_ring_rounds(idx, table, nbuf, r)  # noqa: E731
@@ -95,7 +97,8 @@ def bench_pallas_dma(dev):
             idx, table, nbuf, RING_ROUNDS)), f"b rows={width * 4}B n={n}")
         t = device_ms(lambda: run(RING_ROUNDS), 5, 2) / RING_ROUNDS
         cold = cuda_ms(lambda: run(1), 5, 1, flush=flush)
-        log(f"  rows={width * 4:5d}B n={n:5d} nbuf={nbuf:3d}: {t:8.4f} "
+        log(f"  rows={width * 4:5d}B n={n:5d} nbuf={nbuf:3d} "
+            f"({len(P.ring_chunks(n))} CTAs): {t:8.4f} "
             f"ms/round ({t / n * 1e6:7.1f} ns/row); one round from a cold "
             f"L2 {cold:8.4f} ms ({cold / n * 1e6:7.1f} ns/row)")
 

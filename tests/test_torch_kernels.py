@@ -14,6 +14,9 @@ the card carry the ``cuda`` marker and skip without one.
 """
 
 import dataclasses
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -1122,23 +1125,77 @@ def test_g2_lane_gather_matches_plain(rounds, cuda_device):
         assert torch.equal(got, ref)
 
 
+def _chunk_order_row_sum(idx, table):
+    """G3's f32 row sum in its chunk order (a NumPy statement): each chunk
+    of RING_CHUNK indices summed in the order of i from 0, then the chunks'
+    sums in chunk order from 0."""
+    total = np.zeros(table.shape[1], np.float32)
+    for start in range(0, len(idx), pr.RING_CHUNK):
+        part = np.zeros(table.shape[1], np.float32)
+        for i in idx[start:start + pr.RING_CHUNK]:
+            part = part + table[i]
+        total = total + part
+    return total
+
+
+# G3's row counts: below one chunk, not a multiple of it, and several
+# waves of CTAs over the card's 132 SMs
+G3_COUNTS = (5, 70, 3 * 132 * 32 * 32 + 7)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("width", [1, 2, 3, 128])
-def test_g3_row_ring_matches_plain(width, cuda_device):
-    """Rows of 4, 8, 12 and 512 B (copy chunks of 4, 8, 4 and 16 B).  The
-    int32 element-0 sum wraps like JAX's at every ring depth; the f32 row
-    sum keeps the order of i, so it equals a float32 loop in that order."""
+@pytest.mark.parametrize("n", G3_COUNTS)
+@pytest.mark.parametrize("width", [1, 2, 3, 4, 128])
+def test_g3_row_ring_matches_plain(width, n, cuda_device):
+    """Rows of 4, 8, 12, 16 and 512 B from an odd number of rows, the last
+    one indexed, from the table as allocated and from a view 4 B into it
+    (not aligned to 16 B: no bulk copy).  The int32 element-0 sum wraps
+    like JAX's at every ring depth and for 0, 1 and 3 rounds; the f32 row
+    sum equals a float32 loop in G3's chunk order."""
     t = lambda a: torch.from_numpy(a).to(cuda_device)
-    idx, table = _ring_inputs(width, width, np.int32)
-    ref = pr.row_ring_rounds_plain(t(idx), t(table), 2, 3)
-    for nbuf in pr.RING_DEPTHS:
-        assert torch.equal(pr.row_ring_rounds(t(idx), t(table), nbuf, 3), ref)
-    idx, table = _ring_inputs(width, width, np.float32)
-    acc = np.zeros(width, np.float32)
-    for i in idx:
-        acc = acc + table[i]
-    got = pr.row_sum_ring(t(idx), t(table))
-    assert np.array_equal(got.cpu().numpy()[0], acc)
+    rows = 301
+    for dtype in (np.int32, np.float32):
+        idx, table = _ring_inputs(width, width, dtype, rows=rows, n=n)
+        idx[n // 2] = rows - 1
+        flat = t(np.concatenate([table.reshape(-1), table.reshape(-1)[:1]]))
+        for tab in (flat[:rows * width].view(rows, width),
+                    flat[1:].view(rows, width)):
+            table = tab.cpu().numpy()
+            if dtype == np.int32:
+                for rounds in (0, 1, 3):
+                    ref = pr.row_ring_rounds_plain(t(idx), tab, 2, rounds)
+                    for nbuf in pr.RING_DEPTHS:
+                        got = pr.row_ring_rounds(t(idx), tab, nbuf, rounds)
+                        assert torch.equal(got, ref), (nbuf, rounds)
+            else:
+                got = pr.row_sum_ring(t(idx), tab)
+                assert np.array_equal(got.cpu().numpy()[0],
+                                      _chunk_order_row_sum(idx, table))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrapper,bad", [("row_sum_ring", 301),
+                                         ("row_ring_rounds", -1)])
+def test_g3_index_outside_the_table_fails_the_launch(wrapper, bad,
+                                                     cuda_device):
+    """An index outside the table traps: the process's next synchronize
+    raises.  In a process of its own, as a trap ends the CUDA context."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    dtype = "float32" if wrapper == "row_sum_ring" else "int32"
+    args = "" if wrapper == "row_sum_ring" else ", 8, 1"
+    code = (
+        "import torch\n"
+        "from rt_octree_tpu_torch.ops import probes as pr\n"
+        "idx = torch.arange(70, dtype=torch.int32, device='cuda')\n"
+        f"idx[40] = {bad}\n"
+        f"tab = torch.ones((301, 128), dtype=torch.{dtype}, device='cuda')\n"
+        f"pr.{wrapper}(idx, tab{args})\n"
+        "torch.cuda.synchronize()\n"
+        "print('no fault')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=repo,
+                         env=dict(os.environ, PYTHONPATH=repo),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0 and "no fault" not in out.stdout
 
 
 @pytest.mark.cuda

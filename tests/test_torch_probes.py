@@ -147,6 +147,63 @@ def test_p4_row_sum_within_tolerance_of_float64():
     assert gpu_probe.dma_rel_err(got, _t(idx), _t(tab)) == pytest.approx(rel)
 
 
+def _chunk_order_row_sum(idx, table):
+    """G3's f32 row sum in its chunk order (a NumPy statement): each chunk
+    of RING_CHUNK indices summed in the order of i from 0, then the chunks'
+    sums in chunk order from 0."""
+    total = np.zeros(table.shape[1], np.float32)
+    for start in range(0, len(idx), P.RING_CHUNK):
+        part = np.zeros(table.shape[1], np.float32)
+        for i in idx[start:start + P.RING_CHUNK]:
+            part = part + table[i]
+        total = total + part
+    return total
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, gpu_probe.DMA_N, 8192, 12345])
+def test_g3_chunk_plan(n):
+    """G3's chunk plan, as NumPy states it: row i in chunk i // RING_CHUNK,
+    the chunks in order, each i exactly once."""
+    plan = P.ring_chunks(n)
+    assert all(b > a for a, b in plan)
+    rows = np.concatenate([np.arange(a, b) for a, b in plan])
+    assert np.array_equal(rows, np.arange(n))
+    chunk_of = np.repeat(np.arange(len(plan)), [b - a for a, b in plan])
+    assert np.array_equal(chunk_of, np.arange(n) // P.RING_CHUNK)
+
+
+def test_g3_chunk_plan_is_the_kernels():
+    """The plan's chunk is the kernel's compile-time kRingChunk, and G3's
+    source reads no property of the card (its SM count), so the f32 sum
+    order is the same on any card; the tools' P4 and P5 fill 128 and 256
+    CTAs; a CTA's ring of 32 slots of 512 B is 16 KB."""
+    with open(os.path.join(REPO, "rt_octree_tpu_torch", "csrc",
+                           "probes.cu")) as f:
+        src = f.read()
+    assert f"constexpr int kRingChunk = {P.RING_CHUNK};" in src
+    for call in ("MultiProcessorCount", "cudaGetDeviceProperties",
+                 "cudaDeviceGetAttribute", "cudaOccupancy"):
+        assert call not in src
+    assert len(P.ring_chunks(gpu_probe.DMA_N)) == 128
+    assert len(P.ring_chunks(8192)) == 256
+    assert P.ring_smem_bytes(512, 32) == 16 * 32 + 4 * 32 + 16384
+
+
+def test_p4_chunk_order_within_tolerance_of_float64():
+    """G3's chunk-order f32 sum at the tool's 4096 rows of 128 columns lies
+    within gpu_probe.DMA_RTOL of the float64 sum and of the plain
+    version, relative to the largest column."""
+    rs = np.random.default_rng(0)
+    tab = rs.random((1 << 13, gpu_probe.DMA_W), dtype=np.float32)
+    idx = rs.integers(0, 1 << 13, (gpu_probe.DMA_N,), dtype=np.int32)
+    got = _chunk_order_row_sum(idx, tab)
+    assert gpu_probe.dma_rel_err(_t(got[None]), _t(idx), _t(tab)) <= \
+        gpu_probe.DMA_RTOL
+    plain = P.row_sum_ring_plain(_t(idx), _t(tab)).numpy()[0]
+    assert np.abs(got - plain).max() / np.abs(plain).max() <= \
+        gpu_probe.DMA_RTOL
+
+
 def test_p5_row_ring_rounds_equals_pallas(tpu_microbench, monkeypatch):
     """The tool's first config (rows of 8 B, n 1024, nbuf 8, 4 rounds), on
     the inputs the port's section b draws first."""
