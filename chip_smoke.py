@@ -206,11 +206,13 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
  12. probes: the six probe kernels (csrc/probes.cu, the port of the Pallas
      kernels of tools/tpu_probe.py and tools/microbench_gather.py) vs their
      plain versions at the tools' own shapes (bit-equal; P4 within 1e-5
-     relative of a float64 sum), each one's time vs its plain version (G3
-     with its CTA count and each CTA's ring depth), then the tools' entry
-     points (gpu_probe basic vgather vgather_loop dma, microbench_gather b
-     and c) with the counts reset: every probe kernel's launch count in
-     that run must be > 0.
+     relative of a float64 sum; P3 and P6 in every config of section c
+     with the plan each takes; the other staging paths of both on edge
+     shapes), each one's time vs its
+     plain version (G3 with its CTA count and each CTA's ring depth), then
+     the tools' entry points (gpu_probe basic vgather vgather_loop dma,
+     microbench_gather b and c) with the counts reset: every probe
+     kernel's launch count in that run must be > 0.
  13. apps: ``rtoctree view`` (apps/viewer.py) on the depth-9 shell npz at
      800x800, SPP 6, level-9 LUT, trained.gnet, denoise turned on by an
      options event, behind ThreadingHTTPServer on 127.0.0.1:0: after 3
@@ -359,20 +361,23 @@ memory (kWideFullBasis).
     python3 chip_smoke.py --probe-times [ROOT]
     python3 chip_smoke.py --probe-pairs OTHER_ROOT [PAIRS]
 
---probe-times times G3 of the package under ROOT (default: beside this
-file) alone by device_medians at the tools' shapes: P4 (row_sum_ring on
-gpu_probe's 4096 rows of 512 B from a 512 MiB table) beside
+--probe-times times the probes of the package under ROOT (default: beside
+this file) alone by device_medians at the tools' shapes: P4 (row_sum_ring
+on gpu_probe's 4096 rows of 512 B from a 512 MiB table) beside
 F.embedding_bag's sum of the same rows, and P5 (row_ring_rounds, 4
 rounds) in every config of microbench_gather's section b, its 512 B rows
 at n 8192 also at every nbuf of RING_DEPTHS and PROBE_ROUNDS rounds (a
-call's fixed cost, and the time of a round at each ring depth); and P4
-once more from a cold L2 (cuda_ms, the L2 flushed before each call), with
-P4's
-relative error against the float64 sum and whether every P5 result is
+call's fixed cost, and the time of a round at each ring depth); P3
+(lane_gather_chain at gpu_probe's shape) at 32 and 1056 rounds and P6
+(flat_gather_chain) in every config of section c at 16 and 1040 rounds,
+with the marginal round of each; and P4 once more from a cold L2
+(cuda_ms, the L2 flushed before each call), with P4's relative error
+against the float64 sum and whether every P3, P5 and P6 result is
 bit-equal to its plain version, as one JSON line {"probe_ms": ...};
 --probe-pairs runs it in PAIRS (default 6) pairs of processes, this script
 on OTHER_ROOT's package and on its own in turns, and prints each side's
-times and their paired differences as one JSON line {"probe_pairs": ...}.
+times and marginal rounds and their paired differences as one JSON line
+{"probe_pairs": ...}.
 
     python3 chip_smoke.py --ray-times [ROOT]
     python3 chip_smoke.py --ray-pairs OTHER_ROOT [PAIRS]
@@ -614,6 +619,10 @@ PROBE_KERNELS = {
     "row_ring_rounds": "tools/microbench_gather.py:132",
     "flat_gather_chain": "tools/microbench_gather.py:183",
 }
+# the probe instances in ptxas's report: G3 (P4, P5 at every nbuf), G2's
+# chain (power-of-two rows or not), G4 (global, local)
+PROBE_PTXAS = {"row_ring_kernel": 6, "lane_chain_kernel": 2,
+               "flat_gather_chain_kernel": 2}
 # the wide kernels' entry functions in ptxas's report: (source, kernel) ->
 # instances (K7's fused wide instance a block-1 n-group of 2, 3, 4; its
 # per-block plan's ring an n-tile group of 1, 2, 4, 8 and its first-block
@@ -718,8 +727,8 @@ def phase_ptxas(native):
     too, the wide ones at SPP <= 8 with no stack frame and no spills (the
     unrolled instances keep their basis in a local array, a 104-byte stack
     frame, as before); and the wide instances of K7, K2, K5 and K6.
-    G3's instances (P4's and P5's at every nbuf), with no stack frame and
-    no spills.  Prints one {"ptxas_render_classic": ...}, one
+    The probes' instances of PROBE_PTXAS (G3's, G2 chain's and G4's), with
+    no stack frame and no spills.  Prints one {"ptxas_render_classic": ...}, one
     {"ptxas_render": ...}, one {"ptxas_wide": ...} and one
     {"ptxas_probes": ...} line."""
     import re
@@ -770,16 +779,18 @@ def phase_ptxas(native):
     require(len(wide_k1) == 12 and all(clean(v) for v in wide_k1.values()),
             f"K1's wide instances at SPP <= 8 have a stack frame or spills: "
             f"{wide_k1}")
-    ring = {}
-    for name, v in ptxas_kernels(native.PTXAS.get("probes", ""),
-                                 "row_ring_kernel").items():
-        m = re.search(r"row_ring_kernelILb([01])ELi(\d+)EE", name)
-        ring[f"row_ring_kernel<{('false', 'true')[int(m.group(1))]}, "
-             f"{m.group(2)}>"] = v
-    log(json.dumps({"ptxas_probes": ring}))
-    require(len(ring) == 6 and all(clean(v) for v in ring.values()),
-            f"G3's six instances (P4, P5 at every nbuf) must have no stack "
-            f"frame and no spills: {ring}")
+    probes = {}
+    for kernel, count in PROBE_PTXAS.items():
+        found = ptxas_kernels(native.PTXAS.get("probes", ""), kernel)
+        for name, v in found.items():
+            args = re.findall(r"L[ib](\d+)E", name.split(kernel)[1])
+            probes[kernel + (f"<{', '.join(args)}>" if args else "")] = v
+        require(len(found) == count, f"ptxas reported {sorted(found)}, not "
+                f"the {count} instances of {kernel}")
+    log(json.dumps({"ptxas_probes": probes}))
+    require(all(clean(v) for v in probes.values()),
+            f"a probe instance (G3's six, G2 chain's two, G4's two) has "
+            f"a stack frame or spills: {probes}")
     return table
 
 
@@ -2753,11 +2764,53 @@ def probe_times(root):
                 fns[f"row_ring_rounds {w * 4} B n {n} nbuf {depth} rounds "
                     f"{rounds}"] = functools.partial(
                         P.row_ring_rounds, ridx, table, depth, rounds)
+    # P3 at gpu_probe's shape, P6 in every config of section c, each at
+    # two round counts (the marginal per round), the short counts first so
+    # that no call finds its table left in the L2 by the same config's
+    # other count; bit-equal holds
+    res["p3_p6_bit_equal"] = True
+    chains = {}
+    ctab, cidx = gp.vgather_loop_inputs(dev)
+    flat = list(mb.vmem_configs(dev))
+    for p3_rounds, p6_rounds in ((gp.VL_K, mb.CHAIN_ROUNDS),
+                                 (gp.VL_K_LONG, mb.CHAIN_ROUNDS_LONG)):
+        chains[f"lane_gather_chain {p3_rounds} rounds"] = (
+            functools.partial(P.lane_gather_chain, ctab, cidx, p3_rounds),
+            functools.partial(P.lane_gather_chain_plain, ctab, cidx,
+                              p3_rounds))
+        for S, n, table, fidx in flat:
+            chains[f"flat_gather_chain S {S} n {n} rounds {p6_rounds}"] = (
+                functools.partial(P.flat_gather_chain, fidx, table,
+                                  p6_rounds),
+                functools.partial(P.flat_gather_chain_plain, fidx, table,
+                                  p6_rounds))
+    for k, (kernel, plain) in chains.items():
+        res["p3_p6_bit_equal"] &= torch.equal(kernel(), plain())
+        fns[k] = kernel
     res["ms"] = device_medians(fns, PROBE_REPS, 3)
     res["ms"]["row_sum_ring cold"] = cuda_ms(fns["row_sum_ring"], 5, 1,
                                              flush=l2_flusher(dev))
+    res["marginal_ns"] = probe_marginals(res["ms"])
     log(json.dumps({"probe_ms": res}))
     return 0
+
+
+def probe_marginals(ms):
+    """The time of one more round (ns) of P3 and of P6 in each config: the
+    difference of two round counts' medians over their difference."""
+    from rt_octree_tpu_torch.tools import gpu_probe as gp
+    from rt_octree_tpu_torch.tools import microbench_gather as mb
+    out = {"lane_gather_chain": (
+        ms[f"lane_gather_chain {gp.VL_K_LONG} rounds"]
+        - ms[f"lane_gather_chain {gp.VL_K} rounds"])
+        / (gp.VL_K_LONG - gp.VL_K) * 1e6}
+    for S, n in mb.VMEM_CONFIGS + mb.PAST_L2_CONFIGS:
+        key = f"flat_gather_chain S {S} n {n} rounds"
+        out[f"flat_gather_chain S {S} n {n}"] = (
+            ms[f"{key} {mb.CHAIN_ROUNDS_LONG}"]
+            - ms[f"{key} {mb.CHAIN_ROUNDS}"]) / (
+            mb.CHAIN_ROUNDS_LONG - mb.CHAIN_ROUNDS) * 1e6
+    return out
 
 
 def probe_pairs(other_root, pairs):
@@ -2767,6 +2820,7 @@ def probe_pairs(other_root, pairs):
     a pair, P4's relative errors and P5's holds.  One JSON line
     {"probe_pairs": ...}."""
     ms, holds = {"other": {}, "this": {}}, {"other": [], "this": []}
+    marginal = {"other": {}, "this": {}}
     for i, side, lines in alternate(other_root, pairs, ["--probe-times"],
                                     "probe_pairs", own_script=True):
         got = [ln["probe_ms"] for ln in lines if "probe_ms" in ln]
@@ -2774,12 +2828,19 @@ def probe_pairs(other_root, pairs):
                 "output")
         for k, v in got[0]["ms"].items():
             ms[side].setdefault(k, []).append(v)
+        for k, v in got[0]["marginal_ns"].items():
+            marginal[side].setdefault(k, []).append(v)
         holds[side].append({k: got[0][k] for k in
-                            ("p4_rel_err", "p4_digest", "p5_bit_equal")})
-    require(all(h["p5_bit_equal"] for v in holds.values() for h in v),
-            "a P5 result differs from its plain version")
-    log(json.dumps({"probe_pairs": {**pair_times(other_root, pairs, ms),
-                                    "holds": holds}}))
+                            ("p4_rel_err", "p4_digest", "p5_bit_equal",
+                             "p3_p6_bit_equal")})
+    require(all(h["p5_bit_equal"] and h["p3_p6_bit_equal"]
+                for v in holds.values() for h in v),
+            "a P3, P5 or P6 result differs from its plain version")
+    log(json.dumps({"probe_pairs": {
+        **pair_times(other_root, pairs, ms),
+        "marginal_ns": {side: {k: spread(v) for k, v in d.items()}
+                        for side, d in marginal.items()},
+        "holds": holds}}))
     return 0
 
 
@@ -5403,7 +5464,8 @@ def phase_probes(native, err):
         device_ms(lambda: torch.gather(tab, 0, idx64), 50, 2),)
     tab, idx = gp.vgather_loop_inputs(dev)
     hold("lane_gather_chain", f"tab {tuple(tab.shape)} idx "
-         f"{tuple(idx.shape)} K {gp.VL_K}",
+         f"{tuple(idx.shape)} K {gp.VL_K}, "
+         f"{P.chain_plan(*tab.shape, idx.shape[0])}",
          lambda: P.lane_gather_chain(tab, idx, gp.VL_K),
          lambda: P.lane_gather_chain_plain(tab, idx, gp.VL_K), 5)
     lanes = torch.arange(tab.shape[1], device=dev)
@@ -5452,7 +5514,7 @@ def phase_probes(native, err):
     del table, idx
     for S, n, table, idx in mb.vmem_configs(dev):
         timed = (S, n) == (1 << 18, 131072)
-        hold("flat_gather_chain", f"S {S} n {n}",
+        hold("flat_gather_chain", f"S {S} n {n}, {P.flat_plan(S, n)}",
              lambda: P.flat_gather_chain(idx, table, mb.CHAIN_ROUNDS),
              lambda: P.flat_gather_chain_plain(idx, table, mb.CHAIN_ROUNDS),
              5 if timed else None)
@@ -5464,6 +5526,33 @@ def phase_probes(native, err):
                 8 * n + 4 * distinct(*seen),
                 2 * mb.CHAIN_ROUNDS * n) + (None,)
     del table, idx
+    # the other staging paths: G2's chain on 6 columns (2 a block, staged
+    # by 4-byte stores) and from a table view 4 B off, rows not a power of
+    # two; G4 on its largest local table and from a view 4 B off (4-byte
+    # staging)
+    rs = np.random.default_rng(23)
+    for T, W, off in ((8191, 6, 0), (8191, 128, 1)):
+        flat = torch.from_numpy(rs.integers(
+            -2 ** 31, 2 ** 31, T * W + off, dtype=np.int64).astype(
+                np.int32)).to(dev)
+        tab = flat[off:].view(T, W)
+        idx = torch.from_numpy(rs.integers(0, T, (2049, W),
+                                           dtype=np.int32)).to(dev)
+        hold("lane_gather_chain", f"tab {T}x{W} {4 * off} B off, idx "
+             f"2049x{W}, {P.chain_plan(T, W, 2049)}",
+             lambda: P.lane_gather_chain(tab, idx, 33),
+             lambda: P.lane_gather_chain_plain(tab, idx, 33))
+    for S, off in ((1 << 15, 0), (1 << 14, 1)):
+        flat = torch.from_numpy(rs.integers(1, 1000, S + off,
+                                            dtype=np.int32)).to(dev)
+        table = flat[off:]
+        idx = torch.from_numpy(rs.integers(0, S, 8193,
+                                           dtype=np.int32)).to(dev)
+        hold("flat_gather_chain", f"S {S} {4 * off} B off n 8193, "
+             f"{P.flat_plan(S, 8193)}",
+             lambda: P.flat_gather_chain(idx, table, 33),
+             lambda: P.flat_gather_chain_plain(idx, table, 33))
+    del flat, tab, table, idx
     for k, (kms, pms) in ms.items():
         lib = bounds[k][2]
         log(f"[timing] {k}: kernel {kms:.4f} ms, plain {pms:.4f} ms, bound "

@@ -13,26 +13,16 @@
 // lives, and the rate at which rows are fetched by dynamic index with k
 // copies in flight.  Each kernel's note says what bounds it on this card.
 // An index outside its table traps (the launch fails at the next
-// synchronize), as an out-of-range index_select does on the card.
-#include <type_traits>
-
+// synchronize), as an out-of-range index_select does on the card.  The
+// plans of G2's chain and G4 (cluster sizes, CTAs, threads) come from the
+// wrapper (ops/probes.py), depend on the shapes alone, and are checked here.
 #include "common.cuh"
 
 namespace {
 
 // Dynamic shared memory one block may opt into on sm_90 (227 KB).
 constexpr int kMaxSmemBytes = 232448;
-// Largest flat table G4 stages in shared memory: two blocks still fit on
-// one SM.  Larger tables are read through L1/L2 (or HBM past the L2).
-constexpr int kFlatSmemBytes = 96 * 1024;
 constexpr int kLaneThreads = 1024;
-constexpr int kFlatThreads = 256;
-
-// jnp.remainder / torch.remainder for m > 0: the result takes the sign of m.
-__device__ __forceinline__ int floor_mod(int v, int m) {
-  const int r = v % m;
-  return r < 0 ? r + m : r;
-}
 
 // ---------------------------------------------------------------------------
 // G1 (P1): o = 2x + 1, the toolchain check.  Bound by launch overhead at the
@@ -48,57 +38,22 @@ __global__ void affine_kernel(const float* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------------
-// G2 (P2, P3): per-lane gather out[i, l] = tab[idx[i, l], l] over a
-// [rows_tab, width] table; with Chain, `rounds` dependent rounds
-// cur = (cur + tab[cur, l] + 1) mod rows_tab (int32 wrap-around, as JAX).
-//
-// The TPU probes held the whole table in VMEM (2 and 4 MiB).  A single
-// gather (P2) reads the table where it is, one output element per thread
-// in row-major order: the tool's 2 MiB table stays in the 50 MB L2, and
-// staging it would cost more than the one read it serves; it is bound by
-// the 32 random rows a warp touches per load.  A chain (P3) gives a block
-// `cols` adjacent columns and 1024 / cols rows of the output; the block
-// first stages its columns in shared memory, transposed so that each
-// column is contiguous (one P3 column is 32 KB; cols = 4 uses 128 KB), and
-// then every round is a shared-memory load.  The chain is bound by that
-// load's latency, which 32 warps per SM hide only partly; the staging is
-// a fixed cost per block that the tools' marginal per-round figure takes
-// out.
+// G2 (P2): per-lane gather out[i, l] = tab[idx[i, l], l] over a
+// [rows_tab, width] f32 table.  The TPU probe held the whole table in VMEM
+// (2 MiB).  Here the gather reads the table where it is, one output element
+// per thread in row-major order: the tool's table stays in the 50 MB L2,
+// and staging it would cost more than the one read it serves; it is bound
+// by the 32 random rows a warp touches per load.
 // ---------------------------------------------------------------------------
-template <bool Chain, typename T>
 __global__ void __launch_bounds__(kLaneThreads)
-    lane_gather_kernel(const T* __restrict__ tab, const int* __restrict__ idx,
-                       T* __restrict__ out, int rows_tab, int width,
-                       int rows_out, int cols, int rounds) {
-  static_assert(!Chain || std::is_same<T, int>::value,
-                "a chain carries int32 indices");
-  if constexpr (!Chain) {
-    const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (p >= (long long)rows_out * width) return;
-    const int cur = idx[p];
-    if ((unsigned)cur >= (unsigned)rows_tab) __trap();
-    out[p] = __ldg(tab + (long long)cur * width + p % width);
-  } else {
-    extern __shared__ __align__(16) unsigned char lane_smem[];
-    int* staged = reinterpret_cast<int*>(lane_smem);  // [cols][rows_tab]
-    const int c0 = blockIdx.x * cols;
-    for (int e = threadIdx.x; e < cols * rows_tab; e += blockDim.x) {
-      const int t = e / cols, c = e - t * cols;
-      staged[c * rows_tab + t] = tab[(long long)t * width + c0 + c];
-    }
-    __syncthreads();
-    const int c = threadIdx.x % cols;
-    const int i = blockIdx.y * (blockDim.x / cols) + threadIdx.x / cols;
-    if (i >= rows_out) return;
-    const long long p = (long long)i * width + c0 + c;
-    int cur = idx[p];
-    if ((unsigned)cur >= (unsigned)rows_tab) __trap();
-    const int* column = staged + c * rows_tab;
-    for (int k = 0; k < rounds; ++k)
-      cur = floor_mod((int)((unsigned)cur + (unsigned)column[cur] + 1u),
-                      rows_tab);
-    out[p] = cur;
-  }
+    lane_gather_kernel(const float* __restrict__ tab,
+                       const int* __restrict__ idx, float* __restrict__ out,
+                       int rows_tab, int width, int rows_out) {
+  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= (long long)rows_out * width) return;
+  const int cur = idx[p];
+  if ((unsigned)cur >= (unsigned)rows_tab) __trap();
+  out[p] = __ldg(tab + (long long)cur * width + p % width);
 }
 
 // ---------------------------------------------------------------------------
@@ -348,41 +303,248 @@ __global__ void __launch_bounds__(kRingThreads)
 }
 
 // ---------------------------------------------------------------------------
-// G4 (P6): `rounds` dependent rounds idx = (idx + table[idx]) & (size - 1)
-// over a flat int32 table, size a power of two, one thread per index.
-// A table of at most 96 KB (the tool's 2^14 entries) is staged in shared
-// memory per block, so a round is one shared-memory load; a larger one
-// (2^18 and 2^20: 1 and 4 MB) is read where it lies, in the 50 MB L2 once
-// warm, or in HBM past it.  Bound by the latency of one load per round:
-// each thread's loads are serial, and only the other warps overlap them.
+// Thread-block clusters: a CTA's rank, the cluster barrier, and stores into
+// another CTA's shared memory (distributed shared memory).
 // ---------------------------------------------------------------------------
-template <bool Smem>
-__global__ void __launch_bounds__(kFlatThreads)
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of the cluster arrives, its shared-memory writes released
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+
+// and waits for all the others, their writes acquired
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+// the address of this CTA's shared-memory byte `addr` in CTA `rank`
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;\n"
+      : "=r"(out)
+      : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ void cluster_store(uint32_t addr, int v) {
+  asm volatile("st.shared::cluster.u32 [%0], %1;\n" ::"r"(addr), "r"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar));
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bar_expect(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// G2 chain (P3): `rounds` dependent rounds per lane,
+// cur = (cur + tab[cur, l] + 1) mod rows_tab, over a [rows_tab, width] int32
+// table (the sum wraps as int32 does, and the remainder takes the sign of
+// rows_tab, as jnp.remainder).
+//
+// The TPU probe held the 4 MiB table in VMEM.  Here the columns go in
+// blocks of `cols` (4, else 2 or 1 where the width or a column's rows ask
+// for it), and every CTA that runs chains on a block holds the block whole
+// in its shared memory, in [t][cols] order (P3: 8192 rows x 16 B = 128 KiB,
+// one CTA an SM).  A block's output rows are cut into parts of `share`
+// rows, a CTA a part: the tool's 2048 rows are 4 parts, 32 x 4 = 128 CTAs
+// in one wave over 132 SMs, 2048 chains a CTA, two a thread interleaved
+// (one a thread measured within 1.5 %).  The parts go in clusters of
+// `cluster` CTAs that read their block from the L2 once between them: the
+// cluster's threads read the block once, a 16-byte row piece a load where
+// the table is 16-byte aligned (4 bytes otherwise), and store each piece
+// into every CTA of the cluster (st.shared::cluster), between two cluster
+// barriers.
+// A sweep of plans on the H100 (its times are in PERF.md) set the plan.
+// Clusters of 4 CTAs of 128 KiB do not all fit on the card at once, and
+// the second wave doubles the rounds' time, so clusters are 2.  At P3 the
+// stores take 16.3 us; multicast tensor copies (TMA) of the block took
+// 18.0 and each CTA copying its own block 17.6: whoever sends them, an SM
+// takes in its block's 8192 rows one 16-byte piece at a time, ~8 us of the
+// call.
+//
+// A round is one shared-memory load and the reduction: a mask when rows_tab
+// is a power of two, else the sum moved to [0, 2^32) divided by a
+// multiply-high with a reciprocal made on the host (Granlund and
+// Montgomery's unsigned division by an invariant integer) and corrected by
+// 2^31 mod rows_tab.  The rounds are bound by bank conflicts: a warp's 32
+// random rows fall ~3.5 deep on the banks, ~106 ns a round at 2048 chains
+// an SM.
+// ---------------------------------------------------------------------------
+constexpr int kChainMaxCluster = 8;  // CTAs that stage one column block
+constexpr int kChainPerThread = 2;   // chains a thread, interleaved
+
+struct ChainArgs {
+  int rows_tab, width, rows_out, cols, share, rounds, cluster;
+  int vec;              // the block's rows are 16-byte aligned pieces
+  uint32_t magic, c31;  // rows_tab's reciprocal; 2^31 mod rows_tab
+  int sh1, sh2;         // the reciprocal's shifts
+};
+
+// jnp.remainder((int)s, rows_tab) of the wrapped int32 sum s
+template <bool Pow2>
+__device__ __forceinline__ int chain_mod(uint32_t s, const ChainArgs& a) {
+  if constexpr (Pow2) {
+    return (int)(s & (uint32_t)(a.rows_tab - 1));
+  } else {
+    const uint32_t u = s ^ 0x80000000u;  // s + 2^31, in [0, 2^32)
+    const uint32_t t = __umulhi(a.magic, u);
+    const uint32_t q = (t + ((u - t) >> a.sh1)) >> a.sh2;  // u / rows_tab
+    const int r = (int)(u - q * (uint32_t)a.rows_tab) - (int)a.c31;
+    return r < 0 ? r + a.rows_tab : r;
+  }
+}
+
+template <bool Pow2>
+__global__ void __launch_bounds__(kLaneThreads)
+    lane_chain_kernel(const int* __restrict__ tab,
+                      const int* __restrict__ idx, int* __restrict__ out,
+                      const ChainArgs a) {
+  extern __shared__ __align__(128) unsigned char chain_smem[];
+  const int* staged = reinterpret_cast<const int*>(chain_smem);  // [t][cols]
+  const uint32_t base = smem_addr(chain_smem);
+  const int parts = gridDim.x / (a.width / a.cols);
+  const int c0 = (int)blockIdx.x / parts * a.cols;
+  const int r0 = min((int)blockIdx.x % parts * a.share, a.rows_out);
+  const int chains = (min(r0 + a.share, a.rows_out) - r0) * a.cols;
+  const int shift = __ffs(a.cols) - 1;
+  const uint32_t rank = cluster_rank();
+  const int* src = tab + c0;  // row t of the block at src + t * width
+  cluster_sync();  // every CTA of the cluster runs before it is stored into
+  if (a.vec) {
+    for (int t = rank * blockDim.x + threadIdx.x; t < a.rows_tab;
+         t += a.cluster * blockDim.x) {
+      const int4 v =
+          __ldg(reinterpret_cast<const int4*>(src + (long long)t * a.width));
+      for (int r = 0; r < a.cluster; ++r)
+        asm volatile(
+            "st.shared::cluster.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                cluster_map(base + t * 16, r)),
+            "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+            : "memory");
+    }
+  } else {
+    for (int e = rank * blockDim.x + threadIdx.x; e < a.rows_tab * a.cols;
+         e += a.cluster * blockDim.x) {
+      const int v = src[(long long)(e >> shift) * a.width + (e & (a.cols - 1))];
+      for (int r = 0; r < a.cluster; ++r)
+        cluster_store(cluster_map(base + e * 4, r), v);
+    }
+  }
+  // the CTA's chains, columns fastest: chain g + j * blockDim.x + thread
+  constexpr int K = kChainPerThread;
+  int cur[K], col[K];
+  long long pos[K];
+  auto load = [&](int g) {
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const int ch = g + j * (int)blockDim.x + (int)threadIdx.x;
+      col[j] = ch & (a.cols - 1);
+      pos[j] = ch < chains
+                   ? (long long)(r0 + (ch >> shift)) * a.width + c0 + col[j]
+                   : -1;
+      cur[j] = pos[j] >= 0 ? idx[pos[j]] : 0;
+      if ((unsigned)cur[j] >= (unsigned)a.rows_tab) __trap();
+    }
+  };
+  load(0);  // read while the block lands
+  cluster_sync();  // every CTA's stores are visible
+  for (int g = 0; g < chains; g += K * blockDim.x) {
+    if (g > 0) load(g);
+    for (int k = 0; k < a.rounds; ++k) {
+      int v[K];
+#pragma unroll
+      for (int j = 0; j < K; ++j) v[j] = staged[(cur[j] << shift) + col[j]];
+#pragma unroll
+      for (int j = 0; j < K; ++j)
+        cur[j] = chain_mod<Pow2>((uint32_t)cur[j] + (uint32_t)v[j] + 1u, a);
+    }
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+      if (pos[j] >= 0) out[pos[j]] = cur[j];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// G4 (P6): `rounds` dependent rounds idx = (idx + table[idx]) & (size - 1)
+// over a flat int32 table, size a power of two, a chain a thread, on one of
+// two paths (ops/probes.flat_plan):
+//  - local: a table that fits a CTA's shared memory (up to 2^15 entries)
+//    staged whole in each CTA by one bulk copy (cp.async.bulk completing on
+//    an mbarrier; 4-byte loads for a view off 16 bytes), 256 threads a CTA,
+//    more past 32 CTAs, since each CTA pays the staging;
+//  - global: a larger table read where it lies (__ldg), 256 threads a CTA:
+//    in the L2 up to 50 MB, in HBM past it.
+// A sweep of plans on the H100 (its times are in PERF.md) set them.  At the
+// timed 1 MiB table and 131,072 chains each 4-byte load of the global path
+// takes a whole 32-byte L2 sector, ~0.87 us a round for 4 MiB of sectors:
+// the L2's rate binds it.  The table spread over a cluster's shared memory
+// (a slice a CTA, rounds by mapa and ld.shared::cluster) took 2.2-2.6 us a
+// round there, 2.5x slower, and lost at every size the sweep tried; the
+// local path beats the global one wherever the table fits.
+// ---------------------------------------------------------------------------
+template <bool Local>
+__global__ void __launch_bounds__(kLaneThreads)
     flat_gather_chain_kernel(const int* __restrict__ idx, int n,
                              const int* __restrict__ table, int size,
                              int rounds, int* __restrict__ out) {
-  extern __shared__ int flat_smem[];
-  const int* tab = table;
-  if constexpr (Smem) {
-    for (int e = threadIdx.x; e < size; e += blockDim.x)
-      flat_smem[e] = table[e];
-    __syncthreads();
-    tab = flat_smem;
+  extern __shared__ __align__(128) unsigned char flat_smem[];
+  const uint32_t bar = smem_addr(flat_smem);
+  int* local = reinterpret_cast<int*>(flat_smem + 16);  // [size] int32
+  bool bulk = false;
+  if constexpr (Local) {
+    bulk = size % 4 == 0 && ((unsigned long long)table & 15) == 0;
+    if (bulk) {
+      if (threadIdx.x == 0) bar_init(bar);
+      __syncthreads();  // the barrier is set before anyone waits on it
+      if (threadIdx.x == 0) {
+        bar_expect(bar, size * 4);
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
+            "bytes [%0], [%1], %2, [%3];\n" ::"r"(bar + 16),
+            "l"(table), "r"(size * 4), "r"(bar)
+            : "memory");
+      }
+    } else {
+      for (int e = threadIdx.x; e < size; e += blockDim.x) local[e] = table[e];
+    }
   }
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  unsigned cur = (unsigned)idx[i];
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  unsigned cur = i < n ? (unsigned)idx[i] : 0u;
   if (cur >= (unsigned)size) __trap();
+  if constexpr (Local) {
+    if (bulk)
+      bar_wait(bar, 0);
+    else
+      __syncthreads();
+  }
   const unsigned mask = (unsigned)size - 1u;
   for (int k = 0; k < rounds; ++k) {
     int v;
-    if constexpr (Smem)
-      v = tab[cur];
+    if constexpr (Local)
+      v = local[cur];
     else
-      v = __ldg(tab + cur);
+      v = __ldg(table + cur);
     cur = (cur + (unsigned)v) & mask;
   }
-  out[i] = (int)cur;
+  if (i < n) out[i] = (int)cur;
 }
 
 template <typename K>
@@ -393,37 +555,91 @@ cudaError_t allow_smem(K kernel, int bytes) {
                               bytes);
 }
 
-template <bool Chain, typename T>
-int launch_lane_gather(const void* tab, const void* idx, void* out,
-                       int rows_tab, int width, int rows_out, int rounds,
-                       void* stream) {
-  if (rows_out < 1 || width < 1) return (int)cudaErrorInvalidValue;
-  auto kernel = lane_gather_kernel<Chain, T>;
-  if (!Chain) {
-    const long long total = (long long)rows_out * width;
-    kernel<<<(unsigned)((total + kLaneThreads - 1) / kLaneThreads),
-             kLaneThreads, 0, (cudaStream_t)stream>>>(
-        (const T*)tab, (const int*)idx, (T*)out, rows_tab, width, rows_out,
-        1, 0);
-    return (int)cudaGetLastError();
-  }
-  if ((long long)rows_tab * sizeof(T) > kMaxSmemBytes)
+// A launch of `grid` CTAs of `threads` in clusters of `cluster` (1: none).
+// A refused launch returns its error (and clears it).
+template <typename... Params, typename... Args>
+int launch_ex(void (*kernel)(Params...), long long grid, int threads,
+              int smem, int cluster, void* stream, Args... args) {
+  cudaError_t e = allow_smem(kernel, smem);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)grid);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  if (e == cudaSuccess) e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (e == cudaSuccess) e = cudaGetLastError();
+  if (e != cudaSuccess) cudaGetLastError();
+  return (int)e;
+}
+
+// Granlund and Montgomery's reciprocal of d (1 <= d < 2^31) for unsigned
+// 32-bit division: u / d = (t + ((u - t) >> sh1)) >> sh2, t = umulhi(magic,
+// u); and 2^31 mod d.
+void chain_reciprocal(uint32_t d, ChainArgs& a) {
+  int l = 0;
+  while ((1ull << l) < d) ++l;  // ceil(log2 d)
+  a.magic = (uint32_t)(((1ull << 32) * ((1ull << l) - d)) / d + 1);
+  a.sh1 = l < 1 ? l : 1;
+  a.sh2 = l > 1 ? l - 1 : 0;
+  a.c31 = (uint32_t)((1ull << 31) % d);
+}
+
+int launch_lane_chain(const void* tab, const void* idx, void* out,
+                      int rows_tab, int width, int rows_out, int rounds,
+                      int cols, int share, int threads, int cluster,
+                      void* stream) {
+  if (rows_tab < 1 || width < 1 || rows_out < 1 || rounds < 0 ||
+      share < 1 || (cols != 1 && cols != 2 && cols != 4) || width % cols ||
+      threads < 32 || threads > kLaneThreads || threads % 32 ||
+      cluster < 1 || cluster > kChainMaxCluster || (cluster & (cluster - 1)))
     return (int)cudaErrorInvalidValue;
-  int cols = 1;
-  for (int c = 4; c > 1 && cols == 1; c /= 2)
-    if (width % c == 0 && (long long)c * rows_tab * sizeof(T) <= kMaxSmemBytes)
-      cols = c;
-  const int smem = cols * rows_tab * (int)sizeof(T);
-  const int rows_per_block = kLaneThreads / cols;
-  const dim3 grid(width / cols,
-                  (rows_out + rows_per_block - 1) / rows_per_block);
-  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, kLaneThreads, smem, (cudaStream_t)stream>>>(
-      (const T*)tab, (const int*)idx, (T*)out, rows_tab, width, rows_out,
-      cols, rounds);
-  return (int)cudaGetLastError();
+  ChainArgs a = {};
+  a.rows_tab = rows_tab;
+  a.width = width;
+  a.rows_out = rows_out;
+  a.cols = cols;
+  a.share = share;
+  a.rounds = rounds;
+  a.cluster = cluster;
+  a.vec = cols == 4 && ((unsigned long long)tab & 15) == 0;
+  chain_reciprocal((uint32_t)rows_tab, a);
+  const long long smem = (long long)rows_tab * cols * 4;
+  const long long parts =
+      ((rows_out + share - 1LL) / share + cluster - 1) / cluster * cluster;
+  const long long grid = parts * (width / cols);
+  if (smem > kMaxSmemBytes || grid > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  using Kernel = void (*)(const int*, const int*, int*, ChainArgs);
+  const Kernel kernel = (rows_tab & (rows_tab - 1)) == 0
+                            ? lane_chain_kernel<true>
+                            : lane_chain_kernel<false>;
+  return launch_ex(kernel, grid, threads, (int)smem, cluster, stream,
+                   (const int*)tab, (const int*)idx, (int*)out, a);
+}
+
+int launch_flat(const void* idx, int n, const void* table, int size,
+                int rounds, void* out, int local, int threads,
+                void* stream) {
+  if (n < 1 || size < 1 || (size & (size - 1)) || rounds < 0 ||
+      threads < 32 || threads > kLaneThreads || threads % 32)
+    return (int)cudaErrorInvalidValue;
+  const long long smem = local ? 16 + 4LL * size : 0;
+  const long long grid = (n + threads - 1LL) / threads;
+  if (smem > kMaxSmemBytes || grid > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  using Kernel = void (*)(const int*, int, const int*, int, int, int*);
+  const Kernel kernel =
+      local ? flat_gather_chain_kernel<true> : flat_gather_chain_kernel<false>;
+  return launch_ex(kernel, grid, threads, (int)smem, 1, stream,
+                   (const int*)idx, n, (const int*)table, size, rounds,
+                   (int*)out);
 }
 
 template <bool WholeRow, int Nbuf>
@@ -463,17 +679,25 @@ RT_API int rt_probe_affine(const void* x, void* out, int n, void* stream) {
 RT_API int rt_lane_gather(const void* tab, const void* idx, void* out,
                           int rows_tab, int width, int rows_out,
                           void* stream) {
-  return launch_lane_gather<false, float>(tab, idx, out, rows_tab, width,
-                                          rows_out, 0, stream);
+  if (rows_out < 1 || width < 1) return (int)cudaErrorInvalidValue;
+  const long long total = (long long)rows_out * width;
+  lane_gather_kernel<<<(unsigned)((total + kLaneThreads - 1) / kLaneThreads),
+                       kLaneThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)tab, (const int*)idx, (float*)out, rows_tab, width,
+      rows_out);
+  return (int)cudaGetLastError();
 }
 
-// tab: [rows_tab, width] i32 (a column must fit in 227 KB of shared
-// memory); idx, out: [rows_out, width] i32.
+// tab: [rows_tab, width] i32; idx, out: [rows_out, width] i32.  The plan
+// (ops/probes.chain_plan): column blocks of `cols`, `share` output rows a
+// CTA, `threads` a CTA with kChainPerThread chains each, in clusters of
+// `cluster` CTAs that stage a block into each other's shared memory.
 RT_API int rt_lane_gather_chain(const void* tab, const void* idx, void* out,
                                 int rows_tab, int width, int rows_out,
-                                int rounds, void* stream) {
-  return launch_lane_gather<true, int>(tab, idx, out, rows_tab, width,
-                                       rows_out, rounds, stream);
+                                int rounds, int cols, int share, int threads,
+                                int cluster, void* stream) {
+  return launch_lane_chain(tab, idx, out, rows_tab, width, rows_out, rounds,
+                           cols, share, threads, cluster, stream);
 }
 
 // idx: [n] i32; tab: [rows, width <= 128] f32; out: [width] f32;
@@ -512,24 +736,12 @@ RT_API int rt_row_ring_rounds(const void* idx, int n, const void* table,
   }
 }
 
-// idx, out: [n] i32; table: [size] i32, size a power of two.
+// idx, out: [n] i32; table: [size] i32, size a power of two.  The plan
+// (ops/probes.flat_plan): the table staged in each CTA's shared memory if
+// `local`, else read where it lies; `threads` a CTA, a chain a thread.
 RT_API int rt_flat_gather_chain(const void* idx, int n, const void* table,
-                                int size, int rounds, void* out,
-                                void* stream) {
-  if (n < 1 || size < 1 || (size & (size - 1)) != 0)
-    return (int)cudaErrorInvalidValue;
-  const int blocks = (n + kFlatThreads - 1) / kFlatThreads;
-  const long long bytes = (long long)size * 4;
-  if (bytes <= kFlatSmemBytes) {
-    auto kernel = flat_gather_chain_kernel<true>;
-    cudaError_t err = allow_smem(kernel, (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<blocks, kFlatThreads, (int)bytes, (cudaStream_t)stream>>>(
-        (const int*)idx, n, (const int*)table, size, rounds, (int*)out);
-  } else {
-    flat_gather_chain_kernel<false>
-        <<<blocks, kFlatThreads, 0, (cudaStream_t)stream>>>(
-            (const int*)idx, n, (const int*)table, size, rounds, (int*)out);
-  }
-  return (int)cudaGetLastError();
+                                int size, int rounds, void* out, int local,
+                                int threads, void* stream) {
+  return launch_flat(idx, n, table, size, rounds, out, local, threads,
+                     stream);
 }

@@ -88,11 +88,13 @@ ENTRIES = {
                                  _V, _I, _I, _I, _I, _I, _V]),
     "rt_probe_affine": ("probes", [_V, _V, _I, _V]),
     "rt_lane_gather": ("probes", [_V, _V, _V, _I, _I, _I, _V]),
-    "rt_lane_gather_chain": ("probes", [_V, _V, _V, _I, _I, _I, _I, _V]),
+    "rt_lane_gather_chain": ("probes", [_V, _V, _V, _I, _I, _I, _I, _I, _I,
+                                        _I, _I, _V]),
     "rt_row_sum_ring": ("probes", [_V, _I, _V, _I, _I, _V, _V, _V, _V]),
     "rt_row_ring_rounds": ("probes", [_V, _I, _V, _I, _I, _I, _I, _V, _V,
                                       _V]),
-    "rt_flat_gather_chain": ("probes", [_V, _I, _V, _I, _I, _V, _V]),
+    "rt_flat_gather_chain": ("probes", [_V, _I, _V, _I, _I, _V, _I, _I,
+                                        _V]),
 }
 
 # kernel (or K3 entry) name -> kernel launches since the last

@@ -12,6 +12,8 @@ One wrapper per Pallas function of the TPU measurement tools:
 Each wrapper takes its plain version (``*_plain``) for CPU tensors and
 launches its kernel for CUDA tensors, after checking dtype, shape and
 contiguity; it never falls back.  Integer results wrap as JAX's int32 does.
+The chain probes launch the plans that ``chain_plan`` and ``flat_plan``
+make from the shapes alone.
 
 P4's Pallas body copies a ``(width,)`` row into a ``(1, width)`` scratch
 slot, which Pallas's TPU interpreter refuses; the port computes its
@@ -19,6 +21,8 @@ evident intent, ``out[0, :] = sum_i tab[idx[i], :]``.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -29,6 +33,15 @@ MAX_SMEM_BYTES = 232448
 RING_DEPTHS = (2, 4, 8, 16, 32)  # row_ring_rounds' nbuf (kernel templates)
 RING_CHUNK = 32  # G3: rows a CTA takes (csrc/probes.cu kRingChunk)
 ROW_SUM_MAX_WIDTH = 128  # row_sum_ring: 4 columns a lane of one warp
+MAX_THREADS = 1024  # G2, G4: threads a CTA (csrc/probes.cu kLaneThreads)
+CHAIN_PARTS = 4  # G2 chain: CTAs a column block (parts of its rows)
+CHAIN_CLUSTER = 2  # G2 chain: CTAs that stage one column block together
+CHAIN_MAX_CLUSTER = 8  # G2 chain: the most CTAs the kernel takes a cluster
+CHAIN_MAX_SHARE = 512  # G2 chain: the most output rows a CTA takes
+CHAIN_PER_THREAD = 2  # G2 chain: chains a thread runs interleaved
+FLAT_PATHS = ("global", "local")  # G4: the table where it lies, or staged
+FLAT_THREADS = 256  # G4: threads a CTA, and the fewest on the local path
+FLAT_LOCAL_CTAS = 32  # G4 local path: CTAs before they grow past 256
 _I32_MAX = 2 ** 31 - 1
 
 
@@ -121,11 +134,41 @@ def lane_gather(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
+class ChainPlan(NamedTuple):
+    """G2 chain's launch: column blocks of ``cols``, ``share`` output rows
+    a CTA, ``threads`` a CTA with CHAIN_PER_THREAD chains each, in
+    clusters of ``cluster`` CTAs that read their block once and store it
+    into every CTA's shared memory."""
+    cols: int
+    share: int
+    threads: int
+    cluster: int
+
+
+def chain_plan(rows_tab: int, width: int, rows_out: int) -> ChainPlan:
+    """The plan for a [rows_tab, width] table and [rows_out, width]
+    chains, from the shapes alone.  4 columns a block where the width and
+    shared memory allow, else 2, else 1; CHAIN_PARTS CTAs a block in
+    clusters of CHAIN_CLUSTER (as a sweep of plans on the H100 chose,
+    PERF.md)."""
+    cols = next((c for c in (4, 2, 1) if width % c == 0
+                 and c * rows_tab * 4 <= MAX_SMEM_BYTES), None)
+    if cols is None:
+        raise ValueError(f"lane_gather_chain: a column of {rows_tab} rows "
+                         f"exceeds {MAX_SMEM_BYTES} B of shared memory")
+    share = min(-(-rows_out // CHAIN_PARTS), CHAIN_MAX_SHARE)
+    threads = -(-share * cols // CHAIN_PER_THREAD)
+    threads = min(MAX_THREADS, max(128, -(-threads // 32) * 32))
+    return ChainPlan(cols, share, threads, CHAIN_CLUSTER)
+
+
 def lane_gather_chain(tab: torch.Tensor, idx: torch.Tensor,
                       rounds: int) -> torch.Tensor:
     """``rounds`` chained per-lane gathers ``cur = (cur + tab[cur, l] + 1)
     mod T`` (G2): tab i32 [T, W], idx i32 [R, W] -> i32 [R, W].  One column
-    of tab must fit in shared memory (T <= 58112)."""
+    of tab must fit in shared memory (T <= 58112).  On the card each block
+    of ``chain_plan``'s columns is staged in the shared memory of each CTA
+    that runs chains on it, and every round is a shared-memory load."""
     if idx.device.type == "cpu":
         return lane_gather_chain_plain(tab, idx, rounds)
     dev = _check_lane("lane_gather_chain", tab, idx, torch.int32)
@@ -133,10 +176,12 @@ def lane_gather_chain(tab: torch.Tensor, idx: torch.Tensor,
         raise ValueError(f"lane_gather_chain: a column of {tab.shape[0]} "
                          f"rows exceeds {MAX_SMEM_BYTES} B of shared memory, "
                          f"or rounds {rounds} < 0")
+    plan = chain_plan(tab.shape[0], tab.shape[1], idx.shape[0])
     out = torch.empty_like(idx)
     _launch("lane_gather_chain", "rt_lane_gather_chain", dev, tab.data_ptr(),
             idx.data_ptr(), out.data_ptr(), tab.shape[0], tab.shape[1],
-            idx.shape[0], rounds)
+            idx.shape[0], rounds, plan.cols, plan.share, plan.threads,
+            plan.cluster)
     return out
 
 
@@ -245,10 +290,31 @@ def flat_gather_chain_plain(idx: torch.Tensor, table: torch.Tensor,
     return cur
 
 
+class FlatPlan(NamedTuple):
+    """G4's launch: the path (FLAT_PATHS) and ``threads`` a CTA, a chain a
+    thread."""
+    path: str
+    threads: int
+
+
+def flat_plan(size: int, n: int) -> FlatPlan:
+    """The plan for a table of ``size`` entries and ``n`` chains, from the
+    shapes alone: the table in each CTA's shared memory where it fits, else
+    read where it lies, FLAT_THREADS a CTA.  Each local CTA stages the
+    whole table, so past FLAT_LOCAL_CTAS x FLAT_THREADS chains its CTAs
+    grow to up to 1024 threads before their number grows."""
+    if 4 * size + 16 <= MAX_SMEM_BYTES:
+        threads = -(-n // FLAT_LOCAL_CTAS // 32) * 32
+        return FlatPlan("local", min(MAX_THREADS, max(FLAT_THREADS, threads)))
+    return FlatPlan("global", FLAT_THREADS)
+
+
 def flat_gather_chain(idx: torch.Tensor, table: torch.Tensor,
                       rounds: int) -> torch.Tensor:
     """``rounds`` chained gathers ``idx = (idx + table[idx]) & (S - 1)``
-    (G4): idx i32 [n], table i32 [S], S a power of two -> i32 [n]."""
+    (G4): idx i32 [n], table i32 [S], S a power of two -> i32 [n].  On the
+    card ``flat_plan`` keeps a table of up to 2^15 entries in each CTA's
+    shared memory and reads a larger one where it lies (the L2 binds it)."""
     if idx.device.type == "cpu":
         return flat_gather_chain_plain(idx, table, rounds)
     dev = _cuda_device("flat_gather_chain", idx)
@@ -259,7 +325,9 @@ def flat_gather_chain(idx: torch.Tensor, table: torch.Tensor,
         raise ValueError(f"flat_gather_chain: need a non-empty idx, a table "
                          f"size that is a power of two (got {size}) and "
                          f"rounds >= 0 (got {rounds})")
+    plan = flat_plan(size, idx.shape[0])
     out = torch.empty_like(idx)
     _launch("flat_gather_chain", "rt_flat_gather_chain", dev, idx.data_ptr(),
-            idx.shape[0], table.data_ptr(), size, rounds, out.data_ptr())
+            idx.shape[0], table.data_ptr(), size, rounds, out.data_ptr(),
+            FLAT_PATHS.index(plan.path), plan.threads)
     return out

@@ -4,7 +4,8 @@ port of tools/tpu_probe.py, with its probe names.
   basic         G1: o = 2x + 1, the toolchain check (P1)
   vgather       G2: per-lane gather out[i,l] = tab[idx[i,l], l] (P2)
   vgather_loop  G2: 32 chained per-lane gathers, the march's dependency
-                shape, from a table staged in shared memory (P3)
+                shape, from a table staged in shared memory, each
+                4-column block read once a cluster of 2 CTAs (P3)
   dma           G3: 4096 dynamic-index 512 B row copies, summed, from a
                 512 MiB table (P4): a CTA a chunk of 32 rows, each through
                 a ring of 2 bulk-copy slots

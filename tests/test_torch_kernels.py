@@ -1108,21 +1108,51 @@ def test_g1_affine_matches_plain(cuda_device):
     assert torch.equal(pr.probe_affine(x), pr.probe_affine_plain(x))
 
 
+# G2 chain's table rows: a power of two and not; the last table that takes
+# 4 columns a block, one past it (2 where the width is even), the last
+# that takes 2, one past it (1), and the largest column shared memory holds
+G2_ROWS = (64, 61, 768, 14528, 14529, 29056, 29057, 58112)
+
+
+def _view_off(t, shape, offset):
+    """A contiguous [shape] view of a copy of t that starts ``offset``
+    elements into its storage (offset 1: 4 B off the 16-byte alignment)."""
+    flat = torch.zeros(t.numel() + offset, dtype=t.dtype, device=t.device)
+    flat[offset:] = t.reshape(-1)
+    return flat[offset:].view(shape)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("rounds", [None, 0, 1, 7])
-def test_g2_lane_gather_matches_plain(rounds, cuda_device):
-    """P2 (a single f32 gather) and P3 (int32 chains from shared memory),
-    bit for bit; a width of 12 takes 4 columns per block, 6 takes 2."""
+@pytest.mark.parametrize("rounds", [None, 0, 1, 7, 33])
+@pytest.mark.parametrize("width", [4, 6, 12, 128])
+def test_g2_lane_gather_matches_plain(width, rounds, cuda_device):
+    """P2 (a single f32 gather) and P3 (int32 chains), bit for bit.  The
+    chains at every table of G2_ROWS, of values 0..2 and of any int32 (sums
+    that wrap and go negative), from the table as allocated and from a
+    view 4 B into it (16-byte pieces, 4-byte ones), for 41 and 2049 rows
+    (not a multiple of a CTA's share; 2049 leaves a CTA of its cluster
+    with no rows).  A width of 4, 12 or 128 takes 4 columns a block, 6
+    takes 2."""
     t = lambda a: torch.from_numpy(a).to(cuda_device)
-    for W in (12, 6):
-        if rounds is None:
-            tab, idx = map(t, _lane_inputs(W, np.float32, W=W))
-            got, ref = pr.lane_gather(tab, idx), pr.lane_gather_plain(tab, idx)
-        else:
-            tab, idx = map(t, _lane_inputs(W, np.int32, W=W))
-            got = pr.lane_gather_chain(tab, idx, rounds)
-            ref = pr.lane_gather_chain_plain(tab, idx, rounds)
-        assert torch.equal(got, ref)
+    if rounds is None:
+        tab, idx = map(t, _lane_inputs(width, np.float32, W=width))
+        assert torch.equal(pr.lane_gather(tab, idx),
+                           pr.lane_gather_plain(tab, idx))
+        return
+    i32 = np.iinfo(np.int32)
+    for T in G2_ROWS:
+        wide = t(np.random.default_rng(T).integers(
+            i32.min, i32.max, (T, width), dtype=np.int32, endpoint=True))
+        for R in (41, 2049):
+            small, idx = map(t, _lane_inputs(T, np.int32, T=T, R=R, W=width))
+            idx[0] = T - 1
+            # values 0..2, and any int32: sums that wrap and go negative
+            for tab, off in ((small, 0), (small, 1), (wide, 0), (wide, 1)):
+                ref = pr.lane_gather_chain_plain(tab, idx, rounds)
+                got = pr.lane_gather_chain(_view_off(tab, tab.shape, off),
+                                           idx, rounds)
+                assert torch.equal(got, ref), (T, R, off,
+                                               pr.chain_plan(T, width, R))
 
 
 def _chunk_order_row_sum(idx, table):
@@ -1199,15 +1229,64 @@ def test_g3_index_outside_the_table_fails_the_launch(wrapper, bad,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("size", [1 << 10, 1 << 16])
+@pytest.mark.parametrize("size", [1 << 10, 1 << 14, 1 << 16, 1 << 18,
+                                  1 << 20])
 def test_g4_flat_gather_chain_matches_plain(size, cuda_device):
-    """A 4 KB table staged in shared memory and a 256 KB one read from
-    L2."""
-    idx, table = (torch.from_numpy(a).to(cuda_device)
-                  for a in _flat_inputs(size, size))
-    for rounds in (0, 1, 16):
-        assert torch.equal(pr.flat_gather_chain(idx, table, rounds),
-                           pr.flat_gather_chain_plain(idx, table, rounds))
+    """Tables of 4 KB to 4 MiB, staged in each CTA's shared memory up to
+    2^15 entries and read where they lie past it, for 500, 8193 and 131073
+    chains (not a multiple of a CTA's; the last grows the local path's
+    CTAs to 1024 threads), and from a view 4 B off (staged by 4-byte
+    loads); 0, 1, 16 and 33 rounds."""
+    for n in (500, 8193, 131073):
+        idx, table = (torch.from_numpy(a).to(cuda_device)
+                      for a in _flat_inputs(size, size, n=n))
+        idx[0] = size - 1
+        for rounds in (0, 1, 16, 33):
+            ref = pr.flat_gather_chain_plain(idx, table, rounds)
+            for tab in (table, _view_off(table, table.shape, 1)):
+                got = pr.flat_gather_chain(idx, tab, rounds)
+                assert torch.equal(got, ref), (n, rounds,
+                                               pr.flat_plan(size, n))
+
+
+# an index outside the table on each path of G2's chain and G4: the call
+# after the imports of a fresh process
+G2_G4_TRAPS = {
+    "chain, 16-byte stores": "_chain(128, 8192)",
+    "chain, 4-byte stores": "_chain(6, -1)",
+    "flat local": "_flat(1 << 10, 1 << 10)",
+    "flat global": "_flat(1 << 20, 1 << 20)"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(G2_G4_TRAPS))
+def test_g2_g4_index_outside_the_table_fails_the_launch(case, cuda_device):
+    """An index outside the table traps on every path of G2's chain and
+    G4: the process's next synchronize raises.  In a process of its own,
+    as a trap ends the CUDA context."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = (
+        "import torch\n"
+        "from rt_octree_tpu_torch.ops import probes as pr\n"
+        "def _chain(width, bad):\n"
+        "    tab = torch.ones((8192, width), dtype=torch.int32, "
+        "device='cuda')\n"
+        "    idx = torch.zeros((2048, width), dtype=torch.int32, "
+        "device='cuda')\n"
+        "    idx[1000, width - 1] = bad\n"
+        "    pr.lane_gather_chain(tab, idx, 4)\n"
+        "def _flat(size, bad):\n"
+        "    idx = torch.zeros(8193, dtype=torch.int32, device='cuda')\n"
+        "    idx[8000] = bad\n"
+        "    tab = torch.ones(size, dtype=torch.int32, device='cuda')\n"
+        "    pr.flat_gather_chain(idx, tab, 4)\n"
+        f"{G2_G4_TRAPS[case]}\n"
+        "torch.cuda.synchronize()\n"
+        "print('no fault')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=repo,
+                         env=dict(os.environ, PYTHONPATH=repo),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0 and "no fault" not in out.stdout
 
 
 # ---------------------------------------------------------------------------

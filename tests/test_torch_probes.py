@@ -237,6 +237,178 @@ def test_p6_flat_gather_chain_equals_pallas(tpu_microbench, monkeypatch):
         assert torch.equal(got, _t(out))
 
 
+# G4: the path and the CTAs of each plan --------------------------------------
+
+@pytest.mark.parametrize("log2", range(10, 19))
+def test_g4_plan_covers_every_chain(log2):
+    """A NumPy statement of G4's plan for a table of 2^log2 entries: the
+    local path exactly where the table and the barrier fit a CTA's shared
+    memory, whole warps, the local path's CTAs at most FLAT_LOCAL_CTAS
+    until they reach MAX_THREADS, and every chain in exactly one thread."""
+    size = 1 << log2
+    for n in (1, 500, 8193, 131072, 131073):
+        plan = P.flat_plan(size, n)
+        local = 4 * size + 16 <= P.MAX_SMEM_BYTES
+        assert plan.path == ("local" if local else "global")
+        assert plan.threads % 32 == 0
+        assert P.FLAT_THREADS <= plan.threads <= P.MAX_THREADS
+        grid = _flat_grid(plan, n)
+        if local:
+            assert (grid <= P.FLAT_LOCAL_CTAS
+                    or plan.threads == P.MAX_THREADS)
+        else:
+            assert plan.threads == P.FLAT_THREADS
+        i = (np.arange(grid)[:, None] * plan.threads
+             + np.arange(plan.threads)).ravel()
+        assert np.array_equal(i[i < n], np.arange(n))
+        assert (i >= n).sum() < plan.threads
+
+
+def _flat_grid(plan, n):
+    """G4's CTAs (csrc/probes.cu launch_flat): enough for n chains."""
+    return -(-n // plan.threads)
+
+
+def test_g4_plan_of_the_tool_configs():
+    """Every config of the tool's section c: the path, its shared memory
+    within a CTA's 227 KB, every chain in exactly one thread."""
+    paths = {}
+    for S, n in (microbench_gather.VMEM_CONFIGS
+                 + microbench_gather.PAST_L2_CONFIGS):
+        plan = P.flat_plan(S, n)
+        paths[S, n] = plan.path
+        assert plan.path in P.FLAT_PATHS
+        assert plan.threads % 32 == 0 and 32 <= plan.threads <= P.MAX_THREADS
+        if plan.path == "local":
+            assert 4 * S + 16 <= P.MAX_SMEM_BYTES
+        grid = _flat_grid(plan, n)
+        # chain (CTA b, thread t): the kernel's index
+        i = (np.arange(grid)[:, None] * plan.threads
+             + np.arange(plan.threads)).ravel()
+        assert np.array_equal(i[i < n], np.arange(n))
+    assert paths == FLAT_TOOL_PATHS
+    assert P.flat_plan(1 << 14, 8192) == P.FlatPlan("local", 256)
+    assert P.flat_plan(1 << 14, 131072) == P.FlatPlan("local", 1024)
+    assert P.flat_plan(1 << 15, 500) == P.FlatPlan("local", 256)
+    assert P.flat_plan(1 << 16, 8192) == P.FlatPlan("global", 256)
+    assert P.flat_plan(1 << 18, 131072) == P.FlatPlan("global", 256)
+
+
+# the path each config of section c takes (a sweep of plans, PERF.md)
+FLAT_TOOL_PATHS = {(1 << 14, 8192): "local", (1 << 18, 8192): "global",
+                   (1 << 20, 8192): "global", (1 << 18, 131072): "global",
+                   (1 << 28, 8192): "global", (1 << 28, 131072): "global"}
+
+
+# G2's chain: column blocks, parts of rows, clusters -------------------------
+
+def _chain_tiles(plan, rows_out, width):
+    """csrc/probes.cu lane_chain_kernel's tiles: each CTA's (column block,
+    part, rows [r0, r1), columns [c0, c1)) in launch order, the parts of a
+    block rounded up to whole clusters, a CTA past the rows taking none."""
+    parts = -(-rows_out // plan.share)
+    parts = -(-parts // plan.cluster) * plan.cluster
+    tiles = []
+    for x in range(width // plan.cols * parts):
+        block, part = divmod(x, parts)
+        r0 = min(part * plan.share, rows_out)
+        tiles.append((block, part, (r0, min(r0 + plan.share, rows_out)),
+                      (block * plan.cols, (block + 1) * plan.cols)))
+    return tiles
+
+
+@pytest.mark.parametrize("rows_out", [1, 3, 41, 2047, 2048, 2049, 5000])
+@pytest.mark.parametrize("width", [4, 6, 12, 128])
+def test_g2_chain_tiles(width, rows_out):
+    """A NumPy statement of G2 chain's tiles: the CTAs' (column block, part)
+    tiles cover every (i, l) of rows_out x width exactly once, a cluster's
+    CTAs share their column block, and no CTA runs more than its share."""
+    plan = P.chain_plan(8192, width, rows_out)
+    tiles = _chain_tiles(plan, rows_out, width)
+    count = np.zeros((rows_out, width), np.int64)
+    for block, part, (r0, r1), (c0, c1) in tiles:
+        assert 0 <= r1 - r0 <= plan.share and c1 - c0 == plan.cols
+        count[r0:r1, c0:c1] += 1
+    assert (count == 1).all()
+    assert len(tiles) % plan.cluster == 0
+    for k in range(0, len(tiles), plan.cluster):
+        assert len({t[0] for t in tiles[k:k + plan.cluster]}) == 1
+    assert plan.threads * P.CHAIN_PER_THREAD >= min(
+        plan.share * plan.cols, P.MAX_THREADS * P.CHAIN_PER_THREAD)
+
+
+def test_g2_chain_plan():
+    """P3's shape: 4 CTAs a 4-column block in clusters of 2, 128 CTAs, 2048
+    chains a CTA on 1024 threads.  The columns a block at the edges: the
+    last table that takes 4 and one past it (2), the last that takes 2 and
+    one past it (1); a width of 6 (2) and of 12 (4)."""
+    plan = P.chain_plan(gpu_probe.VL_T, 128, gpu_probe.VL_R)
+    assert plan == P.ChainPlan(4, 512, 1024, 2)
+    assert len(_chain_tiles(plan, gpu_probe.VL_R, 128)) == 128
+    for T, W, cols in ((14528, 4, 4), (14529, 4, 2), (29056, 4, 2),
+                       (29057, 4, 1), (58112, 12, 1), (64, 6, 2),
+                       (64, 12, 4)):
+        assert P.chain_plan(T, W, 41).cols == cols
+        assert cols * T * 4 <= P.MAX_SMEM_BYTES
+    with pytest.raises(ValueError):
+        P.chain_plan(58113, 4, 41)
+
+
+def _reciprocal(d):
+    """csrc/probes.cu chain_reciprocal: Granlund and Montgomery's magic
+    number and shifts for unsigned 32-bit division by d, and 2^31 mod d."""
+    l = (d - 1).bit_length()  # ceil(log2 d)
+    magic = ((1 << 32) * ((1 << l) - d)) // d + 1
+    assert 0 < magic < 1 << 32
+    return magic, min(l, 1), max(l - 1, 0), (1 << 31) % d
+
+
+def _chain_mod(s, d):
+    """csrc/probes.cu chain_mod<false> on the int32 sums s, in uint64."""
+    magic, sh1, sh2, c31 = _reciprocal(d)
+    u = (s.astype(np.int64) + 2 ** 31).astype(np.uint64)
+    t = (u * np.uint64(magic)) >> np.uint64(32)
+    q = (t + ((u - t) >> np.uint64(sh1))) >> np.uint64(sh2)
+    r = (u - q * np.uint64(d)).astype(np.int64) - c31
+    return np.where(r < 0, r + d, r)
+
+
+@pytest.mark.parametrize("d", [1, 3, 7, 61, 1000, 8191, 14337, 29057, 58111,
+                               2 ** 31 - 1])
+def test_g2_chain_reciprocal_is_floor_mod(d):
+    """The kernel's remainder by a reciprocal equals jnp.remainder's floor
+    mod on int32 sums across their whole range: the extremes, the
+    multiples of d and their neighbours, and random sums."""
+    rs = np.random.default_rng(d)
+    i32 = np.iinfo(np.int32)
+    k = np.arange(-4, 5, dtype=np.int64)
+    s = np.concatenate([
+        [i32.min, i32.min + 1, -1, 0, 1, i32.max - 1, i32.max],
+        np.clip((np.arange(-300, 300)[:, None] * d + k).ravel(),
+                i32.min, i32.max),
+        rs.integers(i32.min, i32.max, 200_000, endpoint=True)])
+    assert np.array_equal(_chain_mod(s, d), np.mod(s, d))
+
+
+def test_probe_plans_are_the_kernels():
+    """The plans' constants are csrc/probes.cu's, and the reciprocal's
+    NumPy statement is the kernel's."""
+    with open(os.path.join(REPO, "rt_octree_tpu_torch", "csrc",
+                           "probes.cu")) as f:
+        src = f.read()
+    for line in (f"constexpr int kMaxSmemBytes = {P.MAX_SMEM_BYTES};",
+                 f"constexpr int kLaneThreads = {P.MAX_THREADS};",
+                 f"constexpr int kChainMaxCluster = {P.CHAIN_MAX_CLUSTER};",
+                 f"constexpr int kChainPerThread = {P.CHAIN_PER_THREAD};",
+                 "const long long smem = (long long)rows_tab * cols * 4;",
+                 "const long long smem = local ? 16 + 4LL * size : 0;",
+                 "a.magic = (uint32_t)(((1ull << 32) * ((1ull << l) - d)) / "
+                 "d + 1);",
+                 "const uint32_t q = (t + ((u - t) >> a.sh1)) >> a.sh2;",
+                 "a.c31 = (uint32_t)((1ull << 31) % d);"):
+        assert line in src, line
+
+
 def test_row_ring_rounds_wraps_like_int32():
     rs = np.random.default_rng(5)
     table = rs.integers(2 ** 30, 2 ** 31, (64, 3)).astype(np.int32)
