@@ -362,7 +362,10 @@ memory (kWideFullBasis).
     python3 chip_smoke.py --probe-pairs OTHER_ROOT [PAIRS]
 
 --probe-times times the probes of the package under ROOT (default: beside
-this file) alone by device_medians at the tools' shapes: P4 (row_sum_ring
+this file) alone by device_medians at the tools' shapes: P1 (probe_affine)
+and P2 (lane_gather) in turns of their own beside their library calls
+(torch.add(1, x, alpha=2), torch.gather) and the launch floor (an empty
+kernel, torch.cuda._sleep(0)), each also less the floor; P4 (row_sum_ring
 on gpu_probe's 4096 rows of 512 B from a 512 MiB table) beside
 F.embedding_bag's sum of the same rows, and P5 (row_ring_rounds, 4
 rounds) in every config of microbench_gather's section b, its 512 B rows
@@ -372,12 +375,12 @@ call's fixed cost, and the time of a round at each ring depth); P3
 (flat_gather_chain) in every config of section c at 16 and 1040 rounds,
 with the marginal round of each; and P4 once more from a cold L2
 (cuda_ms, the L2 flushed before each call), with P4's relative error
-against the float64 sum and whether every P3, P5 and P6 result is
+against the float64 sum and whether every P1, P2, P3, P5 and P6 result is
 bit-equal to its plain version, as one JSON line {"probe_ms": ...};
 --probe-pairs runs it in PAIRS (default 6) pairs of processes, this script
 on OTHER_ROOT's package and on its own in turns, and prints each side's
-times and marginal rounds and their paired differences as one JSON line
-{"probe_pairs": ...}.
+times, times less the floor and marginal rounds and their paired
+differences as one JSON line {"probe_pairs": ...}.
 
     python3 chip_smoke.py --ray-times [ROOT]
     python3 chip_smoke.py --ray-pairs OTHER_ROOT [PAIRS]
@@ -619,9 +622,11 @@ PROBE_KERNELS = {
     "row_ring_rounds": "tools/microbench_gather.py:132",
     "flat_gather_chain": "tools/microbench_gather.py:183",
 }
-# the probe instances in ptxas's report: G3 (P4, P5 at every nbuf), G2's
-# chain (power-of-two rows or not), G4 (global, local)
-PROBE_PTXAS = {"row_ring_kernel": 6, "lane_chain_kernel": 2,
+# the probe instances in ptxas's report: G1, G2's single gather (4 columns
+# a thread or 1), G3 (P4, P5 at every nbuf), G2's chain (power-of-two rows
+# or not), G4 (global, local)
+PROBE_PTXAS = {"affine_kernel": 1, "lane_gather_kernel": 2,
+               "row_ring_kernel": 6, "lane_chain_kernel": 2,
                "flat_gather_chain_kernel": 2}
 # the wide kernels' entry functions in ptxas's report: (source, kernel) ->
 # instances (K7's fused wide instance a block-1 n-group of 2, 3, 4; its
@@ -727,7 +732,7 @@ def phase_ptxas(native):
     too, the wide ones at SPP <= 8 with no stack frame and no spills (the
     unrolled instances keep their basis in a local array, a 104-byte stack
     frame, as before); and the wide instances of K7, K2, K5 and K6.
-    The probes' instances of PROBE_PTXAS (G3's, G2 chain's and G4's), with
+    The probes' instances of PROBE_PTXAS (G1's, G2's, G3's and G4's), with
     no stack frame and no spills.  Prints one {"ptxas_render_classic": ...}, one
     {"ptxas_render": ...}, one {"ptxas_wide": ...} and one
     {"ptxas_probes": ...} line."""
@@ -789,8 +794,8 @@ def phase_ptxas(native):
                 f"the {count} instances of {kernel}")
     log(json.dumps({"ptxas_probes": probes}))
     require(all(clean(v) for v in probes.values()),
-            f"a probe instance (G3's six, G2 chain's two, G4's two) has "
-            f"a stack frame or spills: {probes}")
+            f"a probe instance (G1's, G2's two, G3's six, G2 chain's two, "
+            f"G4's two) has a stack frame or spills: {probes}")
     return table
 
 
@@ -2719,17 +2724,32 @@ def classic_pairs(other_root, pairs):
 
 
 PROBE_REPS = 20  # --probe-times: calls a median
+PROBE_SMALL_REPS = 100  # --probe-times: calls a median of P1, P2, the floor
 PROBE_ROUNDS = (0, 1, 16, 64)  # --probe-times: P5's other round counts
 
 
+def affine_library(one, x):
+    """P1's function as one PyTorch call, ``1 + 2x`` (``one`` a 0-d tensor
+    of 1): doubling is exact, so it rounds as the plain version's
+    ``x * 2 + 1``.  Timed beside G1; the port never calls it."""
+    import torch
+    return torch.add(one, x, alpha=2.0)
+
+
 def probe_times(root):
-    """--probe-times [ROOT]: G3 of the package under ROOT (default: beside
-    this file) at the tools' shapes, each call alone by device_medians in
-    turns: P4 on gpu_probe's dma inputs beside F.embedding_bag's sum of
-    the same rows, P5 in every config of microbench_gather's section b at
-    its RING_ROUNDS, and its 512 B rows at n 8192 also at every nbuf and
-    PROBE_ROUNDS (a call's fixed cost and the time of a round); P4 from a
-    cold L2 by cuda_ms.  One JSON line {"probe_ms": ...}."""
+    """--probe-times [ROOT]: the probes of the package under ROOT (default:
+    beside this file) at the tools' shapes, each call alone by
+    device_medians in turns.  First P1 and P2 in turns of their own (their
+    inputs stay in the L2) with their library calls, torch.add(1, x,
+    alpha=2) and torch.gather (its int64 index made outside the timed
+    call), P2 on 8x the rows (the marginal time of its L2 sectors), and
+    the launch floor, an empty kernel (torch.cuda._sleep(0)); each of
+    those also less the floor.  Then P4 on gpu_probe's dma inputs
+    beside F.embedding_bag's sum of the same rows, P5 in every config of
+    microbench_gather's section b at its RING_ROUNDS, and its 512 B rows at
+    n 8192 also at every nbuf and PROBE_ROUNDS (a call's fixed cost and the
+    time of a round); P3 and P6 at two round counts; P4 from a cold L2 by
+    cuda_ms.  One JSON line {"probe_ms": ...}."""
     import functools
     import hashlib
     import itertools
@@ -2742,6 +2762,29 @@ def probe_times(root):
     from rt_octree_tpu_torch.utils.timer import l2_flusher
     native.build(["probes"])
     dev = torch.device("cuda", 0)
+    x, one = gp.basic_input(dev), torch.ones((), device=dev)
+    vtab, vidx = gp.vgather_inputs(dev)
+    vidx64 = vidx.long()
+    # P2 on 8x the rows: the marginal time of its L2 sectors
+    vidx8 = torch.from_numpy(np.random.default_rng(1).integers(
+        0, gp.VG_T, (8 * gp.VG_R, vtab.shape[1]), dtype=np.int32)).to(dev)
+    small = {"floor": lambda: torch.cuda._sleep(0),
+             "probe_affine": lambda: P.probe_affine(x),
+             "affine torch.add": lambda: affine_library(one, x),
+             "lane_gather": lambda: P.lane_gather(vtab, vidx),
+             "gather torch.gather": lambda: torch.gather(vtab, 0, vidx64),
+             "lane_gather 8x rows": lambda: P.lane_gather(vtab, vidx8)}
+    p1_ref = P.probe_affine_plain(x)
+    p1_p2_bit_equal = (
+        torch.equal(small["probe_affine"](), p1_ref)
+        and torch.equal(small["affine torch.add"](), p1_ref)
+        and torch.equal(small["lane_gather"](),
+                        P.lane_gather_plain(vtab, vidx))
+        and torch.equal(small["gather torch.gather"](),
+                        P.lane_gather_plain(vtab, vidx))
+        and torch.equal(small["lane_gather 8x rows"](),
+                        P.lane_gather_plain(vtab, vidx8)))
+    small_ms = device_medians(small, PROBE_SMALL_REPS, 3)
     idx, tab = gp.dma_inputs(dev)
     idx64 = idx.long()
     offsets = torch.zeros(1, dtype=torch.long, device=dev)
@@ -2751,7 +2794,7 @@ def probe_times(root):
     p4 = P.row_sum_ring(idx, tab)
     res = {"root": root, "p4_rel_err": gp.dma_rel_err(p4, idx, tab),
            "p4_digest": hashlib.sha1(p4.cpu().numpy().tobytes()).hexdigest(),
-           "p5_bit_equal": True}
+           "p1_p2_bit_equal": p1_p2_bit_equal, "p5_bit_equal": True}
     for w, n, nbuf, table, ridx in list(mb.dma_configs(dev)):
         def run(table=table, ridx=ridx, nbuf=nbuf):
             return P.row_ring_rounds(ridx, table, nbuf, mb.RING_ROUNDS)
@@ -2787,7 +2830,9 @@ def probe_times(root):
     for k, (kernel, plain) in chains.items():
         res["p3_p6_bit_equal"] &= torch.equal(kernel(), plain())
         fns[k] = kernel
-    res["ms"] = device_medians(fns, PROBE_REPS, 3)
+    res["ms"] = {**small_ms, **device_medians(fns, PROBE_REPS, 3)}
+    res["over_floor_ms"] = {k: v - small_ms["floor"]
+                            for k, v in small_ms.items() if k != "floor"}
     res["ms"]["row_sum_ring cold"] = cuda_ms(fns["row_sum_ring"], 5, 1,
                                              flush=l2_flusher(dev))
     res["marginal_ns"] = probe_marginals(res["ms"])
@@ -2817,10 +2862,11 @@ def probe_pairs(other_root, pairs):
     """--probe-pairs: ``pairs`` pairs of --probe-times processes, this
     script on OTHER_ROOT's package and on its own in turns; each side's
     times (least, quartiles, largest), this side's less the other's within
-    a pair, P4's relative errors and P5's holds.  One JSON line
-    {"probe_pairs": ...}."""
+    a pair, P1's and P2's times less the floor, the marginal rounds, P4's
+    relative errors and the holds.  One JSON line {"probe_pairs": ...}."""
     ms, holds = {"other": {}, "this": {}}, {"other": [], "this": []}
     marginal = {"other": {}, "this": {}}
+    over_floor = {"other": {}, "this": {}}
     for i, side, lines in alternate(other_root, pairs, ["--probe-times"],
                                     "probe_pairs", own_script=True):
         got = [ln["probe_ms"] for ln in lines if "probe_ms" in ln]
@@ -2830,14 +2876,19 @@ def probe_pairs(other_root, pairs):
             ms[side].setdefault(k, []).append(v)
         for k, v in got[0]["marginal_ns"].items():
             marginal[side].setdefault(k, []).append(v)
+        for k, v in got[0]["over_floor_ms"].items():
+            over_floor[side].setdefault(k, []).append(v)
         holds[side].append({k: got[0][k] for k in
-                            ("p4_rel_err", "p4_digest", "p5_bit_equal",
-                             "p3_p6_bit_equal")})
-    require(all(h["p5_bit_equal"] and h["p3_p6_bit_equal"]
-                for v in holds.values() for h in v),
-            "a P3, P5 or P6 result differs from its plain version")
+                            ("p4_rel_err", "p4_digest", "p1_p2_bit_equal",
+                             "p5_bit_equal", "p3_p6_bit_equal")})
+    require(all(h["p1_p2_bit_equal"] and h["p5_bit_equal"]
+                and h["p3_p6_bit_equal"] for v in holds.values() for h in v),
+            "a P1, P2, P3, P5 or P6 result (or a library call's) differs "
+            "from its plain version")
     log(json.dumps({"probe_pairs": {
         **pair_times(other_root, pairs, ms),
+        "over_floor_ms": {side: {k: spread(v) for k, v in d.items()}
+                          for side, d in over_floor.items()},
         "marginal_ns": {side: {k: spread(v) for k, v in d.items()}
                         for side, d in marginal.items()},
         "holds": holds}}))
@@ -5450,11 +5501,16 @@ def phase_probes(native, err):
     # bounds: each index array, each distinct table element or row a
     # probe reads, and the output once; integer work counts at the f32 rate
     x = gp.basic_input(dev)
+    one = torch.ones((), device=dev)
     hold("probe_affine", "8x128", lambda: P.probe_affine(x),
          lambda: P.probe_affine_plain(x), 50)
-    bounds["probe_affine"] = bound(8 * x.numel(), 2 * x.numel()) + (None,)
+    require(torch.equal(affine_library(one, x), P.probe_affine_plain(x)),
+            "torch.add(1, x, alpha=2) differs from P1's plain version")
+    bounds["probe_affine"] = bound(8 * x.numel(), 2 * x.numel()) + (
+        device_ms(lambda: affine_library(one, x), 50, 2),)
     tab, idx = gp.vgather_inputs(dev)
-    hold("lane_gather", f"tab {tuple(tab.shape)} idx {tuple(idx.shape)}",
+    hold("lane_gather", f"tab {tuple(tab.shape)} idx {tuple(idx.shape)}, "
+         f"{P.gather_plan(tab.shape[1], idx.shape[0])}",
          lambda: P.lane_gather(tab, idx),
          lambda: P.lane_gather_plain(tab, idx), 50)
     lanes = torch.arange(tab.shape[1], device=dev)
@@ -5526,10 +5582,19 @@ def phase_probes(native, err):
                 8 * n + 4 * distinct(*seen),
                 2 * mb.CHAIN_ROUNDS * n) + (None,)
     del table, idx
-    # the other staging paths: G2's chain on 6 columns (2 a block, staged
+    # the other paths: G1 and G2's single gather from views 4 B off (a
+    # float, a column a thread); G2's chain on 6 columns (2 a block, staged
     # by 4-byte stores) and from a table view 4 B off, rows not a power of
     # two; G4 on its largest local table and from a view 4 B off (4-byte
     # staging)
+    x, (tab, idx) = gp.basic_input(dev), gp.vgather_inputs(dev)
+    xo, tabo, idxo = (torch.cat([t.new_zeros(1), t.flatten()])[1:].view(
+        t.shape) for t in (x, tab, idx))
+    hold("probe_affine", "8x128 4 B off", lambda: P.probe_affine(xo),
+         lambda: P.probe_affine_plain(x))
+    hold("lane_gather", f"tab {tuple(tab.shape)} idx {tuple(idx.shape)} "
+         "4 B off", lambda: P.lane_gather(tabo, idxo),
+         lambda: P.lane_gather_plain(tab, idx))
     rs = np.random.default_rng(23)
     for T, W, off in ((8191, 6, 0), (8191, 128, 1)):
         flat = torch.from_numpy(rs.integers(
@@ -5552,7 +5617,7 @@ def phase_probes(native, err):
              f"{P.flat_plan(S, 8193)}",
              lambda: P.flat_gather_chain(idx, table, 33),
              lambda: P.flat_gather_chain_plain(idx, table, 33))
-    del flat, tab, table, idx
+    del flat, tab, table, idx, xo, tabo, idxo
     for k, (kms, pms) in ms.items():
         lib = bounds[k][2]
         log(f"[timing] {k}: kernel {kms:.4f} ms, plain {pms:.4f} ms, bound "

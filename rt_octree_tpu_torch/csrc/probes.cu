@@ -14,8 +14,11 @@
 // copies in flight.  Each kernel's note says what bounds it on this card.
 // An index outside its table traps (the launch fails at the next
 // synchronize), as an out-of-range index_select does on the card.  The
-// plans of G2's chain and G4 (cluster sizes, CTAs, threads) come from the
-// wrapper (ops/probes.py), depend on the shapes alone, and are checked here.
+// plans of G2 and G4 (columns a thread, cluster sizes, CTAs, threads) come
+// from the wrapper (ops/probes.py), depend on the shapes alone, and are
+// checked here.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -23,37 +26,109 @@ namespace {
 // Dynamic shared memory one block may opt into on sm_90 (227 KB).
 constexpr int kMaxSmemBytes = 232448;
 constexpr int kLaneThreads = 1024;
+constexpr int kCardSms = 132;  // the H100's SMs: G1's and G2's CTAs fill them
 
 // ---------------------------------------------------------------------------
-// G1 (P1): o = 2x + 1, the toolchain check.  Bound by launch overhead at the
-// tool's 8x128; a grid-stride loop for any size.  The product and the sum
-// are rounded separately, as the two PyTorch ops of the plain version are
-// (x * 2 is exact, so a fused multiply-add would agree too).
+// G1 (P1): o = 2x + 1, the toolchain check.  At the tool's 8x128 it moves 8
+// KB, so a launch's own cost on the device (the floor that chip_smoke.py
+// --probe-times measures as an empty kernel) bounds it, not the bytes: one
+// CTA of kAffineThreads, a float4 a thread where x and out are 16-byte
+// aligned, the rest (the n % 4 tail, or all of an unaligned view) a float a
+// thread.  Past a CTA's work the CTAs grow up to kAffineCtasPerSm a SM, in a
+// 32-bit grid-stride loop (n < 2^31, so no index wraps).  On the H100 the
+// tool's call takes ~0.22 us above the floor, one round trip of its load
+// (4 CTAs of scalar loads took ~0.37).  The product and the sum are
+// rounded separately, as the two PyTorch ops of the plain version are (x *
+// 2 is exact, so a fused multiply-add would agree too).
 // ---------------------------------------------------------------------------
-__global__ void affine_kernel(const float* __restrict__ x,
-                              float* __restrict__ out, int n) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x)
-    out[i] = __fadd_rn(__fmul_rn(x[i], 2.f), 1.f);
+constexpr int kAffineThreads = 256;
+constexpr int kAffineCtasPerSm = 8;  // 2048 threads an SM
+
+__device__ __forceinline__ float affine(float v) {
+  return __fadd_rn(__fmul_rn(v, 2.f), 1.f);
+}
+
+__global__ void __launch_bounds__(kAffineThreads)
+    affine_kernel(const float* __restrict__ x, float* __restrict__ out,
+                  unsigned n, unsigned n4) {
+  const unsigned first = blockIdx.x * blockDim.x + threadIdx.x;
+  const unsigned stride = gridDim.x * blockDim.x;
+  for (unsigned v = first; v < n4; v += stride) {
+    float4 a = reinterpret_cast<const float4*>(x)[v];
+    a.x = affine(a.x);
+    a.y = affine(a.y);
+    a.z = affine(a.z);
+    a.w = affine(a.w);
+    reinterpret_cast<float4*>(out)[v] = a;
+  }
+  for (unsigned e = 4 * n4 + first; e < n; e += stride) out[e] = affine(x[e]);
 }
 
 // ---------------------------------------------------------------------------
 // G2 (P2): per-lane gather out[i, l] = tab[idx[i, l], l] over a
 // [rows_tab, width] f32 table.  The TPU probe held the whole table in VMEM
-// (2 MiB).  Here the gather reads the table where it is, one output element
-// per thread in row-major order: the tool's table stays in the 50 MB L2,
-// and staging it would cost more than the one read it serves; it is bound
-// by the 32 random rows a warp touches per load.
+// (2 MiB).  Here the gather reads the table where it lies: the tool's table
+// stays in the 50 MB L2.  Each gathered 4-byte value takes a whole 32-byte
+// L2 sector (a warp's lanes hit random rows), so the tool's 131,072 lookups
+// are 4 MiB of sectors, and the L2's sector rate (~3.9 TB/s for scattered
+// 4-byte loads, PERF.md) with the launch floor bounds the call.  A column's
+// 1024 lookups over 4096 rows read each table element ~0.25 times, so
+// staging the table in shared memory (full sectors need 8-column blocks of
+// 128 KiB, one SM taking in one in ~8 us) costs more than the whole call.
+//
+// A thread takes a piece of C = kGatherCols adjacent columns of one output
+// row where the width allows and idx and out are 16-byte aligned (the
+// table's alignment does not matter: its loads are 4 bytes): one 16-byte
+// idx load, C independent gathers in flight, one 16-byte store; else a
+// column (C = 1), the same code.  A thread finds its first (row, piece) by
+// one 32-bit division and steps by the grid's stride, split into rows and
+// pieces on the host: no 64-bit remainder.  The plan (ops/probes.
+// gather_plan) spreads the pieces over all kCardSms SMs, CTAs of up to 256
+// threads: the tool's 32,768 pieces are 132 CTAs of 249 threads.  The
+// tool's call takes ~1.6 us above the floor on the H100, as an element a
+// thread on 128 SMs with a 64-bit remainder did: the idx load, then the
+// sectors (~1.05 us of them at ~4 TB/s), bind it (PERF.md).
 // ---------------------------------------------------------------------------
+constexpr int kGatherCols = 4;
+
+struct GatherArgs {
+  int rows_tab, width, rows_out;
+  int pieces;        // a row's pieces of C columns
+  int drow, dpiece;  // the grid's stride: rows, and pieces past them
+};
+
+template <int C>
 __global__ void __launch_bounds__(kLaneThreads)
     lane_gather_kernel(const float* __restrict__ tab,
                        const int* __restrict__ idx, float* __restrict__ out,
-                       int rows_tab, int width, int rows_out) {
-  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= (long long)rows_out * width) return;
-  const int cur = idx[p];
-  if ((unsigned)cur >= (unsigned)rows_tab) __trap();
-  out[p] = __ldg(tab + (long long)cur * width + p % width);
+                       const GatherArgs a) {
+  static_assert(C == 1 || C == 4, "a column a thread, or a 16-byte piece");
+  using IdxVec = typename std::conditional<C == 4, int4, int>::type;
+  using OutVec = typename std::conditional<C == 4, float4, float>::type;
+  const unsigned first = blockIdx.x * blockDim.x + threadIdx.x;
+  unsigned row = first / (unsigned)a.pieces;
+  unsigned piece = first - row * (unsigned)a.pieces;
+  while (row < (unsigned)a.rows_out) {
+    const long long e = (long long)row * a.width + piece * C;
+    const IdxVec iv = *reinterpret_cast<const IdxVec*>(idx + e);
+    const int* cur = reinterpret_cast<const int*>(&iv);
+#pragma unroll
+    for (int j = 0; j < C; ++j)
+      if ((unsigned)cur[j] >= (unsigned)a.rows_tab) __trap();
+    const float* col = tab + piece * C;
+    OutVec ov;
+    float* v = reinterpret_cast<float*>(&ov);
+#pragma unroll
+    for (int j = 0; j < C; ++j)
+      v[j] = __ldg(col + (long long)cur[j] * a.width + j);
+    *reinterpret_cast<OutVec*>(out + e) = ov;
+    row += a.drow;
+    piece += a.dpiece;
+    if (piece >= (unsigned)a.pieces) {
+      piece -= a.pieces;
+      ++row;
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -669,22 +744,46 @@ int launch_row_ring(const void* idx, int n, const void* table, int rows,
 // x, out: [n] f32.
 RT_API int rt_probe_affine(const void* x, void* out, int n, void* stream) {
   if (n < 1) return (int)cudaErrorInvalidValue;
-  const int blocks = (n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024;
-  affine_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>((const float*)x,
-                                                          (float*)out, n);
+  const bool vec =
+      (((unsigned long long)x | (unsigned long long)out) & 15) == 0;
+  const unsigned n4 = vec ? n / 4 : 0;
+  const long long work = n4 > n - 4LL * n4 ? n4 : n - 4LL * n4;
+  long long ctas = (work + kAffineThreads - 1) / kAffineThreads;
+  if (ctas > kCardSms * kAffineCtasPerSm) ctas = kCardSms * kAffineCtasPerSm;
+  affine_kernel<<<(unsigned)ctas, kAffineThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)x, (float*)out, (unsigned)n, n4);
   return (int)cudaGetLastError();
 }
 
-// tab: [rows_tab, width] f32; idx, out: [rows_out, width] i32 / f32.
+// tab: [rows_tab, width] f32; idx, out: [rows_out, width] i32 / f32.  The
+// plan (ops/probes.gather_plan): `cols` columns a thread (kGatherCols, or 1
+// where the width is not a multiple), `threads` a CTA, `ctas` CTAs.  A view
+// of idx or out off 16 bytes takes a column a thread on the same CTAs.
 RT_API int rt_lane_gather(const void* tab, const void* idx, void* out,
-                          int rows_tab, int width, int rows_out,
-                          void* stream) {
-  if (rows_out < 1 || width < 1) return (int)cudaErrorInvalidValue;
-  const long long total = (long long)rows_out * width;
-  lane_gather_kernel<<<(unsigned)((total + kLaneThreads - 1) / kLaneThreads),
-                       kLaneThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)tab, (const int*)idx, (float*)out, rows_tab, width,
-      rows_out);
+                          int rows_tab, int width, int rows_out, int cols,
+                          int threads, int ctas, void* stream) {
+  if (rows_tab < 1 || width < 1 || rows_out < 1 ||
+      (cols != 1 && cols != kGatherCols) || width % cols || threads < 1 ||
+      threads > kLaneThreads || ctas < 1 ||
+      (long long)ctas * threads > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const bool vec = cols == kGatherCols &&
+                   (((unsigned long long)idx | (unsigned long long)out) &
+                    15) == 0;
+  const int c = vec ? kGatherCols : 1;
+  GatherArgs a = {};
+  a.rows_tab = rows_tab;
+  a.width = width;
+  a.rows_out = rows_out;
+  a.pieces = width / c;
+  const long long stride = (long long)ctas * threads;
+  a.drow = (int)(stride / a.pieces);
+  a.dpiece = (int)(stride - (long long)a.drow * a.pieces);
+  using Kernel = void (*)(const float*, const int*, float*, GatherArgs);
+  const Kernel kernel =
+      vec ? lane_gather_kernel<kGatherCols> : lane_gather_kernel<1>;
+  kernel<<<ctas, threads, 0, (cudaStream_t)stream>>>(
+      (const float*)tab, (const int*)idx, (float*)out, a);
   return (int)cudaGetLastError();
 }
 

@@ -87,7 +87,7 @@ ENTRIES = {
     "rt_guidance_wide": ("net", [_V, _L, _L, _L, _L, _I, _I, _V, _V, _I, _I,
                                  _V, _I, _I, _I, _I, _I, _V]),
     "rt_probe_affine": ("probes", [_V, _V, _I, _V]),
-    "rt_lane_gather": ("probes", [_V, _V, _V, _I, _I, _I, _V]),
+    "rt_lane_gather": ("probes", [_V, _V, _V, _I, _I, _I, _I, _I, _I, _V]),
     "rt_lane_gather_chain": ("probes", [_V, _V, _V, _I, _I, _I, _I, _I, _I,
                                         _I, _I, _V]),
     "rt_row_sum_ring": ("probes", [_V, _I, _V, _I, _I, _V, _V, _V, _V]),

@@ -12,8 +12,17 @@ One wrapper per Pallas function of the TPU measurement tools:
 Each wrapper takes its plain version (``*_plain``) for CPU tensors and
 launches its kernel for CUDA tensors, after checking dtype, shape and
 contiguity; it never falls back.  Integer results wrap as JAX's int32 does.
-The chain probes launch the plans that ``chain_plan`` and ``flat_plan``
-make from the shapes alone.
+The gathers launch the plans that ``gather_plan``, ``chain_plan`` and
+``flat_plan`` make from the shapes alone.
+
+What bounds each on the H100: P1 moves 8 KB, so a launch's own cost on the
+device (an empty kernel's time) is its floor.  P2 reads each of its
+131,072 values from a random table row: a 32-byte L2 sector a value, so the
+L2's sector rate and that floor bound it, and staging the table in shared
+memory would cost more than the call (each element is read ~0.25 times).
+P3 and P6 chain dependent gathers, bound by a round's latency where the
+table lies; P4 and P5 fetch rows by dynamic index, bound by the copies a
+CTA keeps in flight.
 
 P4's Pallas body copies a ``(width,)`` row into a ``(1, width)`` scratch
 slot, which Pallas's TPU interpreter refuses; the port computes its
@@ -34,6 +43,9 @@ RING_DEPTHS = (2, 4, 8, 16, 32)  # row_ring_rounds' nbuf (kernel templates)
 RING_CHUNK = 32  # G3: rows a CTA takes (csrc/probes.cu kRingChunk)
 ROW_SUM_MAX_WIDTH = 128  # row_sum_ring: 4 columns a lane of one warp
 MAX_THREADS = 1024  # G2, G4: threads a CTA (csrc/probes.cu kLaneThreads)
+CARD_SMS = 132  # the H100's SMs: G1's and G2's CTAs spread over all of them
+GATHER_COLS = 4  # G2: adjacent columns a thread (16-byte idx and out pieces)
+GATHER_MAX_THREADS = 256  # G2: threads a CTA at most, then more CTAs
 CHAIN_PARTS = 4  # G2 chain: CTAs a column block (parts of its rows)
 CHAIN_CLUSTER = 2  # G2 chain: CTAs that stage one column block together
 CHAIN_MAX_CLUSTER = 8  # G2 chain: the most CTAs the kernel takes a cluster
@@ -121,16 +133,42 @@ def _check_lane(fn: str, tab: torch.Tensor, idx: torch.Tensor, dtype):
     return dev
 
 
+class GatherPlan(NamedTuple):
+    """G2's single gather: ``cols`` adjacent columns a thread (a piece),
+    ``threads`` a CTA, ``ctas`` CTAs, in a grid-stride loop over the
+    pieces."""
+    cols: int
+    threads: int
+    ctas: int
+
+
+def gather_plan(width: int, rows_out: int) -> GatherPlan:
+    """The plan for [rows_out, width] lookups, from the shapes alone:
+    GATHER_COLS columns a thread where the width is a multiple (else 1), a
+    piece a thread spread evenly over CARD_SMS CTAs of at least a warp, up
+    to GATHER_MAX_THREADS a CTA, then more CTAs (the tool's 32,768 pieces:
+    132 CTAs of 249 threads; 8x its rows: 1024 CTAs of 256, which beat 256
+    CTAs of 1024 and 264 of 993 on the H100, PERF.md).  The kernel takes a
+    column a thread, on the same CTAs, where idx or out is not 16-byte
+    aligned."""
+    cols = GATHER_COLS if width % GATHER_COLS == 0 else 1
+    pieces = rows_out * (width // cols)
+    threads = min(GATHER_MAX_THREADS, max(32, -(-pieces // CARD_SMS)))
+    return GatherPlan(cols, threads,
+                      min(-(-pieces // threads), _I32_MAX // threads))
+
+
 def lane_gather(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Per-lane gather ``out[i, l] = tab[idx[i, l], l]`` (G2): tab f32
-    [T, W], idx i32 [R, W] -> f32 [R, W]."""
+    [T, W], idx i32 [R, W] -> f32 [R, W], launched by ``gather_plan``."""
     if idx.device.type == "cpu":
         return lane_gather_plain(tab, idx)
     dev = _check_lane("lane_gather", tab, idx, torch.float32)
+    plan = gather_plan(tab.shape[1], idx.shape[0])
     out = torch.empty(idx.shape, dtype=torch.float32, device=dev)
     _launch("lane_gather", "rt_lane_gather", dev, tab.data_ptr(),
             idx.data_ptr(), out.data_ptr(), tab.shape[0], tab.shape[1],
-            idx.shape[0])
+            idx.shape[0], plan.cols, plan.threads, plan.ctas)
     return out
 
 

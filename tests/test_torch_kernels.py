@@ -1102,9 +1102,16 @@ def test_k3_skip_with_occupied_faces_matches_plain(res, cuda_device):
 
 
 @pytest.mark.cuda
-def test_g1_affine_matches_plain(cuda_device):
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("shape", [(1,), (3,), (8, 128), (1025,), (3, 1000),
+                                   ((1 << 20) + 3,)])
+def test_g1_affine_matches_plain(shape, offset, cuda_device):
+    """G1 bit for bit: a float4 a thread and the n % 4 tail where x is
+    16-byte aligned, a float a thread from a view 4 B off; one CTA up to
+    1024 elements, 2^20 + 3 on the grid-stride loop."""
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(
-        (3, 1000)).astype(np.float32)).to(cuda_device)
+        shape).astype(np.float32)).to(cuda_device)
+    x = _view_off(x, shape, offset)
     assert torch.equal(pr.probe_affine(x), pr.probe_affine_plain(x))
 
 
@@ -1123,21 +1130,32 @@ def _view_off(t, shape, offset):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rounds", [None, 0, 1, 7, 33])
-@pytest.mark.parametrize("width", [4, 6, 12, 128])
+@pytest.mark.parametrize("width,rounds", [
+    (w, None) for w in (1, 3, 4, 6, 12, 128, 129)] + [
+    (w, r) for r in (0, 1, 7, 33) for w in (4, 6, 12, 128)])
 def test_g2_lane_gather_matches_plain(width, rounds, cuda_device):
     """P2 (a single f32 gather) and P3 (int32 chains), bit for bit.  The
-    chains at every table of G2_ROWS, of values 0..2 and of any int32 (sums
-    that wrap and go negative), from the table as allocated and from a
-    view 4 B into it (16-byte pieces, 4-byte ones), for 41 and 2049 rows
-    (not a multiple of a CTA's share; 2049 leaves a CTA of its cluster
-    with no rows).  A width of 4, 12 or 128 takes 4 columns a block, 6
-    takes 2."""
+    single gather for 1, 41, 1024 and 2049 rows, the last table row
+    indexed, from tab and idx as allocated (4 columns a thread where the
+    width is a multiple of 4), from a tab view 4 B off (the same path) and
+    from an idx view 4 B off (a column a thread).  The chains at every
+    table of G2_ROWS, of values 0..2 and of any int32 (sums that wrap and
+    go negative), from the table as allocated and from a view 4 B into it
+    (16-byte pieces, 4-byte ones), for 41 and 2049 rows (not a multiple of
+    a CTA's share; 2049 leaves a CTA of its cluster with no rows).  A width
+    of 4, 12 or 128 takes 4 columns a block, 6 takes 2."""
     t = lambda a: torch.from_numpy(a).to(cuda_device)
     if rounds is None:
-        tab, idx = map(t, _lane_inputs(width, np.float32, W=width))
-        assert torch.equal(pr.lane_gather(tab, idx),
-                           pr.lane_gather_plain(tab, idx))
+        for R in (1, 41, 1024, 2049):
+            tab, idx = map(t, _lane_inputs(R, np.float32, T=301, R=R,
+                                           W=width))
+            idx[R // 2, width - 1] = 300
+            ref = pr.lane_gather_plain(tab, idx)
+            for tab_off, idx_off in ((0, 0), (1, 0), (0, 1)):
+                got = pr.lane_gather(_view_off(tab, tab.shape, tab_off),
+                                     _view_off(idx, idx.shape, idx_off))
+                assert torch.equal(got, ref), (R, tab_off, idx_off,
+                                               pr.gather_plan(width, R))
         return
     i32 = np.iinfo(np.int32)
     for T in G2_ROWS:
@@ -1249,9 +1267,11 @@ def test_g4_flat_gather_chain_matches_plain(size, cuda_device):
                                                pr.flat_plan(size, n))
 
 
-# an index outside the table on each path of G2's chain and G4: the call
-# after the imports of a fresh process
+# an index outside the table on each path of G2 and G4: the call after the
+# imports of a fresh process
 G2_G4_TRAPS = {
+    "single, 4 columns a thread": "_single(128, 4096)",
+    "single, a column a thread": "_single(6, -1)",
     "chain, 16-byte stores": "_chain(128, 8192)",
     "chain, 4-byte stores": "_chain(6, -1)",
     "flat local": "_flat(1 << 10, 1 << 10)",
@@ -1261,9 +1281,9 @@ G2_G4_TRAPS = {
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(G2_G4_TRAPS))
 def test_g2_g4_index_outside_the_table_fails_the_launch(case, cuda_device):
-    """An index outside the table traps on every path of G2's chain and
-    G4: the process's next synchronize raises.  In a process of its own,
-    as a trap ends the CUDA context."""
+    """An index outside the table traps on every path of G2 (the single
+    gather and the chain) and G4: the process's next synchronize raises.
+    In a process of its own, as a trap ends the CUDA context."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     code = (
         "import torch\n"
@@ -1275,6 +1295,13 @@ def test_g2_g4_index_outside_the_table_fails_the_launch(case, cuda_device):
         "device='cuda')\n"
         "    idx[1000, width - 1] = bad\n"
         "    pr.lane_gather_chain(tab, idx, 4)\n"
+        "def _single(width, bad):\n"
+        "    tab = torch.ones((4096, width), dtype=torch.float32, "
+        "device='cuda')\n"
+        "    idx = torch.zeros((1024, width), dtype=torch.int32, "
+        "device='cuda')\n"
+        "    idx[1000, width - 1] = bad\n"
+        "    pr.lane_gather(tab, idx)\n"
         "def _flat(size, bad):\n"
         "    idx = torch.zeros(8193, dtype=torch.int32, device='cuda')\n"
         "    idx[8000] = bad\n"

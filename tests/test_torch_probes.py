@@ -112,6 +112,35 @@ def test_p1_affine_equals_pallas(tpu_probe, monkeypatch):
     assert torch.equal(gpu_probe.basic_input("cpu"), _t(x))
 
 
+def _affine_library_inputs(case):
+    if case == "tool arange":
+        return gpu_probe.basic_input("cpu")
+    if case == "normals":
+        return _t(np.random.default_rng(1).standard_normal(
+            (3, 1000)).astype(np.float32))
+    f32 = np.finfo(np.float32)
+    return _t(np.array([0.0, -0.0, 1e-45, -1e-45, 1.2e-40, f32.tiny, 1.0,
+                        -0.5, -1.0, 1e38, -1e38, f32.max, -f32.max, np.inf,
+                        -np.inf], np.float32))
+
+
+@pytest.mark.parametrize("case", ["tool arange", "normals", "specials"])
+def test_g1_library_call_equals_plain(case):
+    """P1's library call, ``torch.add(1, x, alpha=2)`` (chip_smoke.py's
+    ``affine_library``, timed beside G1), computes the plain version's
+    ``x * 2 + 1`` bit for bit: on the tool's 8x128 arange, on seeded
+    normals, and on +-0, subnormals, +-1e38, the largest floats (2x
+    overflows to inf on both sides) and +-inf.  Doubling is exact, so a
+    fused multiply-add rounds as the two ops do."""
+    x = _affine_library_inputs(case)
+    got = torch.add(torch.ones(()), x, alpha=2.0)
+    ref = P.probe_affine_plain(x)
+    assert got.dtype == ref.dtype == torch.float32
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    assert torch.equal(P.probe_affine(x).view(torch.int32),
+                       ref.view(torch.int32))
+
+
 def test_p2_lane_gather_equals_pallas(tpu_probe, monkeypatch):
     calls = _capture(tpu_probe, monkeypatch)
     tpu_probe.probe_vgather()
@@ -300,6 +329,60 @@ FLAT_TOOL_PATHS = {(1 << 14, 8192): "local", (1 << 18, 8192): "global",
                    (1 << 28, 8192): "global", (1 << 28, 131072): "global"}
 
 
+# G2's single gather: pieces of columns a thread over the card's SMs ---------
+
+def _gather_cover(plan, width, rows_out, cols):
+    """A NumPy statement of csrc/probes.cu lane_gather_kernel<cols> on
+    ``plan``'s CTAs: each thread's first (row, piece) by one division, then
+    the grid's stride split into rows and pieces, one carry a step; -> how
+    many times each output element is written."""
+    pieces = width // cols
+    stride = plan.ctas * plan.threads
+    assert stride <= 2 ** 31 - 1  # the kernel's unsigned indices never wrap
+    drow, dpiece = divmod(stride, pieces)
+    first = np.arange(stride, dtype=np.int64)
+    row, piece = first // pieces, first - first // pieces * pieces
+    count = np.zeros((rows_out, width), np.int64)
+    while (live := row < rows_out).any():
+        for j in range(cols):
+            np.add.at(count, (row[live], piece[live] * cols + j), 1)
+        row, piece = row + drow, piece + dpiece
+        carry = piece >= pieces
+        piece[carry] -= pieces
+        row[carry] += 1
+    return count
+
+
+@pytest.mark.parametrize("rows_out", [1, 41, 1024, 2049])
+@pytest.mark.parametrize("width", [1, 3, 4, 6, 12, 128, 129])
+def test_g2_gather_plan_covers_every_element(width, rows_out):
+    """G2's single-gather plan: GATHER_COLS columns a thread exactly where
+    the width is a multiple, CTAs of at least a warp and at most
+    GATHER_MAX_THREADS, and every output element written exactly once, by
+    the plan's own pieces and by a column a thread on the same CTAs (a view
+    of idx or out off 16 bytes)."""
+    plan = P.gather_plan(width, rows_out)
+    assert plan.cols == (P.GATHER_COLS if width % P.GATHER_COLS == 0 else 1)
+    assert 32 <= plan.threads <= P.GATHER_MAX_THREADS <= P.MAX_THREADS
+    pieces = rows_out * width // plan.cols
+    assert 1 <= plan.ctas <= max(P.CARD_SMS,
+                                 -(-pieces // P.GATHER_MAX_THREADS))
+    for cols in {plan.cols, 1}:
+        assert (_gather_cover(plan, width, rows_out, cols) == 1).all(), cols
+
+
+def test_g2_gather_plan_of_the_tool():
+    """The tool's 1024 x 128 lookups: 32,768 pieces of 4 columns, spread
+    over all 132 SMs (1024-thread CTAs of an element a thread would fill
+    128 with half their warps)."""
+    plan = P.gather_plan(128, gpu_probe.VG_R)
+    assert plan == P.GatherPlan(4, 249, P.CARD_SMS)
+    assert plan.ctas >= 128
+    assert plan.ctas * plan.threads >= gpu_probe.VG_R * 128 // 4
+    assert P.gather_plan(128, 8 * gpu_probe.VG_R) == P.GatherPlan(4, 256,
+                                                                  1024)
+
+
 # G2's chain: column blocks, parts of rows, clusters -------------------------
 
 def _chain_tiles(plan, rows_out, width):
@@ -391,13 +474,20 @@ def test_g2_chain_reciprocal_is_floor_mod(d):
 
 
 def test_probe_plans_are_the_kernels():
-    """The plans' constants are csrc/probes.cu's, and the reciprocal's
-    NumPy statement is the kernel's."""
+    """The plans' constants are csrc/probes.cu's, and the NumPy statements
+    of the single gather's stepping and of the reciprocal are the
+    kernel's."""
     with open(os.path.join(REPO, "rt_octree_tpu_torch", "csrc",
                            "probes.cu")) as f:
         src = f.read()
     for line in (f"constexpr int kMaxSmemBytes = {P.MAX_SMEM_BYTES};",
                  f"constexpr int kLaneThreads = {P.MAX_THREADS};",
+                 f"constexpr int kCardSms = {P.CARD_SMS};",
+                 f"constexpr int kGatherCols = {P.GATHER_COLS};",
+                 "unsigned row = first / (unsigned)a.pieces;",
+                 "const long long stride = (long long)ctas * threads;",
+                 "a.drow = (int)(stride / a.pieces);",
+                 "(long long)ctas * threads > 0x7fffffffLL)",
                  f"constexpr int kChainMaxCluster = {P.CHAIN_MAX_CLUSTER};",
                  f"constexpr int kChainPerThread = {P.CHAIN_PER_THREAD};",
                  "const long long smem = (long long)rows_tab * cols * 4;",
